@@ -1,0 +1,21 @@
+"""deepfly3d_torch — the PyTorch/CUDA port of deepfly3d_tpu for NVIDIA Hopper.
+
+The port runs the golden 2D->3D inference path (7 cameras of 480x960 uint8
+frames -> rig registration -> resize -> stacked hourglass -> argmax decode
+-> 19->38 assembly -> masked DLT triangulation) on an H100.  Every
+bottleneck block, hourglass level merge and heatmap decode runs in a CUDA
+kernel written by hand for ``sm_90a`` (``ops/csrc``); the glue between them
+(stem convolution, max-pools, 1x1 heads, resize matmuls) is plain PyTorch
+in full float32.
+
+The package imports ``torch`` and never ``jax`` or ``deepfly3d_tpu``: the
+JAX package is the reference the port is tested against, and its import
+turns on JAX's x64 mode.  Entry points take ``device`` (default ``"cuda"``)
+and raise when no card is present; the tests pass ``device="cpu"``, where
+each kernel wrapper runs its plain PyTorch version.
+
+Layouts follow the JAX package at every public function: NHWC activations,
+(C, T, 38, 2) points and (C, T, 19, 1) confidences.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,128 @@
+"""Masked DLT triangulation, batched over (frame, joint) in float32.
+
+Counterpart of the part of ``deepfly3d_tpu/ops/geometry.py`` that the golden
+pipeline runs: ``observation_mask``, ``rowcol_to_pixel_xy``,
+``projection_matrices``, ``triangulate(method="normal")`` and
+``calib_to_arrays``.  The JAX ``_dlt_single`` is vmapped over points; here
+the batch dimension is written out.  The SVD/eigh methods, distortion and
+the float64 parity geometry are not ported yet.
+
+Conventions: stored points are normalized (row, col); the observation plane
+is pixel (x, y) = (col * W, row * H); a point is observed iff row != 0,
+col != 0 and col != 1 (zeros mean unseen, col == 1 is the flip artifact).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def observation_mask(points2d_rowcol: torch.Tensor) -> torch.Tensor:
+    """(..., 2) normalized (row, col) -> bool mask of real observations."""
+    row, col = points2d_rowcol[..., 0], points2d_rowcol[..., 1]
+    return (row != 0) & (col != 0) & (col != 1)
+
+
+def rowcol_to_pixel_xy(points2d_rowcol: torch.Tensor,
+                       image_shape: Tuple[int, int]) -> torch.Tensor:
+    """Normalized (row, col) -> pixel (x, y); ``image_shape`` is (width, height)."""
+    width, height = image_shape
+    return torch.stack([points2d_rowcol[..., 1] * width,
+                        points2d_rowcol[..., 0] * height], dim=-1)
+
+
+def projection_matrices(R: torch.Tensor, tvec: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
+    """(C,3,3), (C,3), (C,3,3) -> (C,3,4) P = K [R | t]."""
+    return intr @ torch.cat([R, tvec[..., None]], dim=-1)
+
+
+def _dlt_normal(obs_xy: torch.Tensor, P: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked homogeneous DLT of B points, the JAX ``method="normal"`` path.
+
+    obs_xy (B, C, 2) pixels, P (C, 3, 4), mask (B, C) -> (B, 3); zeros where
+    fewer than two cameras see the point.  Column-preconditioned normal
+    equations solved in closed form (Cramer), refined by four inverse-power
+    iterations on the 4x4 normal matrix via its Schur complement.
+    """
+    dt = obs_xy.dtype
+    m = mask[..., None].to(dt)
+    rows_x = (obs_xy[..., 0:1] * P[None, :, 2, :] - P[None, :, 0, :]) * m
+    rows_y = (obs_xy[..., 1:2] * P[None, :, 2, :] - P[None, :, 1, :]) * m
+    A = torch.cat([rows_x, rows_y], dim=1)                    # (B, 2C, 4)
+    s = torch.sqrt(torch.sum(A * A, dim=1)) + 1e-30           # (B, 4)
+    An = A / s[:, None, :]
+    M = An[..., :3]
+    a3 = An[..., 3]
+    AtA = M.transpose(1, 2) @ M + 1e-6 * torch.eye(3, dtype=dt, device=A.device)
+    Atb = torch.einsum("bri,br->bi", M, -a3)
+    a = AtA
+    c00 = a[:, 1, 1] * a[:, 2, 2] - a[:, 1, 2] * a[:, 2, 1]
+    c01 = a[:, 0, 2] * a[:, 2, 1] - a[:, 0, 1] * a[:, 2, 2]
+    c02 = a[:, 0, 1] * a[:, 1, 2] - a[:, 0, 2] * a[:, 1, 1]
+    c10 = a[:, 1, 2] * a[:, 2, 0] - a[:, 1, 0] * a[:, 2, 2]
+    c11 = a[:, 0, 0] * a[:, 2, 2] - a[:, 0, 2] * a[:, 2, 0]
+    c12 = a[:, 0, 2] * a[:, 1, 0] - a[:, 0, 0] * a[:, 1, 2]
+    c20 = a[:, 1, 0] * a[:, 2, 1] - a[:, 1, 1] * a[:, 2, 0]
+    c21 = a[:, 0, 1] * a[:, 2, 0] - a[:, 0, 0] * a[:, 2, 1]
+    c22 = a[:, 0, 0] * a[:, 1, 1] - a[:, 0, 1] * a[:, 1, 0]
+    det = a[:, 0, 0] * c00 + a[:, 0, 1] * c10 + a[:, 0, 2] * c20
+    adj = torch.stack([torch.stack([c00, c01, c02], -1),
+                       torch.stack([c10, c11, c12], -1),
+                       torch.stack([c20, c21, c22], -1)], -2)
+    Binv = adj / det[:, None, None]                           # (B, 3, 3)
+
+    def mv(mat, v):
+        return (mat @ v[..., None])[..., 0]
+
+    y = mv(Binv, Atb)
+    cvec = torch.einsum("bri,br->bi", M, a3)
+    d = torch.sum(a3 * a3, dim=1)
+    Bi_c = mv(Binv, cvec)
+    schur = d - torch.sum(cvec * Bi_c, dim=1)
+
+    s3, s4 = s[:, :3], s[:, 3]
+    seed = y * (s4[:, None] / s3)
+    x1, x2 = seed, torch.ones_like(s4)
+    for _ in range(4):
+        u1, u2 = x1 / s3, x2 / s4
+        Bi_u1 = mv(Binv, u1)
+        w2 = (u2 - torch.sum(cvec * Bi_u1, dim=1)) / schur
+        w1 = Bi_u1 - Bi_c * w2[:, None]
+        nx1, nx2 = w1 / s3, w2 / s4
+        nrm = torch.sqrt(torch.sum(nx1 * nx1, dim=1) + nx2 * nx2) + 1e-30
+        x1, x2 = nx1 / nrm[:, None], nx2 / nrm
+    refined = x1 / x2[:, None]
+    finite = torch.isfinite(refined).all(dim=1, keepdim=True)
+    point = torch.where(finite, refined, seed)
+    valid = (mask.sum(dim=1) >= 2)[:, None]
+    return torch.where(valid, point, torch.zeros_like(point))
+
+
+def triangulate(points2d_rowcol: torch.Tensor, R: torch.Tensor, tvec: torch.Tensor,
+                intr: torch.Tensor, image_shape: Tuple[int, int],
+                method: str = "normal") -> torch.Tensor:
+    """DLT-triangulate every (frame, joint): (C, T, J, 2) -> (T, J, 3).
+
+    Zeros where fewer than two cameras see the joint.  Only the closed-form
+    ``method="normal"`` is ported; other methods raise.
+    """
+    if method != "normal":
+        raise NotImplementedError(f"triangulate method {method!r}: only 'normal' is ported")
+    C, T, J, _ = points2d_rowcol.shape
+    P = projection_matrices(R, tvec, intr)
+    obs = rowcol_to_pixel_xy(points2d_rowcol, image_shape)
+    mask = observation_mask(points2d_rowcol)
+    obs_flat = obs.reshape(C, T * J, 2).transpose(0, 1)     # (TJ, C, 2)
+    mask_flat = mask.reshape(C, T * J).T                    # (TJ, C)
+    return _dlt_normal(obs_flat, P, mask_flat).reshape(T, J, 3)
+
+
+def calib_to_arrays(calib: Dict[int, dict], num_cameras: int, dtype=np.float64):
+    """Dict-of-dicts calib -> stacked (C,3,3), (C,3), (C,3,3), (C,5) numpy arrays."""
+    def stack(key):
+        return np.stack([np.asarray(calib[c][key], dtype=dtype) for c in range(num_cameras)])
+
+    return stack("R"), stack("tvec"), stack("intr"), stack("distort")

@@ -1,0 +1,119 @@
+"""Port's checkpoint reader and weight fold vs the JAX package's.
+
+Every hourglass checkpoint in weights/ loads to the same spec fields and the
+same arrays in both packages; ``fold_hourglass`` gives the same folded
+arrays (atol 0: both fold in float64 and cast once to float32) where the
+port covers the spec, and raises where it does not.  Also pins that the
+port imports neither jax nor deepfly3d_tpu.
+"""
+
+import dataclasses
+import glob
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax
+
+from deepfly3d_tpu.models import fused_inference as jax_fused
+from deepfly3d_tpu.models import hourglass as jax_hg
+from deepfly3d_torch.models import fused_inference as port_fused
+from deepfly3d_torch.models import hourglass as port_hg
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHECKPOINTS = sorted(os.path.basename(p) for p in
+                     glob.glob(os.path.join(REPO, "weights", "hourglass_*.npz")))
+COVERED = {"hourglass_fly.npz"}
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat(v, key))
+        elif isinstance(v, (list, tuple)):
+            for i, item in enumerate(v):
+                out.update(_flat(item, f"{key}/{i}"))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def test_checkpoints_found():
+    assert "hourglass_fly.npz" in CHECKPOINTS and len(CHECKPOINTS) >= 2
+
+
+@pytest.mark.parametrize("name", CHECKPOINTS)
+def test_load_weights_matches_jax(name):
+    path = os.path.join(REPO, "weights", name)
+    jvars, jspec = jax_hg.load_weights(path)
+    pvars, pspec = port_hg.load_weights(path)
+    jfields = dataclasses.asdict(jspec)
+    pfields = dataclasses.asdict(pspec)
+    jfields.pop("compute_dtype")
+    assert pfields.pop("compute_dtype") == "float32"
+    assert pfields == jfields
+    jflat, pflat = _flat(jvars), _flat(pvars)
+    assert sorted(jflat) == sorted(pflat)
+    for k in jflat:
+        assert pflat[k].dtype == jflat[k].dtype, k
+        np.testing.assert_array_equal(pflat[k], jflat[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", CHECKPOINTS)
+def test_fold_hourglass_matches_jax_or_raises(name):
+    path = os.path.join(REPO, "weights", name)
+    pvars, pspec = port_hg.load_weights(path)
+    if name not in COVERED:
+        with pytest.raises(ValueError):
+            port_fused.fold_hourglass(pvars, pspec)
+        return
+    jvars, jspec = jax_hg.load_weights(path)
+    jfold = _flat(jax_fused.fold_hourglass(jvars, jspec))
+    pfold = _flat(_to_numpy(port_fused.fold_hourglass(pvars, pspec)))
+    assert sorted(pfold) == sorted(jfold)
+    for k in jfold:
+        assert pfold[k].dtype == np.float32, k
+        np.testing.assert_array_equal(pfold[k], jfold[k], err_msg=k)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    return tree.numpy()
+
+
+def test_fold_tiny_two_stack_spec_matches_jax():
+    spec = jax_hg.HourglassSpec(num_stacks=2, features=16, depth=2, num_classes=5)
+    jvars = jax.tree_util.tree_map(
+        np.asarray, jax_hg.init_params(spec, (32, 64), jax.random.PRNGKey(3)))
+    pspec = port_hg.HourglassSpec(num_stacks=2, features=16, depth=2, num_classes=5)
+    jfolded = jax_fused.fold_hourglass(jvars, spec)
+    jfold = _flat(jfolded)
+    pfold = _flat(_to_numpy(port_fused.fold_hourglass(jvars, pspec)))
+    assert sorted(pfold) == sorted(jfold)
+    for k in jfold:
+        np.testing.assert_array_equal(pfold[k], jfold[k], err_msg=k)
+    assert sorted(port_fused.block_names(pspec)) == sorted(jfolded["blocks"])
+
+
+def test_load_weights_rejects_unknown_spec_field(tmp_path):
+    path = str(tmp_path / "odd.npz")
+    np.savez(path, **{"__spec__/features": np.asarray(8),
+                      "__spec__/not_a_field": np.asarray(1)})
+    with pytest.raises(ValueError):
+        port_hg.load_weights(path)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, deepfly3d_torch, deepfly3d_torch.pipeline, "
+            "deepfly3d_torch.models.inference; "
+            "assert 'jax' not in sys.modules; "
+            "assert not any(m.startswith('deepfly3d_tpu') for m in sys.modules)")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)

@@ -1,0 +1,126 @@
+"""Port's rig registration and DLT triangulation vs the JAX package's.
+
+Rig registration: planted integer shifts and gains on frames built from the
+shipped template's own profiles; the integer shifts must agree exactly, the
+gains and the adjusted points to float32 rounding.  Triangulation:
+``method="normal"`` in float32 on the golden 2D points and data/calib.pkl,
+rtol 1e-4 (the batched sums run in another order), with zeros where fewer
+than two cameras see a joint.
+"""
+
+import os
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from deepfly3d_tpu.ops import canonicalize as jax_rig
+from deepfly3d_tpu.ops import geometry as jax_geo
+from deepfly3d_torch.ops import canonicalize as port_rig
+from deepfly3d_torch.ops import geometry as port_geo
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TEMPLATE = os.path.join(REPO, "weights", "rig_template_fly.npz")
+
+
+def _frames_from_template(tpl, T, dy, dx, gain, seed):
+    """(T, C, H, W, 3) uint8 whose profiles carry the template's structure,
+    rolled by (dy, dx) per camera and scaled by ``gain``."""
+    rng = np.random.default_rng(seed)
+    C = tpl.num_cameras
+    H, W = tpl.image_hw
+    base = (tpl.row_profile[:, :, None] + tpl.col_profile[:, None, :]) / 2.0
+    frames = np.empty((T, C, H, W, 3), np.uint8)
+    for c in range(C):
+        img = np.roll(base[c], (dy[c], dx[c]), axis=(0, 1)) * gain[c]
+        noise = rng.normal(0, 2.0, size=(T, H, W, 1))
+        frames[:, c] = np.clip(img[None, :, :, None] + noise, 0, 255).astype(np.uint8)
+    return frames
+
+
+@pytest.mark.parametrize("case", ["identity", "shift_and_gain"])
+def test_rig_registration_matches_jax(case):
+    tpl = jax_rig.load_template(TEMPLATE)
+    C = tpl.num_cameras
+    if case == "identity":
+        dy, dx, gain = [0] * C, [0] * C, [1.0] * C
+    else:
+        dy = [2, -3, 0, 5, -1, 0, 4][:C]
+        dx = [-2, 1, 6, 0, -4, 3, 0][:C]
+        gain = [1.05, 1.0, 0.93, 1.0, 1.04, 0.96, 1.0][:C]
+    frames = _frames_from_template(tpl, 8, dy, dx, gain, seed=1)
+
+    jdy, jdx, jgain = jax_rig.estimate_tc(jnp.asarray(frames), jax_rig.prepare(tpl))
+    ta = port_rig.prepare(port_rig.load_template(TEMPLATE), "cpu")
+    pdy, pdx, pgain = port_rig.estimate_tc(torch.from_numpy(frames), ta)
+    np.testing.assert_array_equal(pdy.numpy(), np.asarray(jdy))
+    np.testing.assert_array_equal(pdx.numpy(), np.asarray(jdx))
+    np.testing.assert_allclose(pgain.numpy(), np.asarray(jgain), rtol=1e-6)
+    if case == "shift_and_gain":
+        np.testing.assert_array_equal(pdy.numpy(), dy)
+        np.testing.assert_array_equal(pdx.numpy(), dx)
+    else:
+        np.testing.assert_array_equal(pgain.numpy(), np.ones(C, np.float32))
+
+    jshift = np.asarray(jax_rig.apply_shift_tc(jnp.asarray(frames), jdy, jdx))
+    pshift = port_rig.apply_shift_tc(torch.from_numpy(frames), pdy, pdx).numpy()
+    np.testing.assert_array_equal(pshift, jshift)
+
+    np.testing.assert_allclose(
+        port_rig.gain_correction(pgain).numpy(),
+        np.asarray(jax_rig.gain_correction(jgain, jnp.float32)), rtol=1e-6)
+
+    rng = np.random.default_rng(2)
+    p38 = rng.uniform(0.05, 0.95, size=(C, 8, 38, 2)).astype(np.float32)
+    p38[0, :, 20:] = 0.0
+    p38[4, :, :19, 1] = 1.0                              # flip artifact
+    jadj = np.asarray(jax_rig.adjust_points38(jnp.asarray(p38), jdy, jdx, tpl.image_hw))
+    padj = port_rig.adjust_points38(torch.from_numpy(p38), pdy, pdx, tpl.image_hw).numpy()
+    np.testing.assert_array_equal(padj, jadj)
+
+
+def test_find_template():
+    ckpt = os.path.join(REPO, "weights", "hourglass_fly.npz")
+    assert port_rig.find_template(ckpt) == jax_rig.find_template(ckpt)
+
+
+@pytest.fixture(scope="module")
+def golden_calib():
+    with open(os.path.join(REPO, "tests", "data", "reference_df3d", "df3d_result_2d.pkl"), "rb") as f:
+        golden = pickle.load(f)
+    with open(os.path.join(REPO, "data", "calib.pkl"), "rb") as f:
+        calib = pickle.load(f)
+    return golden, calib
+
+
+def test_triangulate_normal_matches_jax(golden_calib):
+    golden, calib = golden_calib
+    R, tvec, intr, _ = port_geo.calib_to_arrays(calib, 7, dtype=np.float32)
+    jR, jt, jK, _ = jax_geo.calib_to_arrays(calib, 7, dtype=np.float32)
+    np.testing.assert_array_equal(R, jR)
+    p38 = np.asarray(golden["points2d"], np.float32)
+    # one joint seen by a single camera: it must come out as zeros
+    p38[:, 0, 0] = 0.0
+    p38[2, 0, 0] = (0.5, 0.5)
+    want = np.asarray(jax_geo.triangulate(
+        jnp.asarray(p38), jnp.asarray(R), jnp.asarray(tvec), jnp.asarray(intr),
+        (960, 480), method="normal"))
+    got = port_geo.triangulate(
+        torch.from_numpy(p38), torch.from_numpy(R), torch.from_numpy(tvec),
+        torch.from_numpy(intr), (960, 480), method="normal").numpy()
+    assert got.shape == want.shape == (p38.shape[1], 38, 3)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got[0, 0], np.zeros(3, np.float32))
+    seen = (np.asarray(port_geo.observation_mask(torch.from_numpy(p38))).sum(0) >= 2)
+    np.testing.assert_array_equal(got[~seen], 0.0)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+def test_triangulate_rejects_other_methods():
+    with pytest.raises(NotImplementedError):
+        port_geo.triangulate(torch.zeros(7, 1, 38, 2), torch.zeros(7, 3, 3),
+                             torch.zeros(7, 3), torch.zeros(7, 3, 3), (960, 480),
+                             method="svd")

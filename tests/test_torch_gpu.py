@@ -1,0 +1,129 @@
+"""The port's CUDA kernels vs their plain versions, on a card.
+
+Marked ``gpu``: on a machine without a CUDA device every test skips (the
+decision is made inside each test, so every pytest worker collects the
+same tests).  Run on the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
+Tolerances: the bottleneck sums ~500 float32 products in another order than
+cuDNN/cuBLAS, so its error is held to 5e-5 of the output's largest
+magnitude; the upsample-add and the decode are exact.
+"""
+
+import os
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+from deepfly3d_torch.models.fused_inference import fold_hourglass
+from deepfly3d_torch.models.hourglass import load_weights
+from deepfly3d_torch.ops import bottleneck as bn
+from deepfly3d_torch.ops import geometry
+from deepfly3d_torch.ops import kernels
+from deepfly3d_torch.utils.devices import full_f32
+
+pytestmark = pytest.mark.gpu
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHECKPOINT = os.path.join(REPO, "weights", "hourglass_fly.npz")
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    full_f32()
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def blocks():
+    variables, spec = load_weights(CHECKPOINT)
+    return fold_hourglass(variables, spec)["blocks"]
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("stem_res1", (2, 128, 256, 48)),
+    ("stem_res2", (3, 64, 128, 96)),
+    ("hg0/down_d1_0", (5, 4, 8, 96)),
+    ("hg1/skip_d2_0", (2, 13, 21, 96)),   # tiles cut by the image edge
+])
+def test_bottleneck_kernel_matches_plain(blocks, name, shape):
+    dev = _card()
+    folded = {k: v.to(dev) for k, v in blocks[name].items()}
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(shape, generator=g).to(dev)
+    before = bn.fused_bottleneck.launches
+    got = bn.fused_bottleneck(x, folded)
+    torch.cuda.synchronize()
+    assert bn.fused_bottleneck.launches == before + 1
+    want = bn.bottleneck_plain(x, folded)
+    err = (got - want).abs().max().item()
+    assert err <= 5e-5 * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("shape", [(56, 4, 8, 96), (7, 32, 64, 96), (2, 3, 5, 6)])
+def test_upsample_kernel_matches_plain(shape):
+    dev = _card()
+    n, h, w, c = shape
+    g = torch.Generator().manual_seed(1)
+    inner = torch.randn(shape, generator=g).to(dev)
+    skip = torch.randn((n, 2 * h, 2 * w, c), generator=g).to(dev)
+    got = kernels.upsample2x_add(inner, skip)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.upsample2x_add_plain(inner, skip))
+
+
+def test_decode_kernel_matches_plain_with_ties():
+    dev = _card()
+    g = torch.Generator().manual_seed(2)
+    hm = torch.randn((9, 64, 128, 19), generator=g)
+    hm[0, :, :, 0] = 3.0                          # all tied: index 0
+    hm[1, 10, 5, 3] = hm[1, 40, 100, 3] = 9.0     # first of two peaks
+    hm[2, 63, 127, 4] = hm[2, 0, 1, 4] = 9.0
+    hm = hm.to(dev)
+    pts, conf = kernels.decode_heatmaps(hm)
+    torch.cuda.synchronize()
+    want_pts, want_conf = kernels.decode_heatmaps_plain(hm)
+    assert torch.equal(pts, want_pts) and torch.equal(conf, want_conf)
+    assert pts[0, 0].tolist() == [0.0, 0.0]
+    assert pts[1, 3].tolist() == [10 / 64, 5 / 128]
+
+
+def test_wrappers_reject_cpu_mixed_inputs(blocks):
+    dev = _card()
+    folded = {k: v for k, v in blocks["stem_res2"].items()}    # on the CPU
+    with pytest.raises(ValueError):
+        bn.fused_bottleneck(torch.zeros((1, 8, 8, 96), device=dev), folded)
+
+
+def test_pose_estimator_prefetch_on_card():
+    """infer_images with the pinned-memory side-stream prefetch and a padded
+    last batch gives what the CPU path gives."""
+    dev = _card()
+    from deepfly3d_torch.models.inference import PoseEstimator
+
+    with np.load(os.path.join(REPO, "deepfly3d_torch", "data", "golden_t0.npz")) as z:
+        images = z["frames"]
+    flip = np.array([False, False, False, False, True, True, True])
+    gain = np.array([1.0, 1.0, 0.97, 1.0, 1.0, 1.03, 1.0], np.float32)
+    got = PoseEstimator(CHECKPOINT, device=dev).infer_images(images, flip, batch_size=3, gain=gain)
+    want = PoseEstimator(CHECKPOINT, device="cpu").infer_images(images, flip, batch_size=3,
+                                                                gain=gain)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], atol=2e-5, rtol=0)
+
+
+def test_golden_frame_on_card():
+    dev = _card()
+    from deepfly3d_torch.pipeline import build_pipeline
+
+    with np.load(os.path.join(REPO, "deepfly3d_torch", "data", "golden_t0.npz")) as z:
+        ref = {k: z[k] for k in z.files}
+    with open(os.path.join(REPO, "data", "calib.pkl"), "rb") as f:
+        calib = geometry.calib_to_arrays(pickle.load(f), 7, dtype=np.float32)
+    variables, spec = load_weights(CHECKPOINT)
+    pipe = build_pipeline(spec, variables, calib, ref["camera_ordering"], (256, 512),
+                          rig=None, device=dev)
+    _, p38, conf = pipe(ref["frames"][None])
+    np.testing.assert_array_equal(p38.cpu().numpy(), ref["p38"])
+    np.testing.assert_allclose(conf.cpu().numpy(), ref["conf"], atol=2e-5, rtol=0)

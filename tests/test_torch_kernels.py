@@ -1,0 +1,75 @@
+"""Port's upsample-add and decode (plain versions) vs the JAX Pallas kernels.
+
+The Pallas kernels run in interpret mode on the CPU.  The upsample-add is
+exact (atol 0).  The decode is exact too, checked on maps with planted
+ties: between equal maxima the first flat index must win, as jnp.argmax.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from deepfly3d_tpu.models import decode as jax_decode
+from deepfly3d_tpu.ops.pallas import kernels as jax_kernels
+from deepfly3d_torch.models import decode as port_decode
+from deepfly3d_torch.ops import kernels as port_kernels
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 8, 16), (1, 8, 16, 8), (3, 3, 5, 4)])
+def test_upsample2x_add_matches_pallas(shape):
+    n, h, w, c = shape
+    rng = np.random.default_rng(sum(shape))
+    inner = rng.normal(size=shape).astype(np.float32)
+    skip = rng.normal(size=(n, 2 * h, 2 * w, c)).astype(np.float32)
+    want = np.asarray(jax_kernels.upsample2x_add_pallas(jnp.asarray(inner), jnp.asarray(skip)))
+    got = port_kernels.upsample2x_add_plain(torch.from_numpy(inner), torch.from_numpy(skip))
+    np.testing.assert_array_equal(got.numpy(), want)
+    wrapped = port_kernels.upsample2x_add(torch.from_numpy(inner), torch.from_numpy(skip))
+    np.testing.assert_array_equal(wrapped.numpy(), want)
+
+
+def _tied_heatmaps(seed, n=3, h=16, w=32, k=5):
+    """Maps whose maximum appears at several cells (and one all-equal map)."""
+    rng = np.random.default_rng(seed)
+    hm = rng.normal(size=(n, h, w, k)).astype(np.float32)
+    for i in range(n):
+        for j in range(k):
+            cells = rng.choice(h * w, size=1 + (i + j) % 4, replace=False)
+            peak = np.float32(5.0 + j)
+            hm[i].reshape(h * w, k)[cells, j] = peak
+    hm[0, :, :, 0] = 1.5          # every cell tied: first index is 0
+    return hm
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_decode_matches_pallas_and_decode_argmax(seed):
+    hm = _tied_heatmaps(seed)
+    pts_p, conf_p = jax_kernels.decode_heatmaps_pallas(jnp.asarray(hm))
+    pts_r, conf_r = jax_decode.decode_argmax(jnp.asarray(hm))
+    pts, conf = port_kernels.decode_heatmaps_plain(torch.from_numpy(hm))
+    for want_pts, want_conf in ((pts_p, conf_p), (pts_r, conf_r)):
+        np.testing.assert_array_equal(pts.numpy(), np.asarray(want_pts))
+        np.testing.assert_array_equal(conf.numpy(), np.asarray(want_conf))
+    assert pts[0, 0].tolist() == [0.0, 0.0]
+    via_model = port_decode.decode_argmax(torch.from_numpy(hm))
+    np.testing.assert_array_equal(via_model[0].numpy(), pts.numpy())
+
+
+def test_first_index_tie_break_explicit():
+    hm = np.zeros((1, 4, 8, 2), np.float32)
+    hm[0, 1, 3, 0] = hm[0, 2, 1, 0] = 2.0     # flat 11 and 17 tie: 11 wins
+    hm[0, 3, 7, 1] = hm[0, 0, 6, 1] = 1.0     # flat 31 and 6 tie: 6 wins
+    pts, conf = port_kernels.decode_heatmaps(torch.from_numpy(hm))
+    np.testing.assert_array_equal(pts.numpy()[0], [[1 / 4, 3 / 8], [0.0, 6 / 8]])
+    np.testing.assert_array_equal(conf.numpy()[0, :, 0], [2.0, 1.0])
+
+
+def test_postprocess_points2d_matches_jax():
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(0.05, 0.95, size=(7, 3, 19, 2))
+    order = [0, 1, 2, 3, 4, 5, 6]
+    np.testing.assert_array_equal(
+        port_decode.postprocess_points2d(pts, order),
+        jax_decode.postprocess_points2d(pts, order))
