@@ -1,33 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's golden 2D->3D path on one CUDA card.
+"""Drive the PyTorch port's inference paths on one CUDA card.
 
-    python3 chip_smoke.py              # from the root of a checkout
+    python3 chip_smoke.py                  # from the root of a checkout
+    python3 chip_smoke.py --profile FILE   # also a torch.profiler table per path
 
 Phases (any failure raises, so the script exits non-zero and prints no
 result line):
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build the three CUDA kernels from ``deepfly3d_torch/ops/csrc``;
-3. kernel phase: every kernel against its plain PyTorch version on the
-   card, at every shape the main path gives it, with the tolerance stated;
+2. build the four CUDA kernels from ``deepfly3d_torch/ops/csrc``;
+3. the three main paths at full width, T=8 frames (56 images of 480x960,
+   rig registration on): ``conv`` (``build_pipeline`` with the shipped
+   2-stack f96 ``hourglass_fly.npz``), ``p16`` (``hourglass_fly_p16_tpu.npz``,
+   patch16 stem, 3x3 subpixel head) and ``cascade``
+   (``build_cascade_pipeline``: student ``hourglass_fly_fast_nearparity.npz``
+   at 192x384 on every image, teacher ``hourglass_fly.npz`` on the 7 most
+   suspicious).  Each path's plain twin (``pipeline.plain_twin``) runs once
+   with recording wrappers: every shape the path gives each kernel, and how
+   many times;
+4. kernel phase: every kernel against its plain PyTorch version on the card
+   at every recorded shape, with the tolerance stated (and the preprocess
+   kernel in identity mode at 480x960, which is the TPU kernel exactly);
    kernel, plain and one-library-call times by CUDA events; the least time
    the card could take (``bound_ms``) from the shapes;
-4. slice phase: ``build_pipeline(device="cuda")`` at full width (the
-   shipped 2-stack f96 checkpoint, T=8 frames = 56 images of 480x960, rig
-   on), launch counts read around that one run (31 bottlenecks, 8
-   upsample-adds, 1 decode per forward), its output against the same
-   pipeline with plain versions on the card, and frames/s (informational);
-5. golden phase: frame 0 of the golden recording against the JAX package's
-   output on it (``deepfly3d_torch/data/golden_t0.npz``) and against the
-   golden pickle.
+5. slice phase: each path once with every launch count set to 0 just
+   before and read just after (they must equal the recorded counts); its
+   output against its plain twin on the card; frames/s in turns
+   (informational);
+6. golden phase: golden frame 0 (rig off) through every shipped checkpoint
+   and the cascade against the JAX package's output on it
+   (``deepfly3d_torch/data/golden_t0.npz``, ``golden_t0_checkpoints.npz``),
+   and the golden contract for ``hourglass_fly.npz``.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
-``--profile FILE`` also writes a torch.profiler table of one pipeline call
-to FILE.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import pickle
@@ -42,19 +52,34 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 BATCH_T = 8                      # frames of 7 cameras in the slice phase
-
-# bottleneck shapes of one forward at N images: (block whose weights are
-# used, H, W, Cin, launches per forward)
-BLOCK_SHAPES = [
-    ("stem_res1", 128, 256, 48, 1),
-    ("stem_res2", 64, 128, 96, 6),
-    ("hg0/down_d4_0", 32, 64, 96, 6),
-    ("hg0/down_d3_0", 16, 32, 96, 6),
-    ("hg0/down_d2_0", 8, 16, 96, 6),
-    ("hg0/down_d1_0", 4, 8, 96, 6),
-]
-MERGE_SHAPES = [(4, 8), (8, 16), (16, 32), (32, 64)]   # inner (H, W), 2 per forward
+CONV, P16, STUDENT = "hourglass_fly.npz", "hourglass_fly_p16_tpu.npz", \
+    "hourglass_fly_fast_nearparity.npz"
+SHIPPED = [CONV, "hourglass_fly_tpu.npz", "hourglass_fly_p16.npz", P16, STUDENT]
+# launches of one call of each path at T=8 (the cascade's teacher runs on
+# ceil(0.125 * 56) = 7 images)
+EXPECTED = {
+    "conv": {"fused_bottleneck": 31, "upsample2x_add": 8, "decode_heatmaps": 1,
+             "preprocess_resize": 1},
+    "p16": {"fused_bottleneck": 16, "upsample2x_add": 4, "decode_heatmaps": 1,
+            "preprocess_resize": 1},
+    "cascade": {"fused_bottleneck": 16 + 31, "upsample2x_add": 4 + 8, "decode_heatmaps": 2,
+                "preprocess_resize": 2},
+}
 BLOCK_TOL = 5e-5        # of the output's largest magnitude: f32 sums reordered
+PREPROCESS_TOL = 2e-6   # outputs in [0, 1], <= 25 products summed in another order
+CELL_ATOL = 1e-6        # same argmax cell: cells are >= 1/128 apart
+SOURCES = {
+    "fused_bottleneck": ("deepfly3d_torch/ops/csrc/bottleneck.cu",
+                         "deepfly3d_tpu/ops/pallas/bottleneck.py:433",
+                         ["deepfly3d_tpu/ops/pallas/bottleneck.py:359",
+                          "deepfly3d_tpu/ops/pallas/bottleneck.py:486"]),
+    "upsample2x_add": ("deepfly3d_torch/ops/csrc/upsample_add.cu",
+                       "deepfly3d_tpu/ops/pallas/kernels.py:49", []),
+    "decode_heatmaps": ("deepfly3d_torch/ops/csrc/decode.cu",
+                        "deepfly3d_tpu/ops/pallas/kernels.py:97", []),
+    "preprocess_resize": ("deepfly3d_torch/ops/csrc/preprocess.cu",
+                          "deepfly3d_tpu/ops/pallas/kernels.py:133", []),
+}
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -84,6 +109,41 @@ def gpu_name_and_limit():
     return out[0]
 
 
+def record_shapes(twin, path, rows, frames):
+    """Run ``twin`` (a plain twin, which launches no kernel) once with every
+    stage wrapped: count each (kernel, shape) the path gives its kernels."""
+    from deepfly3d_torch.ops import bottleneck as bn
+    from deepfly3d_torch.ops import image as image_ops
+    from deepfly3d_torch.ops import kernels
+
+    def note(kernel, key, extra=None):
+        row = rows.setdefault((kernel, key), {"counts": collections.Counter(), "extra": extra})
+        row["counts"][path] += 1
+
+    def block(x, folded):
+        note("fused_bottleneck", tuple(x.shape) + (folded["w1"].shape[1],
+                                                   folded["w3"].shape[1], "wp" in folded),
+             folded)
+        return bn.bottleneck_plain(x, folded)
+
+    def merge(inner, skip):
+        note("upsample2x_add", tuple(inner.shape))
+        return kernels.upsample2x_add_plain(inner, skip)
+
+    def decode(hm):
+        note("decode_heatmaps", tuple(hm.shape))
+        return kernels.decode_heatmaps_plain(hm)
+
+    def preprocess(x_u8, flip, out_shape, dtype):
+        note("preprocess_resize", tuple(x_u8.shape) + tuple(out_shape))
+        return image_ops.preprocess_frames_plain(x_u8, flip, out_shape, dtype)
+
+    for net in twin.nets().values():
+        net.block_fn, net.merge_fn = block, merge
+    twin.decode, twin.preprocess = decode, preprocess
+    twin(frames)
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -95,13 +155,13 @@ def main(argv):
     sys.path.insert(0, ROOT)
     import torch.nn.functional as F
 
-    from deepfly3d_torch.config import fly_config
-    from deepfly3d_torch.models.fused_inference import FoldedHourglass, fold_hourglass
+    from deepfly3d_torch.config import WEIGHTS_DIR, fly_config
+    from deepfly3d_torch.models.cascade import build_cascade_pipeline
     from deepfly3d_torch.models.hourglass import load_weights
-    from deepfly3d_torch.ops import _build, geometry
+    from deepfly3d_torch.ops import _build, geometry, image as image_ops
     from deepfly3d_torch.ops import bottleneck as bn
     from deepfly3d_torch.ops import kernels
-    from deepfly3d_torch.pipeline import build_pipeline
+    from deepfly3d_torch.pipeline import build_pipeline, plain_twin
     from deepfly3d_torch.utils.devices import full_f32
 
     dev = torch.device("cuda", 0)
@@ -121,119 +181,11 @@ def main(argv):
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
+    # ---- 3. the three paths, and the shapes they give each kernel
     cfg = fly_config()
-    num_cameras, input_hw = cfg.num_cameras, cfg.network.input_shape
-    variables, spec = load_weights(cfg.network.checkpoint)
-    folded = fold_hourglass(variables, spec)
-    blocks = {name: {k: v.to(dev) for k, v in t.items()}
-              for name, t in folded["blocks"].items()}
+    num_cameras = cfg.num_cameras
     N = BATCH_T * num_cameras
-    gen = torch.Generator().manual_seed(0)
-
-    # ---- 3. kernel phase
-    shape_rows = []
-    per_kernel = {}
-
-    def record(kernel, row, count):
-        shape_rows.append({"kernel": kernel, **row, "per_forward": count})
-        agg = per_kernel.setdefault(kernel, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                             "library_ms": 0.0, "bound_ms": 0.0,
-                                             "flops": 0.0, "bytes": 0.0})
-        agg["max_abs_err"] = max(agg["max_abs_err"], row["max_abs_err"])
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            agg[key] += count * row[key]
-        agg["flops"] += count * row["flops"]
-        agg["bytes"] += count * row["bytes"]
-
-    def oihw(w2d):
-        return w2d.t().contiguous()[:, :, None, None]
-
-    for name, h, w, cin, count in BLOCK_SHAPES:
-        f = blocks[name]
-        cmid, cout = f["w1"].shape[1], f["w3"].shape[1]
-        proj = "wp" in f
-        x = torch.randn((N, h, w, cin), generator=gen).to(dev)
-        y = bn.fused_bottleneck(x, f)
-        ref = bn.bottleneck_plain(x, f)
-        torch.cuda.synchronize()
-        err = (y - ref).abs().max().item()
-        scale = max(1.0, ref.abs().max().item())
-        if not err <= BLOCK_TOL * scale:
-            raise AssertionError(f"bottleneck {name} {tuple(x.shape)}: max abs err {err} "
-                                 f"> {BLOCK_TOL} x {scale}")
-        lw = {"w1": oihw(f["w1"]), "w3": oihw(f["w3"]),
-              "w2": f["w2"].reshape(3, 3, cmid, cmid).permute(3, 2, 0, 1).contiguous()}
-        if proj:
-            lw["wp"] = oihw(f["wp"])
-
-        def library(x=x, f=f, lw=lw, proj=proj):
-            xc = x.permute(0, 3, 1, 2)                      # channels_last NCHW view
-            a1 = torch.relu(xc * f["s1"].view(1, -1, 1, 1) + f["t1"].view(1, -1, 1, 1))
-            a2 = torch.relu(F.conv2d(a1, lw["w1"], f["b1"][0]))
-            a3 = torch.relu(F.conv2d(a2, lw["w2"], f["b2"][0], padding=1))
-            z = F.conv2d(a3, lw["w3"], f["b3"][0])
-            return z + (F.conv2d(a1, lw["wp"], f["bp"][0]) if proj else xc)
-
-        lib_err = (library().permute(0, 2, 3, 1) - ref).abs().max().item()
-        flops = 2.0 * N * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
-                                   + (cin * cout if proj else 0))
-        nbytes = 4.0 * (N * h * w * (cin + cout) + sum(t.numel() for t in f.values()))
-        b_ms, b_by = bound_ms(flops, nbytes)
-        row = {"name": name, "shape": [N, h, w, cin, cmid, cout], "max_abs_err": err,
-               "library_err": lib_err,
-               "ms": cuda_ms(torch, lambda: bn.fused_bottleneck(x, f)),
-               "plain_ms": cuda_ms(torch, lambda: bn.bottleneck_plain(x, f)),
-               "library_ms": cuda_ms(torch, library),
-               "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
-        record("fused_bottleneck", row, count)
-        del x, y, ref
-
-    for h, w in MERGE_SHAPES:
-        inner = torch.randn((N, h, w, 96), generator=gen).to(dev)
-        skip = torch.randn((N, 2 * h, 2 * w, 96), generator=gen).to(dev)
-        out = kernels.upsample2x_add(inner, skip)
-        ref = kernels.upsample2x_add_plain(inner, skip)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        if err != 0.0:
-            raise AssertionError(f"upsample2x_add {tuple(inner.shape)}: max abs err {err} != 0")
-        nbytes = 4.0 * (inner.numel() + 2 * skip.numel())
-        b_ms, b_by = bound_ms(float(skip.numel()), nbytes)
-
-        def library(inner=inner, skip=skip):
-            return skip + inner.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-
-        row = {"name": "merge", "shape": list(inner.shape), "max_abs_err": err,
-               "ms": cuda_ms(torch, lambda: kernels.upsample2x_add(inner, skip)),
-               "plain_ms": cuda_ms(torch, lambda: kernels.upsample2x_add_plain(inner, skip)),
-               "library_ms": cuda_ms(torch, library),
-               "bound_ms": b_ms, "bound_by": b_by, "flops": float(skip.numel()),
-               "bytes": nbytes}
-        record("upsample2x_add", row, 2)
-
-    hm = torch.randn((N, 64, 128, 19), generator=gen)
-    hm[0, :, :, 0] = 1.0                                  # planted ties
-    hm[1, 3, 4, 2] = hm[1, 50, 60, 2] = 7.0
-    hm = hm.to(dev)
-    pts, conf = kernels.decode_heatmaps(hm)
-    ref_pts, ref_conf = kernels.decode_heatmaps_plain(hm)
-    torch.cuda.synchronize()
-    err = max((pts - ref_pts).abs().max().item(), (conf - ref_conf).abs().max().item())
-    if err != 0.0:
-        raise AssertionError(f"decode {tuple(hm.shape)}: max abs err {err} != 0")
-    nbytes = 4.0 * (hm.numel() + pts.numel() + conf.numel())
-    b_ms, b_by = bound_ms(float(hm.numel()), nbytes)
-    hm_flat = hm.view(N, 64 * 128, 19)
-    row = {"name": "decode", "shape": list(hm.shape), "max_abs_err": err,
-           "ms": cuda_ms(torch, lambda: kernels.decode_heatmaps(hm)),
-           "plain_ms": cuda_ms(torch, lambda: kernels.decode_heatmaps_plain(hm)),
-           "library_ms": cuda_ms(torch, lambda: torch.max(hm_flat, dim=1)),
-           "bound_ms": b_ms, "bound_by": b_by, "flops": float(hm.numel()), "bytes": nbytes}
-    record("decode_heatmaps", row, 1)
-    del hm, hm_flat
-    print(json.dumps({"kernel_shapes": shape_rows}))
-
-    # ---- 4. slice phase, full width
+    ckpt = {name: load_weights(os.path.join(WEIGHTS_DIR, name)) for name in SHIPPED}
     with np.load(os.path.join(ROOT, "deepfly3d_torch", "data", "golden_t0.npz")) as z:
         ref0 = {k: z[k] for k in z.files}
     order = ref0["camera_ordering"]
@@ -244,47 +196,177 @@ def main(argv):
     frames_np = np.clip(ref0["frames"][None].astype(np.int16) + noise, 0, 255).astype(np.uint8)
     frames = torch.from_numpy(frames_np).to(dev)
 
-    pipe = build_pipeline(spec, variables, calib, order, input_hw, rig="auto", device=dev)
-    counters = (bn.fused_bottleneck, kernels.upsample2x_add, kernels.decode_heatmaps)
-    for c in counters:
-        c.launches = 0
-    torch.cuda.synchronize()
-    pts3d, p38, conf = pipe(frames)
-    torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
-    want = {"fused_bottleneck": 31, "upsample2x_add": 8, "decode_heatmaps": 1}
-    if launches != want:
-        raise AssertionError(f"main path launches {launches}, want {want}")
-    print(f"slice launches: {launches}")
-    if not (torch.isfinite(pts3d).all() and pts3d.shape == (BATCH_T, 38, 3)
-            and p38.shape == (num_cameras, BATCH_T, 38, 2)
-            and conf.shape == (num_cameras, BATCH_T, 19, 1)):
-        raise AssertionError("slice outputs have the wrong shape or are not finite")
+    def pipeline(name, rig="auto"):
+        variables, spec = ckpt[name]
+        return build_pipeline(spec, variables, calib, order, rig=rig, device=dev)
 
-    class PlainHourglass(FoldedHourglass):
-        def block(self, name, x):
-            return bn.bottleneck_plain(x, self.blocks[name].as_dict())
+    def cascade(rig="auto"):
+        return build_cascade_pipeline(*ckpt[STUDENT], *ckpt[CONV], calib, order,
+                                      rig=rig, device=dev)
 
-        def merge(self, inner, skip):
-            return kernels.upsample2x_add_plain(inner, skip)
-
-    plain = build_pipeline(spec, variables, calib, order, input_hw, rig="auto", device=dev)
-    plain.net = PlainHourglass(folded, spec).to(dev).eval()
-    plain.decode = kernels.decode_heatmaps_plain
-    before = [c.launches for c in counters]
-    q3d, q38, qconf = plain(frames)
+    paths = {"conv": pipeline(CONV), "p16": pipeline(P16), "cascade": cascade()}
+    rows = {}
+    for path, pipe in paths.items():
+        record_shapes(plain_twin(pipe), path, rows, frames)
     torch.cuda.synchronize()
-    if [c.launches for c in counters] != before:
-        raise AssertionError("the plain pipeline launched a kernel")
-    if not torch.equal(p38, q38):
-        n_diff = int((p38 != q38).any(-1).sum().item())
-        raise AssertionError(f"slice p38 differs from the plain pipeline at {n_diff} points")
-    conf_diff = (conf - qconf).abs().max().item()
-    pts3d_diff = ((pts3d - q3d).abs().max() / q3d.abs().max().clamp_min(1e-30)).item()
-    if conf_diff > 1e-4 or pts3d_diff > 1e-5:
-        raise AssertionError(f"slice vs plain: conf {conf_diff}, points3d rel {pts3d_diff}")
-    print(f"slice vs plain on the card: p38 equal, conf max diff {conf_diff}, "
-          f"points3d max rel diff {pts3d_diff}")
+
+    # ---- 4. kernel phase
+    gen = torch.Generator().manual_seed(0)
+    shape_rows = []
+    per_kernel = {}
+    per_path = {}
+
+    def record(kernel, row, counts):
+        total = sum(counts.values())
+        shape_rows.append({"kernel": kernel, **row, "launches_by_path": dict(counts)})
+        for path, count in counts.items():
+            pp = per_path.setdefault(path, {}).setdefault(kernel, collections.Counter())
+            pp["launches"] += count
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                pp[key] += count * row[key]
+        agg = per_kernel.setdefault(kernel, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                             "library_ms": 0.0, "bound_ms": 0.0,
+                                             "flops": 0.0, "bytes": 0.0})
+        agg["max_abs_err"] = max(agg["max_abs_err"], row["max_abs_err"])
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes"):
+            agg[key] += total * row[key]
+
+    def oihw(w2d):
+        return w2d.t().contiguous()[:, :, None, None]
+
+    def check_bottleneck(key, counts, f):
+        n, h, w, cin, cmid, cout, proj = key
+        x = torch.randn((n, h, w, cin), generator=gen).to(dev)
+        y = bn.fused_bottleneck(x, f)
+        ref = bn.bottleneck_plain(x, f)
+        torch.cuda.synchronize()
+        err = (y - ref).abs().max().item()
+        scale = max(1.0, ref.abs().max().item())
+        if not err <= BLOCK_TOL * scale:
+            raise AssertionError(f"bottleneck {key}: max abs err {err} > {BLOCK_TOL} x {scale}")
+        lw = {"w1": oihw(f["w1"]), "w3": oihw(f["w3"]),
+              "w2": f["w2"].reshape(3, 3, cmid, cmid).permute(3, 2, 0, 1).contiguous()}
+        if proj:
+            lw["wp"] = oihw(f["wp"])
+
+        def library():
+            xc = x.permute(0, 3, 1, 2)                      # channels_last NCHW view
+            a1 = torch.relu(xc * f["s1"].view(1, -1, 1, 1) + f["t1"].view(1, -1, 1, 1))
+            a2 = torch.relu(F.conv2d(a1, lw["w1"], f["b1"][0]))
+            a3 = torch.relu(F.conv2d(a2, lw["w2"], f["b2"][0], padding=1))
+            z = F.conv2d(a3, lw["w3"], f["b3"][0])
+            return z + (F.conv2d(a1, lw["wp"], f["bp"][0]) if proj else xc)
+
+        lib_err = (library().permute(0, 2, 3, 1) - ref).abs().max().item()
+        flops = 2.0 * n * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
+                                   + (cin * cout if proj else 0))
+        nbytes = 4.0 * (n * h * w * (cin + cout) + sum(t.numel() for t in f.values()))
+        b_ms, b_by = bound_ms(flops, nbytes)
+        record("fused_bottleneck", {
+            "shape": list(key[:6]), "proj": proj, "max_abs_err": err, "library_err": lib_err,
+            "ms": cuda_ms(torch, lambda: bn.fused_bottleneck(x, f)),
+            "plain_ms": cuda_ms(torch, lambda: bn.bottleneck_plain(x, f)),
+            "library_ms": cuda_ms(torch, library),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}, counts)
+
+    def check_merge(key, counts):
+        n, h, w, c = key
+        inner = torch.randn(key, generator=gen).to(dev)
+        skip = torch.randn((n, 2 * h, 2 * w, c), generator=gen).to(dev)
+        out = kernels.upsample2x_add(inner, skip)
+        ref = kernels.upsample2x_add_plain(inner, skip)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if err != 0.0:
+            raise AssertionError(f"upsample2x_add {key}: max abs err {err} != 0")
+        nbytes = 4.0 * (inner.numel() + 2 * skip.numel())
+        b_ms, b_by = bound_ms(float(skip.numel()), nbytes)
+
+        def library():
+            return skip + inner.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+        record("upsample2x_add", {
+            "shape": list(key), "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: kernels.upsample2x_add(inner, skip)),
+            "plain_ms": cuda_ms(torch, lambda: kernels.upsample2x_add_plain(inner, skip)),
+            "library_ms": cuda_ms(torch, library),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": float(skip.numel()),
+            "bytes": nbytes}, counts)
+
+    def check_decode(key, counts):
+        n, h, w, k = key
+        hm = torch.randn(key, generator=gen)
+        hm[0, :, :, 0] = 1.0                              # planted ties
+        hm[1 % n, 3, 4, 2] = hm[1 % n, h - 5, w - 7, 2] = 7.0
+        hm = hm.to(dev)
+        pts, conf = kernels.decode_heatmaps(hm)
+        ref_pts, ref_conf = kernels.decode_heatmaps_plain(hm)
+        torch.cuda.synchronize()
+        err = max((pts - ref_pts).abs().max().item(), (conf - ref_conf).abs().max().item())
+        if err != 0.0:
+            raise AssertionError(f"decode {key}: max abs err {err} != 0")
+        nbytes = 4.0 * (hm.numel() + pts.numel() + conf.numel())
+        b_ms, b_by = bound_ms(float(hm.numel()), nbytes)
+        hm_flat = hm.view(n, h * w, k)
+        record("decode_heatmaps", {
+            "shape": list(key), "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: kernels.decode_heatmaps(hm)),
+            "plain_ms": cuda_ms(torch, lambda: kernels.decode_heatmaps_plain(hm)),
+            "library_ms": cuda_ms(torch, lambda: torch.max(hm_flat, dim=1)),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": float(hm.numel()),
+            "bytes": nbytes}, counts)
+
+    def check_preprocess(key, counts):
+        n, h_in, w_in, c, h, w = key
+        x = torch.randint(0, 256, (n, h_in, w_in, c), generator=gen, dtype=torch.uint8).to(dev)
+        flip = (torch.arange(n) % 3 == 1).to(dev)
+        identity = (h, w) == (h_in, w_in)
+        out = kernels.preprocess_resize(x, flip, (h, w))
+        plain = ((lambda: kernels.preprocess_u8_plain(x, flip)) if identity
+                 else (lambda: image_ops.preprocess_frames_plain(x, flip, (h, w))))
+        ref = plain()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 0.0 if identity else PREPROCESS_TOL
+        if not err <= tol:
+            raise AssertionError(f"preprocess {key}: max abs err {err} > {tol}")
+        def library():                                      # the same triangle filter
+            xc = (x.float() * (1.0 / 255.0)).permute(0, 3, 1, 2)   # channels_last NCHW view
+            y = F.interpolate(xc, size=(h, w), mode="bilinear", antialias=True,
+                              align_corners=False).permute(0, 2, 3, 1)
+            return torch.where(flip.reshape(n, 1, 1, 1), y.flip(2), y)
+
+        lib_err = (library() - ref).abs().max().item()
+        kh = image_ops.resize_taps(h_in, h, 1.0 / 255.0)[1].shape[1]
+        kw = image_ops.resize_taps(w_in, w, 1.0)[1].shape[1]
+        flops = 2.0 * n * c * (h * w_in * kh + h * w * kw)
+        nbytes = float(x.numel() + 4 * out.numel() + n + 8 * (h * kh + w * kw) + 4 * (h + w))
+        b_ms, b_by = bound_ms(flops, nbytes)
+        row = {"shape": list(key), "mode": "identity" if identity else "resize",
+               "taps": [kh, kw], "max_abs_err": err, "tolerance": tol, "library_err": lib_err,
+               "ms": cuda_ms(torch, lambda: kernels.preprocess_resize(x, flip, (h, w))),
+               "plain_ms": cuda_ms(torch, plain), "library_ms": cuda_ms(torch, library),
+               "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
+        record("preprocess_resize", row, counts)
+
+    checks = {"fused_bottleneck": check_bottleneck, "upsample2x_add": check_merge,
+              "decode_heatmaps": check_decode, "preprocess_resize": check_preprocess}
+    for (kernel, key), row in sorted(rows.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+        if kernel == "fused_bottleneck":
+            check_bottleneck(key, row["counts"], row["extra"])
+        else:
+            checks[kernel](key, row["counts"])
+        torch.cuda.empty_cache()
+    # identity mode: exactly the TPU kernel (u8 * 1/255, flip); on no path
+    check_preprocess((N,) + tuple(cfg.image_hw) + (3,) + tuple(cfg.image_hw), {})
+    print(json.dumps({"kernel_shapes": shape_rows}))
+    print(json.dumps({"per_path": per_path}))
+
+    # ---- 5. slice phase, full width
+    counters = (bn.fused_bottleneck, kernels.upsample2x_add, kernels.decode_heatmaps,
+                kernels.preprocess_resize)
+    launches = {}
+    fps_lines = []
 
     def fps(p, iters=5):
         torch.cuda.synchronize()
@@ -294,64 +376,106 @@ def main(argv):
         torch.cuda.synchronize()
         return BATCH_T * iters / (time.perf_counter() - t)
 
-    pipe(frames), plain(frames)                    # warm both
-    turns = [(fps(pipe), fps(plain)) for _ in range(2)]   # kernel, plain, kernel, plain
-    kernel_fps = [k for k, _ in turns]
-    plain_fps = [q for _, q in turns]
-    print(f"informational: frames/s in turns (7-camera frames, T={BATCH_T}, frames already "
-          f"on the card): kernels {kernel_fps}, plain versions {plain_fps}, on {card}")
+    for path, pipe in paths.items():
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        pts3d, p38, conf = pipe(frames)
+        torch.cuda.synchronize()
+        got = {c.__name__: c.launches for c in counters}
+        recorded = collections.Counter()
+        for (kernel, _), row in rows.items():
+            recorded[kernel] += row["counts"][path]
+        if got != EXPECTED[path] or got != dict(recorded):
+            raise AssertionError(f"{path} path launches {got}, want {EXPECTED[path]} "
+                                 f"(recorded {dict(recorded)})")
+        launches[path] = got
+        print(f"slice {path} launches: {got}")
+        if not (torch.isfinite(pts3d).all() and pts3d.shape == (BATCH_T, 38, 3)
+                and p38.shape == (num_cameras, BATCH_T, 38, 2)
+                and conf.shape == (num_cameras, BATCH_T, 19, 1)):
+            raise AssertionError(f"{path} outputs have the wrong shape or are not finite")
+        plain = plain_twin(pipe)
+        before = [c.launches for c in counters]
+        q3d, q38, qconf = plain(frames)
+        torch.cuda.synchronize()
+        if [c.launches for c in counters] != before:
+            raise AssertionError(f"the plain {path} pipeline launched a kernel")
+        if path == "cascade" and not torch.equal(pipe.last_repaired, plain.last_repaired):
+            raise AssertionError("the cascade repaired other images than its plain twin")
+        if not torch.equal(p38, q38):
+            n_diff = int((p38 != q38).any(-1).sum().item())
+            raise AssertionError(f"{path} p38 differs from the plain pipeline at {n_diff} points")
+        conf_diff = (conf - qconf).abs().max().item()
+        pts3d_diff = ((pts3d - q3d).abs().max() / q3d.abs().max().clamp_min(1e-30)).item()
+        if conf_diff > 1e-4 or pts3d_diff > 1e-5:
+            raise AssertionError(f"{path} vs plain: conf {conf_diff}, points3d rel {pts3d_diff}")
+        print(f"slice {path} vs plain on the card: p38 equal, conf max diff {conf_diff}, "
+              f"points3d max rel diff {pts3d_diff}")
+        pipe(frames), plain(frames)                        # warm both
+        turns = [(fps(pipe), fps(plain)) for _ in range(2)]   # kernel, plain, kernel, plain
+        fps_lines.append(
+            f"informational: {path} frames/s in turns (7-camera frames, T={BATCH_T}, frames "
+            f"already on the card): kernels {[k for k, _ in turns]}, plain versions "
+            f"{[q for _, q in turns]}, on {card}")
+        print(fps_lines[-1])
 
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile
 
-        profile_path = argv[argv.index("--profile") + 1]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            pipe(frames)
-            torch.cuda.synchronize()
-        with open(profile_path, "w") as fh:
+        with open(argv[argv.index("--profile") + 1], "w") as fh:
             fh.write(card + "\n")
-            fh.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+            for path, pipe in paths.items():
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    pipe(frames)
+                    torch.cuda.synchronize()
+                fh.write(f"\n==== {path} path, one call at T={BATCH_T}\n")
+                fh.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
 
-    # ---- 5. golden phase
+    # ---- 6. golden phase: frame 0, rig off
     with open(os.path.join(ROOT, "tests", "data", "reference_df3d", "df3d_result_2d.pkl"),
               "rb") as fh:
         golden = pickle.load(fh)
-    pipe0 = build_pipeline(spec, variables, calib, order, input_hw, rig=None, device=dev)
-    _, g38, gconf = pipe0(ref0["frames"][None])
-    g38, gconf = g38.cpu().numpy(), gconf.cpu().numpy()
-    if not np.array_equal(g38, ref0["p38"]):
-        raise AssertionError("golden frame: p38 differs from the JAX package's")
-    conf_vs_jax = float(np.abs(gconf - ref0["conf"]).max())
-    pts_err = float(np.abs(g38 - golden["points2d"][:, :1]).max())
-    conf_err = float(np.abs(gconf - golden["heatmap_confidence"][:, :1]).max())
-    if conf_vs_jax > 2e-5 or pts_err > 0.02 or conf_err > 0.002:
-        raise AssertionError(f"golden frame: conf vs JAX {conf_vs_jax}, pts_err {pts_err}, "
-                             f"conf_err {conf_err}")
-    print(f"golden frame 0: p38 equal to JAX, conf vs JAX {conf_vs_jax} (<= 2e-5), "
-          f"pts_err {pts_err} (<= 0.02), conf_err {conf_err} (band 0.002)")
+    with np.load(os.path.join(ROOT, "deepfly3d_torch", "data",
+                              "golden_t0_checkpoints.npz")) as z:
+        ref_ck = {k: z[k] for k in z.files}
+    runs = [(name[:-len(".npz")], pipeline(name, rig=None)) for name in SHIPPED]
+    runs.append(("cascade", cascade(rig=None)))
+    for key, pipe in runs:
+        _, g38, gconf = pipe(ref0["frames"][None])
+        g38, gconf = g38.cpu().numpy(), gconf.cpu().numpy()
+        cell_diff = float(np.abs(g38 - ref_ck[f"{key}/p38"]).max())
+        conf_vs_jax = float(np.abs(gconf - ref_ck[f"{key}/conf"]).max())
+        pts_err = float(np.abs(g38 - golden["points2d"][:, :1]).max())
+        conf_err = float(np.abs(gconf - golden["heatmap_confidence"][:, :1]).max())
+        if cell_diff > CELL_ATOL or conf_vs_jax > 2e-5:
+            raise AssertionError(f"golden frame, {key}: p38 vs JAX {cell_diff}, "
+                                 f"conf vs JAX {conf_vs_jax}")
+        print(f"golden frame 0, {key}: same cells as JAX (max diff {cell_diff}), conf vs JAX "
+              f"{conf_vs_jax} (<= 2e-5); pts_err {pts_err}, conf_err {conf_err}")
+        if key == CONV[:-len(".npz")]:
+            if not (np.array_equal(g38, ref0["p38"]) and pts_err <= 0.02 and conf_err <= 0.002
+                    and float(np.abs(gconf - ref0["conf"]).max()) <= 2e-5):
+                raise AssertionError(f"golden frame, {key}: pts_err {pts_err}, conf_err "
+                                     f"{conf_err}, or not the JAX folded path's output")
+            print(f"golden contract, {key}: pts_err {pts_err} (<= 0.02), conf_err {conf_err} "
+                  f"(band 0.002)")
 
-    sources = {
-        "fused_bottleneck": ("deepfly3d_torch/ops/csrc/bottleneck.cu",
-                             "deepfly3d_tpu/ops/pallas/bottleneck.py:433",
-                             ["deepfly3d_tpu/ops/pallas/bottleneck.py:359",
-                              "deepfly3d_tpu/ops/pallas/bottleneck.py:486"]),
-        "upsample2x_add": ("deepfly3d_torch/ops/csrc/upsample_add.cu",
-                           "deepfly3d_tpu/ops/pallas/kernels.py:49", []),
-        "decode_heatmaps": ("deepfly3d_torch/ops/csrc/decode.cu",
-                            "deepfly3d_tpu/ops/pallas/kernels.py:97", []),
-    }
     entries = []
-    for name, (src, replaces, also) in sources.items():
+    for name, (src, replaces, also) in SOURCES.items():
         agg = per_kernel[name]
         _, b_by = bound_ms(agg["flops"], agg["bytes"])
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "also_replaces": also, "launches": launches[name],
+            "also_replaces": also, "launches": sum(launches[p][name] for p in launches),
+            "launches_by_path": {p: launches[p][name] for p in launches},
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"],
             "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"], "bound_by": b_by,
             "library_ms": agg["library_ms"],
-            "per": f"one forward at N={N} ({BATCH_T} frames x {num_cameras} cameras)",
-        })
+            "per": f"one call of each path ({', '.join(launches)}) at T={BATCH_T}: the "
+                   f"kernel-phase time of every shape, times its launches",
+        }
+        entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """deepfly3d_torch — the PyTorch/CUDA port of deepfly3d_tpu for NVIDIA Hopper.
 
-The port runs the golden 2D->3D inference path (7 cameras of 480x960 uint8
-frames -> rig registration -> resize -> stacked hourglass -> argmax decode
--> 19->38 assembly -> masked DLT triangulation) on an H100.  Every
-bottleneck block, hourglass level merge and heatmap decode runs in a CUDA
-kernel written by hand for ``sm_90a`` (``ops/csrc``); the glue between them
-(stem convolution, max-pools, 1x1 heads, resize matmuls) is plain PyTorch
-in full float32.
+The port runs the 2D->3D inference path (7 cameras of 480x960 uint8
+frames -> rig registration -> /255, flip and resize -> stacked hourglass ->
+argmax decode -> 19->38 assembly -> masked DLT triangulation) on an H100,
+for every shipped checkpoint, and the student + parity-repair cascade
+(``models/cascade.py``).  Every frame preprocess, bottleneck block,
+hourglass level merge and heatmap decode runs in a CUDA kernel written by
+hand for ``sm_90a`` (``ops/csrc``); the glue between them (stem and score
+convolutions, max-pools, 1x1 heads, depth-to-space) is plain PyTorch in
+full float32.
 
 The package imports ``torch`` and never ``jax`` or ``deepfly3d_tpu``: the
 JAX package is the reference the port is tested against, and its import

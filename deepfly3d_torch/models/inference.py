@@ -32,14 +32,21 @@ from deepfly3d_torch.utils.devices import full_f32, resolve_device
 def infer_batch(net: FoldedHourglass, images_u8: torch.Tensor, flip: torch.Tensor,
                 input_shape: Tuple[int, int], gain: Optional[torch.Tensor] = None):
     """(N, H, W, 3) uint8 on the net's device -> (pts (N, K, 2), conf (N, K, 1))."""
-    x = image_ops.preprocess_frames(images_u8, flip, tuple(input_shape))
+    x = image_ops.preprocess_frames(images_u8, flip, tuple(input_shape),
+                                    net.spec.preprocess_dtype)
     if gain is not None:
         x = x * gain[:, None, None, None]
     return decode_mod.decode_argmax(net(x)[-1])
 
 
 class PoseEstimator:
-    """Loads a checkpoint once and runs batched inference on ``device``."""
+    """Loads a checkpoint once and runs batched inference on ``device``.
+
+    Takes every shipped checkpoint (conv, patchify, patch8 and patch16 stems;
+    1x1 and 3x3 score heads; subpixel heads).  The input shape is the
+    checkpoint's own ``input_shape`` when it has one, else ``input_shape``,
+    else the config's.
+    """
 
     def __init__(self, checkpoint: str, input_shape: Optional[Tuple[int, int]] = None,
                  device="cuda"):

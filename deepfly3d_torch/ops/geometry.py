@@ -1,11 +1,13 @@
-"""Masked DLT triangulation, batched over (frame, joint) in float32.
+"""Masked DLT triangulation and reprojection, batched, in float32.
 
 Counterpart of the part of ``deepfly3d_tpu/ops/geometry.py`` that the golden
-pipeline runs: ``observation_mask``, ``rowcol_to_pixel_xy``,
-``projection_matrices``, ``triangulate(method="normal")`` and
-``calib_to_arrays``.  The JAX ``_dlt_single`` is vmapped over points; here
-the batch dimension is written out.  The SVD/eigh methods, distortion and
-the float64 parity geometry are not ported yet.
+pipeline and the cascade run: ``observation_mask``, ``rowcol_to_pixel_xy``,
+``projection_matrices``, ``triangulate(method="normal")``,
+``distort_points``, ``project``, ``reprojection_residuals``,
+``reprojection_error`` and ``calib_to_arrays``.  The JAX ``_dlt_single`` is
+vmapped over points and ``project`` over cameras; here each batch dimension
+is written out.  The SVD/eigh methods, undistortion and the float64 parity
+geometry are not ported yet.
 
 Conventions: stored points are normalized (row, col); the observation plane
 is pixel (x, y) = (col * W, row * H); a point is observed iff row != 0,
@@ -118,6 +120,66 @@ def triangulate(points2d_rowcol: torch.Tensor, R: torch.Tensor, tvec: torch.Tens
     obs_flat = obs.reshape(C, T * J, 2).transpose(0, 1)     # (TJ, C, 2)
     mask_flat = mask.reshape(C, T * J).T                    # (TJ, C)
     return _dlt_normal(obs_flat, P, mask_flat).reshape(T, J, 3)
+
+
+def distort_points(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """OpenCV 5-coefficient distortion of normalized coords.
+
+    ``xy`` (C, ..., 2) and ``dist`` (C, 5): camera c's coefficients apply to
+    ``xy[c]``.
+    """
+    shape = (dist.shape[0],) + (1,) * (xy.dim() - 2)
+    k1, k2, p1, p2, k3 = (dist[:, i].reshape(shape) for i in range(5))
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+    x_t = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    y_t = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([x * radial + x_t, y * radial + y_t], dim=-1)
+
+
+def project(points3d: torch.Tensor, R: torch.Tensor, tvec: torch.Tensor,
+            intr: torch.Tensor, distort: torch.Tensor) -> torch.Tensor:
+    """World points (C, ..., 3) -> pixel (x, y) (C, ..., 2), camera c projecting ``points3d[c]``.
+
+    R (C, 3, 3), tvec (C, 3), intr (C, 3, 3), distort (C, 5).  The JAX
+    ``project`` is one camera; its vmap over cameras is the leading C here.
+    """
+    C = R.shape[0]
+    shape = (C,) + (1,) * (points3d.dim() - 2)
+    pts = points3d.reshape(C, -1, 3)
+    Xc = (pts @ R.transpose(1, 2) + tvec[:, None, :]).reshape(points3d.shape)
+    xy = distort_points(Xc[..., :2] / Xc[..., 2:3], distort)
+    fx, gamma, cx = (intr[:, 0, i].reshape(shape) for i in range(3))
+    fy, cy = intr[:, 1, 1].reshape(shape), intr[:, 1, 2].reshape(shape)
+    u = fx * xy[..., 0] + gamma * xy[..., 1] + cx
+    v = fy * xy[..., 1] + cy
+    return torch.stack([u, v], dim=-1)
+
+
+def reprojection_residuals(points3d: torch.Tensor, points2d_rowcol: torch.Tensor,
+                           R: torch.Tensor, tvec: torch.Tensor, intr: torch.Tensor,
+                           distort: torch.Tensor, image_shape: Tuple[int, int]):
+    """Per-observation pixel residuals of (T, J, 3) points against (C, T, J, 2).
+
+    Returns (res, mask): res (C, T, J, 2) = projected - observed in pixel
+    (x, y), zero where unobserved; mask (C, T, J) of real observations.
+    """
+    C = R.shape[0]
+    proj = project(points3d.expand((C,) + tuple(points3d.shape)), R, tvec, intr, distort)
+    obs = rowcol_to_pixel_xy(points2d_rowcol, image_shape)
+    mask = observation_mask(points2d_rowcol)
+    return (proj - obs) * mask[..., None].to(proj.dtype), mask
+
+
+def reprojection_error(points3d: torch.Tensor, points2d_rowcol: torch.Tensor,
+                       R: torch.Tensor, tvec: torch.Tensor, intr: torch.Tensor,
+                       distort: torch.Tensor, image_shape: Tuple[int, int]) -> torch.Tensor:
+    """Mean L2 pixel reprojection error over the real observations (0-dim)."""
+    res, mask = reprojection_residuals(points3d, points2d_rowcol, R, tvec, intr,
+                                       distort, image_shape)
+    norms = torch.linalg.vector_norm(res, dim=-1)
+    return norms.sum() / mask.sum().clamp_min(1)
 
 
 def calib_to_arrays(calib: Dict[int, dict], num_cameras: int, dtype=np.float64):

@@ -1,14 +1,24 @@
-"""Frame preprocessing as two resize matmuls and a low-resolution flip.
+"""Frame preprocessing: uint8 -> /255 -> flip -> antialiased bilinear resize.
 
 Counterpart of ``deepfly3d_tpu/ops/image.py``.  ``jax.image.resize``'s
 bilinear resize with antialiasing (a triangle filter widened by the
 downscale factor, each output's weights normalised to sum to one) is
-linear per axis, so each axis is a dense (out, in) matrix.  The JAX package
+linear per axis, so each axis is an (out, in) matrix.  The JAX package
 extracts it by resizing an identity matrix; the port rebuilds the same
 weights in numpy, in float64 as JAX computes them with x64 on, then casts
 to float32 (equal to the JAX matrix bit for bit with x64 on, within 6e-8
-with x64 off).  ``torch.nn.functional.interpolate(antialias=True)`` uses
-another filter and is not a substitute.
+with x64 off).  ``torch.nn.functional.interpolate(mode="bilinear",
+antialias=True, align_corners=False)`` uses the same triangle filter: its
+float64 weights cast to float32 equal these, and on float32 NCHW frames it
+agrees with ``preprocess_frames_plain`` within 2.4e-7 at 480x960 -> 256x512
+and -> 192x384.  ``chip_smoke.py`` times it as the library yardstick of the
+preprocess kernel; the port does not call it.
+
+``preprocess_frames`` runs ``ops/kernels.preprocess_resize``: on a card one
+CUDA kernel (``csrc/preprocess.cu``) reads the uint8 frames once and writes
+the resized float32 frames, from per-axis tap tables (``resize_taps``: each
+output's 3-5 non-zero weights).  ``preprocess_frames_plain`` is the plain
+version, two dense matmuls:
 
     frames_u8 -> einsum(RH/255, x) -> einsum(RW, .) -> flip
 
@@ -56,13 +66,41 @@ def resize_matrices(in_shape: Tuple[int, int], out_shape: Tuple[int, int],
             torch.from_numpy(np.array(rw)).to(device))
 
 
-def preprocess_frames(frames_u8: torch.Tensor, flip: torch.Tensor,
-                      out_shape: Tuple[int, int]) -> torch.Tensor:
-    """(N, H, W, 3) uint8 + (N,) bool flip -> (N, h, w, 3) float32.
+@lru_cache(maxsize=16)
+def resize_taps(n_in: int, n_out: int, scale: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
+    """One axis of the resize as tap tables: (starts (n_out,) int32, weights (n_out, K) float32).
 
-    Equal, up to the order of the matmul sums, to casting to float, /255,
-    flipping where ``flip`` and resizing with jax.image.resize "bilinear".
+    Output ``o`` is ``sum_k weights[o, k] * x[starts[o] + k]``, summed in
+    increasing ``k``.  The weights are the entries of ``_resize_matrix *
+    float32(scale)`` (the same float32 product ``resize_matrices`` forms)
+    from ``starts[o]`` on; ``K`` is the widest run of non-zero weights, and
+    a row whose run ends near the last input starts earlier, with leading
+    zeros, so every tap lies inside the axis.  Scattering the weights back
+    rebuilds the matrix exactly.
     """
+    m = _resize_matrix(n_in, n_out) * np.float32(scale)
+    nonzero = m != 0
+    any_nz = nonzero.any(axis=1)
+    first = np.where(any_nz, nonzero.argmax(axis=1), 0)
+    last = np.where(any_nz, n_in - 1 - nonzero[:, ::-1].argmax(axis=1), 0)
+    k = int((last - first).max()) + 1
+    starts = np.minimum(first, n_in - k).astype(np.int32)
+    weights = np.take_along_axis(m, starts[:, None] + np.arange(k)[None, :], axis=1)
+    weights = np.ascontiguousarray(weights, np.float32)
+    starts.flags.writeable = False
+    weights.flags.writeable = False
+    return starts, weights
+
+
+def _check_dtype(dtype: str) -> None:
+    if str(dtype) != "float32":
+        raise ValueError(f"preprocess dtype {dtype!r}: the port computes float32 only")
+
+
+def preprocess_frames_plain(frames_u8: torch.Tensor, flip: torch.Tensor,
+                            out_shape: Tuple[int, int], dtype: str = "float32") -> torch.Tensor:
+    """Plain version of ``preprocess_frames``: two dense float32 matmuls."""
+    _check_dtype(dtype)
     n, h_in, w_in, c = frames_u8.shape
     rh, rw = resize_matrices((h_in, w_in), tuple(out_shape), frames_u8.device,
                              scale=1.0 / 255.0)
@@ -70,3 +108,19 @@ def preprocess_frames(frames_u8: torch.Tensor, flip: torch.Tensor,
     x = torch.einsum("oh,nhwc->nowc", rh, x)     # H first: shrinks the tensor
     x = torch.einsum("ow,nhwc->nhoc", rw, x)
     return torch.where(flip.reshape(n, 1, 1, 1), x.flip(2), x)
+
+
+def preprocess_frames(frames_u8: torch.Tensor, flip: torch.Tensor,
+                      out_shape: Tuple[int, int], dtype: str = "float32") -> torch.Tensor:
+    """(N, H, W, 3) uint8 + (N,) bool flip -> (N, h, w, 3) float32.
+
+    Equal, up to the order of the sums, to casting to float, /255,
+    flipping where ``flip`` and resizing with jax.image.resize "bilinear".
+    ``dtype`` is the checkpoint's ``preprocess_dtype``; only "float32" is
+    computed, any other raises.  Runs ``kernels.preprocess_resize``: the
+    CUDA kernel on a card, ``preprocess_frames_plain`` on the CPU.
+    """
+    from deepfly3d_torch.ops.kernels import preprocess_resize   # kernels imports this module
+
+    _check_dtype(dtype)
+    return preprocess_resize(frames_u8, flip, tuple(out_shape))

@@ -1,11 +1,14 @@
-"""Level merge and heatmap decode: plain versions and CUDA wrappers.
+"""Level merge, heatmap decode and frame preprocess: plain versions and CUDA wrappers.
 
 Counterpart of ``deepfly3d_tpu/ops/pallas/kernels.py``:
 
 * ``upsample2x_add`` — nearest-2x upsample of the inner hourglass level
   added to the skip branch (``csrc/upsample_add.cu``);
 * ``decode_heatmaps`` — per image and joint, the heatmap maximum and its
-  first-index argmax as normalized (row, col) (``csrc/decode.cu``).
+  first-index argmax as normalized (row, col) (``csrc/decode.cu``);
+* ``preprocess_resize`` — uint8 -> float32 / 255 with a horizontal flip per
+  image (``preprocess_u8_pallas``), fused with the antialiased bilinear
+  resize that follows it on every path (``csrc/preprocess.cu``).
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs the
 plain PyTorch version on a CPU tensor.
@@ -14,11 +17,13 @@ plain PyTorch version on a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Tuple
 
 import torch
 
 from deepfly3d_torch.ops import _build
+from deepfly3d_torch.ops import image as image_ops
 
 
 def _check_cuda(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -76,13 +81,18 @@ def decode_heatmaps_plain(heatmaps: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     """(N, H, W, K) -> ((N, K, 2) normalized (row, col), (N, K, 1) max).
 
     ``torch.argmax`` returns the first maximal index, as ``jnp.argmax``.
+    The divisions are IEEE float32 divisions, as in the kernel: on a card,
+    PyTorch divides by a Python number as a product with its reciprocal,
+    one ulp off on grids that are no power of two (48x96), so the divisors
+    are tensors on the heatmaps' device (filled there, with no host copy).
     """
     n, h, w, k = heatmaps.shape
     flat = heatmaps.float().permute(0, 3, 1, 2).reshape(n, k, h * w)
     idx = torch.argmax(flat, dim=-1)
     conf = torch.amax(flat, dim=-1, keepdim=True)
-    row = torch.div(idx, w, rounding_mode="floor").float() / h
-    col = (idx % w).float() / w
+    h_t, w_t = (torch.full((), float(v), device=heatmaps.device) for v in (h, w))
+    row = torch.div(idx, w, rounding_mode="floor").float() / h_t
+    col = (idx % w).float() / w_t
     return torch.stack([row, col], dim=-1), conf
 
 
@@ -117,3 +127,72 @@ def decode_heatmaps(heatmaps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
 
 
 decode_heatmaps.launches = 0
+
+
+# ---------------------------------------------------------------- preprocess
+
+# output rows per thread block; the kernel stages their float32 H-pass band
+# (PREPROCESS_ROWS x W x C words) in shared memory
+PREPROCESS_ROWS = 4
+_MAX_SMEM = 227 * 1024
+
+
+def preprocess_u8_plain(frames_u8: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's function: (N, H, W, C) uint8 -> float32 * (1/255), flipped where ``flip``."""
+    x = frames_u8.float() * torch.tensor(1.0 / 255.0, dtype=torch.float32)
+    n = x.shape[0]
+    return torch.where(flip.reshape(n, 1, 1, 1).bool(), x.flip(2), x)
+
+
+@lru_cache(maxsize=16)
+def _device_taps(n_in: int, n_out: int, scale: float, device: torch.device):
+    starts, weights = image_ops.resize_taps(n_in, n_out, scale)
+    return (torch.from_numpy(starts.copy()).to(device),
+            torch.from_numpy(weights.copy()).to(device))
+
+
+def preprocess_resize(frames_u8: torch.Tensor, flip: torch.Tensor,
+                      out_shape: Tuple[int, int]) -> torch.Tensor:
+    """(N, H, W, C) uint8 + (N,) bool flip -> (N, h, w, C) float32 in [0, 1].
+
+    ``/255``, the flip and the antialiased bilinear resize to ``out_shape``
+    in one pass.  At ``out_shape == (H, W)`` the taps are the identity and
+    this is exactly ``preprocess_u8_plain``.  Launches ``csrc/preprocess.cu``
+    on CUDA tensors (counted in ``preprocess_resize.launches``) or raises;
+    ``image.preprocess_frames_plain`` on CPU tensors.
+    """
+    if frames_u8.dim() != 4 or frames_u8.dtype != torch.uint8:
+        raise ValueError("frames_u8 must be an (N, H, W, C) uint8 tensor")
+    n, h_in, w_in, c = frames_u8.shape
+    h_out, w_out = (int(v) for v in out_shape)
+    if tuple(flip.shape) != (n,) or flip.dtype != torch.bool:
+        raise ValueError(f"flip must be an ({n},) bool tensor")
+    if h_in < 1 or w_in < 1 or h_out < 1 or w_out < 1:
+        raise ValueError(f"empty frames or output shape: {tuple(frames_u8.shape)} -> {out_shape}")
+    if frames_u8.device.type == "cpu":
+        return image_ops.preprocess_frames_plain(frames_u8, flip, (h_out, w_out))
+    if frames_u8.device.type != "cuda":
+        raise ValueError(f"preprocess_resize runs on cuda or cpu, not {frames_u8.device}")
+    dev = frames_u8.device
+    if not frames_u8.is_contiguous() or flip.device != dev or not flip.is_contiguous():
+        raise ValueError(f"frames_u8 and flip must be contiguous tensors on {dev}")
+    if PREPROCESS_ROWS * w_in * c * 4 > _MAX_SMEM:
+        raise ValueError(f"frame rows of {w_in}x{c} exceed one thread block's shared memory")
+    sh, wh = _device_taps(h_in, h_out, 1.0 / 255.0, dev)
+    sw, ww = _device_taps(w_in, w_out, 1.0, dev)
+    out = torch.empty((n, h_out, w_out, c), device=dev, dtype=torch.float32)
+    if n == 0:
+        return out
+    fn = _build.library("preprocess").df3d_preprocess_resize
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(frames_u8.data_ptr(), flip.data_ptr(), sh.data_ptr(), wh.data_ptr(),
+            sw.data_ptr(), ww.data_ptr(), out.data_ptr(),
+            n, h_in, w_in, c, h_out, w_out, wh.shape[1], ww.shape[1], PREPROCESS_ROWS,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "preprocess kernel")
+    preprocess_resize.launches += 1
+    return out
+
+
+preprocess_resize.launches = 0

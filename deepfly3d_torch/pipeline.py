@@ -1,40 +1,63 @@
 """The golden 2D->3D inference path as one callable on the device.
 
-Counterpart of ``bench.py::build_pipeline`` (folded forward):
+Counterpart of ``bench.py::build_pipeline``:
 
     (T, C, 480, 960, 3) uint8
       -> rig registration (integer shift + gain, identity on clean input)
-      -> /255 + antialiased bilinear resize as two matmuls, low-res flip
+      -> /255, flip of the right-side cameras and antialiased bilinear
+         resize in one pass (preprocess kernel)
       -> folded stacked hourglass (bottleneck and upsample-add kernels)
       -> argmax decode (decode kernel)
       -> 19->38 assembly with the flip artifact
       -> masked DLT triangulation (closed-form "normal" method, float32)
     -> (points3d (T, 38, 3), points2d38 (C, T, 38, 2), conf (C, T, 19, 1))
 
-Everything runs in float32 with TF32 off.
+Every shipped checkpoint runs here, at its own input shape.  Everything
+runs in float32 with TF32 off.  ``models/cascade.py`` builds the student +
+parity-repair configuration on the same stages.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from deepfly3d_torch.config import fly_config
-from deepfly3d_torch.models import cascade
+from deepfly3d_torch.models.decode import decode_argmax
 from deepfly3d_torch.models.fused_inference import FoldedHourglass, fold_hourglass
 from deepfly3d_torch.models.hourglass import HourglassSpec
 from deepfly3d_torch.ops import canonicalize, geometry
 from deepfly3d_torch.ops import image as image_ops
+from deepfly3d_torch.ops.bottleneck import bottleneck_plain
+from deepfly3d_torch.ops.kernels import decode_heatmaps_plain, upsample2x_add_plain
 from deepfly3d_torch.utils.devices import full_f32, resolve_device
+
+
+def assemble38(pts19: torch.Tensor, order: Sequence[int], left_cams: torch.Tensor,
+               right_cams: torch.Tensor, K: int) -> torch.Tensor:
+    """(C, T, 19, 2) -> (C, T, 38, 2), the reference's assembly incl. the
+    flip artifact (unobserved right-side entries become col = 1.0).
+
+    Counterpart of ``deepfly3d_tpu/models/cascade.py::_assemble38``.
+    """
+    C, T = pts19.shape[:2]
+    p38 = torch.zeros((C, T, 2 * K, 2), dtype=torch.float32, device=pts19.device)
+    p38[left_cams, :, :K] = pts19[left_cams]
+    p38[right_cams, :, K:] = pts19[right_cams]
+    p38[int(order[2]), :, 15:] = 0.0
+    p38[int(order[4]), :, K + 15:] = 0.0
+    p38[right_cams, ..., 1] = 1.0 - p38[right_cams, ..., 1]
+    return p38
 
 
 class Pipeline:
     """Callable golden pipeline; see ``build_pipeline``.
 
-    ``net`` (the folded hourglass) and ``decode`` are plain attributes: the
-    stages of the path, each on ``device``.
+    ``net`` (the folded hourglass), ``preprocess`` and ``decode`` are plain
+    attributes: the stages of the path, each on ``device``.
     """
 
     def __init__(self, net: FoldedHourglass, rig: Optional[canonicalize.TemplateArrays],
@@ -42,7 +65,8 @@ class Pipeline:
                  camera_ordering: Sequence[int], input_shape: Tuple[int, int],
                  device: torch.device, num_cameras: int, image_hw: Tuple[int, int]):
         self.net = net
-        self.decode = cascade._decode
+        self.preprocess = image_ops.preprocess_frames
+        self.decode = decode_argmax
         self.rig = rig
         self.R, self.tvec, self.intr = calib
         self.order = np.asarray(camera_ordering)
@@ -56,8 +80,9 @@ class Pipeline:
         self.left = torch.from_numpy(self.order[:3].copy()).to(device)
         self.right = torch.from_numpy(self.order[4:].copy()).to(device)
 
-    @torch.inference_mode()
-    def __call__(self, frames_u8: Union[np.ndarray, torch.Tensor]):
+    def _register(self, frames_u8):
+        """-> (frames (N, H, W, 3) registered, flip (N,), gain correction (N,)
+        or None, shift (dy, dx) or None, T)."""
         frames = torch.as_tensor(frames_u8).to(self.device)
         if frames.dtype != torch.uint8 or frames.dim() != 5:
             raise ValueError("frames must be (T, C, H, W, 3) uint8")
@@ -65,46 +90,98 @@ class Pipeline:
         if C != self.num_cameras or (H, W) != self.image_hw:
             raise ValueError(f"frames {tuple(frames.shape)} do not match the rig "
                              f"({self.num_cameras} cameras of {self.image_hw})")
+        corr = shift = None
         if self.rig is not None:
             dy, dx, gain = canonicalize.estimate_tc(frames, self.rig)
             frames = canonicalize.apply_shift_tc(frames, dy, dx)
-        x = frames.reshape(T * C, H, W, 3)
-        x = image_ops.preprocess_frames(x, self.flip.repeat(T), self.input_shape)
-        if self.rig is not None:
             corr = canonicalize.gain_correction(gain).repeat(T)
+            shift = (dy, dx)
+        return frames.reshape(T * C, H, W, 3), self.flip.repeat(T), corr, shift, T
+
+    def _points(self, net: FoldedHourglass, x_u8, flip, corr, input_shape):
+        """preprocess -> forward -> decode: (N, K, 2) points, (N, K, 1) conf."""
+        x = self.preprocess(x_u8, flip, input_shape, net.spec.preprocess_dtype)
+        if corr is not None:
             x = x * corr[:, None, None, None]
-        heatmaps = self.net(x)[-1]
-        pts, conf = self.decode(heatmaps)
+        return self.decode(net(x)[-1])
+
+    def _assemble(self, pts: torch.Tensor, T: int) -> torch.Tensor:
         K = pts.shape[1]
-        pts19 = pts.reshape(T, C, K, 2).permute(1, 0, 2, 3)
-        conf = conf.reshape(T, C, K, 1).permute(1, 0, 2, 3).contiguous()
-        p38 = cascade._assemble38(pts19, self.order, self.left, self.right, K)
+        pts19 = pts.reshape(T, self.num_cameras, K, 2).permute(1, 0, 2, 3)
+        return assemble38(pts19, self.order, self.left, self.right, K)
+
+    def _finish(self, p38, shift):
+        """Triangulate the canonical points; 2D points go out in the provided frame."""
+        H, W = self.image_hw
         pts3d = geometry.triangulate(p38, self.R, self.tvec, self.intr, (W, H),
                                      method="normal")
-        if self.rig is not None:
-            p38 = canonicalize.adjust_points38(p38, dy, dx, (H, W))
-        return pts3d, p38, conf
+        if shift is not None:
+            p38 = canonicalize.adjust_points38(p38, shift[0], shift[1], (H, W))
+        return pts3d, p38
+
+    def _conf(self, conf: torch.Tensor, T: int) -> torch.Tensor:
+        K = conf.shape[1]
+        return conf.reshape(T, self.num_cameras, K, 1).permute(1, 0, 2, 3).contiguous()
+
+    def nets(self) -> dict:
+        """The folded hourglasses this pipeline runs, by attribute name."""
+        return {"net": self.net}
+
+    @torch.inference_mode()
+    def __call__(self, frames_u8: Union[np.ndarray, torch.Tensor]):
+        x_u8, flip, corr, shift, T = self._register(frames_u8)
+        pts, conf = self._points(self.net, x_u8, flip, corr, self.input_shape)
+        pts3d, p38 = self._finish(self._assemble(pts, T), shift)
+        return pts3d, p38, self._conf(conf, T)
 
 
-def build_pipeline(spec: HourglassSpec, weights, calib, camera_ordering,
-                   input_shape: Tuple[int, int], rig="auto", device="cuda") -> Pipeline:
-    """Build the golden pipeline on ``device`` (default ``"cuda"``).
+def plain_twin(pipe: Pipeline) -> Pipeline:
+    """A copy of ``pipe`` (or of a cascade) whose stages run each kernel's
+    plain PyTorch version: bottleneck, upsample-add, preprocess and decode.
 
-    ``weights``: the checkpoint's numpy variables (``load_weights``);
-    ``calib``: (R, tvec, intr, distort) arrays (``geometry.calib_to_arrays``),
-    distortion unused (the fly rig has none); ``rig``: ``"auto"`` for the
-    shipped template, a template path, or None to skip registration.
-    Raises when ``device`` is ``"cuda"`` and there is no card.
+    It shares the weights and the device, and launches no kernel: on a card
+    it is the yardstick and the check for the kernels.
     """
+    twin = copy.copy(pipe)
+    for attr, net in pipe.nets().items():
+        net = copy.copy(net)
+        net.block_fn, net.merge_fn = bottleneck_plain, upsample2x_add_plain
+        setattr(twin, attr, net)
+    twin.preprocess = image_ops.preprocess_frames_plain
+    twin.decode = decode_heatmaps_plain
+    return twin
+
+
+def device_setup(calib, rig, device):
+    """-> (device, rig arrays or None, (R, tvec, intr) tensors, config)."""
     dev = resolve_device(device)
     full_f32()
     cfg = fly_config()
-    net = FoldedHourglass(fold_hourglass(weights, spec), spec).to(dev).eval()
     if rig == "auto":
         rig = cfg.rig_template_path
     rig_arrays = (canonicalize.prepare(canonicalize.load_template(rig), dev)
                   if rig else None)
     R, tvec, intr = (torch.as_tensor(np.asarray(a, np.float32)).to(dev)
                      for a in calib[:3])
-    return Pipeline(net, rig_arrays, (R, tvec, intr), camera_ordering, input_shape,
+    return dev, rig_arrays, (R, tvec, intr), cfg
+
+
+def build_pipeline(spec: HourglassSpec, weights, calib, camera_ordering,
+                   input_shape: Optional[Tuple[int, int]] = None, rig="auto",
+                   device="cuda") -> Pipeline:
+    """Build the golden pipeline on ``device`` (default ``"cuda"``).
+
+    ``spec``/``weights``: any shipped checkpoint (``load_weights``);
+    ``calib``: (R, tvec, intr, distort) arrays (``geometry.calib_to_arrays``),
+    distortion unused (the fly rig has none); ``input_shape``: the network
+    input, used only when the spec has none (the checkpoint's training
+    resolution is the source of truth); ``rig``: ``"auto"`` for the shipped
+    template, a template path, or None to skip registration.  Raises when
+    ``device`` is ``"cuda"`` and there is no card, and for a spec the
+    folded forward does not cover.
+    """
+    dev, rig_arrays, calib_t, cfg = device_setup(calib, rig, device)
+    net = FoldedHourglass(fold_hourglass(weights, spec), spec).to(dev).eval()
+    shape = tuple(spec.input_shape or input_shape or cfg.network.input_shape)
+    return Pipeline(net, rig_arrays, calib_t, camera_ordering, shape,
                     dev, cfg.num_cameras, cfg.image_hw)

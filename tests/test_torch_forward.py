@@ -7,7 +7,15 @@ are compared with the JAX folded forward ``fused_apply`` (atol 1e-5) and
 with the flax graph ``HourglassNet.apply(train=False)`` (atol 1e-4, the
 precedent of tests/test_convert_torch_forward.py).  Plus the decoded
 points of the last stack.
+
+Every stem (conv, patchify, patch8, patch16) with both heads (1x1 score,
+and a 3x3 score conv into a 2x subpixel head, with ``hp_scope="score"``)
+is held to ``HourglassNet.apply`` the same way; the JAX ``fused_apply``
+covers only the conv stem with a 1x1 head.  Specs the port does not
+compute (``proj_from_raw``, an even score kernel) raise.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -71,3 +79,54 @@ def test_decoded_last_stack(outputs):
 def test_block_count_of_shipped_spec():
     spec = port_hg.HourglassSpec(num_stacks=2, features=96, depth=4)
     assert len(port_fused.block_names(spec)) == 31
+
+
+def _moved_variables(spec, input_shape, seed):
+    """JAX-initialised variables with weights and batch statistics moved off init."""
+    variables = jax.tree_util.tree_map(
+        np.asarray, jax_hg.init_params(spec, input_shape, jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed)
+    stats = jax.tree_util.tree_map(
+        lambda a: np.abs(a + 0.2 * rng.normal(size=a.shape)).astype(np.float32),
+        variables["batch_stats"])
+    params = jax.tree_util.tree_map(
+        lambda a: (a + 0.05 * rng.normal(size=a.shape)).astype(np.float32),
+        variables["params"])
+    return {"params": params, "batch_stats": stats}, rng
+
+
+HEADS = {"1x1": dict(), "3x3_subpixel": dict(score_ksize=3, head_upsample=2, hp_scope="score")}
+
+
+@pytest.mark.parametrize("head", sorted(HEADS))
+@pytest.mark.parametrize("stem", ["conv", "patchify", "patch8", "patch16"])
+def test_stem_and_head_match_flax(stem, head):
+    kw = dict(SPEC_KW, stem=stem, **HEADS[head])
+    spec = jax_hg.HourglassSpec(**kw)
+    variables, rng = _moved_variables(spec, INPUT, seed=len(stem) + len(head))
+    x = rng.uniform(size=(2,) + INPUT + (3,)).astype(np.float32)
+    want = np.asarray(jax_hg.HourglassNet(spec).apply(variables, jnp.asarray(x), train=False))
+    pspec = port_hg.HourglassSpec(**kw)
+    net = port_fused.FoldedHourglass(port_fused.fold_hourglass(variables, pspec), pspec)
+    with torch.no_grad():
+        got = net(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape and got.shape[:2] == (2, 2)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    pts_j, conf_j = jax_decode.decode_argmax(jnp.asarray(want[-1]))
+    pts_p, conf_p = port_decode.decode_argmax(torch.from_numpy(got[-1]))
+    np.testing.assert_array_equal(pts_p.numpy(), np.asarray(pts_j))
+    np.testing.assert_allclose(conf_p.numpy(), np.asarray(conf_j), atol=1e-4)
+
+
+@pytest.mark.parametrize("field", [dict(proj_from_raw=True), dict(score_ksize=2),
+                                   dict(compute_dtype="bfloat16"), dict(stem="patch4")])
+def test_uncovered_spec_raises(field):
+    spec = dataclasses.replace(port_hg.HourglassSpec(**SPEC_KW), **field)
+    with pytest.raises(ValueError):
+        port_fused.check_foldable(spec)
+
+
+def test_block_count_of_patch_stem_spec():
+    spec = port_hg.HourglassSpec(num_stacks=1, features=96, depth=4, stem="patch16")
+    names = port_fused.block_names(spec)
+    assert len(names) == 16 and "stem_res1" not in names

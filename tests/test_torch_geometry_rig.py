@@ -5,7 +5,9 @@ shipped template's own profiles; the integer shifts must agree exactly, the
 gains and the adjusted points to float32 rounding.  Triangulation:
 ``method="normal"`` in float32 on the golden 2D points and data/calib.pkl,
 rtol 1e-4 (the batched sums run in another order), with zeros where fewer
-than two cameras see a joint.
+than two cameras see a joint.  Projection with non-zero distortion and the
+reprojection residuals and error: rtol 1e-5 against the JAX functions
+(vmapped over cameras there, a leading camera dimension in the port).
 """
 
 import os
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from deepfly3d_tpu.ops import canonicalize as jax_rig
@@ -124,3 +127,50 @@ def test_triangulate_rejects_other_methods():
         port_geo.triangulate(torch.zeros(7, 1, 38, 2), torch.zeros(7, 3, 3),
                              torch.zeros(7, 3), torch.zeros(7, 3, 3), (960, 480),
                              method="svd")
+
+
+@pytest.fixture(scope="module")
+def reprojection_case(golden_calib):
+    """Golden 2D points, their float32 DLT points and seeded lens distortion."""
+    golden, calib = golden_calib
+    R, tvec, intr, _ = jax_geo.calib_to_arrays(calib, 7, dtype=np.float32)
+    p38 = np.asarray(golden["points2d"], np.float32)
+    pts3d = np.asarray(jax_geo.triangulate(
+        jnp.asarray(p38), jnp.asarray(R), jnp.asarray(tvec), jnp.asarray(intr),
+        (960, 480), method="normal"))
+    rng = np.random.default_rng(7)
+    # scaled to the near-telecentric rig (normalized coords ~0.02): several pixels
+    dist = (rng.normal(size=(7, 5)) * [50.0, 1e4, 0.05, 0.05, 1e6]).astype(np.float32)
+    return p38, pts3d, R, tvec, intr, dist
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def test_project_with_distortion_matches_jax(reprojection_case):
+    _, pts3d, R, tvec, intr, dist = reprojection_case
+    want = np.asarray(jax.vmap(lambda r, t, k, d: jax_geo.project(jnp.asarray(pts3d), r, t, k, d))(
+        jnp.asarray(R), jnp.asarray(tvec), jnp.asarray(intr), jnp.asarray(dist)))
+    got = port_geo.project(*_t(np.broadcast_to(pts3d, (7,) + pts3d.shape), R, tvec, intr,
+                              dist)).numpy()
+    assert got.shape == want.shape == (7,) + pts3d.shape[:2] + (2,)
+    assert np.abs(want - np.asarray(jax.vmap(
+        lambda r, t, k: jax_geo.project(jnp.asarray(pts3d), r, t, k, jnp.zeros(5)))(
+        jnp.asarray(R), jnp.asarray(tvec), jnp.asarray(intr)))).max() > 1.0   # distortion acts
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def test_reprojection_residuals_and_error_match_jax(reprojection_case):
+    p38, pts3d, R, tvec, intr, dist = reprojection_case
+    args = (jnp.asarray(pts3d), jnp.asarray(p38), jnp.asarray(R), jnp.asarray(tvec),
+            jnp.asarray(intr), jnp.asarray(dist), (960, 480))
+    jres, jmask = jax_geo.reprojection_residuals(*args)
+    jerr = float(jax_geo.reprojection_error(*args))
+    targs = (*_t(pts3d, p38, R, tvec, intr, dist), (960, 480))
+    pres, pmask = port_geo.reprojection_residuals(*targs)
+    perr = float(port_geo.reprojection_error(*targs))
+    np.testing.assert_array_equal(pmask.numpy(), np.asarray(jmask))
+    jres = np.asarray(jres)
+    np.testing.assert_allclose(pres.numpy(), jres, rtol=1e-5, atol=1e-5 * np.abs(jres).max())
+    np.testing.assert_allclose(perr, jerr, rtol=1e-5)

@@ -5,7 +5,12 @@ decision is made inside each test, so every pytest worker collects the
 same tests).  Run on the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 Tolerances: the bottleneck sums ~500 float32 products in another order than
 cuDNN/cuBLAS, so its error is held to 5e-5 of the output's largest
-magnitude; the upsample-add and the decode are exact.
+magnitude; the upsample-add and the decode are exact.  The preprocess sums
+<= 25 products in another order than cuBLAS: 2e-6 on [0, 1] values when it
+resizes, exact in identity mode (out shape == in shape, the TPU kernel's
+function).  The p16 and cascade pipelines must match their plain twins
+(``pipeline.plain_twin``): p38 equal, conf within 1e-4, points3d within
+1e-5 relative.
 """
 
 import os
@@ -19,6 +24,7 @@ from deepfly3d_torch.models.fused_inference import fold_hourglass
 from deepfly3d_torch.models.hourglass import load_weights
 from deepfly3d_torch.ops import bottleneck as bn
 from deepfly3d_torch.ops import geometry
+from deepfly3d_torch.ops import image as image_ops
 from deepfly3d_torch.ops import kernels
 from deepfly3d_torch.utils.devices import full_f32
 
@@ -73,20 +79,21 @@ def test_upsample_kernel_matches_plain(shape):
     assert torch.equal(got, kernels.upsample2x_add_plain(inner, skip))
 
 
-def test_decode_kernel_matches_plain_with_ties():
+@pytest.mark.parametrize("hw", [(64, 128), (48, 96)])
+def test_decode_kernel_matches_plain_with_ties(hw):
     dev = _card()
     g = torch.Generator().manual_seed(2)
-    hm = torch.randn((9, 64, 128, 19), generator=g)
+    hm = torch.randn((9,) + hw + (19,), generator=g)
     hm[0, :, :, 0] = 3.0                          # all tied: index 0
-    hm[1, 10, 5, 3] = hm[1, 40, 100, 3] = 9.0     # first of two peaks
-    hm[2, 63, 127, 4] = hm[2, 0, 1, 4] = 9.0
+    hm[1, 10, 5, 3] = hm[1, 40, hw[1] - 28, 3] = 9.0     # first of two peaks
+    hm[2, hw[0] - 1, hw[1] - 1, 4] = hm[2, 0, 1, 4] = 9.0
     hm = hm.to(dev)
     pts, conf = kernels.decode_heatmaps(hm)
     torch.cuda.synchronize()
     want_pts, want_conf = kernels.decode_heatmaps_plain(hm)
     assert torch.equal(pts, want_pts) and torch.equal(conf, want_conf)
     assert pts[0, 0].tolist() == [0.0, 0.0]
-    assert pts[1, 3].tolist() == [10 / 64, 5 / 128]
+    assert pts[1, 3].tolist() == [np.float32(10 / hw[0]), np.float32(5 / hw[1])]
 
 
 def test_wrappers_reject_cpu_mixed_inputs(blocks):
@@ -127,3 +134,64 @@ def test_golden_frame_on_card():
     _, p38, conf = pipe(ref["frames"][None])
     np.testing.assert_array_equal(p38.cpu().numpy(), ref["p38"])
     np.testing.assert_allclose(conf.cpu().numpy(), ref["conf"], atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n,in_hw,out_hw", [
+    (5, (480, 960), (256, 512)),
+    (5, (480, 960), (192, 384)),
+    (3, (37, 50), (13, 29)),        # rows of 150 bytes: the byte-load path
+    (4, (480, 960), (480, 960)),    # identity: the TPU kernel exactly
+])
+def test_preprocess_kernel_matches_plain(n, in_hw, out_hw):
+    dev = _card()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(0, 256, (n,) + in_hw + (3,), generator=g, dtype=torch.uint8).to(dev)
+    flip = (torch.arange(n) % 2 == 1).to(dev)
+    before = kernels.preprocess_resize.launches
+    got = kernels.preprocess_resize(x, flip, out_hw)
+    torch.cuda.synchronize()
+    assert kernels.preprocess_resize.launches == before + 1
+    if out_hw == in_hw:
+        assert torch.equal(got, kernels.preprocess_u8_plain(x, flip))
+    else:
+        want = image_ops.preprocess_frames_plain(x, flip, out_hw)
+        assert (got - want).abs().max().item() <= 2e-6
+
+
+def _golden_frames(T):
+    with np.load(os.path.join(REPO, "deepfly3d_torch", "data", "golden_t0.npz")) as z:
+        ref = {k: z[k] for k in z.files}
+    rng = np.random.default_rng(1)
+    noise = rng.integers(-3, 4, size=(T,) + ref["frames"].shape, dtype=np.int16)
+    frames = np.clip(ref["frames"][None].astype(np.int16) + noise, 0, 255).astype(np.uint8)
+    with open(os.path.join(REPO, "data", "calib.pkl"), "rb") as f:
+        calib = geometry.calib_to_arrays(pickle.load(f), 7, dtype=np.float32)
+    return frames, ref["camera_ordering"], calib
+
+
+@pytest.mark.parametrize("path", ["p16", "cascade"])
+def test_pipeline_matches_plain_twin(path):
+    dev = _card()
+    from deepfly3d_torch.models.cascade import build_cascade_pipeline
+    from deepfly3d_torch.pipeline import build_pipeline, plain_twin
+
+    frames, order, calib = _golden_frames(T=2)
+    if path == "p16":
+        variables, spec = load_weights(os.path.join(REPO, "weights", "hourglass_fly_p16_tpu.npz"))
+        pipe = build_pipeline(spec, variables, calib, order, device=dev)
+    else:
+        pipe = build_cascade_pipeline(
+            *load_weights(os.path.join(REPO, "weights", "hourglass_fly_fast_nearparity.npz")),
+            *load_weights(CHECKPOINT), calib, order, device=dev)
+    before = kernels.preprocess_resize.launches
+    p3d, p38, conf = pipe(frames)
+    torch.cuda.synchronize()
+    assert kernels.preprocess_resize.launches == before + (2 if path == "cascade" else 1)
+    twin = plain_twin(pipe)
+    q3d, q38, qconf = twin(frames)
+    assert kernels.preprocess_resize.launches == before + (2 if path == "cascade" else 1)
+    assert torch.equal(p38, q38)
+    assert (conf - qconf).abs().max().item() <= 1e-4
+    assert ((p3d - q3d).abs().max() / q3d.abs().max()).item() <= 1e-5
+    if path == "cascade":
+        assert torch.equal(pipe.last_repaired, twin.last_repaired)

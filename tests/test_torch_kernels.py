@@ -3,6 +3,9 @@
 The Pallas kernels run in interpret mode on the CPU.  The upsample-add is
 exact (atol 0).  The decode is exact too, checked on maps with planted
 ties: between equal maxima the first flat index must win, as jnp.argmax.
+The preprocess is exact as well: ``preprocess_u8_plain`` is the Pallas
+kernel's function, and the port's resize wrapper at out shape == in shape
+(identity taps) computes the same values.
 """
 
 import numpy as np
@@ -14,6 +17,7 @@ import jax.numpy as jnp
 from deepfly3d_tpu.models import decode as jax_decode
 from deepfly3d_tpu.ops.pallas import kernels as jax_kernels
 from deepfly3d_torch.models import decode as port_decode
+from deepfly3d_torch.ops import image as port_image
 from deepfly3d_torch.ops import kernels as port_kernels
 
 
@@ -73,3 +77,32 @@ def test_postprocess_points2d_matches_jax():
     np.testing.assert_array_equal(
         port_decode.postprocess_points2d(pts, order),
         jax_decode.postprocess_points2d(pts, order))
+
+
+@pytest.mark.parametrize("shape", [(4, 12, 20, 3), (3, 7, 9, 3), (2, 5, 16, 1)])
+def test_preprocess_u8_plain_equals_pallas(shape):
+    rng = np.random.default_rng(sum(shape))
+    frames = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    frames[0, 0, 0] = 255
+    frames[-1, -1, -1] = 0
+    flip = (np.arange(shape[0]) % 2).astype(bool)
+    want = np.asarray(jax_kernels.preprocess_u8_pallas(jnp.asarray(frames), jnp.asarray(flip)))
+    got = port_kernels.preprocess_u8_plain(torch.from_numpy(frames), torch.from_numpy(flip))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    n, h, w, _ = shape
+    for resized in (port_kernels.preprocess_resize(torch.from_numpy(frames),
+                                                   torch.from_numpy(flip), (h, w)),
+                    port_image.preprocess_frames(torch.from_numpy(frames),
+                                                 torch.from_numpy(flip), (h, w))):
+        np.testing.assert_array_equal(resized.numpy(), want)
+
+
+def test_preprocess_resize_rejects_bad_inputs():
+    frames = torch.zeros((2, 8, 8, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        port_kernels.preprocess_resize(frames.float(), torch.zeros(2, dtype=torch.bool), (4, 4))
+    with pytest.raises(ValueError):
+        port_kernels.preprocess_resize(frames, torch.zeros(3, dtype=torch.bool), (4, 4))
+    with pytest.raises(ValueError):
+        port_kernels.preprocess_resize(frames, torch.zeros(2, dtype=torch.int32), (4, 4))
