@@ -21,8 +21,17 @@ result line):
 4. kernel phase: every kernel against its plain PyTorch version on the card
    at every recorded shape, with the tolerance stated (and the preprocess
    kernel in identity mode at 480x960, which is the TPU kernel exactly);
-   kernel, plain and one-library-call times by CUDA events; the least time
-   the card could take (``bound_ms``) from the shapes;
+   kernel and one-library-call times from a replayed CUDA graph of 10 calls
+   (``ms``, ``library_ms``: device time alone, no host work between the
+   launches) and by CUDA events around eager calls (``eager_ms``,
+   ``library_eager_ms``, and the plain version's ``plain_ms``: the Python
+   wrapper's host work included, which decides at small shapes); the least
+   time the card could take (``bound_ms``) from the shapes.  The bottleneck
+   kernel is also held against its arithmetic model
+   (``bottleneck_tf32_model``), and its ``bound_ms`` is that of the
+   arithmetic it runs (three TF32 MMAs per product) with the f32 CUDA-core
+   bound beside it (``bound_f32_ms``); the decode also runs a shape whose
+   K x cells is no multiple of 4;
 5. slice phase: each path once with every launch count set to 0 just
    before and read just after (they must equal the recorded counts); its
    output against its plain twin on the card; frames/s in turns
@@ -47,8 +56,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# published peaks of one H100 SXM (dense): f32 on the CUDA cores, HBM3
+# published peaks of one H100 SXM (dense): f32 on the CUDA cores, TF32 on the
+# tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 BATCH_T = 8                      # frames of 7 cameras in the slice phase
@@ -65,8 +76,13 @@ EXPECTED = {
     "cascade": {"fused_bottleneck": 16 + 31, "upsample2x_add": 4 + 8, "decode_heatmaps": 2,
                 "preprocess_resize": 2},
 }
-BLOCK_TOL = 5e-5        # of the output's largest magnitude: f32 sums reordered
+# of the output's largest magnitude: the bottleneck kernel's 3xTF32 products
+# against f32 sums in another order, and against its own arithmetic model
+BLOCK_TOL = 5e-5
 PREPROCESS_TOL = 2e-6   # outputs in [0, 1], <= 25 products summed in another order
+# per-shape times that are summed per path and per kernel
+TIMES = ("ms", "plain_ms", "library_ms", "eager_ms", "library_eager_ms", "bound_ms",
+         "bound_f32_ms")
 CELL_ATOL = 1e-6        # same argmax cell: cells are >= 1/128 apart
 SOURCES = {
     "fused_bottleneck": ("deepfly3d_torch/ops/csrc/bottleneck.cu",
@@ -96,8 +112,44 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def graph_ms(torch, fn, iters=10, replays=5):
+    """Device time of one ``fn()``: ``iters`` calls captured into a CUDA graph
+    and replayed, so that no host work sits between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def times(torch, kernel, plain, library):
+    """The time keys of one kernel row: device times of the kernel's wrapper and
+    of the one library call, their eager times beside, and the plain version's
+    eager time (it is no yardstick of speed, and the preprocess's copies its
+    resize matrices from the host in every call, which no graph captures)."""
+    return {"ms": graph_ms(torch, kernel), "library_ms": graph_ms(torch, library),
+            "eager_ms": cuda_ms(torch, kernel), "library_eager_ms": cuda_ms(torch, library),
+            "plain_ms": cuda_ms(torch, plain)}
+
+
+def bound_ms(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -222,14 +274,16 @@ def main(argv):
         for path, count in counts.items():
             pp = per_path.setdefault(path, {}).setdefault(kernel, collections.Counter())
             pp["launches"] += count
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                pp[key] += count * row[key]
-        agg = per_kernel.setdefault(kernel, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                             "library_ms": 0.0, "bound_ms": 0.0,
-                                             "flops": 0.0, "bytes": 0.0})
-        agg["max_abs_err"] = max(agg["max_abs_err"], row["max_abs_err"])
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes"):
-            agg[key] += total * row[key]
+            for key in TIMES:
+                if key in row:
+                    pp[key] += count * row[key]
+        agg = per_kernel.setdefault(kernel, collections.Counter())
+        for key in ("max_abs_err", "model_err"):
+            if key in row:
+                agg[key] = max(agg[key], row[key])
+        for key in TIMES + ("flops", "bytes"):
+            if key in row:
+                agg[key] += total * row[key]
 
     def oihw(w2d):
         return w2d.t().contiguous()[:, :, None, None]
@@ -242,8 +296,10 @@ def main(argv):
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
         scale = max(1.0, ref.abs().max().item())
-        if not err <= BLOCK_TOL * scale:
-            raise AssertionError(f"bottleneck {key}: max abs err {err} > {BLOCK_TOL} x {scale}")
+        model_err = (y - bn.bottleneck_tf32_model(x, f)).abs().max().item()
+        if not max(err, model_err) <= BLOCK_TOL * scale:
+            raise AssertionError(f"bottleneck {key}: max abs err {err} (against its arithmetic "
+                                 f"model {model_err}) > {BLOCK_TOL} x {scale}")
         lw = {"w1": oihw(f["w1"]), "w3": oihw(f["w3"]),
               "w2": f["w2"].reshape(3, 3, cmid, cmid).permute(3, 2, 0, 1).contiguous()}
         if proj:
@@ -260,13 +316,15 @@ def main(argv):
         lib_err = (library().permute(0, 2, 3, 1) - ref).abs().max().item()
         flops = 2.0 * n * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
                                    + (cin * cout if proj else 0))
-        nbytes = 4.0 * (n * h * w * (cin + cout) + sum(t.numel() for t in f.values()))
-        b_ms, b_by = bound_ms(flops, nbytes)
+        nbytes = 4.0 * (n * h * w * (cin + cout)
+                        + sum(t.numel() for name, t in f.items() if name != "packed"))
+        b_ms, b_by = bound_ms(3.0 * flops, nbytes, PEAK_TF32_FLOPS)   # 3 MMAs per product
         record("fused_bottleneck", {
-            "shape": list(key[:6]), "proj": proj, "max_abs_err": err, "library_err": lib_err,
-            "ms": cuda_ms(torch, lambda: bn.fused_bottleneck(x, f)),
-            "plain_ms": cuda_ms(torch, lambda: bn.bottleneck_plain(x, f)),
-            "library_ms": cuda_ms(torch, library),
+            "shape": list(key[:6]), "proj": proj, "tile": list(bn.choose_tile(*key)),
+            "max_abs_err": err, "model_err": model_err, "magnitude": scale,
+            "library_err": lib_err, "bound_f32_ms": bound_ms(flops, nbytes)[0],
+            **times(torch, lambda: bn.fused_bottleneck(x, f),
+                    lambda: bn.bottleneck_plain(x, f), library),
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}, counts)
 
     def check_merge(key, counts):
@@ -287,9 +345,8 @@ def main(argv):
 
         record("upsample2x_add", {
             "shape": list(key), "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda: kernels.upsample2x_add(inner, skip)),
-            "plain_ms": cuda_ms(torch, lambda: kernels.upsample2x_add_plain(inner, skip)),
-            "library_ms": cuda_ms(torch, library),
+            **times(torch, lambda: kernels.upsample2x_add(inner, skip),
+                    lambda: kernels.upsample2x_add_plain(inner, skip), library),
             "bound_ms": b_ms, "bound_by": b_by, "flops": float(skip.numel()),
             "bytes": nbytes}, counts)
 
@@ -298,10 +355,17 @@ def main(argv):
         hm = torch.randn(key, generator=gen)
         hm[0, :, :, 0] = 1.0                              # planted ties
         hm[1 % n, 3, 4, 2] = hm[1 % n, h - 5, w - 7, 2] = 7.0
+        hm[2 % n, :, :, 3] = -0.0                         # -0.0 ties with +0.0: first index
+        hm[2 % n, h - 2, 1, 3] = 0.0
+        hm[2 % n, h // 2, w // 3, 4] = float("nan")       # a NaN beats every number
         hm = hm.to(dev)
         pts, conf = kernels.decode_heatmaps(hm)
         ref_pts, ref_conf = kernels.decode_heatmaps_plain(hm)
         torch.cuda.synchronize()
+        if not (conf[2 % n, 4].isnan().all() and ref_conf[2 % n, 4].isnan().all()
+                and pts[2 % n, 3].tolist() == [0.0, 0.0]):
+            raise AssertionError(f"decode {key}: the planted NaN or the signed zeros were missed")
+        conf, ref_conf = conf.nan_to_num(nan=0.0), ref_conf.nan_to_num(nan=0.0)
         err = max((pts - ref_pts).abs().max().item(), (conf - ref_conf).abs().max().item())
         if err != 0.0:
             raise AssertionError(f"decode {key}: max abs err {err} != 0")
@@ -310,9 +374,9 @@ def main(argv):
         hm_flat = hm.view(n, h * w, k)
         record("decode_heatmaps", {
             "shape": list(key), "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda: kernels.decode_heatmaps(hm)),
-            "plain_ms": cuda_ms(torch, lambda: kernels.decode_heatmaps_plain(hm)),
-            "library_ms": cuda_ms(torch, lambda: torch.max(hm_flat, dim=1)),
+            **times(torch, lambda: kernels.decode_heatmaps(hm),
+                    lambda: kernels.decode_heatmaps_plain(hm),
+                    lambda: torch.max(hm_flat, dim=1)),
             "bound_ms": b_ms, "bound_by": b_by, "flops": float(hm.numel()),
             "bytes": nbytes}, counts)
 
@@ -344,8 +408,7 @@ def main(argv):
         b_ms, b_by = bound_ms(flops, nbytes)
         row = {"shape": list(key), "mode": "identity" if identity else "resize",
                "taps": [kh, kw], "max_abs_err": err, "tolerance": tol, "library_err": lib_err,
-               "ms": cuda_ms(torch, lambda: kernels.preprocess_resize(x, flip, (h, w))),
-               "plain_ms": cuda_ms(torch, plain), "library_ms": cuda_ms(torch, library),
+               **times(torch, lambda: kernels.preprocess_resize(x, flip, (h, w)), plain, library),
                "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
         record("preprocess_resize", row, counts)
 
@@ -359,6 +422,8 @@ def main(argv):
         torch.cuda.empty_cache()
     # identity mode: exactly the TPU kernel (u8 * 1/255, flip); on no path
     check_preprocess((N,) + tuple(cfg.image_hw) + (3,) + tuple(cfg.image_hw), {})
+    # K x cells no multiple of 4: the decode kernel's scalar loads; on no path
+    check_decode((N, 63, 127, 19), {})
     print(json.dumps({"kernel_shapes": shape_rows}))
     print(json.dumps({"per_path": per_path}))
 
@@ -464,7 +529,10 @@ def main(argv):
     entries = []
     for name, (src, replaces, also) in SOURCES.items():
         agg = per_kernel[name]
-        _, b_by = bound_ms(agg["flops"], agg["bytes"])
+        if name == "fused_bottleneck":
+            _, b_by = bound_ms(3.0 * agg["flops"], agg["bytes"], PEAK_TF32_FLOPS)
+        else:
+            _, b_by = bound_ms(agg["flops"], agg["bytes"])
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "also_replaces": also, "launches": sum(launches[p][name] for p in launches),
@@ -472,6 +540,12 @@ def main(argv):
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"],
             "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"], "bound_by": b_by,
             "library_ms": agg["library_ms"],
+            "eager_ms": agg["eager_ms"], "library_eager_ms": agg["library_eager_ms"],
+            "timing": "ms, library_ms: replayed CUDA graphs (device time); eager_ms, "
+                      "library_eager_ms, plain_ms: CUDA events around eager calls",
+            **({"bound_f32_ms": agg["bound_f32_ms"], "model_err": agg["model_err"],
+                "arithmetic": "3 TF32 MMAs per product, f32 accumulate"}
+               if name == "fused_bottleneck" else {}),
             "per": f"one call of each path ({', '.join(launches)}) at T={BATCH_T}: the "
                    f"kernel-phase time of every shape, times its launches",
         }

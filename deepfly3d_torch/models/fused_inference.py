@@ -47,7 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepfly3d_torch.models.hourglass import HourglassSpec
-from deepfly3d_torch.ops.bottleneck import bn_affine, fold_bottleneck, fused_bottleneck
+from deepfly3d_torch.ops.bottleneck import (add_packed, bn_affine, fold_bottleneck,
+                                            fused_bottleneck)
 from deepfly3d_torch.ops.kernels import upsample2x_add
 
 # (kernel, stride, padding) of the strided patch embeddings
@@ -166,7 +167,7 @@ class _Tensors(nn.Module):
             self.register_buffer(k, v.contiguous())
 
     def as_dict(self) -> Dict[str, torch.Tensor]:
-        return dict(self.named_buffers())
+        return dict(self._buffers)      # this module's own buffers; it has no children
 
 
 def maxpool2(x: torch.Tensor) -> torch.Tensor:
@@ -224,9 +225,10 @@ class FoldedHourglass(nn.Module):
             stem_w = stem_w.permute(3, 2, 0, 1)         # HWIO -> OIHW for F.conv2d
         self.register_buffer("stem_w", stem_w.contiguous())
         self.register_buffer("stem_b", folded["stem_b"].contiguous())
-        # ModuleDict keys may not hold '.', block names hold '/' only
+        # ModuleDict keys may not hold '.', block names hold '/' only; each
+        # block carries its weights once more in the kernel's fragment order
         self.blocks = nn.ModuleDict(
-            {name: _Tensors(t) for name, t in folded["blocks"].items()}
+            {name: _Tensors(add_packed(t)) for name, t in folded["blocks"].items()}
         )
         stacks = []
         for t in folded["stacks"]:

@@ -14,11 +14,25 @@ does (float64 fold, float32 result); ``bottleneck_plain`` is the plain
 PyTorch version (the counterpart of ``bottleneck_xla``); ``fused_bottleneck``
 runs ``csrc/bottleneck.cu`` on a CUDA tensor and the plain version on a CPU
 tensor.
+
+The kernel computes its four products on the tensor cores as
+error-compensated TF32: each float32 operand is split into ``hi`` (its low
+13 mantissa bits cleared, a TF32 number) and ``lo = tf32(x - hi)``, and a
+product is ``a_lo @ w_hi + a_hi @ w_lo + a_hi @ w_hi`` summed in float32.
+``split_tf32`` is that split, ``bottleneck_tf32_model`` the block in this
+arithmetic in plain PyTorch (for tests; no path runs it), and
+``pack_bottleneck`` lays the folded weights out in the order of the MMA
+fragments, once per block on the host, and ``choose_tile`` picks a thread
+block's output tile for an image size and batch.  The kernel splits each weight
+fragment into hi and lo in registers with the same mask, because hi and lo
+of all weights together (238 KB) do not fit one thread block's shared
+memory beside the activations.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Dict
 
 import numpy as np
@@ -29,11 +43,15 @@ from deepfly3d_torch.ops import _build
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm default
 
-# output tile of one thread block (rows, cols), clamped to the image
-TILE = (8, 16)
-# the kernel's register tile is 8 channels wide
-_CHANNEL_MULTIPLE = 8
-_MAX_SMEM = 227 * 1024
+# one thread block's output tile holds at most 12 warps x 16 pixels, at most
+# 16 wide
+TILE_WARPS = 12
+TILE_MAX_WIDTH = 16
+NUM_SMS = 132                     # H100 SXM
+MAX_SMEM = 227 * 1024             # bytes one thread block can use
+# (Cin, Cmid, Cout, projects) the kernel is instantiated for
+INSTANCES = ((96, 48, 96, False), (48, 48, 96, True), (64, 32, 64, False), (32, 32, 64, True))
+_TF32_MASK = -8192                # 0xffffe000 as int32: clears 13 mantissa bits
 
 
 def bn_affine(scale, bias, mean, var, eps: float = BN_EPS):
@@ -94,6 +112,134 @@ def bottleneck_plain(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
     return (z3 + res).contiguous()
 
 
+def split_tf32(x: torch.Tensor):
+    """float32 -> (hi, lo): ``hi`` keeps 10 mantissa bits (a TF32 number),
+    ``lo`` is ``x - hi`` cut to TF32 the same way; ``hi + lo`` is within
+    2^-20 of ``x``, relative."""
+    def cut(v):
+        return (v.contiguous().view(torch.int32) & _TF32_MASK).view(torch.float32)
+
+    hi = cut(x)
+    return hi, cut(x - hi)
+
+
+def bottleneck_tf32_model(x: torch.Tensor, folded: Dict[str, torch.Tensor],
+                          compensated: bool = True) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: every product as
+    ``a_lo·w_hi + a_hi·w_lo + a_hi·w_hi`` (small terms first, float32 sums),
+    everything else float32.  ``compensated=False`` keeps ``a_hi·w_hi`` only
+    (plain TF32), the control that shows what the two small terms buy."""
+    def product(a, w, op):
+        a_hi, a_lo = split_tf32(a)
+        w_hi, w_lo = split_tf32(w)
+        if not compensated:
+            return op(a_hi, w_hi)
+        return (op(a_lo, w_hi) + op(a_hi, w_lo)) + op(a_hi, w_hi)
+
+    def conv3x3(a, w):
+        return F.conv2d(a.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+
+    a1 = torch.relu(x * folded["s1"][0] + folded["t1"][0])
+    a2 = torch.relu(product(a1, folded["w1"], torch.matmul) + folded["b1"][0])
+    cmid = folded["w2"].shape[1]
+    w2 = folded["w2"].reshape(3, 3, cmid, cmid).permute(3, 2, 0, 1)   # OIHW
+    a3 = torch.relu(product(a2, w2, conv3x3) + folded["b2"][0])
+    z3 = product(a3, folded["w3"], torch.matmul) + folded["b3"][0]
+    if "wp" in folded:
+        res = product(a1, folded["wp"], torch.matmul) + folded["bp"][0]
+    else:
+        res = x
+    return (z3 + res).contiguous()
+
+
+def _pack_fragments(w: np.ndarray, order: str) -> np.ndarray:
+    """(K, N) -> flat (K/8, N/8, 32 lanes, 2): the B fragments of
+    mma.m16n8k8, lane 4g+t holding column 8*nt+g of two rows of k step ks.
+    The rows say which k the A fragment's slots t and t+4 stand for, which
+    is free as long as A agrees: ``"mma"``: rows 8*ks + (t, t+4), A read out
+    of a row-major tile; ``"paired"``: 8*ks + (2t, 2t+1), A an accumulator
+    fragment reused; ``"lanes"``: t*K/4 + (2*ks, 2*ks+1), A the K/4
+    neighbouring channels of a pixel that lane column t reads from x."""
+    k, n = w.shape
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    step = np.arange(k // 8)[:, None, None]
+    k0, k1 = {"mma": (8 * step + t, 8 * step + t + 4),
+              "paired": (8 * step + 2 * t, 8 * step + 2 * t + 1),
+              "lanes": (t * (k // 4) + 2 * step, t * (k // 4) + 2 * step + 1)}[order]
+    cols = 8 * np.arange(n // 8)[None, :, None] + g[None, None, :]
+    return np.stack([w[k0, cols], w[k1, cols]], axis=-1).reshape(-1)
+
+
+def pack_bottleneck(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The kernel's weight buffer of one block, a flat float32 CPU tensor:
+    w1 ("lanes" k order), w2 (as (9*Cmid, Cmid), tap-major, "mma"), w3
+    ("paired") and wp ("lanes") in fragment order, then s1, t1, b1, b2 and
+    b3 (+ bp).  Every value is a folded float32 weight unchanged; the kernel
+    splits hi/lo as it loads."""
+    f = {k: v.detach().cpu().numpy() for k, v in folded.items() if k != "packed"}
+    cmid = f["w1"].shape[1]
+    parts = [_pack_fragments(f["w1"], "lanes"),
+             _pack_fragments(f["w2"].reshape(9 * cmid, cmid), "mma"),
+             _pack_fragments(f["w3"], "paired")]
+    b3 = f["b3"][0]
+    if "wp" in f:
+        parts.append(_pack_fragments(f["wp"], "lanes"))
+        b3 = b3 + f["bp"][0]
+    parts += [f["s1"][0], f["t1"][0], f["b1"][0], f["b2"][0], b3]
+    return torch.from_numpy(np.concatenate(parts).astype(np.float32))
+
+
+def add_packed(folded: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``folded`` plus its ``"packed"`` weight buffer, which the kernel reads."""
+    return {**folded, "packed": pack_bottleneck(folded)}
+
+
+def packed_size(cin: int, cmid: int, cout: int, has_proj: bool) -> int:
+    """Number of float32 values in a block's packed weight buffer."""
+    return (cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout if has_proj else 0)
+            + 2 * cin + 2 * cmid + cout)
+
+
+def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool) -> int:
+    """Dynamic shared memory of one thread block: the packed weights and two
+    buffers of a2 on the (th+2) x (tw+2) halo tile at pitch Cmid+4."""
+    hp = (th + 2) * (tw + 2)
+    return 4 * (packed_size(cin, cmid, cout, has_proj) + 2 * hp * (cmid + 4))
+
+
+# Microseconds one thread block took for a tile of m 16-pixel MMA row tiles
+# (index m; one warp each in the 3x3), 96->48->96 block, launches of many
+# waves: NVIDIA H100 80GB HBM3 at 700 W, tile sweep with
+# ``scripts/bench_torch_kernels.py`` at 56 x 64x128 (m = 1, 2, 7, 9 filled in
+# between).  The steps at m = 5 and m = 9 are a second and a third warp on an
+# SM's four schedulers.
+_TILE_US = (None, 9.0, 9.7, 9.7, 11.0, 15.7, 16.8, 17.7, 18.6, 22.0, 23.6, 25.2, 26.1)
+
+
+@lru_cache(maxsize=None)
+def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj: bool):
+    """Output tile (rows, cols) of one thread block for an (n, h, w) batch:
+    the one whose launch should take least time, waves of thread blocks over
+    the SMs times the measured time of such a tile, among those that fit
+    shared memory.  Large images get 8x16 tiles; small images and batches
+    fewer rows, until one wave covers the launch.  Raises ValueError if no
+    tile fits."""
+    tw = min(TILE_MAX_WIDTH, w)
+    best = None
+    for th in range(1, min(h, 16 * TILE_WARPS // tw) + 1):
+        if smem_bytes(cin, cmid, cout, th, tw, has_proj) > MAX_SMEM:
+            break
+        waves = -(-n * -(-h // th) * -(-w // tw) // NUM_SMS)
+        cost = waves * _TILE_US[-(-th * tw // 16)]
+        if best is None or cost < best[0]:
+            best = (cost, th)
+    if best is None:
+        raise ValueError(f"block too wide for one thread block's shared memory "
+                         f"(Cin={cin}, Cmid={cmid}, Cout={cout})")
+    return best[1], tw
+
+
 def _shapes(x: torch.Tensor, folded: Dict[str, torch.Tensor]):
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
@@ -115,21 +261,21 @@ def _shapes(x: torch.Tensor, folded: Dict[str, torch.Tensor]):
     return cin, cmid, cout
 
 
-def _lib():
-    lib = _build.library("bottleneck")
-    lib.df3d_bottleneck.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.df3d_bottleneck.restype = ctypes.c_int
-    lib.df3d_bottleneck_smem.argtypes = [ctypes.c_int] * 5
-    lib.df3d_bottleneck_smem.restype = ctypes.c_size_t
-    return lib
+@lru_cache(maxsize=None)
+def _kernel():
+    fn = _build.library("bottleneck").df3d_bottleneck
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor:
     """One folded bottleneck block, (N, H, W, Cin) -> (N, H, W, Cout) float32.
 
     On a CUDA tensor this launches ``csrc/bottleneck.cu`` (one launch, every
-    intermediate on chip) or raises; on a CPU tensor it runs
-    ``bottleneck_plain``.  ``fused_bottleneck.launches`` counts launches.
+    intermediate on chip; ``folded`` must hold the ``"packed"`` buffer of
+    ``add_packed``) or raises; on a CPU tensor it runs ``bottleneck_plain``.
+    ``fused_bottleneck.launches`` counts launches.
     """
     cin, cmid, cout = _shapes(x, folded)
     if x.device.type == "cpu":
@@ -137,31 +283,27 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
     if x.device.type != "cuda":
         raise ValueError(f"fused_bottleneck runs on cuda or cpu, not {x.device}")
     has_proj = "wp" in folded
-    for name, t in [("x", x), *folded.items()]:
+    if "packed" not in folded:
+        raise ValueError("folded lacks the kernel's weight buffer: pass add_packed(folded)")
+    packed = folded["packed"]
+    for name, t in (("x", x), ("folded['packed']", packed)):     # what the kernel reads
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if cmid % _CHANNEL_MULTIPLE or cout % _CHANNEL_MULTIPLE:
-        raise ValueError(f"kernel needs Cmid and Cout multiples of {_CHANNEL_MULTIPLE}")
+    if (cin, cmid, cout, has_proj) not in INSTANCES:
+        raise ValueError(f"kernel has no instantiation for Cin={cin}, Cmid={cmid}, "
+                         f"Cout={cout}, projection={has_proj}; it has {INSTANCES}")
+    if packed.numel() != packed_size(cin, cmid, cout, has_proj):
+        raise ValueError(f"folded['packed'] has {packed.numel()} values: not this block's")
     n, h, w, _ = x.shape
-    th, tw = min(TILE[0], h), min(TILE[1], w)
-    lib = _lib()
-    if lib.df3d_bottleneck_smem(cin, cmid, th, tw, int(has_proj)) > _MAX_SMEM:
-        raise ValueError(f"block too wide for one thread block's shared memory "
-                         f"(Cin={cin}, Cmid={cmid})")
     y = torch.empty((n, h, w, cout), device=x.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
-    f = folded
-    rc = lib.df3d_bottleneck(
-        x.data_ptr(), f["s1"].data_ptr(), f["t1"].data_ptr(), f["w1"].data_ptr(),
-        f["b1"].data_ptr(), f["w2"].data_ptr(), f["b2"].data_ptr(),
-        f["w3"].data_ptr(), f["b3"].data_ptr(),
-        f["wp"].data_ptr() if has_proj else None,
-        f["bp"].data_ptr() if has_proj else None,
-        y.data_ptr(), n, h, w, cin, cmid, cout, th, tw,
-        torch.cuda.current_stream(x.device).cuda_stream,
+    th, tw = choose_tile(n, h, w, cin, cmid, cout, has_proj)
+    rc = _kernel()(
+        x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
+        int(has_proj), th, tw, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "bottleneck kernel")
     fused_bottleneck.launches += 1

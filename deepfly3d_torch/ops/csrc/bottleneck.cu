@@ -1,4 +1,5 @@
-// Folded pre-activation bottleneck block, one launch per block, float32.
+// Folded pre-activation bottleneck block, one launch per block, on the H100's
+// tensor cores as error-compensated TF32 ("3xTF32"), float32 in and out.
 //
 // Replaces deepfly3d_tpu/ops/pallas/bottleneck.py::fused_bottleneck, all four
 // TPU tilings of one contract (_block_kernel, _block_kernel_v2,
@@ -9,227 +10,453 @@
 //   a3 = relu(conv3x3(a2, w2, zero pad 1) + b2)   (bn3 folded into w2, b2)
 //   y  = a3 @ w3 + b3 + (x  or  a1 @ wp + bp)
 //
-// x, y are NHWC; w1 (Cin, Cmid), w2 (9, Cmid, Cmid) as taps dy*3+dx, w3
-// (Cmid, Cout), wp (Cin, Cout); s1, t1, b* are rows of length C.
+// x, y are NHWC float32.  The weights arrive in one buffer, `packed`, that the
+// host builds once per block (ops/bottleneck.py::pack_bottleneck): w1, w2 (as a
+// (9*Cmid, Cmid) matrix, tap-major), w3 and wp in MMA fragment order, then s1,
+// t1, b1, b2 and b3 (+ bp).
 //
-// Bound: operations.  A 64x128, 96->96 block does ~60 kFLOP per pixel against
-// 768 bytes of x and y, ~78 FLOP/byte, above the ~20 FLOP/byte at which f32 on
-// the CUDA cores (67 TFLOP/s) outruns 3.35 TB/s.  So the design keeps every
-// intermediate on chip and reads x once and writes y once: one thread block
-// owns one image's 8x16 output tile, builds a1 and a2 on the tile plus a
-// one-pixel halo in shared memory (a2 is zero outside the image, the conv's
-// padding), runs the nine-tap 3x3 convolution and the last 1x1 out of shared
-// memory and writes y.  Nothing carries between thread blocks (the TPU v4
-// kernel's carried halo relies on an ordered grid, which Hopper lacks); the
-// halo is recomputed instead, 180 a2 pixels for 128 outputs.  Each thread
-// computes a 4-pixel x 8-channel register tile per step (32 FMAs for 4 shared
-// and two 16-byte weight loads); weights come through L1/L2.  Accumulation is
-// float32 throughout.  Cin, Cmid and Cout are runtime arguments.
+// Bound: operations.  A 96->48->96 block does ~60 kFLOP per pixel against 768
+// bytes of x and y; three TF32 MMAs per product against 495 TFLOP/s is the
+// floor of this arithmetic.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (scripts/bench_torch_kernels.py): 0.52 ms for 56 images of 64x128 against
+// a floor of 0.17 ms, about 60% of the rate mma.sync itself reaches.
+//
+// Arithmetic.  Every product a @ w runs as three
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 with float32
+// accumulators: a_lo*w_hi and a_hi*w_lo into one accumulator, a_hi*w_hi into
+// another, the two added once after the last k step (small terms first), where
+// hi = x with its low 13 mantissa bits cleared (a TF32 number) and lo = x - hi
+// (exact in float32; the tensor core reads its upper 19 bits).  The dropped
+// a_lo*w_lo term and the cut of lo are ~2^-20 relative, the size of float32
+// rounding in a reordered sum.  Biases, ReLUs, the bn-relu on x and the identity
+// skip are float32 on the CUDA cores.  mma.sync was taken over wgmma because
+// each thread loads its own fragment elements from any shared-memory address,
+// which is what the 3x3's halo-tile taps need (a tap is an offset of whole
+// pixel rows), and because the split of lo/hi happens in registers, which
+// wgmma's shared-memory operands would not allow without storing both halves.
+//
+// Data movement.  Persistent thread blocks (one per SM, 12 warps) loop over
+// output tiles.  The whole packed weight buffer (120-130 KB as float32) is
+// copied to shared memory once per thread block with cp.async and stays there
+// for every tile; hi and lo of a weight fragment are split in registers when it
+// is loaded (two ALU operations per element), because hi + lo of all weights
+// (238 KB) would not fit beside the activations.  The fragment order makes a
+// warp's B-fragment load one conflict-free 8-byte load per lane.  Per tile
+// (th x tw <= 192 pixels, one 16-pixel MMA row tile per warp):
+//   1. + 2. a2 = relu(relu(x*s1 + t1) @ w1 + b1) on the tile and a one-pixel
+//      halo, zero outside the image (the 3x3's zero padding), to shared memory
+//      (pitch Cmid+4 words: the MMA A fragment's rows g, g+8 and columns t,
+//      t+4 then hit 32 distinct banks), in units of 16 pixels x Cmid/2 columns
+//      so that the warps share it evenly.  x never passes through shared
+//      memory: the k order of this product is free, so w1 is packed such that
+//      lane column t stands for the Cin/4 neighbouring channels t*Cin/4 ..., and
+//      a lane reads exactly those of its two pixels from global memory, 16
+//      bytes at a time, and applies bn-relu in registers;
+//   3. the 3x3 as an implicit GEMM with K = 9 taps x Cmid out of the a2 halo
+//      tile; warp m owns the 16 pixels 16m..16m+15 of the tile and all Cmid
+//      output channels, so
+//   4. relu(acc + b2) stays in registers: the accumulator fragment (columns 2t,
+//      2t+1) is used directly as the A fragment of a3 @ w3, with w3 packed in
+//      the matching k order (slot t <-> channel 8j+2t, slot t+4 <-> 8j+2t+1).
+//      The projection a1 @ wp accumulates into the same registers (its A
+//      fragments come from x as in stage 2); the identity skip re-reads x (an
+//      L2 hit).  Pairs of lanes exchange half their fragment so that y leaves
+//      in 16-byte stores.
+// a2 has two buffers, used by alternate tiles, so a tile needs one barrier
+// (after stage 2): warps that finish a tile early fill the other buffer for the
+// next tile while slower warps are still in this tile's 3x3, and the stages of
+// neighbouring tiles overlap.  The wrapper picks the tile per image size and
+// batch (ops/bottleneck.py::choose_tile): fewer rows at small images and
+// batches, so that a launch has a thread block for every SM.
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 192;
-constexpr int kRP = 4;  // pixels per thread tile
-constexpr int kRC = 8;  // channels per thread tile
+constexpr int kThreads = 384;
+constexpr int kWarps = kThreads / 32;
+constexpr uint32_t kHiMask = 0xffffe000u;   // keeps sign, exponent, 10 mantissa bits
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ void load8(const float* __restrict__ p, float (&b)[kRC]) {
-  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  b[0] = lo.x; b[1] = lo.y; b[2] = lo.z; b[3] = lo.w;
-  b[4] = hi.x; b[5] = hi.y; b[6] = hi.z; b[7] = hi.w;
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & kHiMask;
+  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
-__global__ void __launch_bounds__(kThreads)
-bottleneck_kernel(const float* __restrict__ x,
-                  const float* __restrict__ s1, const float* __restrict__ t1,
-                  const float* __restrict__ w1, const float* __restrict__ b1,
-                  const float* __restrict__ w2, const float* __restrict__ b2,
-                  const float* __restrict__ w3, const float* __restrict__ b3,
-                  const float* __restrict__ wp, const float* __restrict__ bp,
-                  float* __restrict__ y,
-                  int H, int W, int cin, int cmid, int cout, int th, int tw) {
-  extern __shared__ float smem[];
-  const int hw = tw + 2;             // halo tile width
-  const int hp = (th + 2) * hw;      // halo tile pixels
-  const int tp = th * tw;            // output tile pixels
-  const int la1 = cin + 1;           // +1 word per row: no bank conflicts
-  const int la2 = cmid + 1;
-  float* a1 = smem;                  // hp x la1
-  float* a2 = a1 + hp * la1;         // hp x la2
-  // a3 (tp x la2) reuses a1's space unless the projection still needs a1
-  float* a3 = wp ? a2 + hp * la2 : a1;
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  const int n = blockIdx.z;
-  const int y0 = blockIdx.y * th;
-  const int x0 = blockIdx.x * tw;
-  const float* xn = x + (size_t)n * H * W * cin;
-  float* yn = y + (size_t)n * H * W * cout;
+// The B fragments of NT neighbouring 8-column tiles of one k step, as loaded
+// (`w` points at the first tile's 64 packed words), and the A fragment from two
+// shared-memory rows (already offset by the lane's column t).  Loading a step's
+// fragments one step ahead of its MMAs hides the shared-memory latency, which
+// two warps per scheduler would not.
+template <int NT>
+struct BFrag { float2 b[NT]; };
+struct AFrag { float a[4]; };
 
-  // 1. a1 on the tile and its halo (its value outside the image is unused)
-  for (int i = threadIdx.x; i < hp * cin; i += kThreads) {
-    const int p = i / cin, c = i - p * cin;
-    const int gy = y0 - 1 + p / hw, gx = x0 - 1 + p % hw;
-    float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = fmaxf(xn[((size_t)gy * W + gx) * cin + c] * s1[c] + t1[c], 0.f);
-    a1[p * la1 + c] = v;
+template <int NT>
+__device__ __forceinline__ void load_b(BFrag<NT>& f, const float* __restrict__ w, int lane) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+    f.b[i] = *reinterpret_cast<const float2*>(w + i * 64 + lane * 2);
+}
+
+__device__ __forceinline__ void load_a(AFrag& f, const float* r0, const float* r1) {
+  f.a[0] = r0[0];
+  f.a[1] = r1[0];
+  f.a[2] = r0[4];
+  f.a[3] = r1[4];
+}
+
+// acc[i] += a_hi @ w_hi and small[i] += a_lo @ w_hi + a_hi @ w_lo for the NT
+// tiles.  The two small terms have accumulators of their own: they are summed
+// among themselves (nothing of them is lost against the large sum until the one
+// addition at the end, see add_small), and the 2 * NT accumulators make
+// independent MMA chains, so that consecutive MMAs never wait for each other.
+template <int NT>
+__device__ __forceinline__ void mma_step(float (&acc)[NT][4], float (&small)[NT][4],
+                                         const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                         const BFrag<NT>& f) {
+  uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    split(f.b[i].x, bh[i][0], bl[i][0]);
+    split(f.b[i].y, bh[i][1], bl[i][1]);
   }
+#pragma unroll
+  for (int i = 0; i < NT; ++i) mma_tf32(small[i], al, bh[i][0], bh[i][1]);
+#pragma unroll
+  for (int i = 0; i < NT; ++i) mma_tf32(acc[i], ah, bh[i][0], bh[i][1]);
+#pragma unroll
+  for (int i = 0; i < NT; ++i) mma_tf32(small[i], ah, bl[i][0], bl[i][1]);
+}
+
+template <int NT>
+__device__ __forceinline__ void mma_step(float (&acc)[NT][4], float (&small)[NT][4],
+                                         const AFrag& a, const BFrag<NT>& f) {
+  uint32_t ah[4], al[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(a.a[i], ah[i], al[i]);
+  mma_step<NT>(acc, small, ah, al, f);
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&small)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) small[i][0] = small[i][1] = small[i][2] = small[i][3] = 0.f;
+}
+
+// the sum of the small terms joins the large sum (which started at the bias)
+template <int NT>
+__device__ __forceinline__ void add_small(float (&acc)[NT][4], const float (&small)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] += small[i][e];
+  }
+}
+
+// accumulators start at the bias of their columns (2t, 2t+1 of each tile)
+template <int NT>
+__device__ __forceinline__ void init_bias(float (&acc)[NT][4], const float* bias, int t) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + i * 8 + 2 * t);
+    acc[i][0] = acc[i][2] = b.x;
+    acc[i][1] = acc[i][3] = b.y;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(gmem_src));
+}
+
+// Offsets (in floats) into the packed buffer; ops/bottleneck.py mirrors them.
+template <int CIN, int CMID, int COUT, bool PROJ>
+struct Packed {
+  static constexpr int w1 = 0;
+  static constexpr int w2 = w1 + CIN * CMID;
+  static constexpr int w3 = w2 + 9 * CMID * CMID;
+  static constexpr int wp = w3 + CMID * COUT;
+  static constexpr int s1 = wp + (PROJ ? CIN * COUT : 0);
+  static constexpr int t1 = s1 + CIN;
+  static constexpr int b1 = t1 + CIN;
+  static constexpr int b2 = b1 + CMID;
+  static constexpr int b3 = b2 + CMID;      // b3 + bp when the block projects
+  static constexpr int total = b3 + COUT;
+};
+
+template <int CIN, int CMID, int COUT, bool PROJ>
+__global__ void __launch_bounds__(kThreads, 1)
+bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
+                  float* __restrict__ y, int H, int W, int th, int tw,
+                  int tiles_x, int tiles_y, int num_tiles) {
+  using P = Packed<CIN, CMID, COUT, PROJ>;
+  constexpr int P2 = CMID + 4;                     // a2 row pitch, = 4 (mod 8) words
+  constexpr int KS1 = CIN / 8, NT2 = CMID / 8, NT4 = COUT / 8;
+  constexpr int NH2 = NT2 / 2;                     // column tiles per stage-2 unit
+  constexpr int NG = (NT4 % 6 == 0) ? 6 : 4;       // column tiles per stage-4 pass
+  constexpr int CL = CIN / 4;                      // x channels of one lane column t
+  static_assert(CIN % 16 == 0 && CMID % 16 == 0 && NT4 % NG == 0, "channel counts");
+  static_assert(PROJ || CIN == COUT, "identity skip needs Cin == Cout");
+  static_assert(P::total % 4 == 0, "packed buffer is copied in 16-byte pieces");
+
+  extern __shared__ __align__(16) float smem[];
+  const int hw = tw + 2, hp = (th + 2) * hw, tp = th * tw;
+  float* a2buf = smem + P::total;         // two buffers of hp x P2
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles_per_image = tiles_x * tiles_y;
+
+  // the weights -> shared memory, once for every tile of this thread block
+  for (int i = tid * 4; i < P::total; i += kThreads * 4) cp_async16(smem + i, packed + i);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  // 2. a2 = relu(a1 @ w1 + b1) on the halo tile, zero outside the image
-  {
-    const int groups = cmid / kRC;
-    const int items = ((hp + kRP - 1) / kRP) * groups;
-    for (int it = threadIdx.x; it < items; it += kThreads) {
-      const int p0 = (it / groups) * kRP;
-      const int m0 = (it % groups) * kRC;
-      float acc[kRP][kRC];
-      const float* arow[kRP];
+  const int nmt_h = (hp + 15) >> 4;       // 16-pixel row tiles of the halo tile
+  const int nmt_t = (tp + 15) >> 4;       // ... of the output tile
+
+  // this lane's bn1 scale and shift pairs, and x channels: k slot (ks, t) of a
+  // product with K = CIN is channel t*CL + 2ks, slot (ks, t+4) the next one
+  const float* s1 = smem + P::s1 + t * CL;
+  const float* t1 = smem + P::t1 + t * CL;
+
+  // a1 = relu(x*s1 + t1) of two pixels (rows g, g+8 of an MMA tile) as the A
+  // fragment of k step ks, out of the lane's CL channels of each pixel
+  auto a1_frag = [&](AFrag& f, const float (&xa)[CL], const float (&xb)[CL], int ks) {
+    const float2 s = *reinterpret_cast<const float2*>(s1 + 2 * ks);
+    const float2 b = *reinterpret_cast<const float2*>(t1 + 2 * ks);
+    f.a[0] = fmaxf(fmaf(xa[2 * ks], s.x, b.x), 0.f);
+    f.a[1] = fmaxf(fmaf(xb[2 * ks], s.x, b.x), 0.f);
+    f.a[2] = fmaxf(fmaf(xa[2 * ks + 1], s.y, b.y), 0.f);
+    f.a[3] = fmaxf(fmaf(xb[2 * ks + 1], s.y, b.y), 0.f);
+  };
+  auto load_x = [&](float (&xr)[CL], const float* src) {
 #pragma unroll
-      for (int i = 0; i < kRP; ++i) {
-        arow[i] = a1 + min(p0 + i, hp - 1) * la1;
+    for (int j = 0; j < CL / 4; ++j)
+      *reinterpret_cast<float4*>(&xr[4 * j]) = __ldg(reinterpret_cast<const float4*>(src) + j);
+  };
+
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x, buf ^= 1) {
+    const int n = tile / tiles_per_image, rest = tile - n * tiles_per_image;
+    const int y0 = (rest / tiles_x) * th, x0 = (rest % tiles_x) * tw;
+    const float* xn = x + (size_t)n * H * W * CIN;
+    float* yn = y + (size_t)n * H * W * COUT;
+    float* a2 = a2buf + buf * hp * P2;
+
+    // 2. a2 = relu(relu(x*s1 + t1) @ w1 + b1) on the halo tile, zero outside
+    // the image.  A unit is 16 halo pixels x half of the Cmid columns.  x comes
+    // straight from global memory, 16 bytes at a time: a lane reads the CL
+    // neighbouring channels of its two pixels that its k slots stand for.
+    for (int unit = warp; unit < 2 * nmt_h; unit += kWarps) {
+      const int mt = unit >> 1, c0 = (unit & 1) * NH2;      // first column tile
+      const int p0 = mt * 16 + g, p1 = p0 + 8;
+      const int q0 = min(p0, hp - 1), q1 = min(p1, hp - 1);
+      const int py0 = q0 / hw, py1 = q1 / hw;
+      const int gy0 = y0 - 1 + py0, gx0 = x0 - 1 + q0 - py0 * hw;
+      const int gy1 = y0 - 1 + py1, gx1 = x0 - 1 + q1 - py1 * hw;
+      const bool in0 = p0 < hp && gy0 >= 0 && gy0 < H && gx0 >= 0 && gx0 < W;
+      const bool in1 = p1 < hp && gy1 >= 0 && gy1 < H && gx1 >= 0 && gx1 < W;
+      float xa[CL], xb[CL];               // a pixel outside reads pixel (0, 0): unused
+      load_x(xa, xn + (in0 ? (size_t)gy0 * W + gx0 : 0) * CIN + t * CL);
+      load_x(xb, xn + (in1 ? (size_t)gy1 * W + gx1 : 0) * CIN + t * CL);
+      const float* w1 = smem + P::w1 + c0 * 64;
+      float acc[NH2][4], small[NH2][4];
+      init_bias<NH2>(acc, smem + P::b1 + c0 * 8, t);
+      zero<NH2>(small);
+      BFrag<NH2> fb, fb_next;
+      load_b<NH2>(fb, w1, lane);
 #pragma unroll
-        for (int j = 0; j < kRC; ++j) acc[i][j] = b1[m0 + j];
+      for (int ks = 0; ks < KS1; ++ks) {
+        if (ks + 1 < KS1) load_b<NH2>(fb_next, w1 + (ks + 1) * NT2 * 64, lane);
+        AFrag fa;
+        a1_frag(fa, xa, xb, ks);
+        mma_step<NH2>(acc, small, fa, fb);
+        fb = fb_next;
       }
-      for (int k = 0; k < cin; ++k) {
-        float b[kRC];
-        load8(w1 + k * cmid + m0, b);
+      add_small<NH2>(acc, small);
 #pragma unroll
-        for (int i = 0; i < kRP; ++i) {
-          const float a = arow[i][k];
-#pragma unroll
-          for (int j = 0; j < kRC; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRP; ++i) {
-        const int p = p0 + i;
+      for (int half = 0; half < 2; ++half) {
+        const int p = half ? p1 : p0;
+        const bool inside = half ? in1 : in0;
         if (p < hp) {
-          const int gy = y0 - 1 + p / hw, gx = x0 - 1 + p % hw;
-          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
 #pragma unroll
-          for (int j = 0; j < kRC; ++j)
-            a2[p * la2 + m0 + j] = inside ? fmaxf(acc[i][j], 0.f) : 0.f;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // 3. a3 = relu(conv3x3(a2) + b2) on the output tile, nine taps
-  {
-    const int groups = cmid / kRC;
-    const int items = ((tp + kRP - 1) / kRP) * groups;
-    for (int it = threadIdx.x; it < items; it += kThreads) {
-      const int q0 = (it / groups) * kRP;
-      const int m0 = (it % groups) * kRC;
-      float acc[kRP][kRC];
-      int base[kRP];
-#pragma unroll
-      for (int i = 0; i < kRP; ++i) {
-        const int q = min(q0 + i, tp - 1);
-        base[i] = ((q / tw) * hw + q % tw) * la2;   // top-left of its window
-#pragma unroll
-        for (int j = 0; j < kRC; ++j) acc[i][j] = b2[m0 + j];
-      }
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = ((tap / 3) * hw + tap % 3) * la2;
-        const float* wt = w2 + (size_t)tap * cmid * cmid + m0;
-        for (int k = 0; k < cmid; ++k) {
-          float b[kRC];
-          load8(wt + k * cmid, b);
-#pragma unroll
-          for (int i = 0; i < kRP; ++i) {
-            const float a = a2[base[i] + off + k];
-#pragma unroll
-            for (int j = 0; j < kRC; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
+          for (int i = 0; i < NH2; ++i) {
+            float2 v;
+            v.x = inside ? fmaxf(acc[i][2 * half], 0.f) : 0.f;
+            v.y = inside ? fmaxf(acc[i][2 * half + 1], 0.f) : 0.f;
+            *reinterpret_cast<float2*>(a2 + p * P2 + (c0 + i) * 8 + 2 * t) = v;
           }
         }
       }
-      // a3 may alias a1: every thread must be done with stage 2 (it is, by
-      // the barrier above) before the first write here
-#pragma unroll
-      for (int i = 0; i < kRP; ++i) {
-        if (q0 + i < tp) {
-#pragma unroll
-          for (int j = 0; j < kRC; ++j)
-            a3[(q0 + i) * la2 + m0 + j] = fmaxf(acc[i][j], 0.f);
-        }
-      }
     }
-  }
-  __syncthreads();
+    // The only barrier of a tile: a2 is complete.  The other a2 buffer was last
+    // read in the previous tile's 3x3, which every warp left before it came
+    // here, so the next tile's stage 2 may fill it while slower warps are still
+    // in this tile's 3x3.
+    __syncthreads();
 
-  // 4. y = a3 @ w3 + b3 + residual, written straight to device memory
-  {
-    const int groups = cout / kRC;
-    const int items = ((tp + kRP - 1) / kRP) * groups;
-    for (int it = threadIdx.x; it < items; it += kThreads) {
-      const int q0 = (it / groups) * kRP;
-      const int n0 = (it % groups) * kRC;
-      float acc[kRP][kRC];
-      const float* arow[kRP];
+    if (warp < nmt_t) {
+      // warp m owns the tile's pixels 16m .. 16m+15 from here on
+      const int q0 = min(warp * 16 + g, tp - 1), q1 = min(warp * 16 + g + 8, tp - 1);
+      const int q0y = q0 / tw, q0x = q0 - q0y * tw;
+      const int q1y = q1 / tw, q1x = q1 - q1y * tw;
+
+      // 3. z2 = conv3x3(a2): taps are whole-pixel offsets in the halo tile
+      float acc3[NT2][4];
+      init_bias<NT2>(acc3, smem + P::b2, t);
+      {
+        float small[NT2][4];
+        zero<NT2>(small);
+        const float* r0 = a2 + (q0y * hw + q0x) * P2 + t;
+        const float* r1 = a2 + (q1y * hw + q1x) * P2 + t;
+        AFrag fa, fa_next;
+        BFrag<NT2> fb, fb_next;
+        load_a(fa, r0, r1);
+        load_b<NT2>(fb, smem + P::w2, lane);
+#pragma unroll 1
+        for (int tap = 0; tap < 9; ++tap) {
+          const int off = ((tap / 3) * hw + tap % 3) * P2;
+          const int tap_next = min(tap + 1, 8);      // the last prefetch is unused
+          const int off_next = ((tap_next / 3) * hw + tap_next % 3) * P2;
+          const float* wt = smem + P::w2 + tap * NT2 * NT2 * 64;
 #pragma unroll
-      for (int i = 0; i < kRP; ++i) {
-        arow[i] = a3 + min(q0 + i, tp - 1) * la2;
-#pragma unroll
-        for (int j = 0; j < kRC; ++j) acc[i][j] = b3[n0 + j];
-      }
-      for (int k = 0; k < cmid; ++k) {
-        float b[kRC];
-        load8(w3 + k * cout + n0, b);
-#pragma unroll
-        for (int i = 0; i < kRP; ++i) {
-          const float a = arow[i][k];
-#pragma unroll
-          for (int j = 0; j < kRC; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
-        }
-      }
-      if (wp) {
-        // projected residual a1 @ wp + bp from the tile's own a1 pixels
-        float res[kRP][kRC];
-#pragma unroll
-        for (int i = 0; i < kRP; ++i) {
-          const int q = min(q0 + i, tp - 1);
-          arow[i] = a1 + ((q / tw + 1) * hw + q % tw + 1) * la1;
-#pragma unroll
-          for (int j = 0; j < kRC; ++j) res[i][j] = bp[n0 + j];
-        }
-        for (int k = 0; k < cin; ++k) {
-          float b[kRC];
-          load8(wp + k * cout + n0, b);
-#pragma unroll
-          for (int i = 0; i < kRP; ++i) {
-            const float a = arow[i][k];
-#pragma unroll
-            for (int j = 0; j < kRC; ++j) res[i][j] = fmaf(a, b[j], res[i][j]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kRP; ++i)
-#pragma unroll
-          for (int j = 0; j < kRC; ++j) acc[i][j] += res[i][j];
-      }
-#pragma unroll
-      for (int i = 0; i < kRP; ++i) {
-        const int q = q0 + i;
-        if (q < tp) {
-          const int gy = y0 + q / tw, gx = x0 + q % tw;
-          if (gy < H && gx < W) {
-            const size_t o = (size_t)gy * W + gx;
-#pragma unroll
-            for (int j = 0; j < kRC; ++j) {
-              float v = acc[i][j];
-              if (!wp) v += xn[o * cin + n0 + j];
-              yn[o * cout + n0 + j] = v;
+          for (int ks = 0; ks < NT2; ++ks) {
+            if (ks + 1 < NT2) {
+              load_a(fa_next, r0 + off + (ks + 1) * 8, r1 + off + (ks + 1) * 8);
+              load_b<NT2>(fb_next, wt + (ks + 1) * NT2 * 64, lane);
+            } else {
+              load_a(fa_next, r0 + off_next, r1 + off_next);
+              load_b<NT2>(fb_next, smem + P::w2 + tap_next * NT2 * NT2 * 64, lane);
             }
+            mma_step<NT2>(acc3, small, fa, fb);
+            fa = fa_next;
+            fb = fb_next;
+          }
+        }
+        add_small<NT2>(acc3, small);
+      }
+
+      // the projection's A fragments: a1 at the warp's own pixels, from x
+      AFrag pa[PROJ ? KS1 : 1];
+      if (PROJ) {
+        const int cy0 = min(y0 + q0y, H - 1), cx0 = min(x0 + q0x, W - 1);
+        const int cy1 = min(y0 + q1y, H - 1), cx1 = min(x0 + q1x, W - 1);
+        float xa[CL], xb[CL];
+        load_x(xa, xn + ((size_t)cy0 * W + cx0) * CIN + t * CL);
+        load_x(xb, xn + ((size_t)cy1 * W + cx1) * CIN + t * CL);
+#pragma unroll
+        for (int ks = 0; ks < KS1; ++ks) a1_frag(pa[ks], xa, xb, ks);
+      }
+
+      // a3 = relu(z2) as A fragments: k slot t <-> column 2t, slot t+4 <-> 2t+1
+      uint32_t ah[NT2][4], al[NT2][4];
+#pragma unroll
+      for (int j = 0; j < NT2; ++j) {
+        split(fmaxf(acc3[j][0], 0.f), ah[j][0], al[j][0]);
+        split(fmaxf(acc3[j][2], 0.f), ah[j][1], al[j][1]);
+        split(fmaxf(acc3[j][1], 0.f), ah[j][2], al[j][2]);
+        split(fmaxf(acc3[j][3], 0.f), ah[j][3], al[j][3]);
+      }
+
+      // after the lane-pair exchange an even lane holds row g, an odd lane
+      // row g+8, four neighbouring channels each
+      const int odd = t & 1;
+      const int q = warp * 16 + g + 8 * odd;
+      const int gy = y0 + (odd ? q1y : q0y), gx = x0 + (odd ? q1x : q0x);
+      const bool valid = q < tp && gy < H && gx < W;
+      const size_t pix = (size_t)gy * W + gx;
+      const int col0 = 2 * (t & 2);
+
+#pragma unroll 1
+      for (int grp = 0; grp < NT4 / NG; ++grp) {
+        // 4. y = a3 @ w3 + b3 (+ a1 @ wp + bp), NG column tiles at a time
+        constexpr int STEPS = NT2 + (PROJ ? KS1 : 0);
+        float acc[NG][4], small[NG][4];
+        init_bias<NG>(acc, smem + P::b3 + grp * NG * 8, t);
+        zero<NG>(small);
+        float4 skip[PROJ ? 1 : NG];        // x at this lane's outputs, ahead of the MMAs
+        if (!PROJ && valid) {
+#pragma unroll
+          for (int i = 0; i < NG; ++i)
+            skip[i] = __ldg(reinterpret_cast<const float4*>(
+                xn + pix * CIN + (grp * NG + i) * 8 + col0));
+        }
+        BFrag<NG> fb, fb_next;
+        load_b<NG>(fb, smem + P::w3 + grp * NG * 64, lane);
+#pragma unroll
+        for (int st = 0; st < STEPS; ++st) {
+          if (st + 1 < NT2)
+            load_b<NG>(fb_next, smem + P::w3 + ((st + 1) * NT4 + grp * NG) * 64, lane);
+          else if (st + 1 < STEPS)
+            load_b<NG>(fb_next, smem + P::wp + ((st + 1 - NT2) * NT4 + grp * NG) * 64, lane);
+          if (st < NT2)
+            mma_step<NG>(acc, small, ah[st], al[st], fb);
+          else
+            mma_step<NG>(acc, small, pa[PROJ ? st - NT2 : 0], fb);
+          fb = fb_next;
+        }
+        add_small<NG>(acc, small);
+#pragma unroll
+        for (int i = 0; i < NG; ++i) {
+          const float s0 = odd ? acc[i][0] : acc[i][2];
+          const float s1v = odd ? acc[i][1] : acc[i][3];
+          const float e0 = __shfl_xor_sync(kFull, s0, 1);
+          const float e1 = __shfl_xor_sync(kFull, s1v, 1);
+          float4 o = odd ? make_float4(e0, e1, acc[i][2], acc[i][3])
+                         : make_float4(acc[i][0], acc[i][1], e0, e1);
+          if (valid) {
+            const int col = (grp * NG + i) * 8 + col0;
+            if (!PROJ) {
+              const float4 r = skip[PROJ ? 0 : i];
+              o.x += r.x; o.y += r.y; o.z += r.z; o.w += r.w;
+            }
+            *reinterpret_cast<float4*>(yn + pix * COUT + col) = o;
           }
         }
       }
     }
   }
+}
+
+size_t smem_bytes(int cin, int cmid, int cout, int th, int tw, int has_proj) {
+  const size_t hp = (size_t)(th + 2) * (tw + 2);
+  const size_t weights = (size_t)cin * cmid + 9 * (size_t)cmid * cmid + (size_t)cmid * cout +
+                         (has_proj ? (size_t)cin * cout : 0) + 2 * cin + 2 * cmid + cout;
+  return (weights + 2 * hp * (cmid + 4)) * sizeof(float);
+}
+
+template <int CIN, int CMID, int COUT, bool PROJ>
+int launch(const float* x, const float* packed, float* y, int n, int h, int w,
+           int th, int tw, int dev, int sms, cudaStream_t stream) {
+  auto kernel = bottleneck_kernel<CIN, CMID, COUT, PROJ>;
+  const size_t smem = smem_bytes(CIN, CMID, COUT, th, tw, PROJ);
+  // the opt-in to more than 48 KB is kept per device and only ever raised
+  static size_t allowed[kMaxDevices] = {};
+  if (smem > allowed[dev]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed[dev] = smem;
+  }
+  const int tiles_x = (w + tw - 1) / tw, tiles_y = (h + th - 1) / th;
+  const int num_tiles = tiles_x * tiles_y * n;
+  const int grid = num_tiles < sms ? num_tiles : sms;
+  kernel<<<grid, kThreads, smem, stream>>>(x, packed, y, h, w, th, tw,
+                                           tiles_x, tiles_y, num_tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -237,30 +464,37 @@ bottleneck_kernel(const float* __restrict__ x,
 extern "C" {
 
 // Dynamic shared memory of one thread block, in bytes.
-size_t df3d_bottleneck_smem(int cin, int cmid, int th, int tw, int has_proj) {
-  const size_t hp = (size_t)(th + 2) * (tw + 2);
-  const size_t tp = (size_t)th * tw;
-  size_t a1 = hp * (cin + 1), a3 = tp * (cmid + 1);
-  size_t words = hp * (cmid + 1) + (has_proj ? a1 + a3 : (a1 > a3 ? a1 : a3));
-  return words * sizeof(float);
+size_t df3d_bottleneck_smem(int cin, int cmid, int cout, int th, int tw, int has_proj) {
+  return smem_bytes(cin, cmid, cout, th, tw, has_proj);
 }
 
-// Launch on `stream`; returns the CUDA error code (0 = launched).
-// wp and bp are null when the block has no projection (then cin == cout).
-int df3d_bottleneck(const float* x, const float* s1, const float* t1,
-                    const float* w1, const float* b1, const float* w2,
-                    const float* b2, const float* w3, const float* b3,
-                    const float* wp, const float* bp, float* y,
-                    int n, int h, int w, int cin, int cmid, int cout,
+// Launch on `stream`; returns the CUDA error code (0 = launched), or
+// cudaErrorInvalidValue for channel counts without an instantiation.
+// `packed` is pack_bottleneck's buffer; th * tw <= 192.
+int df3d_bottleneck(const float* x, const float* packed, float* y,
+                    int n, int h, int w, int cin, int cmid, int cout, int has_proj,
                     int th, int tw, void* stream) {
-  const size_t smem = df3d_bottleneck_smem(cin, cmid, th, tw, wp != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (th < 1 || tw < 1 || th * tw > 16 * kWarps) return (int)cudaErrorInvalidValue;
+  static int sm_count[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + tw - 1) / tw, (h + th - 1) / th, n);
-  bottleneck_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, s1, t1, w1, b1, w2, b2, w3, b3, wp, bp, y, h, w, cin, cmid, cout, th, tw);
-  return (int)cudaGetLastError();
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (sm_count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int sms = sm_count[dev];
+  cudaStream_t s = (cudaStream_t)stream;
+#define DF3D_CASE(CI, CM, CO, PR) \
+  if (cin == CI && cmid == CM && cout == CO && (has_proj != 0) == PR) \
+    return launch<CI, CM, CO, PR>(x, packed, y, n, h, w, th, tw, dev, sms, s);
+  DF3D_CASE(96, 48, 96, false)
+  DF3D_CASE(48, 48, 96, true)
+  DF3D_CASE(64, 32, 64, false)
+  DF3D_CASE(32, 32, 64, true)
+#undef DF3D_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -96,11 +96,32 @@ def decode_heatmaps_plain(heatmaps: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     return torch.stack([row, col], dim=-1), conf
 
 
+# the decode kernel splits every image's cells over thread blocks: two per SM
+# of an H100 (132 SMs) over the whole launch, at least 64 cells each
+_DECODE_BLOCKS = 2 * 132
+_DECODE_MIN_CELLS = 64
+
+
+@lru_cache(maxsize=None)
+def _decode_kernel():
+    fn = _build.library("decode").df3d_decode_heatmaps
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_splits(n: int, cells: int) -> int:
+    """Thread blocks per image of the decode kernel's first pass."""
+    want = -(-_DECODE_BLOCKS // max(n, 1))
+    return max(1, min(want, cells // _DECODE_MIN_CELLS))
+
+
 def decode_heatmaps(heatmaps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Argmax decode of (N, H, W, K) float32 heatmaps, first index on ties.
 
-    Launches ``csrc/decode.cu`` on a CUDA tensor (counted in
-    ``decode_heatmaps.launches``) or raises; plain version on a CPU tensor.
+    Launches ``csrc/decode.cu`` on a CUDA tensor (its two passes count as one
+    launch in ``decode_heatmaps.launches``) or raises; plain version on a CPU
+    tensor.
     """
     if heatmaps.dim() != 4:
         raise ValueError("heatmaps must be (N, H, W, K)")
@@ -112,15 +133,17 @@ def decode_heatmaps(heatmaps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     _check_cuda("heatmaps", heatmaps, heatmaps.device)
     if not 1 <= k <= 1024 or h * w < 1:
         raise ValueError(f"decode kernel needs 1 <= K <= 1024 and H*W >= 1, got {tuple(heatmaps.shape)}")
-    pts = torch.empty((n, k, 2), device=heatmaps.device, dtype=torch.float32)
-    conf = torch.empty((n, k, 1), device=heatmaps.device, dtype=torch.float32)
+    dev = heatmaps.device
+    pts = torch.empty((n, k, 2), device=dev, dtype=torch.float32)
+    conf = torch.empty((n, k, 1), device=dev, dtype=torch.float32)
     if n == 0:
         return pts, conf
-    fn = _build.library("decode").df3d_decode_heatmaps
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(heatmaps.data_ptr(), pts.data_ptr(), conf.data_ptr(), n, h, w, k,
-            torch.cuda.current_stream(heatmaps.device).cuda_stream)
+    splits = decode_splits(n, h * w)
+    # the first pass's partial (value, index) pairs: values in the first half
+    part = torch.empty((2, n, splits, k), device=dev, dtype=torch.int32)
+    rc = _decode_kernel()(heatmaps.data_ptr(), pts.data_ptr(), conf.data_ptr(), part.data_ptr(),
+                          part.data_ptr() + part.numel() * 2, n, h, w, k, splits,
+                          torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "decode kernel")
     decode_heatmaps.launches += 1
     return pts, conf

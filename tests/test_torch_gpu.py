@@ -3,9 +3,12 @@
 Marked ``gpu``: on a machine without a CUDA device every test skips (the
 decision is made inside each test, so every pytest worker collects the
 same tests).  Run on the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
-Tolerances: the bottleneck sums ~500 float32 products in another order than
-cuDNN/cuBLAS, so its error is held to 5e-5 of the output's largest
-magnitude; the upsample-add and the decode are exact.  The preprocess sums
+Tolerances: the bottleneck computes its ~500-term sums as error-compensated
+TF32 products on the tensor cores, in another order than cuDNN/cuBLAS, so
+its error against the plain version and against its own arithmetic model
+(``bottleneck_tf32_model``) is held to 5e-5 of the output's largest
+magnitude; the upsample-add and the decode are exact (NaN and signed zeros
+included).  The preprocess sums
 <= 25 products in another order than cuBLAS: 2e-6 on [0, 1] values when it
 resizes, exact in identity mode (out shape == in shape, the TPU kernel's
 function).  The p16 and cascade pipelines must match their plain twins
@@ -13,6 +16,7 @@ function).  The p16 and cascade pipelines must match their plain twins
 1e-5 relative.
 """
 
+import ctypes
 import os
 import pickle
 
@@ -22,6 +26,7 @@ import torch
 
 from deepfly3d_torch.models.fused_inference import fold_hourglass
 from deepfly3d_torch.models.hourglass import load_weights
+from deepfly3d_torch.ops import _build
 from deepfly3d_torch.ops import bottleneck as bn
 from deepfly3d_torch.ops import geometry
 from deepfly3d_torch.ops import image as image_ops
@@ -52,10 +57,16 @@ def blocks():
     ("stem_res2", (3, 64, 128, 96)),
     ("hg0/down_d1_0", (5, 4, 8, 96)),
     ("hg1/skip_d2_0", (2, 13, 21, 96)),   # tiles cut by the image edge
+    ("stem_res1", (7, 128, 256, 48)),     # the projection block at the teacher's batch
+    ("stem_res1", (1, 19, 37, 48)),       # projection, tiles cut by the image edge
+    ("hg0/innermost_0", (56, 3, 6, 96)),  # the patchify student's odd innermost level
+    ("hg0/innermost_0", (56, 2, 4, 96)),  # p16's innermost level
+    ("hg0/up_d3_0", (7, 16, 32, 96)),     # small batch: thin tiles
+    ("feat_res0", (1, 1, 1, 96)),
 ])
 def test_bottleneck_kernel_matches_plain(blocks, name, shape):
     dev = _card()
-    folded = {k: v.to(dev) for k, v in blocks[name].items()}
+    folded = {k: v.to(dev) for k, v in bn.add_packed(blocks[name]).items()}
     g = torch.Generator().manual_seed(0)
     x = torch.randn(shape, generator=g).to(dev)
     before = bn.fused_bottleneck.launches
@@ -63,8 +74,17 @@ def test_bottleneck_kernel_matches_plain(blocks, name, shape):
     torch.cuda.synchronize()
     assert bn.fused_bottleneck.launches == before + 1
     want = bn.bottleneck_plain(x, folded)
-    err = (got - want).abs().max().item()
-    assert err <= 5e-5 * max(1.0, want.abs().max().item()), err
+    tol = 5e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+    assert (got - bn.bottleneck_tf32_model(x, folded)).abs().max().item() <= tol
+    # the wrapper's shared-memory budget is the kernel's own figure
+    n, h, w, cin = shape
+    args = (cin, folded["w1"].shape[1], folded["w3"].shape[1],
+            *bn.choose_tile(n, h, w, cin, folded["w1"].shape[1], folded["w3"].shape[1],
+                            "wp" in folded), int("wp" in folded))
+    smem = _build.library("bottleneck").df3d_bottleneck_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 6, ctypes.c_size_t
+    assert smem(*args) == bn.smem_bytes(*args[:5], "wp" in folded)
 
 
 @pytest.mark.parametrize("shape", [(56, 4, 8, 96), (7, 32, 64, 96), (2, 3, 5, 6)])
@@ -79,11 +99,16 @@ def test_upsample_kernel_matches_plain(shape):
     assert torch.equal(got, kernels.upsample2x_add_plain(inner, skip))
 
 
-@pytest.mark.parametrize("hw", [(64, 128), (48, 96)])
+# (63, 127) x 19: K x cells is no multiple of 4, the kernel's scalar loads
+@pytest.mark.parametrize("hw", [(64, 128), (48, 96), (63, 127)])
 def test_decode_kernel_matches_plain_with_ties(hw):
     dev = _card()
     g = torch.Generator().manual_seed(2)
     hm = torch.randn((9,) + hw + (19,), generator=g)
+    hm[3, :, :, 5] = -0.0                         # -0.0 ties with a later +0.0: index 0
+    hm[3, 20, 7, 5] = 0.0
+    hm[4, 30, 11, 6] = hm[4, 31, 2, 6] = float("nan")    # the first NaN wins
+    hm[4, 0, 0, 6] = 1e30
     hm[0, :, :, 0] = 3.0                          # all tied: index 0
     hm[1, 10, 5, 3] = hm[1, 40, hw[1] - 28, 3] = 9.0     # first of two peaks
     hm[2, hw[0] - 1, hw[1] - 1, 4] = hm[2, 0, 1, 4] = 9.0
@@ -91,16 +116,33 @@ def test_decode_kernel_matches_plain_with_ties(hw):
     pts, conf = kernels.decode_heatmaps(hm)
     torch.cuda.synchronize()
     want_pts, want_conf = kernels.decode_heatmaps_plain(hm)
-    assert torch.equal(pts, want_pts) and torch.equal(conf, want_conf)
-    assert pts[0, 0].tolist() == [0.0, 0.0]
+    assert torch.equal(pts, want_pts)
+    assert conf[4, 6].isnan().all() and want_conf[4, 6].isnan().all()
+    assert torch.equal(conf.nan_to_num(nan=0.0), want_conf.nan_to_num(nan=0.0))
+    assert pts[0, 0].tolist() == [0.0, 0.0] and pts[3, 5].tolist() == [0.0, 0.0]
+    assert pts[4, 6].tolist() == [np.float32(30) / np.float32(hw[0]),
+                                  np.float32(11) / np.float32(hw[1])]
     assert pts[1, 3].tolist() == [np.float32(10 / hw[0]), np.float32(5 / hw[1])]
 
 
 def test_wrappers_reject_cpu_mixed_inputs(blocks):
     dev = _card()
-    folded = {k: v for k, v in blocks["stem_res2"].items()}    # on the CPU
-    with pytest.raises(ValueError):
-        bn.fused_bottleneck(torch.zeros((1, 8, 8, 96), device=dev), folded)
+    x = torch.zeros((1, 8, 8, 96), device=dev)
+    with pytest.raises(ValueError):               # the weight buffer is on the CPU
+        bn.fused_bottleneck(x, bn.add_packed(blocks["stem_res2"]))
+    with pytest.raises(ValueError):               # no weight buffer at all
+        bn.fused_bottleneck(x, {k: v.to(dev) for k, v in blocks["stem_res2"].items()})
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 7, 1), (2, 9, 9, 256), (1, 4, 4, 1000), (300, 2, 2, 3)])
+def test_decode_kernel_takes_any_joint_count(shape):
+    dev = _card()
+    g = torch.Generator().manual_seed(4)
+    hm = torch.randn(shape, generator=g).to(dev)
+    pts, conf = kernels.decode_heatmaps(hm)
+    torch.cuda.synchronize()
+    want_pts, want_conf = kernels.decode_heatmaps_plain(hm)
+    assert torch.equal(pts, want_pts) and torch.equal(conf, want_conf)
 
 
 def test_pose_estimator_prefetch_on_card():

@@ -106,3 +106,55 @@ def test_preprocess_resize_rejects_bad_inputs():
         port_kernels.preprocess_resize(frames, torch.zeros(3, dtype=torch.bool), (4, 4))
     with pytest.raises(ValueError):
         port_kernels.preprocess_resize(frames, torch.zeros(2, dtype=torch.int32), (4, 4))
+
+
+def _special_heatmaps(shape, seed):
+    """Random maps with a NaN, a map of -0.0 holding one later +0.0 (they tie:
+    the first index wins), and two planted ties."""
+    n, h, w, k = shape
+    rng = np.random.default_rng(seed)
+    hm = rng.normal(size=shape).astype(np.float32)
+    hm[0, :, :, 0] = -0.0
+    hm[0, h - 1, w - 2, 0] = 0.0
+    hm[0, h // 2, w // 3, 1] = np.nan                  # beats every number
+    hm[-1, 1, 1, 2] = hm[-1, h - 1, 0, 2] = 9.0        # first of two peaks
+    hm[-1, 2, 1, k - 1] = hm[-1, 2, 2, k - 1] = np.nan    # first of two NaNs
+    return hm
+
+
+# (N, H, W, K); 7x9x19 and 5x5x3: K x cells is no multiple of 4
+@pytest.mark.parametrize("shape", [(2, 16, 32, 5), (3, 7, 9, 19), (2, 5, 5, 3), (1, 8, 16, 19)])
+def test_decode_nan_signed_zero_and_ragged_shapes(shape):
+    n, h, w, k = shape
+    hm = _special_heatmaps(shape, seed=sum(shape))
+    pts, conf = port_kernels.decode_heatmaps_plain(torch.from_numpy(hm))
+    wrapped = port_kernels.decode_heatmaps(torch.from_numpy(hm))
+    flat = jnp.asarray(hm).transpose(0, 3, 1, 2).reshape(n, k, h * w)
+    idx = np.asarray(jnp.argmax(flat, axis=-1))
+    want_pts = np.stack([(idx // w).astype(np.float32) / np.float32(h),
+                         (idx % w).astype(np.float32) / np.float32(w)], -1)
+    pts_p, conf_p = jax_kernels.decode_heatmaps_pallas(jnp.asarray(hm))
+    for got_pts, got_conf in ((pts, conf), wrapped):
+        np.testing.assert_array_equal(got_pts.numpy(), want_pts)
+        # the same cells as the Pallas kernel; under jit XLA divides by a grid
+        # size that is no power of two as a product with its reciprocal, one
+        # ulp off the IEEE division, so cells (>= 1/32 apart) compare to 1e-6
+        np.testing.assert_allclose(got_pts.numpy(), np.asarray(pts_p), atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(got_conf.numpy(), np.asarray(conf_p))   # NaN == NaN here
+        np.testing.assert_array_equal(got_conf.numpy()[..., 0], np.asarray(jnp.max(flat, -1)))
+    assert pts[0, 0].tolist() == [0.0, 0.0]                       # -0.0 == +0.0
+    assert np.isnan(conf.numpy()[0, 1, 0])
+    assert pts[0, 1].tolist() == [np.float32(h // 2) / np.float32(h),
+                                  np.float32(w // 3) / np.float32(w)]
+    assert pts[-1, k - 1].tolist() == [np.float32(2) / np.float32(h),
+                                       np.float32(1) / np.float32(w)]
+
+
+@pytest.mark.parametrize("n,cells,want", [(56, 64 * 128, 5), (56, 48 * 96, 5), (7, 64 * 128, 38),
+                                          (1, 64 * 128, 128), (3, 63, 1), (500, 8192, 1)])
+def test_decode_splits(n, cells, want):
+    splits = port_kernels.decode_splits(n, cells)
+    assert splits == want
+    assert 1 <= splits <= cells
+    if cells >= 64 * 264:
+        assert n * splits >= 264          # two thread blocks per SM of an H100

@@ -99,7 +99,7 @@ def runs():
                            rig="auto", device="cpu")
     p3d, pp38, pconf = (t.numpy() for t in ppipe(frames))
     return {"jax": (j3d, jp38, jconf), "port": (p3d, pp38, pconf), "golden": golden,
-            "frames": frames}
+            "frames": frames, "pipe": ppipe}
 
 
 def test_same_argmax_cells(runs):
@@ -123,6 +123,29 @@ def test_golden_contract(runs):
     pts_err = np.abs(runs["port"][1] - golden["points2d"]).max()
     conf_err = np.abs(runs["port"][2] - golden["heatmap_confidence"]).max()
     assert pts_err <= 0.02, pts_err
+    assert conf_err <= 0.002, conf_err
+
+
+def test_tf32_arithmetic_model_holds_the_golden_contract(runs):
+    """The CUDA bottleneck kernel's arithmetic (three TF32 products per
+    product, ``bottleneck_tf32_model``) in place of the float32 block, on all
+    105 golden images: the same argmax cells as the port's float32 run,
+    confidences within 2e-5 of JAX, and the golden confidence band."""
+    from deepfly3d_torch.ops.bottleneck import bottleneck_tf32_model
+
+    pipe = runs["pipe"]
+    nets = list(pipe.nets().values())
+    old = [net.block_fn for net in nets]
+    for net in nets:
+        net.block_fn = bottleneck_tf32_model
+    try:
+        _, p38, conf = (t.numpy() for t in pipe(runs["frames"]))
+    finally:
+        for net, fn in zip(nets, old):
+            net.block_fn = fn
+    np.testing.assert_array_equal(p38, runs["port"][1])
+    np.testing.assert_allclose(conf, runs["jax"][2], atol=2e-5, rtol=0)
+    conf_err = np.abs(conf - runs["golden"]["heatmap_confidence"]).max()
     assert conf_err <= 0.002, conf_err
 
 
