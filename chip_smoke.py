@@ -20,7 +20,11 @@ result line):
    many times;
 4. kernel phase: every kernel against its plain PyTorch version on the card
    at every recorded shape, with the tolerance stated (and the preprocess
-   kernel in identity mode at 480x960, which is the TPU kernel exactly);
+   kernel in identity mode at 480x960, which is the TPU kernel exactly).  The
+   preprocess runs as the paths run it, with the rig registration's
+   per-image shift and gain: it must equal, bit for bit, the kernel on
+   ``apply_shift_tc``'s frames times the gain (``unfused_ms`` times that
+   composition), and its plain version within the tolerance;
    kernel and one-library-call times from a replayed CUDA graph of 10 calls
    (``ms``, ``library_ms``: device time alone, no host work between the
    launches) and by CUDA events around eager calls (``eager_ms``,
@@ -35,7 +39,11 @@ result line):
 5. slice phase: each path once with every launch count set to 0 just
    before and read just after (they must equal the recorded counts); its
    output against its plain twin on the card; frames/s in turns
-   (informational);
+   (informational).  Then one conv call on drifted frames (per-camera rolls
+   and a gain planted on the same frames): the registration must find the
+   planted rolls and a gain other than 1, and the output must match the
+   plain twin.  With ``--profile FILE``, a torch.profiler table per path and
+   its device time, with the time in ``index`` gathers;
 6. golden phase: golden frame 0 (rig off) through every shipped checkpoint
    and the cascade against the JAX package's output on it
    (``deepfly3d_torch/data/golden_t0.npz``, ``golden_t0_checkpoints.npz``),
@@ -79,10 +87,13 @@ EXPECTED = {
 # of the output's largest magnitude: the bottleneck kernel's 3xTF32 products
 # against f32 sums in another order, and against its own arithmetic model
 BLOCK_TOL = 5e-5
-PREPROCESS_TOL = 2e-6   # outputs in [0, 1], <= 25 products summed in another order
+PREPROCESS_TOL = 2e-6   # outputs in [0, 1] times the gain, <= 25 products summed in another order
+# planted on the slice phase's frames for the drifted conv call: per-camera
+# rolls (rows, columns) and one gain
+DRIFT_DY, DRIFT_DX, DRIFT_GAIN = [3, -5, 0, 8, -2, 6, -8], [-4, 7, 2, 0, -8, 5, 1], 1.06
 # per-shape times that are summed per path and per kernel
 TIMES = ("ms", "plain_ms", "library_ms", "eager_ms", "library_eager_ms", "bound_ms",
-         "bound_f32_ms")
+         "bound_f32_ms", "unfused_ms")
 CELL_ATOL = 1e-6        # same argmax cell: cells are >= 1/128 apart
 SOURCES = {
     "fused_bottleneck": ("deepfly3d_torch/ops/csrc/bottleneck.cu",
@@ -186,9 +197,10 @@ def record_shapes(twin, path, rows, frames):
         note("decode_heatmaps", tuple(hm.shape))
         return kernels.decode_heatmaps_plain(hm)
 
-    def preprocess(x_u8, flip, out_shape, dtype):
+    def preprocess(x_u8, flip, out_shape, dtype, shift=None, gain=None):
         note("preprocess_resize", tuple(x_u8.shape) + tuple(out_shape))
-        return image_ops.preprocess_frames_plain(x_u8, flip, out_shape, dtype)
+        return image_ops.preprocess_frames_plain(x_u8, flip, out_shape, dtype, shift=shift,
+                                                 gain=gain)
 
     for net in twin.nets().values():
         net.block_fn, net.merge_fn = block, merge
@@ -210,7 +222,7 @@ def main(argv):
     from deepfly3d_torch.config import WEIGHTS_DIR, fly_config
     from deepfly3d_torch.models.cascade import build_cascade_pipeline
     from deepfly3d_torch.models.hourglass import load_weights
-    from deepfly3d_torch.ops import _build, geometry, image as image_ops
+    from deepfly3d_torch.ops import _build, canonicalize, geometry, image as image_ops
     from deepfly3d_torch.ops import bottleneck as bn
     from deepfly3d_torch.ops import kernels
     from deepfly3d_torch.pipeline import build_pipeline, plain_twin
@@ -384,31 +396,56 @@ def main(argv):
         n, h_in, w_in, c, h, w = key
         x = torch.randint(0, 256, (n, h_in, w_in, c), generator=gen, dtype=torch.uint8).to(dev)
         flip = (torch.arange(n) % 3 == 1).to(dev)
+        dy, dx = (torch.randint(-8, 9, (n,), generator=gen, dtype=torch.int32).to(dev)
+                  for _ in range(2))
+        gain = 0.9 + 0.2 * torch.rand(n, generator=gen)
+        gain[::4] = 1.0
+        gain = gain.to(dev)
+        reg = {"shift": (dy, dx), "gain": gain}
         identity = (h, w) == (h_in, w_in)
-        out = kernels.preprocess_resize(x, flip, (h, w))
-        plain = ((lambda: kernels.preprocess_u8_plain(x, flip)) if identity
-                 else (lambda: image_ops.preprocess_frames_plain(x, flip, (h, w))))
-        ref = plain()
+
+        def kernel():                                       # as the paths call it
+            return kernels.preprocess_resize(x, flip, (h, w), **reg)
+
+        def unfused():                 # the registration as separate steps around it
+            rolled = image_ops.roll_frames(x, (dy, dx))
+            return kernels.preprocess_resize(rolled, flip, (h, w)) * gain[:, None, None, None]
+
+        def plain(**registration):
+            if identity:
+                return kernels.preprocess_u8_plain(x, flip, **registration)
+            return image_ops.preprocess_frames_plain(x, flip, (h, w), **registration)
+
+        out, ref = kernel(), plain(**reg)
+        bare, bare_ref = kernels.preprocess_resize(x, flip, (h, w)), plain()
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        tol = 0.0 if identity else PREPROCESS_TOL
+        if not torch.equal(out, unfused()):
+            raise AssertionError(f"preprocess {key}: the fused shift and gain differ from the "
+                                 f"kernel on rolled frames times the gain")
+        err = max((out - ref).abs().max().item(), (bare - bare_ref).abs().max().item())
+        tol = 0.0 if identity else PREPROCESS_TOL * max(1.0, gain.max().item())
         if not err <= tol:
             raise AssertionError(f"preprocess {key}: max abs err {err} > {tol}")
+
         def library():                                      # the same triangle filter
-            xc = (x.float() * (1.0 / 255.0)).permute(0, 3, 1, 2)   # channels_last NCHW view
+            xc = (image_ops.roll_frames(x, (dy, dx)).float() * (1.0 / 255.0)).permute(0, 3, 1, 2)
             y = F.interpolate(xc, size=(h, w), mode="bilinear", antialias=True,
                               align_corners=False).permute(0, 2, 3, 1)
-            return torch.where(flip.reshape(n, 1, 1, 1), y.flip(2), y)
+            return torch.where(flip.reshape(n, 1, 1, 1), y.flip(2), y) * gain[:, None, None, None]
 
         lib_err = (library() - ref).abs().max().item()
         kh = image_ops.resize_taps(h_in, h, 1.0 / 255.0)[1].shape[1]
         kw = image_ops.resize_taps(w_in, w, 1.0)[1].shape[1]
-        flops = 2.0 * n * c * (h * w_in * kh + h * w * kw)
-        nbytes = float(x.numel() + 4 * out.numel() + n + 8 * (h * kh + w * kw) + 4 * (h + w))
+        flops = 2.0 * n * c * (h * w_in * kh + h * w * kw) + n * h * w * c
+        nbytes = float(x.numel() + 4 * out.numel() + 13 * n + 8 * (h * kh + w * kw)
+                       + 4 * (h + w))
         b_ms, b_by = bound_ms(flops, nbytes)
         row = {"shape": list(key), "mode": "identity" if identity else "resize",
-               "taps": [kh, kw], "max_abs_err": err, "tolerance": tol, "library_err": lib_err,
-               **times(torch, lambda: kernels.preprocess_resize(x, flip, (h, w)), plain, library),
+               "taps": [kh, kw], "plan": list(kernels.preprocess_plan(
+                   h_in, w_in, c, h, w, kernels.PREPROCESS_STAGE_ROWS)),
+               "max_abs_err": err, "tolerance": tol, "library_err": lib_err,
+               **times(torch, kernel, lambda: plain(**reg), library),
+               "unfused_ms": graph_ms(torch, unfused),
                "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
         record("preprocess_resize", row, counts)
 
@@ -485,7 +522,42 @@ def main(argv):
             f"{[q for _, q in turns]}, on {card}")
         print(fps_lines[-1])
 
+    # one conv call on drifted frames: planted rolls and gain, registration on
+    drifted_np = np.stack([np.roll(frames_np[:, c], (DRIFT_DY[c], DRIFT_DX[c]), axis=(1, 2))
+                           for c in range(num_cameras)], axis=1)
+    drifted_np = np.clip(np.rint(drifted_np * np.float32(DRIFT_GAIN)), 0, 255).astype(np.uint8)
+    drifted = torch.from_numpy(drifted_np).to(dev)
+    conv = paths["conv"]
+    clean_reg = canonicalize.estimate_tc(frames, conv.rig)
+    dy, dx, gain = canonicalize.estimate_tc(drifted, conv.rig)
+    if not (torch.equal((dy - clean_reg[0]).cpu(), torch.tensor(DRIFT_DY, dtype=torch.int32))
+            and torch.equal((dx - clean_reg[1]).cpu(), torch.tensor(DRIFT_DX, dtype=torch.int32))
+            and bool((gain != 1.0).all())):
+        raise AssertionError(f"drifted frames: registration found dy {dy.tolist()}, dx "
+                             f"{dx.tolist()}, gain {gain.tolist()} (clean {clean_reg}); planted "
+                             f"rolls {DRIFT_DY}, {DRIFT_DX} and gain {DRIFT_GAIN}")
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    pts3d, p38, conf = conv(drifted)
+    torch.cuda.synchronize()
+    got = {c.__name__: c.launches for c in counters}
+    if got != EXPECTED["conv"]:
+        raise AssertionError(f"drifted conv call launches {got}, want {EXPECTED['conv']}")
+    q3d, q38, qconf = plain_twin(conv)(drifted)
+    torch.cuda.synchronize()
+    conf_diff = (conf - qconf).abs().max().item()
+    pts3d_diff = ((pts3d - q3d).abs().max() / q3d.abs().max().clamp_min(1e-30)).item()
+    if not torch.equal(p38, q38) or conf_diff > 1e-4 or pts3d_diff > 1e-5:
+        raise AssertionError(f"drifted conv vs plain: p38 equal {torch.equal(p38, q38)}, conf "
+                             f"{conf_diff}, points3d rel {pts3d_diff}")
+    print(f"slice conv on drifted frames: registration dy {dy.tolist()}, dx {dx.tolist()}, gain "
+          f"{[round(g, 4) for g in gain.tolist()]} (clean frames: dy {clean_reg[0].tolist()}, "
+          f"dx {clean_reg[1].tolist()}); launches {got}; vs plain: p38 equal, conf max diff "
+          f"{conf_diff}, points3d max rel diff {pts3d_diff}")
+
     if "--profile" in argv:
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         with open(argv[argv.index("--profile") + 1], "w") as fh:
@@ -494,8 +566,16 @@ def main(argv):
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     pipe(frames)
                     torch.cuda.synchronize()
-                fh.write(f"\n==== {path} path, one call at T={BATCH_T}\n")
-                fh.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+                events = prof.key_averages()
+                kernels_run = [e for e in events if e.device_type == DeviceType.CUDA]
+                total_ms = sum(e.self_device_time_total for e in kernels_run) / 1e3
+                index_ms = sum(e.self_device_time_total for e in kernels_run
+                               if "index" in e.key) / 1e3
+                line = (f"profile {path}: device time {total_ms:.3f} ms per call, of it "
+                        f"{index_ms:.3f} ms in index kernels")
+                print(line)
+                fh.write(f"\n==== {path} path, one call at T={BATCH_T}; {line}\n")
+                fh.write(events.table(sort_by="cuda_time_total", row_limit=40))
 
     # ---- 6. golden phase: frame 0, rig off
     with open(os.path.join(ROOT, "tests", "data", "reference_df3d", "df3d_result_2d.pkl"),

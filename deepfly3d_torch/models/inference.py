@@ -31,11 +31,13 @@ from deepfly3d_torch.utils.devices import full_f32, resolve_device
 @torch.inference_mode()
 def infer_batch(net: FoldedHourglass, images_u8: torch.Tensor, flip: torch.Tensor,
                 input_shape: Tuple[int, int], gain: Optional[torch.Tensor] = None):
-    """(N, H, W, 3) uint8 on the net's device -> (pts (N, K, 2), conf (N, K, 1))."""
+    """(N, H, W, 3) uint8 on the net's device -> (pts (N, K, 2), conf (N, K, 1)).
+
+    ``gain``, an optional (N,) float32 exposure correction, is applied by the
+    preprocess as it writes the network input.
+    """
     x = image_ops.preprocess_frames(images_u8, flip, tuple(input_shape),
-                                    net.spec.preprocess_dtype)
-    if gain is not None:
-        x = x * gain[:, None, None, None]
+                                    net.spec.preprocess_dtype, gain=gain)
     return decode_mod.decode_argmax(net(x)[-1])
 
 
@@ -105,7 +107,7 @@ class PoseEstimator:
             if gain is not None:
                 gain = np.concatenate([gain, gain[:pad]], axis=0)
         if gain is not None and np.all(gain == 1.0):
-            gain = None                      # identity: skip the multiply
+            gain = None                      # identity: no gain tensor to copy
         gain = None if gain is None else np.asarray(gain, np.float32)
 
         def batch(i):

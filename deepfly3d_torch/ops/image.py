@@ -17,13 +17,16 @@ preprocess kernel; the port does not call it.
 ``preprocess_frames`` runs ``ops/kernels.preprocess_resize``: on a card one
 CUDA kernel (``csrc/preprocess.cu``) reads the uint8 frames once and writes
 the resized float32 frames, from per-axis tap tables (``resize_taps``: each
-output's 3-5 non-zero weights).  ``preprocess_frames_plain`` is the plain
-version, two dense matmuls:
+output's 3-5 non-zero weights).  With the rig registration's per-image
+shift and gain correction it folds those in too.  ``preprocess_frames_plain``
+is the plain version, two dense matmuls:
 
-    frames_u8 -> einsum(RH/255, x) -> einsum(RW, .) -> flip
+    frames_u8 -> roll by (-dy, -dx) -> einsum(RH/255, x) -> einsum(RW, .)
+              -> flip -> * gain
 
 /255 is folded into the H matrix, and the flip comes after the resize:
-flipping commutes with the symmetric resampling grid.
+flipping commutes with the symmetric resampling grid.  The roll is
+``canonicalize.apply_shift_tc``, the multiply the pipeline's own.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from deepfly3d_torch.ops import canonicalize
 
 
 @lru_cache(maxsize=16)
@@ -97,25 +102,44 @@ def _check_dtype(dtype: str) -> None:
         raise ValueError(f"preprocess dtype {dtype!r}: the port computes float32 only")
 
 
+def roll_frames(frames_u8: torch.Tensor, shift) -> torch.Tensor:
+    """(N, H, W, C) rolled by (-dy[n], -dx[n]) per image, ``shift`` = (dy, dx)
+    or None: ``canonicalize.apply_shift_tc`` with the images as its cameras."""
+    if shift is None:
+        return frames_u8
+    return canonicalize.apply_shift_tc(frames_u8[None], shift[0], shift[1])[0]
+
+
+def times_gain(x: torch.Tensor, gain) -> torch.Tensor:
+    """(N, h, w, C) times a per-image (N,) ``gain``, or as it is for None."""
+    return x if gain is None else x * gain[:, None, None, None]
+
+
 def preprocess_frames_plain(frames_u8: torch.Tensor, flip: torch.Tensor,
-                            out_shape: Tuple[int, int], dtype: str = "float32") -> torch.Tensor:
-    """Plain version of ``preprocess_frames``: two dense float32 matmuls."""
+                            out_shape: Tuple[int, int], dtype: str = "float32",
+                            shift=None, gain=None) -> torch.Tensor:
+    """Plain version of ``preprocess_frames``: the roll, two dense float32
+    matmuls, the flip and the gain."""
     _check_dtype(dtype)
     n, h_in, w_in, c = frames_u8.shape
     rh, rw = resize_matrices((h_in, w_in), tuple(out_shape), frames_u8.device,
                              scale=1.0 / 255.0)
-    x = frames_u8.float()
+    x = roll_frames(frames_u8, shift).float()
     x = torch.einsum("oh,nhwc->nowc", rh, x)     # H first: shrinks the tensor
     x = torch.einsum("ow,nhwc->nhoc", rw, x)
-    return torch.where(flip.reshape(n, 1, 1, 1), x.flip(2), x)
+    return times_gain(torch.where(flip.reshape(n, 1, 1, 1), x.flip(2), x), gain)
 
 
 def preprocess_frames(frames_u8: torch.Tensor, flip: torch.Tensor,
-                      out_shape: Tuple[int, int], dtype: str = "float32") -> torch.Tensor:
+                      out_shape: Tuple[int, int], dtype: str = "float32",
+                      shift=None, gain=None) -> torch.Tensor:
     """(N, H, W, 3) uint8 + (N,) bool flip -> (N, h, w, 3) float32.
 
     Equal, up to the order of the sums, to casting to float, /255,
     flipping where ``flip`` and resizing with jax.image.resize "bilinear".
+    ``shift`` = (dy, dx), (N,) int32 each, and ``gain``, (N,) float32, are
+    the rig registration's: the frames rolled by (-dy, -dx) first
+    (``canonicalize.apply_shift_tc``), the result times ``gain``.
     ``dtype`` is the checkpoint's ``preprocess_dtype``; only "float32" is
     computed, any other raises.  Runs ``kernels.preprocess_resize``: the
     CUDA kernel on a card, ``preprocess_frames_plain`` on the CPU.
@@ -123,4 +147,4 @@ def preprocess_frames(frames_u8: torch.Tensor, flip: torch.Tensor,
     from deepfly3d_torch.ops.kernels import preprocess_resize   # kernels imports this module
 
     _check_dtype(dtype)
-    return preprocess_resize(frames_u8, flip, tuple(out_shape))
+    return preprocess_resize(frames_u8, flip, tuple(out_shape), shift=shift, gain=gain)

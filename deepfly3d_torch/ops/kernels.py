@@ -8,7 +8,8 @@ Counterpart of ``deepfly3d_tpu/ops/pallas/kernels.py``:
   first-index argmax as normalized (row, col) (``csrc/decode.cu``);
 * ``preprocess_resize`` — uint8 -> float32 / 255 with a horizontal flip per
   image (``preprocess_u8_pallas``), fused with the antialiased bilinear
-  resize that follows it on every path (``csrc/preprocess.cu``).
+  resize that follows it on every path and with the rig registration's
+  per-image integer roll and gain correction around it (``csrc/preprocess.cu``).
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs the
 plain PyTorch version on a CPU tensor.
@@ -18,8 +19,9 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from deepfly3d_torch.ops import _build
@@ -154,17 +156,25 @@ decode_heatmaps.launches = 0
 
 # ---------------------------------------------------------------- preprocess
 
-# output rows per thread block; the kernel stages their float32 H-pass band
-# (PREPROCESS_ROWS x W x C words) in shared memory
-PREPROCESS_ROWS = 4
+# the most uint8 input rows one band of output rows may stage: a thread block
+# double-buffers them in shared memory beside the band's float32 H-pass rows,
+# and takes as many output rows per band as keep within it (3 at 480 -> 256,
+# 2 at 480 -> 192: the fastest on an H100, scripts/bench_torch_kernels.py)
+PREPROCESS_STAGE_ROWS = 8
 _MAX_SMEM = 227 * 1024
 
 
-def preprocess_u8_plain(frames_u8: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
-    """The TPU kernel's function: (N, H, W, C) uint8 -> float32 * (1/255), flipped where ``flip``."""
-    x = frames_u8.float() * torch.tensor(1.0 / 255.0, dtype=torch.float32)
+def preprocess_u8_plain(frames_u8: torch.Tensor, flip: torch.Tensor, shift=None,
+                        gain=None) -> torch.Tensor:
+    """The TPU kernel's function: (N, H, W, C) uint8 -> float32 * (1/255), flipped where ``flip``.
+
+    With ``shift`` = (dy, dx) and ``gain`` ((N,) each), the rig registration
+    around it: the frames rolled by (-dy, -dx) first, the result times gain.
+    """
+    x = image_ops.roll_frames(frames_u8, shift).float()
+    x = x * torch.tensor(1.0 / 255.0, dtype=torch.float32)
     n = x.shape[0]
-    return torch.where(flip.reshape(n, 1, 1, 1).bool(), x.flip(2), x)
+    return image_ops.times_gain(torch.where(flip.reshape(n, 1, 1, 1).bool(), x.flip(2), x), gain)
 
 
 @lru_cache(maxsize=16)
@@ -174,44 +184,100 @@ def _device_taps(n_in: int, n_out: int, scale: float, device: torch.device):
             torch.from_numpy(weights.copy()).to(device))
 
 
-def preprocess_resize(frames_u8: torch.Tensor, flip: torch.Tensor,
-                      out_shape: Tuple[int, int]) -> torch.Tensor:
-    """(N, H, W, C) uint8 + (N,) bool flip -> (N, h, w, C) float32 in [0, 1].
+def preprocess_smem(w_in: int, c: int, h_out: int, w_out: int, kh: int, kw: int,
+                    rows: int, stage_rows: int) -> int:
+    """Shared memory of one thread block of the preprocess kernel, in bytes
+    (``df3d_preprocess_smem``): the four tap tables, ``rows`` float32 H-pass
+    rows with a wrap margin of ``kw - 1`` pixels, two buffers of
+    ``stage_rows`` uint8 input rows."""
+    r4 = lambda v: -(-v // 4) * 4
+    band_pitch = w_in * c + r4(c * (kw - 1))
+    stage_pitch = -(-(w_in * c) // 16) * 16
+    return 4 * (r4(h_out * kh) + r4(w_out * kw) + r4(h_out) + r4(w_out) + rows * band_pitch) \
+        + 2 * stage_rows * stage_pitch
+
+
+@lru_cache(maxsize=64)
+def preprocess_plan(h_in: int, w_in: int, c: int, h_out: int, w_out: int,
+                    max_stage_rows: int) -> Tuple[int, int, int]:
+    """-> (rows, stage_rows, shared memory bytes) of one preprocess launch.
+
+    ``rows``, the output rows per band, is the most whose input rows
+    (``stage_rows``, the most one band reads) stay within ``max_stage_rows``
+    and whose thread block fits in 227 KB of shared memory; at least one.
+    Raises when the input rows of one output row do not fit (at 960x3, more
+    than ~35 H taps: a downscale by more than ~17).
+    """
+    starts, wh = image_ops.resize_taps(h_in, h_out, 1.0 / 255.0)
+    kh, kw = wh.shape[1], image_ops.resize_taps(w_in, w_out, 1.0)[1].shape[1]
+    for r in range(min(h_out, max_stage_rows), 0, -1):
+        o0 = np.arange(0, h_out, r)
+        o_last = np.minimum(o0 + r, h_out) - 1
+        stage_rows = int((starts[o_last] + kh - starts[o0]).max())
+        smem = preprocess_smem(w_in, c, h_out, w_out, kh, kw, r, stage_rows)
+        if (stage_rows <= max_stage_rows or r == 1) and smem <= _MAX_SMEM:
+            return r, stage_rows, smem
+    raise ValueError(f"the {kh} input rows of {w_in}x{c} that one output row reads exceed one "
+                     f"thread block's shared memory")
+
+
+def _check_per_image(name: str, t, n: int, dtype: torch.dtype, device: torch.device) -> None:
+    if (not isinstance(t, torch.Tensor) or tuple(t.shape) != (n,) or t.dtype != dtype
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous ({n},) {dtype} tensor on {device}")
+
+
+def preprocess_resize(frames_u8: torch.Tensor, flip: torch.Tensor, out_shape: Tuple[int, int],
+                      shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      gain: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, H, W, C) uint8 + (N,) bool flip -> (N, h, w, C) float32.
 
     ``/255``, the flip and the antialiased bilinear resize to ``out_shape``
-    in one pass.  At ``out_shape == (H, W)`` the taps are the identity and
+    in one pass, and with ``shift`` = (dy, dx), (N,) int32 each, and
+    ``gain``, (N,) float32, the rig registration around it: bit for bit the
+    resize of ``canonicalize.apply_shift_tc``'s frames (rolled by (-dy, -dx))
+    times ``gain``.  At ``out_shape == (H, W)`` the taps are the identity and
     this is exactly ``preprocess_u8_plain``.  Launches ``csrc/preprocess.cu``
     on CUDA tensors (counted in ``preprocess_resize.launches``) or raises;
-    ``image.preprocess_frames_plain`` on CPU tensors.
+    ``image.preprocess_frames_plain`` on CPU tensors.  Reads nothing back
+    from the card.
     """
     if frames_u8.dim() != 4 or frames_u8.dtype != torch.uint8:
         raise ValueError("frames_u8 must be an (N, H, W, C) uint8 tensor")
     n, h_in, w_in, c = frames_u8.shape
     h_out, w_out = (int(v) for v in out_shape)
+    dev = frames_u8.device
     if tuple(flip.shape) != (n,) or flip.dtype != torch.bool:
         raise ValueError(f"flip must be an ({n},) bool tensor")
     if h_in < 1 or w_in < 1 or h_out < 1 or w_out < 1:
         raise ValueError(f"empty frames or output shape: {tuple(frames_u8.shape)} -> {out_shape}")
-    if frames_u8.device.type == "cpu":
-        return image_ops.preprocess_frames_plain(frames_u8, flip, (h_out, w_out))
-    if frames_u8.device.type != "cuda":
-        raise ValueError(f"preprocess_resize runs on cuda or cpu, not {frames_u8.device}")
-    dev = frames_u8.device
+    if shift is not None:
+        if not isinstance(shift, (tuple, list)) or len(shift) != 2:
+            raise ValueError("shift must be a pair (dy, dx)")
+        for name, t in zip(("dy", "dx"), shift):
+            _check_per_image(name, t, n, torch.int32, dev)
+    if gain is not None:
+        _check_per_image("gain", gain, n, torch.float32, dev)
+    if dev.type == "cpu":
+        return image_ops.preprocess_frames_plain(frames_u8, flip, (h_out, w_out),
+                                                 shift=shift, gain=gain)
+    if dev.type != "cuda":
+        raise ValueError(f"preprocess_resize runs on cuda or cpu, not {dev}")
     if not frames_u8.is_contiguous() or flip.device != dev or not flip.is_contiguous():
         raise ValueError(f"frames_u8 and flip must be contiguous tensors on {dev}")
-    if PREPROCESS_ROWS * w_in * c * 4 > _MAX_SMEM:
-        raise ValueError(f"frame rows of {w_in}x{c} exceed one thread block's shared memory")
+    rows, stage_rows, _ = preprocess_plan(h_in, w_in, c, h_out, w_out, PREPROCESS_STAGE_ROWS)
     sh, wh = _device_taps(h_in, h_out, 1.0 / 255.0, dev)
     sw, ww = _device_taps(w_in, w_out, 1.0, dev)
     out = torch.empty((n, h_out, w_out, c), device=dev, dtype=torch.float32)
     if n == 0:
         return out
+    dy, dx = (0, 0) if shift is None else (shift[0].data_ptr(), shift[1].data_ptr())
     fn = _build.library("preprocess").df3d_preprocess_resize
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(frames_u8.data_ptr(), flip.data_ptr(), sh.data_ptr(), wh.data_ptr(),
-            sw.data_ptr(), ww.data_ptr(), out.data_ptr(),
-            n, h_in, w_in, c, h_out, w_out, wh.shape[1], ww.shape[1], PREPROCESS_ROWS,
+    rc = fn(frames_u8.data_ptr(), flip.data_ptr(), dy, dx, 0 if gain is None else gain.data_ptr(),
+            sh.data_ptr(), wh.data_ptr(), sw.data_ptr(), ww.data_ptr(), out.data_ptr(),
+            n, h_in, w_in, c, h_out, w_out, wh.shape[1], ww.shape[1], rows, stage_rows,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "preprocess kernel")
     preprocess_resize.launches += 1

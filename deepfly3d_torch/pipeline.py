@@ -3,9 +3,10 @@
 Counterpart of ``bench.py::build_pipeline``:
 
     (T, C, 480, 960, 3) uint8
-      -> rig registration (integer shift + gain, identity on clean input)
-      -> /255, flip of the right-side cameras and antialiased bilinear
-         resize in one pass (preprocess kernel)
+      -> rig registration: estimate an integer shift and a gain per camera
+         (identity on clean input)
+      -> the shift, /255, flip of the right-side cameras, antialiased
+         bilinear resize and gain correction in one pass (preprocess kernel)
       -> folded stacked hourglass (bottleneck and upsample-add kernels)
       -> argmax decode (decode kernel)
       -> 19->38 assembly with the flip artifact
@@ -81,8 +82,14 @@ class Pipeline:
         self.right = torch.from_numpy(self.order[4:].copy()).to(device)
 
     def _register(self, frames_u8):
-        """-> (frames (N, H, W, 3) registered, flip (N,), gain correction (N,)
-        or None, shift (dy, dx) or None, T)."""
+        """-> (frames (N, H, W, 3) as given, flip (N,), registration or None,
+        shift (dy, dx) per camera or None, T).
+
+        The registration is per image: (dy, dx) (N,) int32 and the gain
+        correction (N,) float32.  The frames are not rolled here: the
+        preprocess rolls them as it reads them, and multiplies by the gain as
+        it writes.
+        """
         frames = torch.as_tensor(frames_u8).to(self.device)
         if frames.dtype != torch.uint8 or frames.dim() != 5:
             raise ValueError("frames must be (T, C, H, W, 3) uint8")
@@ -90,19 +97,19 @@ class Pipeline:
         if C != self.num_cameras or (H, W) != self.image_hw:
             raise ValueError(f"frames {tuple(frames.shape)} do not match the rig "
                              f"({self.num_cameras} cameras of {self.image_hw})")
-        corr = shift = None
+        reg = shift = None
         if self.rig is not None:
             dy, dx, gain = canonicalize.estimate_tc(frames, self.rig)
-            frames = canonicalize.apply_shift_tc(frames, dy, dx)
-            corr = canonicalize.gain_correction(gain).repeat(T)
             shift = (dy, dx)
-        return frames.reshape(T * C, H, W, 3), self.flip.repeat(T), corr, shift, T
+            reg = (dy.repeat(T), dx.repeat(T), canonicalize.gain_correction(gain).repeat(T))
+        return frames.reshape(T * C, H, W, 3).contiguous(), self.flip.repeat(T), reg, shift, T
 
-    def _points(self, net: FoldedHourglass, x_u8, flip, corr, input_shape):
-        """preprocess -> forward -> decode: (N, K, 2) points, (N, K, 1) conf."""
-        x = self.preprocess(x_u8, flip, input_shape, net.spec.preprocess_dtype)
-        if corr is not None:
-            x = x * corr[:, None, None, None]
+    def _points(self, net: FoldedHourglass, x_u8, flip, reg, input_shape):
+        """preprocess (with the registration) -> forward -> decode:
+        (N, K, 2) points, (N, K, 1) conf."""
+        img_shift, corr = (None, None) if reg is None else (reg[:2], reg[2])
+        x = self.preprocess(x_u8, flip, input_shape, net.spec.preprocess_dtype,
+                            shift=img_shift, gain=corr)
         return self.decode(net(x)[-1])
 
     def _assemble(self, pts: torch.Tensor, T: int) -> torch.Tensor:
@@ -129,15 +136,16 @@ class Pipeline:
 
     @torch.inference_mode()
     def __call__(self, frames_u8: Union[np.ndarray, torch.Tensor]):
-        x_u8, flip, corr, shift, T = self._register(frames_u8)
-        pts, conf = self._points(self.net, x_u8, flip, corr, self.input_shape)
+        x_u8, flip, reg, shift, T = self._register(frames_u8)
+        pts, conf = self._points(self.net, x_u8, flip, reg, self.input_shape)
         pts3d, p38 = self._finish(self._assemble(pts, T), shift)
         return pts3d, p38, self._conf(conf, T)
 
 
 def plain_twin(pipe: Pipeline) -> Pipeline:
     """A copy of ``pipe`` (or of a cascade) whose stages run each kernel's
-    plain PyTorch version: bottleneck, upsample-add, preprocess and decode.
+    plain PyTorch version: bottleneck, upsample-add, preprocess (with the
+    registration's roll and gain as separate steps) and decode.
 
     It shares the weights and the device, and launches no kernel: on a card
     it is the yardstick and the check for the kernels.

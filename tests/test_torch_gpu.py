@@ -10,10 +10,13 @@ its error against the plain version and against its own arithmetic model
 magnitude; the upsample-add and the decode are exact (NaN and signed zeros
 included).  The preprocess sums
 <= 25 products in another order than cuBLAS: 2e-6 on [0, 1] values when it
-resizes, exact in identity mode (out shape == in shape, the TPU kernel's
-function).  The p16 and cascade pipelines must match their plain twins
-(``pipeline.plain_twin``): p38 equal, conf within 1e-4, points3d within
-1e-5 relative.
+resizes (times the largest gain when the rig registration's gain is folded
+in), exact in identity mode (out shape == in shape, the TPU kernel's
+function); with the registration's shift and gain it must equal, bit for
+bit, the kernel on ``apply_shift_tc``'s frames times the gain.  The p16 and
+cascade pipelines, and the conv pipeline on drifted frames, must match their
+plain twins (``pipeline.plain_twin``): p38 equal, conf within 1e-4, points3d
+within 1e-5 relative.
 """
 
 import ctypes
@@ -28,7 +31,7 @@ from deepfly3d_torch.models.fused_inference import fold_hourglass
 from deepfly3d_torch.models.hourglass import load_weights
 from deepfly3d_torch.ops import _build
 from deepfly3d_torch.ops import bottleneck as bn
-from deepfly3d_torch.ops import geometry
+from deepfly3d_torch.ops import canonicalize, geometry
 from deepfly3d_torch.ops import image as image_ops
 from deepfly3d_torch.ops import kernels
 from deepfly3d_torch.utils.devices import full_f32
@@ -178,12 +181,24 @@ def test_golden_frame_on_card():
     np.testing.assert_allclose(conf.cpu().numpy(), ref["conf"], atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("n,in_hw,out_hw", [
+PREPROCESS_SHAPES = [
     (5, (480, 960), (256, 512)),
     (5, (480, 960), (192, 384)),
-    (3, (37, 50), (13, 29)),        # rows of 150 bytes: the byte-load path
+    (3, (37, 50), (13, 29)),        # rows of 150 bytes: the instance with runtime taps
     (4, (480, 960), (480, 960)),    # identity: the TPU kernel exactly
-])
+]
+
+
+def _registration(n, dev, seed):
+    """Per-image shifts in [-8, 8] and gains in [0.9, 1.1], every other one exactly 1."""
+    g = torch.Generator().manual_seed(seed)
+    dy, dx = (torch.randint(-8, 9, (n,), generator=g, dtype=torch.int32) for _ in range(2))
+    gain = 0.9 + 0.2 * torch.rand(n, generator=g)
+    gain[::2] = 1.0
+    return dy.to(dev), dx.to(dev), gain.to(dev)
+
+
+@pytest.mark.parametrize("n,in_hw,out_hw", PREPROCESS_SHAPES)
 def test_preprocess_kernel_matches_plain(n, in_hw, out_hw):
     dev = _card()
     g = torch.Generator().manual_seed(3)
@@ -193,11 +208,60 @@ def test_preprocess_kernel_matches_plain(n, in_hw, out_hw):
     got = kernels.preprocess_resize(x, flip, out_hw)
     torch.cuda.synchronize()
     assert kernels.preprocess_resize.launches == before + 1
+    dy, dx, gain = _registration(n, dev, seed=n)
+    fused = kernels.preprocess_resize(x, flip, out_hw, shift=(dy, dx), gain=gain)
+    rolled = canonicalize.apply_shift_tc(x[None], dy, dx)[0]
+    unfused = kernels.preprocess_resize(rolled, flip, out_hw) * gain[:, None, None, None]
+    torch.cuda.synchronize()
+    assert torch.equal(fused, unfused)
     if out_hw == in_hw:
         assert torch.equal(got, kernels.preprocess_u8_plain(x, flip))
+        assert torch.equal(fused, kernels.preprocess_u8_plain(x, flip, (dy, dx), gain))
     else:
         want = image_ops.preprocess_frames_plain(x, flip, out_hw)
         assert (got - want).abs().max().item() <= 2e-6
+        want = image_ops.preprocess_frames_plain(x, flip, out_hw, shift=(dy, dx), gain=gain)
+        tol = 2e-6 * max(1.0, gain.max().item())
+        assert (fused - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("n,in_hw,out_hw", PREPROCESS_SHAPES)
+def test_preprocess_kernel_layout_and_instance(n, in_hw, out_hw):
+    """The wrapper's shared-memory figure is the kernel's; path shapes run an
+    instance with compile-time taps, other shapes and unaligned frames the
+    one with runtime taps, with the same result."""
+    dev = _card()
+    lib = _build.library("preprocess")
+    rows, stage_rows, smem = kernels.preprocess_plan(*in_hw, 3, *out_hw,
+                                                     kernels.PREPROCESS_STAGE_ROWS)
+    kh = image_ops.resize_taps(in_hw[0], out_hw[0])[1].shape[1]
+    kw = image_ops.resize_taps(in_hw[1], out_hw[1])[1].shape[1]
+    lib.df3d_preprocess_smem.argtypes = [ctypes.c_int] * 8
+    lib.df3d_preprocess_smem.restype = ctypes.c_size_t
+    assert lib.df3d_preprocess_smem(in_hw[1], 3, *out_hw, kh, kw, rows, stage_rows) == smem
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 256, (n,) + in_hw + (3,), generator=g, dtype=torch.uint8).to(dev)
+    flip = (torch.arange(n) % 2 == 0).to(dev)
+    out = kernels.preprocess_resize(x, flip, out_hw)
+    instance = lib.df3d_preprocess_instance
+    instance.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    want = 0 if in_hw == (37, 50) else kh * 16 + kw
+    assert instance(3, in_hw[1], out_hw[1], kh, kw, x.data_ptr(), out.data_ptr()) == want
+    shifted = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)                                   # one byte off 16-byte alignment
+    assert instance(3, in_hw[1], out_hw[1], kh, kw, shifted.data_ptr(), out.data_ptr()) == 0
+    assert torch.equal(kernels.preprocess_resize(shifted, flip, out_hw), out)
+
+
+def test_preprocess_rejects_registration_on_the_cpu():
+    dev = _card()
+    x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8, device=dev)
+    flip = torch.zeros(2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        kernels.preprocess_resize(x, flip, (8, 8), gain=torch.ones(2))
+    with pytest.raises(ValueError):
+        kernels.preprocess_resize(x, flip, (8, 8), shift=(torch.zeros(2, dtype=torch.int32),
+                                                          torch.zeros(2, dtype=torch.int32)))
 
 
 def _golden_frames(T):
@@ -211,7 +275,11 @@ def _golden_frames(T):
     return frames, ref["camera_ordering"], calib
 
 
-@pytest.mark.parametrize("path", ["p16", "cascade"])
+# per-camera rolls and one gain planted on the golden frames
+DRIFT_DY, DRIFT_DX, DRIFT_GAIN = [3, -5, 0, 8, -2, 6, -8], [-4, 7, 2, 0, -8, 5, 1], 1.06
+
+
+@pytest.mark.parametrize("path", ["p16", "cascade", "conv_drifted"])
 def test_pipeline_matches_plain_twin(path):
     dev = _card()
     from deepfly3d_torch.models.cascade import build_cascade_pipeline
@@ -221,10 +289,20 @@ def test_pipeline_matches_plain_twin(path):
     if path == "p16":
         variables, spec = load_weights(os.path.join(REPO, "weights", "hourglass_fly_p16_tpu.npz"))
         pipe = build_pipeline(spec, variables, calib, order, device=dev)
-    else:
+    elif path == "cascade":
         pipe = build_cascade_pipeline(
             *load_weights(os.path.join(REPO, "weights", "hourglass_fly_fast_nearparity.npz")),
             *load_weights(CHECKPOINT), calib, order, device=dev)
+    else:
+        variables, spec = load_weights(CHECKPOINT)
+        pipe = build_pipeline(spec, variables, calib, order, device=dev)
+        clean = canonicalize.estimate_tc(torch.from_numpy(frames).to(dev), pipe.rig)
+        frames = np.stack([np.roll(frames[:, c], (DRIFT_DY[c], DRIFT_DX[c]), axis=(1, 2))
+                           for c in range(7)], axis=1)
+        frames = np.clip(np.rint(frames * np.float32(DRIFT_GAIN)), 0, 255).astype(np.uint8)
+        dy, dx, gain = canonicalize.estimate_tc(torch.from_numpy(frames).to(dev), pipe.rig)
+        assert (dy - clean[0]).tolist() == DRIFT_DY and (dx - clean[1]).tolist() == DRIFT_DX
+        assert bool((gain != 1.0).all())
     before = kernels.preprocess_resize.launches
     p3d, p38, conf = pipe(frames)
     torch.cuda.synchronize()
