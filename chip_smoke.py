@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference paths on one CUDA card.
+"""Drive the PyTorch port's inference paths and its CLI on one CUDA card.
 
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --profile FILE   # also a torch.profiler table per path
@@ -7,7 +7,9 @@
 Phases (any failure raises, so the script exits non-zero and prints no
 result line):
 
-1. the card's name and power limit, torch and CUDA versions;
+1. the card's name and power limit, torch and CUDA versions, and the host
+   probe: whether OpenCV imports, whether the native ingest library loads,
+   and whether the libjpeg and libav headers are there;
 2. build the four CUDA kernels from ``deepfly3d_torch/ops/csrc``;
 3. the three main paths at full width, T=8 frames (56 images of 480x960,
    rig registration on): ``conv`` (``build_pipeline`` with the shipped
@@ -15,9 +17,11 @@ result line):
    patch16 stem, 3x3 subpixel head) and ``cascade``
    (``build_cascade_pipeline``: student ``hourglass_fly_fast_nearparity.npz``
    at 192x384 on every image, teacher ``hourglass_fly.npz`` on the 7 most
-   suspicious).  Each path's plain twin (``pipeline.plain_twin``) runs once
-   with recording wrappers: every shape the path gives each kernel, and how
-   many times;
+   suspicious), and the CLI's path ``ingest`` (``PoseEstimator.infer_chunks``,
+   the loop of ``infer_folder`` / ``infer_videos``, at batch 8 with the conv
+   checkpoint over 16 drifted frames per camera).  Each path's plain twin
+   (``pipeline.plain_twin``) runs once with recording wrappers: every shape
+   the path gives each kernel, and how many times;
 4. kernel phase: every kernel against its plain PyTorch version on the card
    at every recorded shape, with the tolerance stated (and the preprocess
    kernel in identity mode at 480x960, which is the TPU kernel exactly).  The
@@ -44,10 +48,21 @@ result line):
    planted rolls and a gain other than 1, and the output must match the
    plain twin.  With ``--profile FILE``, a torch.profiler table per path and
    its device time, with the time in ``index`` gathers;
+   Then the ingest phase: the estimator's chunk loop with every launch
+   count set to 0 just before (1 preprocess, 31 bottleneck, 8 upsample-add
+   and 1 decode launch per batch), the registration against the planted
+   rolls and gains, the output against the plain twin and against the JAX
+   package's (``deepfly3d_torch/data/ingest_t16.npz``), frames/s
+   (informational);
 6. golden phase: golden frame 0 (rig off) through every shipped checkpoint
    and the cascade against the JAX package's output on it
    (``deepfly3d_torch/data/golden_t0.npz``, ``golden_t0_checkpoints.npz``),
-   and the golden contract for ``hourglass_fly.npz``.
+   and the golden contract for ``hourglass_fly.npz``;
+7. core phase, where a JPEG decoder loads: ``cli.main`` over a copy of
+   ``tests/data/reference`` on the card, held to the golden contract; a Core
+   seeded with golden 2D through the calibration chain, held to the golden
+   3D result; the StageTimer report and the host decode time.  Where no
+   decoder loads it prints one line saying so, with the probe's findings.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 """
@@ -91,6 +106,13 @@ PREPROCESS_TOL = 2e-6   # outputs in [0, 1] times the gain, <= 25 products summe
 # planted on the slice phase's frames for the drifted conv call: per-camera
 # rolls (rows, columns) and one gain
 DRIFT_DY, DRIFT_DX, DRIFT_GAIN = [3, -5, 0, 8, -2, 6, -8], [-4, 7, 2, 0, -8, 5, 1], 1.06
+# the ingest phase: golden frame 0 tiled to INGEST_T frames per camera with
+# noise, planted rolls on four cameras and a brightening on two, through
+# the estimator's chunk loop at the CLI's batch
+INGEST_T, INGEST_BATCH = 16, 8
+INGEST_DY, INGEST_DX = (6, 0, -8, 0, 0, 4, -3), (-5, 0, 3, 0, 0, 8, -7)
+INGEST_GAIN = (1.0, 1.06, 1.0, 1.0, 1.06, 1.0, 1.0)
+INGEST_REF = os.path.join("deepfly3d_torch", "data", "ingest_t16.npz")
 # per-shape times that are summed per path and per kernel
 TIMES = ("ms", "plain_ms", "library_ms", "eager_ms", "library_eager_ms", "bound_ms",
          "bound_f32_ms", "unfused_ms")
@@ -107,6 +129,35 @@ SOURCES = {
     "preprocess_resize": ("deepfly3d_torch/ops/csrc/preprocess.cu",
                           "deepfly3d_tpu/ops/pallas/kernels.py:133", []),
 }
+
+
+def ingest_frames(frames0, drift=True):
+    """Golden frame 0 (C, H, W, 3) uint8 -> (C * INGEST_T, H, W, 3) uint8,
+    camera-major: each camera's frame plus uniform noise in [-3, 3]
+    (``RandomState(0)``, whose stream numpy keeps fixed), then with ``drift``
+    rolled by (INGEST_DY, INGEST_DX) and scaled by INGEST_GAIN (rounded)."""
+    import numpy as np
+
+    C = frames0.shape[0]
+    noise = np.random.RandomState(0).randint(-3, 4, size=(C, INGEST_T) + frames0.shape[1:],
+                                             dtype=np.int8)
+    out = np.empty((C, INGEST_T) + frames0.shape[1:], np.uint8)
+    for c in range(C):
+        f = np.clip(frames0[c][None].astype(np.int16) + noise[c], 0, 255)
+        if drift:
+            f = np.roll(f, (INGEST_DY[c], INGEST_DX[c]), axis=(1, 2)).astype(np.float32)
+            f = np.clip(np.rint(f * np.float32(INGEST_GAIN[c])), 0, 255)
+        out[c] = f.astype(np.uint8)
+    return out.reshape((C * INGEST_T,) + frames0.shape[1:])
+
+
+def ingest_chunk(frames0, order, drift=True):
+    """The ingest phase's one chunk: [(frames, cams, flip)], camera-major, the
+    cameras at ordering positions 4-6 flipped."""
+    import numpy as np
+
+    cams = np.repeat(np.arange(frames0.shape[0]), INGEST_T)
+    return [(ingest_frames(frames0, drift), cams, np.isin(cams, np.asarray(order)[4:]))]
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -172,9 +223,10 @@ def gpu_name_and_limit():
     return out[0]
 
 
-def record_shapes(twin, path, rows, frames):
-    """Run ``twin`` (a plain twin, which launches no kernel) once with every
-    stage wrapped: count each (kernel, shape) the path gives its kernels."""
+def record_shapes(twin, path, rows, run):
+    """Run ``twin`` (a plain twin, which launches no kernel) once through
+    ``run(twin)`` with every stage wrapped: count each (kernel, shape) the
+    path gives its kernels."""
     from deepfly3d_torch.ops import bottleneck as bn
     from deepfly3d_torch.ops import image as image_ops
     from deepfly3d_torch.ops import kernels
@@ -205,7 +257,223 @@ def record_shapes(twin, path, rows, frames):
     for net in twin.nets().values():
         net.block_fn, net.merge_fn = block, merge
     twin.decode, twin.preprocess = decode, preprocess
-    twin(frames)
+    run(twin)
+
+
+def host_probe():
+    """What this machine can decode JPEG and video with: OpenCV, the prebuilt
+    native ingest library, the libjpeg and libav headers that building it
+    needs, and an ffmpeg binary."""
+    import shutil
+
+    from deepfly3d_torch.io import native
+
+    probe = {}
+    try:
+        import cv2
+
+        probe["cv2"] = cv2.__version__
+    except ImportError as e:
+        probe["cv2"] = f"no: {e}"
+    probe["native_ingest"] = "loads" if native.available() else f"no: {native.load_error}"
+    probe["headers"] = native.headers_found()
+    probe["ffmpeg"] = shutil.which("ffmpeg")
+    probe["jpeg_decoder"] = native.available() or not probe["cv2"].startswith("no")
+    return probe
+
+
+def ingest_phase(torch, np, est, frames0, order, counters, rows, card):
+    """The estimator's chunk loop (``infer_chunks``, which ``infer_folder`` and
+    ``infer_videos`` run) on golden frame 0 tiled to INGEST_T frames per
+    camera and drifted, at INGEST_BATCH with the conv checkpoint.  Checks the
+    registration against the planted drift, the launches (1 preprocess, 31
+    bottleneck, 8 upsample-add and 1 decode per batch, the counts recorded
+    from the plain twin), the output against the plain twin (points equal,
+    conf within 1e-5) and against the JAX package's (INGEST_REF: cells,
+    conf within 2e-5).  -> {kernel: launches}."""
+    from deepfly3d_torch.pipeline import plain_twin
+
+    chunk = ingest_chunk(frames0, order)
+    frames, cams, _ = chunk[0]
+    C = frames0.shape[0]
+    clean = {}
+    est._register_chunk(ingest_chunk(frames0, order, drift=False)[0][0], cams, clean)
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    reg = {}
+    t0 = time.perf_counter()
+    pts, conf = est.infer_chunks(chunk, INGEST_BATCH, registration=reg)
+    t_first = time.perf_counter() - t0
+    got = {c.__name__: c.launches for c in counters}
+    batches = -(-len(frames) // INGEST_BATCH)
+    want = {"fused_bottleneck": 31 * batches, "upsample2x_add": 8 * batches,
+            "decode_heatmaps": batches, "preprocess_resize": batches}
+    recorded = collections.Counter()
+    for (kernel, _), row in rows.items():
+        recorded[kernel] += row["counts"]["ingest"]
+    if got != want or got != dict(recorded):
+        raise AssertionError(f"ingest launches {got}, want {want} (recorded {dict(recorded)})")
+    print(f"ingest launches for {batches} batches of {INGEST_BATCH}: {got} "
+          f"(per batch 1 / 31 / 8 / 1)")
+    found = [(reg[c][0] - clean[c][0], reg[c][1] - clean[c][1]) for c in range(C)]
+    if found != list(zip(INGEST_DY, INGEST_DX)) or \
+            [reg[c][2] != clean[c][2] for c in range(C)] != [g != 1.0 for g in INGEST_GAIN]:
+        raise AssertionError(f"ingest registration {reg} (clean frames {clean}): planted rolls "
+                             f"{list(zip(INGEST_DY, INGEST_DX))}, gains {INGEST_GAIN}")
+    print(f"ingest registration (dy, dx, gain): {[reg[c] for c in range(C)]}; the planted "
+          f"rolls found on every camera, the measured gain passed to the preprocess")
+
+    twin = plain_twin(est)
+    before = [c.launches for c in counters]
+    q_pts, q_conf = twin.infer_chunks(chunk, INGEST_BATCH)
+    if [c.launches for c in counters] != before:
+        raise AssertionError("the plain estimator launched a kernel")
+    conf_diff = float(np.abs(conf - q_conf).max())
+    if not np.array_equal(pts, q_pts) or conf_diff > 1e-5:
+        raise AssertionError(f"ingest vs plain twin: points equal {np.array_equal(pts, q_pts)}, "
+                             f"conf {conf_diff}")
+    with np.load(os.path.join(ROOT, INGEST_REF)) as z:
+        ref = {k: z[k] for k in z.files}
+    cell_diff = float(np.abs(pts - ref["pts"]).max())
+    conf_vs_jax = float(np.abs(conf - ref["conf"]).max())
+    reg_jax = [(int(a), int(b), float(g)) for a, b, g in zip(ref["dy"], ref["dx"], ref["gain"])]
+    if cell_diff > CELL_ATOL or conf_vs_jax > 2e-5 or reg_jax != [reg[c] for c in range(C)]:
+        raise AssertionError(f"ingest vs JAX: cells {cell_diff}, conf {conf_vs_jax}, "
+                             f"registration {reg_jax}")
+    print(f"ingest vs plain twin on the card: points equal, conf max diff {conf_diff}; vs JAX "
+          f"({INGEST_REF}): same cells (max diff {cell_diff}), conf {conf_vs_jax} (<= 2e-5), "
+          f"same registration")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    warm = [timed(lambda: est.infer_chunks(chunk, INGEST_BATCH, registration=reg))
+            for _ in range(3)]
+    plain = timed(lambda: twin.infer_chunks(chunk, INGEST_BATCH, registration=reg))
+    estimate = timed(lambda: est._register_chunk(frames, cams, {}))
+    print(f"informational: ingest of {INGEST_T} 7-camera frames from host memory, batch "
+          f"{INGEST_BATCH}: first call {INGEST_T / t_first:.1f} frames/s (registration "
+          f"estimated on the host: {estimate:.3f} s), then with the registration known "
+          f"{[round(INGEST_T / t, 1) for t in warm]} frames/s (pinned staging, copy, device); "
+          f"plain versions {INGEST_T / plain:.1f} frames/s; on {card}")
+    return got
+
+
+def core_phase(np, device, card, probe, batch_size=8):
+    """``cli.main`` over a temporary copy of tests/data/reference (15 frames x
+    7 cameras, conv checkpoint, the network on ``device``), held to the golden
+    contract; then a Core seeded with golden 2D through the calibration chain,
+    held to the golden 3D result.  Returns False, having printed why, where
+    no JPEG decoder loads here."""
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deepfly3d_torch import cli, logger
+    from deepfly3d_torch.config import WEIGHTS_DIR
+    from deepfly3d_torch.core import Core
+    from deepfly3d_torch.io import result_schema
+    from deepfly3d_torch.models.inference import PoseEstimator, _read_images_threaded
+
+    if not probe["jpeg_decoder"]:
+        print(f"core phase: not run: no JPEG decoder loads on this machine (cv2: "
+              f"{probe['cv2']}; native ingest: {probe['native_ingest']}; headers: "
+              f"{probe['headers']})")
+        return False
+    golden_dir = os.path.join(ROOT, "tests", "data", "reference_df3d")
+    with open(os.path.join(golden_dir, "df3d_result_2d.pkl"), "rb") as fh:
+        golden_2d = pickle.load(fh)
+    with open(os.path.join(golden_dir, "df3d_result_3d.pkl"), "rb") as fh:
+        golden_3d = pickle.load(fh)
+    tmp = tempfile.mkdtemp(prefix="df3d_smoke_")
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    keep = Keep()
+    logger.getLogger().addHandler(keep)
+    try:
+        rec = os.path.join(tmp, "reference")
+        shutil.copytree(os.path.join(ROOT, "tests", "data", "reference"), rec)
+        out = os.path.join(tmp, "out")
+        args = [rec, "--output-folder", out, "--batch-size", str(batch_size), "-v",
+                "--device", str(device)]
+        t0 = time.perf_counter()
+        if cli.main(args) != 0:
+            raise AssertionError("cli.main returned non-zero")
+        wall = time.perf_counter() - t0
+        saved = result_schema.load_result(result_schema.result_path(out, rec))
+        pts_err = float(np.abs(saved["points2d"] - golden_2d["points2d"]).max())
+        conf_err = float(np.abs(saved["heatmap_confidence"]
+                                - golden_2d["heatmap_confidence"]).max())
+        if not (pts_err <= 0.02 and conf_err <= 0.002):
+            raise AssertionError(f"core phase: cli golden contract pts_err {pts_err}, "
+                                 f"conf_err {conf_err}")
+        print(f"core phase: cli.main on the bundled recording (15 frames x 7 cameras): "
+              f"pts_err {pts_err} (<= 0.02), conf_err {conf_err} (band 0.002); "
+              f"{wall:.2f} s wall")
+        metrics = [m for m in records if m.startswith("stage metrics: ")]
+        report = json.loads(metrics[-1][len("stage metrics: "):])
+        print(f"informational: core stage times (StageTimer) on {card}: {json.dumps(report)}")
+
+        seeded = Core(rec, os.path.join(tmp, "seeded"), 0, range(7), device=device)
+        seeded.points2d, seeded.conf = golden_2d["points2d"], golden_2d["heatmap_confidence"]
+        t0 = time.perf_counter()
+        seeded.calibrate_calc(0, 100)
+        t_ba = time.perf_counter() - t0
+        seeded.save()
+        with open(seeded.save_path, "rb") as fh:
+            got = pickle.load(fh)
+        err3d = max(float(np.abs(got[k] - golden_3d[k]).max())
+                    for k in ("points3d_wo_procrustes", "points3d"))
+        err_cal = max(float(np.abs(got[c][k] - golden_3d[c][k]).max())
+                      for c in range(7) for k in got[c])
+        if not (err3d <= 1e-5 and err_cal <= 1e-4):
+            raise AssertionError(f"core phase: calibration chain points3d {err3d}, calib {err_cal}")
+        print(f"core phase: seeded calibration chain: points3d_wo_procrustes / points3d "
+              f"max err {err3d} (<= 1e-5), calibration {err_cal} (<= 1e-4); bundle "
+              f"adjustment {t_ba:.2f} s on the host")
+
+        # the pose2d stage's parts, one by one, as infer_folder runs them
+        split = {}
+
+        def part(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            split[name] = time.perf_counter() - t
+            return out
+
+        est = part("estimator_build", lambda: PoseEstimator(
+            os.path.join(WEIGHTS_DIR, CONV), device=device))
+        paths = [os.path.join(rec, f"camera_{c}_img_{t}.jpg") for c in range(7) for t in range(15)]
+        images = part("jpeg_decode", lambda: _read_images_threaded(paths))
+        cams = np.repeat(np.arange(7), 15)
+        gain, dy, dx = part("registration_estimate", lambda: est._register_chunk(images, cams, {}))
+        flip = np.isin(cams, [4, 5, 6])
+        for name in ("inference_first", "inference"):
+            part(name, lambda: est.infer_images(images, flip, batch_size, gain=gain,
+                                                shift=(dy, dx)))
+        decoder = ("native libjpeg" if probe["native_ingest"] == "loads"
+                   else f"OpenCV {probe['cv2']}")
+        print(f"informational: the pose2d stage's parts in seconds ({decoder} decode, 16 "
+              f"threads; inference = pinned staging, copies and device for 105 images at batch "
+              f"{batch_size}): {json.dumps(split)}; on {card}")
+        return True
+    finally:
+        logger.getLogger().removeHandler(keep)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main(argv):
@@ -222,6 +490,7 @@ def main(argv):
     from deepfly3d_torch.config import WEIGHTS_DIR, fly_config
     from deepfly3d_torch.models.cascade import build_cascade_pipeline
     from deepfly3d_torch.models.hourglass import load_weights
+    from deepfly3d_torch.models.inference import PoseEstimator
     from deepfly3d_torch.ops import _build, canonicalize, geometry, image as image_ops
     from deepfly3d_torch.ops import bottleneck as bn
     from deepfly3d_torch.ops import kernels
@@ -235,6 +504,8 @@ def main(argv):
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    probe = host_probe()
+    print(f"host probe: {json.dumps(probe)}")
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -271,7 +542,11 @@ def main(argv):
     paths = {"conv": pipeline(CONV), "p16": pipeline(P16), "cascade": cascade()}
     rows = {}
     for path, pipe in paths.items():
-        record_shapes(plain_twin(pipe), path, rows, frames)
+        record_shapes(plain_twin(pipe), path, rows, lambda twin: twin(frames))
+    # the CLI's path: the estimator's chunk loop at batch 8 (ingest phase)
+    estimator = PoseEstimator(os.path.join(WEIGHTS_DIR, CONV), device=dev)
+    record_shapes(plain_twin(estimator), "ingest", rows, lambda twin: twin.infer_chunks(
+        ingest_chunk(ref0["frames"], order), INGEST_BATCH))
     torch.cuda.synchronize()
 
     # ---- 4. kernel phase
@@ -556,25 +831,40 @@ def main(argv):
           f"dx {clean_reg[1].tolist()}); launches {got}; vs plain: p38 equal, conf max diff "
           f"{conf_diff}, points3d max rel diff {pts3d_diff}")
 
+    # ---- 5b. ingest phase: the CLI's chunk loop at batch 8
+    launches["ingest"] = ingest_phase(torch, np, estimator, ref0["frames"], order, counters,
+                                      rows, card)
+
     if "--profile" in argv:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         with open(argv[argv.index("--profile") + 1], "w") as fh:
             fh.write(card + "\n")
-            for path, pipe in paths.items():
+            chunk, ingest_reg = ingest_chunk(ref0["frames"], order), {}
+            estimator.infer_chunks(chunk, INGEST_BATCH, registration=ingest_reg)
+            calls = {path: (lambda pipe=pipe: pipe(frames)) for path, pipe in paths.items()}
+            calls["ingest"] = lambda: estimator.infer_chunks(chunk, INGEST_BATCH,
+                                                             registration=ingest_reg)
+            for path, call in calls.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    pipe(frames)
+                    call()
                     torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
                 events = prof.key_averages()
                 kernels_run = [e for e in events if e.device_type == DeviceType.CUDA]
                 total_ms = sum(e.self_device_time_total for e in kernels_run) / 1e3
                 index_ms = sum(e.self_device_time_total for e in kernels_run
                                if "index" in e.key) / 1e3
                 line = (f"profile {path}: device time {total_ms:.3f} ms per call, of it "
-                        f"{index_ms:.3f} ms in index kernels")
+                        f"{index_ms:.3f} ms in index kernels; {wall_ms:.3f} ms on the host "
+                        f"clock under the profiler")
                 print(line)
-                fh.write(f"\n==== {path} path, one call at T={BATCH_T}; {line}\n")
+                what = (f"{INGEST_T} frames per camera in batches of {INGEST_BATCH}, the "
+                        f"registration known" if path == "ingest" else f"T={BATCH_T}")
+                fh.write(f"\n==== {path} path, one call at {what}; {line}\n")
                 fh.write(events.table(sort_by="cuda_time_total", row_limit=40))
 
     # ---- 6. golden phase: frame 0, rig off
@@ -605,6 +895,9 @@ def main(argv):
                                      f"{conf_err}, or not the JAX folded path's output")
             print(f"golden contract, {key}: pts_err {pts_err} (<= 0.02), conf_err {conf_err} "
                   f"(band 0.002)")
+
+    # ---- 7. core phase: the CLI over a recording folder, where a decoder loads
+    core_phase(np, dev, card, probe)
 
     entries = []
     for name, (src, replaces, also) in SOURCES.items():

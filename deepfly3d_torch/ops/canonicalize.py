@@ -9,6 +9,11 @@ On un-drifted input the estimates are exact zeros and ones, so the
 registration is the bit-exact identity.  2D points go out in the provided
 frame (``adjust_points38``); triangulation consumes the canonical points.
 
+The folder and video ingest paths (``models/inference.py``) estimate once per
+camera and recording on the host (``estimate_camera_np``, numpy, the JAX
+package's own host estimator) and emit raw points in the provided frame
+(``adjust_points_raw``).
+
 The frame profiles are summed in integers, one frame at a time, so a batch
 of uint8 frames is never copied to float as a whole.
 """
@@ -25,6 +30,7 @@ from deepfly3d_torch.ops.geometry import observation_mask
 
 SEARCH_RADIUS = 8          # ± pixels searched, both axes
 GAIN_DEAD_ZONE = 0.015     # |gain-1| below this -> identity
+MIN_EST_FRAMES = 8         # the ingest paths skip registration below this
 
 
 class RigTemplate(NamedTuple):
@@ -145,3 +151,57 @@ def adjust_points38(p38: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
     off = torch.stack([dy.float() / H, dx.float() / W], dim=-1)    # (C, 2)
     vis = observation_mask(p38).to(p38.dtype)                      # (C, T, 38)
     return p38 + vis[..., None] * off[:, None, None, :]
+
+
+# ---------------------------------------------------------------------------
+# Host side of the folder/video ingest paths: estimation once per camera and
+# recording (numpy), application per batch (in the preprocess kernel).
+
+
+def _corr1d_argmax_np(p: np.ndarray, q_zm: np.ndarray, radius: int) -> int:
+    """``_corr1d_argmax`` for one camera: p, q_zm (L,) numpy."""
+    L = p.shape[-1]
+    offs = np.arange(-radius, radius + 1)
+    idx = (np.arange(L)[None, :] - offs[:, None]) % L
+    return int(offs[np.argmax(q_zm[idx] @ p)])
+
+
+def estimate_camera_np(frames_cam: np.ndarray, tpl: RigTemplate, cam: int,
+                       radius: int = SEARCH_RADIUS,
+                       gain_dead_zone: float = GAIN_DEAD_ZONE) -> Tuple[int, int, float]:
+    """(T, H, W, 3) uint8 frames of one camera -> (dy, dx, gain).
+
+    The profiles in float32 as the JAX host estimator forms them, the gain as
+    a float64 mean ratio, snapped to 1.0 inside the dead zone.
+    """
+    p = frames_cam.astype(np.float32).mean(axis=(0, 3))
+    dy = _corr1d_argmax_np(p.mean(axis=1), _zero_mean(tpl.row_profile[cam]), radius)
+    dx = _corr1d_argmax_np(p.mean(axis=0), _zero_mean(tpl.col_profile[cam]), radius)
+    gain = float(frames_cam.astype(np.float64).mean() / tpl.mean[cam])
+    if abs(gain - 1.0) <= gain_dead_zone:
+        gain = 1.0
+    return dy, dx, gain
+
+
+def apply_np(frames: np.ndarray, dy: int, dx: int) -> np.ndarray:
+    """Roll (N, H, W, 3) frames of one camera back to canonical (by (-dy, -dx))."""
+    if dy == 0 and dx == 0:
+        return frames
+    return np.roll(np.roll(frames, -dy, axis=1), -dx, axis=2)
+
+
+def adjust_points_raw(pts: np.ndarray, dy: np.ndarray, dx: np.ndarray,
+                      flip: np.ndarray, image_hw: Tuple[int, int]) -> np.ndarray:
+    """Raw (N, K, 2) network-frame points -> provided-frame coordinates.
+
+    Flipped images are still in the flipped frame, where the offset is
+    (dy/H, -dx/W); unflipped ones get (dy/H, dx/W).  Every raw entry is an
+    observation, so nothing is masked.
+    """
+    H, W = image_hw
+    off = np.stack(
+        [np.asarray(dy, np.float64) / H,
+         np.where(np.asarray(flip, bool), -1.0, 1.0) * np.asarray(dx, np.float64) / W],
+        axis=-1,
+    )                                                   # (N, 2)
+    return pts + off[:, None, :]

@@ -1,13 +1,21 @@
-"""Masked DLT triangulation and reprojection, batched, in float32.
+"""Multi-view geometry: masked DLT triangulation, projection, rotations.
 
-Counterpart of the part of ``deepfly3d_tpu/ops/geometry.py`` that the golden
-pipeline and the cascade run: ``observation_mask``, ``rowcol_to_pixel_xy``,
-``projection_matrices``, ``triangulate(method="normal")``,
-``distort_points``, ``project``, ``reprojection_residuals``,
-``reprojection_error`` and ``calib_to_arrays``.  The JAX ``_dlt_single`` is
-vmapped over points and ``project`` over cameras; here each batch dimension
-is written out.  The SVD/eigh methods, undistortion and the float64 parity
-geometry are not ported yet.
+Counterpart of ``deepfly3d_tpu/ops/geometry.py``.  Two triangulation paths:
+
+* ``method="normal"`` (float32, the golden pipeline and the cascade on the
+  card): column-preconditioned normal equations solved in closed form;
+* ``method="svd"`` (float64, ``Core``, bundle adjustment): the last right
+  singular vector of each point's DLT matrix, batched through
+  ``torch.linalg.svd``, with optional undistortion of the observations.
+
+Also here: ``observation_mask``, ``rowcol_to_pixel_xy``,
+``projection_matrices``, ``distort_points`` / ``undistort_points``,
+``project``, ``reprojection_residuals``, ``reprojection_error`` (dtype
+follows the inputs: float64 for ``Core``), ``rodrigues`` /
+``inv_rodrigues`` and ``calib_to_arrays`` / ``arrays_to_calib``.  The JAX
+package vmaps one-point and one-camera functions; here each batch dimension
+is written out.  As in the JAX package, the float64 geometry runs on the
+host CPU whatever device the network runs on.
 
 Conventions: stored points are normalized (row, col); the observation plane
 is pixel (x, y) = (col * W, row * H); a point is observed iff row != 0,
@@ -16,7 +24,7 @@ col != 0 and col != 1 (zeros mean unseen, col == 1 is the flip artifact).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,23 +111,48 @@ def _dlt_normal(obs_xy: torch.Tensor, P: torch.Tensor, mask: torch.Tensor) -> to
     return torch.where(valid, point, torch.zeros_like(point))
 
 
+def _dlt_svd(obs_xy: torch.Tensor, P: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked homogeneous DLT of B points, the JAX ``method="svd"`` path.
+
+    obs_xy (B, C, 2) pixels, P (C, 3, 4), mask (B, C) -> (B, 3): the right
+    singular vector of the smallest singular value of each (2C, 4) matrix
+    (x rows, then y rows; unseen cameras' rows zeroed) over its w; zeros
+    where fewer than two cameras see the point.
+    """
+    m = mask[..., None].to(obs_xy.dtype)
+    rows_x = (obs_xy[..., 0:1] * P[None, :, 2, :] - P[None, :, 0, :]) * m
+    rows_y = (obs_xy[..., 1:2] * P[None, :, 2, :] - P[None, :, 1, :]) * m
+    A = torch.cat([rows_x, rows_y], dim=1)                    # (B, 2C, 4)
+    X = torch.linalg.svd(A, full_matrices=True).Vh[:, -1]     # (B, 4)
+    point = X[:, :3] / X[:, 3:]
+    valid = (mask.sum(dim=1) >= 2)[:, None]
+    return torch.where(valid, point, torch.zeros_like(point))
+
+
 def triangulate(points2d_rowcol: torch.Tensor, R: torch.Tensor, tvec: torch.Tensor,
                 intr: torch.Tensor, image_shape: Tuple[int, int],
-                method: str = "normal") -> torch.Tensor:
+                method: str = "normal", distort: Optional[torch.Tensor] = None) -> torch.Tensor:
     """DLT-triangulate every (frame, joint): (C, T, J, 2) -> (T, J, 3).
 
-    Zeros where fewer than two cameras see the joint.  Only the closed-form
-    ``method="normal"`` is ported; other methods raise.
+    Zeros where fewer than two cameras see the joint.  ``method``: "normal"
+    (closed form, the float32 pipelines) or "svd" (run it in float64 for the
+    reference's 1e-5).  ``distort``: optional (C, 5) OpenCV coefficients;
+    the pixel observations are undistorted first (identity for zeros).  The
+    JAX "eigh" method is not ported.
     """
-    if method != "normal":
-        raise NotImplementedError(f"triangulate method {method!r}: only 'normal' is ported")
+    if method not in ("normal", "svd"):
+        raise NotImplementedError(f"triangulate method {method!r}: 'normal' and 'svd' "
+                                  "are ported")
     C, T, J, _ = points2d_rowcol.shape
     P = projection_matrices(R, tvec, intr)
     obs = rowcol_to_pixel_xy(points2d_rowcol, image_shape)
     mask = observation_mask(points2d_rowcol)
+    if distort is not None:
+        obs = _undistort_pixels(obs, intr, distort)
     obs_flat = obs.reshape(C, T * J, 2).transpose(0, 1)     # (TJ, C, 2)
     mask_flat = mask.reshape(C, T * J).T                    # (TJ, C)
-    return _dlt_normal(obs_flat, P, mask_flat).reshape(T, J, 3)
+    dlt = _dlt_normal if method == "normal" else _dlt_svd
+    return dlt(obs_flat, P, mask_flat).reshape(T, J, 3)
 
 
 def distort_points(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
@@ -136,6 +169,40 @@ def distort_points(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
     x_t = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
     y_t = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
     return torch.stack([x * radial + x_t, y * radial + y_t], dim=-1)
+
+
+def undistort_points(xy_dist: torch.Tensor, dist: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """Inverse of ``distort_points``: ``xy_dist`` (C, ..., 2), ``dist`` (C, 5).
+
+    The OpenCV fixed-point scheme, ``x <- (x_dist - tangential(x)) /
+    radial(x)`` for ``iters`` steps; exactly the identity for zero
+    coefficients (the fly rig has none).
+    """
+    shape = (dist.shape[0],) + (1,) * (xy_dist.dim() - 2)
+    k1, k2, p1, p2, k3 = (dist[:, i].reshape(shape) for i in range(5))
+    xd, yd = xy_dist[..., 0], xy_dist[..., 1]
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x = (xd - dx) / radial
+        y = (yd - dy) / radial
+    return torch.stack([x, y], dim=-1)
+
+
+def _undistort_pixels(uv: torch.Tensor, intr: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """Distorted pixels (C, ..., 2) -> ideal-pinhole pixels, camera c by
+    ``intr[c]`` and ``dist[c]`` (the JAX ``_undistort_pixels``, vmapped there)."""
+    shape = (intr.shape[0],) + (1,) * (uv.dim() - 2)
+    fx, gamma, cx = (intr[:, 0, i].reshape(shape) for i in range(3))
+    fy, cy = intr[:, 1, 1].reshape(shape), intr[:, 1, 2].reshape(shape)
+    yn = (uv[..., 1] - cy) / fy
+    xn = (uv[..., 0] - cx - gamma * yn) / fx
+    xy = undistort_points(torch.stack([xn, yn], dim=-1), dist)
+    return torch.stack([fx * xy[..., 0] + gamma * xy[..., 1] + cx,
+                        fy * xy[..., 1] + cy], dim=-1)
 
 
 def project(points3d: torch.Tensor, R: torch.Tensor, tvec: torch.Tensor,
@@ -182,9 +249,49 @@ def reprojection_error(points3d: torch.Tensor, points2d_rowcol: torch.Tensor,
     return norms.sum() / mask.sum().clamp_min(1)
 
 
+def rodrigues(rvec: torch.Tensor) -> torch.Tensor:
+    """Axis-angle (3,) -> rotation matrix (3, 3); the identity at theta < 1e-12."""
+    theta = torch.linalg.vector_norm(rvec)
+    eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
+    if theta < 1e-12:
+        return eye
+    k = rvec / theta
+    zero = torch.zeros((), dtype=rvec.dtype, device=rvec.device)
+    K = torch.stack([torch.stack([zero, -k[2], k[1]]),
+                     torch.stack([k[2], zero, -k[0]]),
+                     torch.stack([-k[1], k[0], zero])])
+    return eye + torch.sin(theta) * K + (1.0 - torch.cos(theta)) * (K @ K)
+
+
+def inv_rodrigues(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (3, 3) -> axis-angle (3,), with the theta = pi and
+    theta = 0 cases of the JAX function."""
+    cos_t = torch.clamp((torch.trace(R) - 1.0) / 2.0, -1.0, 1.0)
+    axis_raw = torch.stack([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    sin_t = 0.5 * torch.linalg.vector_norm(axis_raw)
+    theta = torch.atan2(sin_t, cos_t)
+    if theta < 1e-12:
+        return torch.zeros(3, dtype=R.dtype, device=R.device)
+    if torch.abs(sin_t) >= 1e-6:
+        return axis_raw / (2.0 * sin_t) * theta
+    # near pi the off-diagonal differences vanish: the axis from diag((R + I) / 2)
+    axis = torch.sqrt(torch.clamp((torch.diagonal(R) + 1.0) / 2.0, min=0.0))
+    one = torch.ones((), dtype=R.dtype, device=R.device)
+    signs = torch.stack([one, torch.where(R[0, 1] + R[1, 0] >= 0, one, -one),
+                         torch.where(R[0, 2] + R[2, 0] >= 0, one, -one)])
+    return axis * signs * theta
+
+
 def calib_to_arrays(calib: Dict[int, dict], num_cameras: int, dtype=np.float64):
     """Dict-of-dicts calib -> stacked (C,3,3), (C,3), (C,3,3), (C,5) numpy arrays."""
     def stack(key):
         return np.stack([np.asarray(calib[c][key], dtype=dtype) for c in range(num_cameras)])
 
     return stack("R"), stack("tvec"), stack("intr"), stack("distort")
+
+
+def arrays_to_calib(R, tvec, intr, distort) -> Dict[int, dict]:
+    """Stacked per-camera arrays -> {cam: {R, tvec, distort, intr}} of numpy arrays."""
+    R, tvec, intr, distort = (np.asarray(a) for a in (R, tvec, intr, distort))
+    return {c: {"R": R[c], "tvec": tvec[c], "distort": distort[c], "intr": intr[c]}
+            for c in range(R.shape[0])}

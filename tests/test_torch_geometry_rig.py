@@ -8,6 +8,11 @@ rtol 1e-4 (the batched sums run in another order), with zeros where fewer
 than two cameras see a joint.  Projection with non-zero distortion and the
 reprojection residuals and error: rtol 1e-5 against the JAX functions
 (vmapped over cameras there, a leading camera dimension in the port).
+
+The float64 host geometry of ``Core``: ``triangulate(method="svd",
+distort=...)``, ``rodrigues`` / ``inv_rodrigues``, ``undistort_points``,
+``procrustes_separate`` and ``filter_batch`` against the JAX functions under
+x64, within 1e-10 (of the output's magnitude where it is not of order one).
 """
 
 import os
@@ -126,7 +131,7 @@ def test_triangulate_rejects_other_methods():
     with pytest.raises(NotImplementedError):
         port_geo.triangulate(torch.zeros(7, 1, 38, 2), torch.zeros(7, 3, 3),
                              torch.zeros(7, 3), torch.zeros(7, 3, 3), (960, 480),
-                             method="svd")
+                             method="eigh")
 
 
 @pytest.fixture(scope="module")
@@ -174,3 +179,99 @@ def test_reprojection_residuals_and_error_match_jax(reprojection_case):
     jres = np.asarray(jres)
     np.testing.assert_allclose(pres.numpy(), jres, rtol=1e-5, atol=1e-5 * np.abs(jres).max())
     np.testing.assert_allclose(perr, jerr, rtol=1e-5)
+
+
+# ------------------------------------------------------- float64 geometry
+
+
+@pytest.mark.parametrize("distorted", [False, True])
+def test_triangulate_svd_float64_matches_jax(golden_calib, distorted):
+    golden, calib = golden_calib
+    R, tvec, intr, dist = jax_geo.calib_to_arrays(calib, 7)
+    p38 = np.asarray(golden["points2d"], np.float64)
+    if distorted:
+        rng = np.random.default_rng(11)
+        dist = rng.normal(size=(7, 5)) * [50.0, 1e4, 0.05, 0.05, 1e6]
+    args = (R, tvec, intr)
+    want = np.asarray(jax_geo.triangulate(jnp.asarray(p38), *map(jnp.asarray, args), (960, 480),
+                                          method="svd", distort=jnp.asarray(dist)))
+    got = port_geo.triangulate(*_t(p38, *args), (960, 480), method="svd",
+                               distort=torch.from_numpy(np.array(dist))).numpy()
+    assert got.dtype == np.float64 and got.shape == (15, 38, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("case", ["zero", "tiny", "generic", "large", "near_pi"])
+def test_rodrigues_round_trip_matches_jax(case):
+    rvec = np.asarray({"zero": [0.0, 0.0, 0.0], "tiny": [1e-13, -2e-13, 0.0],
+                       "generic": [0.3, -1.2, 0.7], "large": [2.0, 1.0, -1.5],
+                       "near_pi": [0.6 * (np.pi - 1e-9), -0.8 * (np.pi - 1e-9), 0.0]}[case])
+    R = port_geo.rodrigues(torch.from_numpy(rvec)).numpy()
+    np.testing.assert_allclose(R, np.asarray(jax_geo.rodrigues(jnp.asarray(rvec))),
+                               rtol=0, atol=1e-10)
+    back = port_geo.inv_rodrigues(torch.from_numpy(R)).numpy()
+    np.testing.assert_allclose(back, np.asarray(jax_geo.inv_rodrigues(jnp.asarray(R))),
+                               rtol=0, atol=1e-10)
+    if case in ("generic", "large"):                   # |rvec| < pi: the round trip
+        np.testing.assert_allclose(back, rvec, rtol=0, atol=1e-10)
+
+
+def test_inv_rodrigues_of_rig_rotations_matches_jax(golden_calib):
+    _, calib = golden_calib
+    R = jax_geo.calib_to_arrays(calib, 7)[0]
+    for c in range(7):
+        np.testing.assert_allclose(port_geo.inv_rodrigues(torch.from_numpy(R[c])).numpy(),
+                                   np.asarray(jax_geo.inv_rodrigues(jnp.asarray(R[c]))),
+                                   rtol=0, atol=1e-10)
+
+
+def test_undistort_points_matches_jax():
+    rng = np.random.default_rng(5)
+    xy = rng.normal(size=(3, 50, 2)) * 0.05
+    dist = rng.normal(size=(3, 5)) * [0.3, 0.1, 0.01, 0.01, 0.05]
+    want = np.stack([np.asarray(jax_geo.undistort_points(jnp.asarray(xy[c]), jnp.asarray(dist[c])))
+                     for c in range(3)])
+    got = port_geo.undistort_points(*_t(xy, dist)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+    # the inverse of the distortion, and exactly the identity for zeros
+    np.testing.assert_allclose(port_geo.distort_points(torch.from_numpy(got),
+                                                       torch.from_numpy(dist)).numpy(), xy,
+                               atol=1e-8)
+    zero = port_geo.undistort_points(*_t(xy, np.zeros((3, 5))))
+    np.testing.assert_array_equal(zero.numpy(), xy)
+
+
+def test_procrustes_separate_matches_jax(golden_calib):
+    from deepfly3d_tpu.ops import procrustes as jax_pr
+    from deepfly3d_torch.ops import procrustes as port_pr
+
+    template = os.path.join(REPO, "data")
+    tpl = port_pr.load_template_points3d(template)
+    np.testing.assert_array_equal(tpl, jax_pr.load_template_points3d(template))
+    with open(os.path.join(REPO, "tests", "data", "reference_df3d", "df3d_result_3d.pkl"),
+              "rb") as f:
+        raw = pickle.load(f)["points3d_wo_procrustes"]
+    rng = np.random.default_rng(9)
+    for pts in (raw, raw[:8] + rng.normal(size=raw[:8].shape) * 0.01):
+        want = jax_pr.procrustes_separate(pts, tpl)
+        got = port_pr.procrustes_separate(pts, tpl)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * np.abs(want).max())
+        np.testing.assert_array_equal(port_pr.normalize_pose_3d(got, rotate=True),
+                                      jax_pr.normalize_pose_3d(got, rotate=True))
+
+
+@pytest.mark.parametrize("indices", [None, [0, 5, 20]])
+def test_filter_batch_matches_jax(indices):
+    from deepfly3d_tpu.ops import filters as jax_filters
+    from deepfly3d_torch.ops import filters as port_filters
+
+    rng = np.random.default_rng(13)
+    pts = np.cumsum(rng.normal(size=(40, 38, 3)), axis=0)
+    want = jax_filters.filter_batch(pts, filter_indices=indices)
+    got = port_filters.filter_batch(pts, filter_indices=indices)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * np.abs(want).max())
+    assert np.abs(got - pts).max() > 0.1              # it does filter
+    # and the stateful reference recursion, sample by sample
+    ref = jax_filters.OneEuroFilter(100.0, 0.1, 2.0, 1.0)
+    one = [ref(pts[t, 3, 1], (t + 1) * 0.1) for t in range(40)]
+    np.testing.assert_allclose(port_filters.filter_batch(pts)[:, 3, 1], one, rtol=0, atol=1e-10)

@@ -16,7 +16,8 @@ function); with the registration's shift and gain it must equal, bit for
 bit, the kernel on ``apply_shift_tc``'s frames times the gain.  The p16 and
 cascade pipelines, and the conv pipeline on drifted frames, must match their
 plain twins (``pipeline.plain_twin``): p38 equal, conf within 1e-4, points3d
-within 1e-5 relative.
+within 1e-5 relative.  The estimator's ingest loop on the card must give what
+it gives on the CPU: points equal, conf within 2e-5.
 """
 
 import ctypes
@@ -161,6 +162,26 @@ def test_pose_estimator_prefetch_on_card():
     got = PoseEstimator(CHECKPOINT, device=dev).infer_images(images, flip, batch_size=3, gain=gain)
     want = PoseEstimator(CHECKPOINT, device="cpu").infer_images(images, flip, batch_size=3,
                                                                 gain=gain)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], atol=2e-5, rtol=0)
+
+
+def test_ingest_chunk_loop_on_card():
+    """The ingest loop (registration, the shift and the measured gain in the
+    preprocess kernel, batch 8 with a padded last batch) gives on the card
+    what it gives on the CPU: points equal, conf within 2e-5."""
+    dev = _card()
+    from deepfly3d_torch.models.inference import PoseEstimator
+
+    with np.load(os.path.join(REPO, "deepfly3d_torch", "data", "golden_t0.npz")) as z:
+        frame = z["frames"][1]
+    noise = np.random.RandomState(1).randint(-3, 4, size=(10,) + frame.shape)
+    frames = np.clip(np.roll(frame, (4, -6), axis=(0, 1))[None] * 1.06 + noise, 0, 255)
+    chunk = [(frames.astype(np.uint8), np.ones(10, int), np.zeros(10, bool))]
+    reg_card, reg_cpu = {}, {}
+    got = PoseEstimator(CHECKPOINT, device=dev).infer_chunks(chunk, 8, registration=reg_card)
+    want = PoseEstimator(CHECKPOINT, device="cpu").infer_chunks(chunk, 8, registration=reg_cpu)
+    assert reg_card == reg_cpu and reg_card[1][2] != 1.0
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_allclose(got[1], want[1], atol=2e-5, rtol=0)
 
