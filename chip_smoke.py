@@ -53,16 +53,23 @@ result line):
    and 1 decode launch per batch), the registration against the planted
    rolls and gains, the output against the plain twin and against the JAX
    package's (``deepfly3d_torch/data/ingest_t16.npz``), frames/s
-   (informational);
+   (informational).  Then the soft-argmax decode on the ingest heatmaps, on
+   the card against a CPU copy, with the device time of its refinement beside
+   the decode kernel's;
 6. golden phase: golden frame 0 (rig off) through every shipped checkpoint
    and the cascade against the JAX package's output on it
    (``deepfly3d_torch/data/golden_t0.npz``, ``golden_t0_checkpoints.npz``),
    and the golden contract for ``hourglass_fly.npz``;
-7. core phase, where a JPEG decoder loads: ``cli.main`` over a copy of
-   ``tests/data/reference`` on the card, held to the golden contract; a Core
-   seeded with golden 2D through the calibration chain, held to the golden
-   3D result; the StageTimer report and the host decode time.  Where no
-   decoder loads it prints one line saying so, with the probe's findings.
+7. core phase (it fails where no JPEG decoder loads): ``cli.main`` over a
+   copy of ``tests/data/reference`` on the card, held to the golden
+   contract, and again with ``--soft-argmax --solver lm`` against the JAX
+   package's results (``deepfly3d_torch/data/options_t15.npz``); a Core
+   seeded with golden 2D through the parity calibration chain, held to the
+   golden 3D result, and through the lm chain (plain and Huber) against JAX's;
+   ``Core.solve_pictorial`` on frames 0-1 against JAX's; each network run
+   with every launch count set to 0 just before (1 preprocess, 31
+   bottleneck, 8 upsample-add and 1 decode launch per batch); the StageTimer
+   reports and the host decode time.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 """
@@ -113,6 +120,10 @@ INGEST_T, INGEST_BATCH = 16, 8
 INGEST_DY, INGEST_DX = (6, 0, -8, 0, 0, 4, -3), (-5, 0, 3, 0, 0, 8, -7)
 INGEST_GAIN = (1.0, 1.06, 1.0, 1.0, 1.06, 1.0, 1.0)
 INGEST_REF = os.path.join("deepfly3d_torch", "data", "ingest_t16.npz")
+# the JAX package's results for the core phase's new options
+# (python tests/test_torch_options.py --write)
+OPTIONS_REF = os.path.join("deepfly3d_torch", "data", "options_t15.npz")
+HEATMAP_HW = (64, 128)
 # per-shape times that are summed per path and per kernel
 TIMES = ("ms", "plain_ms", "library_ms", "eager_ms", "library_eager_ms", "bound_ms",
          "bound_f32_ms", "unfused_ms")
@@ -365,54 +376,118 @@ def ingest_phase(torch, np, est, frames0, order, counters, rows, card):
     return got
 
 
-def core_phase(np, device, card, probe, batch_size=8):
-    """``cli.main`` over a temporary copy of tests/data/reference (15 frames x
-    7 cameras, conv checkpoint, the network on ``device``), held to the golden
-    contract; then a Core seeded with golden 2D through the calibration chain,
-    held to the golden 3D result.  Returns False, having printed why, where
-    no JPEG decoder loads here."""
+def count_launches(torch, counters, run):
+    """Every launch count set to 0 just before ``run()`` and read just after:
+    -> (run's result, {kernel: launches})."""
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {c.__name__: c.launches for c in counters}
+
+
+def check_launches(name, got, batches):
+    """1 preprocess, 31 bottleneck, 8 upsample-add and 1 decode launch per batch."""
+    want = {"fused_bottleneck": 31 * batches, "upsample2x_add": 8 * batches,
+            "decode_heatmaps": batches, "preprocess_resize": batches}
+    if got != want:
+        raise AssertionError(f"{name} launches {got}, want {want} ({batches} batches)")
+    print(f"{name} launches for {batches} batches: {got}")
+
+
+def conf38(np, conf, order):
+    """(C, T, 19, 1) per-camera confidences -> (C, T, 38) on the assembled
+    joints (0 where the assembly keeps none of the camera's predictions)."""
+    C, T, K, _ = conf.shape
+    out = np.zeros((C, T, 2 * K))
+    for pos, cam in enumerate(order):
+        if pos != 3:
+            side = slice(0, K) if pos < 3 else slice(K, 2 * K)
+            out[cam, :, side] = conf[cam, ..., 0]
+    return out
+
+
+def core_phase(np, torch, device, card, probe, counters, batch_size=8):
+    """The recording entry point on the card, over a temporary copy of
+    tests/data/reference (15 frames x 7 cameras, conv checkpoint):
+
+    * ``cli.main`` (argmax, parity bundle adjustment), held to the golden
+      contract; a Core seeded with golden 2D through the parity calibration
+      chain, held to the golden 3D result;
+    * (a) ``cli.main --soft-argmax --solver lm``: the argmax run's cells the
+      JAX argmax's, conf within 2e-5 of JAX's, refined points within half a
+      heatmap cell of the argmax run's and within 1e-4 of JAX's where conf >=
+      0.1 (OPTIONS_REF, written by the JAX package);
+    * (b) the lm chain seeded with golden 2D: plain and cut to 12 Huber
+      iterations, calibration within 1e-4 and points3d within 1e-5 of JAX's;
+      30 Huber iterations, the objective within 1e-6 relative;
+    * (c) ``Core.solve_pictorial`` on frames 0-1 (golden 2D and calibration,
+      the card's heatmaps): the JAX test's criteria and the corrected 2D leg
+      points within 1e-3 of JAX's;
+    * the StageTimer reports and the pose2d stage's parts.
+
+    Raises where no JPEG decoder loads.  -> {path: {kernel: launches}} of the
+    three network runs (cli, cli_options, pictorial)."""
+    import contextlib
+    import io
     import logging
     import shutil
     import tempfile
-
-    import torch
 
     from deepfly3d_torch import cli, logger
     from deepfly3d_torch.config import WEIGHTS_DIR
     from deepfly3d_torch.core import Core
     from deepfly3d_torch.io import result_schema
     from deepfly3d_torch.models.inference import PoseEstimator, _read_images_threaded
+    from deepfly3d_torch.utils.profiling import StageTimer
 
     if not probe["jpeg_decoder"]:
-        print(f"core phase: not run: no JPEG decoder loads on this machine (cv2: "
-              f"{probe['cv2']}; native ingest: {probe['native_ingest']}; headers: "
-              f"{probe['headers']})")
-        return False
+        raise SystemExit(f"chip_smoke: core phase cannot run: no JPEG decoder loads on this "
+                         f"machine (cv2: {probe['cv2']}; native ingest: "
+                         f"{probe['native_ingest']}; headers: {probe['headers']})")
     golden_dir = os.path.join(ROOT, "tests", "data", "reference_df3d")
     with open(os.path.join(golden_dir, "df3d_result_2d.pkl"), "rb") as fh:
         golden_2d = pickle.load(fh)
     with open(os.path.join(golden_dir, "df3d_result_3d.pkl"), "rb") as fh:
         golden_3d = pickle.load(fh)
+    with np.load(os.path.join(ROOT, OPTIONS_REF)) as z:
+        ref = {k: z[k] for k in z.files}
+    order = list(range(7))
+    batches = -(-7 * 15 // batch_size)
     tmp = tempfile.mkdtemp(prefix="df3d_smoke_")
     records = []
+    launches = {}
 
     class Keep(logging.Handler):
         def emit(self, record):
             records.append(record.getMessage())
+
+    def stage_report():
+        metrics = [m for m in records if m.startswith("stage metrics: ")]
+        return json.loads(metrics[-1][len("stage metrics: "):])
+
+    def run_cli(name, out, *flags):
+        args = [rec, "--output-folder", out, "--batch-size", str(batch_size), "-v",
+                "--device", str(device), *flags]
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc, launches[name] = count_launches(torch, counters, lambda: cli.main(args))
+        wall = time.perf_counter() - t0
+        print(printed.getvalue(), end="")
+        if rc != 0:
+            raise AssertionError(f"cli.main {flags} returned {rc}")
+        check_launches(f"core phase, cli.main {' '.join(flags) or '(defaults)'}:",
+                       launches[name], batches)
+        return result_schema.load_result(result_schema.result_path(out, rec)), wall, printed
 
     keep = Keep()
     logger.getLogger().addHandler(keep)
     try:
         rec = os.path.join(tmp, "reference")
         shutil.copytree(os.path.join(ROOT, "tests", "data", "reference"), rec)
-        out = os.path.join(tmp, "out")
-        args = [rec, "--output-folder", out, "--batch-size", str(batch_size), "-v",
-                "--device", str(device)]
-        t0 = time.perf_counter()
-        if cli.main(args) != 0:
-            raise AssertionError("cli.main returned non-zero")
-        wall = time.perf_counter() - t0
-        saved = result_schema.load_result(result_schema.result_path(out, rec))
+        saved, wall, _ = run_cli("cli", os.path.join(tmp, "out"))
         pts_err = float(np.abs(saved["points2d"] - golden_2d["points2d"]).max())
         conf_err = float(np.abs(saved["heatmap_confidence"]
                                 - golden_2d["heatmap_confidence"]).max())
@@ -422,11 +497,11 @@ def core_phase(np, device, card, probe, batch_size=8):
         print(f"core phase: cli.main on the bundled recording (15 frames x 7 cameras): "
               f"pts_err {pts_err} (<= 0.02), conf_err {conf_err} (band 0.002); "
               f"{wall:.2f} s wall")
-        metrics = [m for m in records if m.startswith("stage metrics: ")]
-        report = json.loads(metrics[-1][len("stage metrics: "):])
-        print(f"informational: core stage times (StageTimer) on {card}: {json.dumps(report)}")
+        print(f"informational: core stage times (StageTimer) on {card}: "
+              f"{json.dumps(stage_report())}")
+        hard = saved["points2d"]
 
-        seeded = Core(rec, os.path.join(tmp, "seeded"), 0, range(7), device=device)
+        seeded = Core(rec, os.path.join(tmp, "seeded"), 0, order, device=device)
         seeded.points2d, seeded.conf = golden_2d["points2d"], golden_2d["heatmap_confidence"]
         t0 = time.perf_counter()
         seeded.calibrate_calc(0, 100)
@@ -443,6 +518,85 @@ def core_phase(np, device, card, probe, batch_size=8):
         print(f"core phase: seeded calibration chain: points3d_wo_procrustes / points3d "
               f"max err {err3d} (<= 1e-5), calibration {err_cal} (<= 1e-4); bundle "
               f"adjustment {t_ba:.2f} s on the host")
+
+        # (a) the new options through the CLI
+        soft, wall, printed = run_cli("cli_options", os.path.join(tmp, "options"),
+                                      "--soft-argmax", "--solver", "lm")
+        p38, conf = soft["points2d"], soft["heatmap_confidence"]
+        cell_diff = float(np.abs(hard - ref["hard_p38"]).max())
+        conf_vs_jax = float(np.abs(conf - ref["soft_conf"]).max())
+        half_cell = float((np.abs(p38 - hard) * HEATMAP_HW).max())
+        sure = conf38(np, conf, order) >= 0.1
+        soft_vs_jax = float(np.abs(p38 - ref["soft_p38"])[sure].max())
+        soft_vs_jax_all = float(np.abs(p38 - ref["soft_p38"]).max())
+        if cell_diff > CELL_ATOL or conf_vs_jax > 2e-5 or half_cell > 0.5 + 1e-5 \
+                or soft_vs_jax > 1e-4:
+            raise AssertionError(f"(a) soft-argmax cli: argmax cells vs JAX {cell_diff}, conf "
+                                 f"vs JAX {conf_vs_jax}, refined vs argmax {half_cell} cells, "
+                                 f"refined vs JAX {soft_vs_jax} (conf >= 0.1)")
+        reproj = [line for line in printed.getvalue().splitlines() if "Reprojection" in line]
+        print(f"(a) cli.main --soft-argmax --solver lm: the argmax run's cells are JAX's (max "
+              f"diff {cell_diff}); conf vs JAX {conf_vs_jax} (<= 2e-5); refined points within "
+              f"{half_cell} heatmap cells of the argmax run's (<= 0.5); vs JAX {soft_vs_jax} "
+              f"on {int(sure.sum())} joints with conf >= 0.1 (<= 1e-4), {soft_vs_jax_all} over "
+              f"all joints; lm calibration: {reproj[-1]} (informational); {wall:.2f} s wall")
+        print(f"informational: stage times of the new options (StageTimer, soft-argmax pose2d "
+              f"and lm calibrate) on {card}: {json.dumps(stage_report())}")
+
+        # (b) the seeded lm chain, from the same float64 input bits as JAX's
+        for run, kw in (("lm", {}), ("hub12", {"huber_px": 5.0, "max_iters": 12}),
+                        ("hub", {"huber_px": 5.0})):
+            core = Core(rec, os.path.join(tmp, run), 0, order, device=device)
+            core.points2d, core.conf = golden_2d["points2d"], golden_2d["heatmap_confidence"]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                result = core.calibrate_calc(0, 100, solver="lm", **kw)
+                t_ba = time.perf_counter() - t0
+                core.save()
+            with open(core.save_path, "rb") as fh:
+                got = pickle.load(fh)
+            err_cal = max(float(np.abs(np.stack([got[c][k] for c in order])
+                                       - ref[f"{run}_{k}"]).max()) for k in ("R", "tvec"))
+            err3d = max(float(np.abs(got[k] - ref[f"{run}_{k}"]).max())
+                        for k in ("points3d_wo_procrustes", "points3d"))
+            cost_rel = abs(result.cost_final - float(ref[f"{run}_cost"])) / float(ref[f"{run}_cost"])
+            held = run != "hub"      # 30 Huber iterations follow the round-off (ROADMAP Queue 3)
+            if cost_rel > 1e-6 or (held and (err_cal > 1e-4 or err3d > 1e-5)):
+                raise AssertionError(f"(b) lm chain {run} {kw}: calibration {err_cal}, points3d "
+                                     f"{err3d}, objective {cost_rel} relative")
+            print(f"(b) seeded lm chain {kw or 'plain'} vs JAX: calibration {err_cal}"
+                  f"{' (<= 1e-4)' if held else ' (informational)'}, points3d {err3d}"
+                  f"{' (<= 1e-5)' if held else ' (informational)'}, final objective "
+                  f"{cost_rel} relative (<= 1e-6); {result.iterations} iterations, "
+                  f"{t_ba:.2f} s on the host")
+
+        # (c) pictorial-structures correction on frames 0-1
+        core = Core(rec, os.path.join(tmp, "pictorial"), 2, order, device=device)
+        core.points2d = np.array(golden_2d["points2d"][:, :2])
+        core.conf = np.array(golden_2d["heatmap_confidence"][:, :2])
+        core.calib = result_schema.extract_calib(golden_3d)
+        before = np.array(core.points2d)
+        timer = StageTimer(device=device)
+        with timer.stage("solve_pictorial"):
+            out, launches["pictorial"] = count_launches(
+                torch, counters, lambda: core.solve_pictorial(batch_size=batch_size))
+        check_launches("core phase, solve_pictorial:", launches["pictorial"],
+                       -(-7 * 2 // batch_size))
+        shift = float(np.median(np.abs(core.points2d[0, :, :15] - before[0, :, :15])))
+        pic_vs_jax = float(np.abs(core.points2d - ref["pic_p2"]).max())
+        chains = {side: np.abs(out[side] - ref[f"pic_{side}"]).reshape(2, 3, 5, 3).max(axis=(2, 3))
+                  for side in ("left", "right")}
+        differ = sum(int((d > 1e-3).sum()) for d in chains.values())
+        if not (all(out[s].shape == (2, 15, 3) and np.isfinite(out[s]).all() for s in out)
+                and shift < 0.01 and pic_vs_jax <= 1e-3):
+            raise AssertionError(f"(c) solve_pictorial: median shift {shift}, corrected 2D vs "
+                                 f"JAX {pic_vs_jax}")
+        print(f"(c) Core.solve_pictorial (frames 0-1, golden 2D and calibration, heatmaps from "
+              f"the card): shapes (2, 15, 3), finite, median leg shift {shift} (< 0.01); "
+              f"corrected 2D leg points vs JAX {pic_vs_jax} (<= 1e-3); {differ} of 12 chains "
+              f"differ from JAX's by more than 1e-3 in 3D")
+        print(f"informational: solve_pictorial stage time (StageTimer) on {card}: "
+              f"{json.dumps(timer.metrics())}")
 
         # the pose2d stage's parts, one by one, as infer_folder runs them
         split = {}
@@ -470,10 +624,56 @@ def core_phase(np, device, card, probe, batch_size=8):
         print(f"informational: the pose2d stage's parts in seconds ({decoder} decode, 16 "
               f"threads; inference = pinned staging, copies and device for 105 images at batch "
               f"{batch_size}): {json.dumps(split)}; on {card}")
-        return True
+        return launches
     finally:
         logger.getLogger().removeHandler(keep)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def softargmax_phase(torch, np, dev, est, frames0, order, card):
+    """(d) ``decode_softargmax`` on the ingest phase's heatmaps, in batches of
+    INGEST_BATCH: on the card (cells from the decode kernel) against a CPU
+    copy (the plain decode): the same cells and confidences, points within
+    1e-5, both methods.  Device times per batch: the decode kernel, the
+    refinement alone and the whole soft-argmax decode."""
+    from deepfly3d_torch.models import decode as decode_mod
+    from deepfly3d_torch.ops import kernels
+
+    _, _, heatmaps = est.infer_chunks(ingest_chunk(frames0, order), INGEST_BATCH,
+                                      return_heatmaps=True)
+    hw = heatmaps.shape[1:3]
+    worst = {}
+    for method in ("parabolic", "window"):
+        for lo in range(0, len(heatmaps), INGEST_BATCH):
+            hm_cpu = torch.from_numpy(np.ascontiguousarray(heatmaps[lo:lo + INGEST_BATCH]))
+            hm = hm_cpu.to(dev)
+            cells = decode_mod.argmax_cells(kernels.decode_heatmaps(hm)[0], hw)
+            cells_cpu = decode_mod.argmax_cells(kernels.decode_heatmaps_plain(hm_cpu)[0], hw)
+            pts, conf = decode_mod.decode_softargmax(hm, method=method)
+            q_pts, q_conf = decode_mod.decode_softargmax(hm_cpu, method=method)
+            torch.cuda.synchronize()
+            if not (all(torch.equal(a.cpu(), b) for a, b in zip(cells, cells_cpu))
+                    and torch.equal(conf.cpu(), q_conf)):
+                raise AssertionError(f"(d) soft-argmax {method}, batch at {lo}: cells or conf "
+                                     f"differ between the card and the CPU")
+            worst[method] = max(worst.get(method, 0.0), (pts.cpu() - q_pts).abs().max().item())
+    if max(worst.values()) > 1e-5:
+        raise AssertionError(f"(d) soft-argmax card vs CPU: points {worst} > 1e-5")
+    hm = torch.from_numpy(np.ascontiguousarray(heatmaps[:INGEST_BATCH])).to(dev)
+    r0, c0 = decode_mod.argmax_cells(kernels.decode_heatmaps(hm)[0], hw)
+    timing = {"decode_kernel_ms": graph_ms(torch, lambda: kernels.decode_heatmaps(hm))}
+    for method in ("parabolic", "window"):
+        timing[f"refine_{method}_ms"] = graph_ms(
+            torch, lambda: decode_mod.softargmax_refine(hm, r0, c0, method=method))
+        timing[f"softargmax_{method}_ms"] = graph_ms(
+            torch, lambda: decode_mod.decode_softargmax(hm, method=method))
+    timing["refine_parabolic_eager_ms"] = cuda_ms(
+        torch, lambda: decode_mod.softargmax_refine(hm, r0, c0))
+    print(f"(d) soft-argmax on the ingest phase's {len(heatmaps)} heatmaps {tuple(hw)}, "
+          f"batches of {INGEST_BATCH}: cells and conf equal card vs CPU, points max diff "
+          f"{worst} (<= 1e-5)")
+    print(f"informational: device ms per batch of {INGEST_BATCH} (replayed CUDA graphs; "
+          f"eager: CUDA events around eager calls): {json.dumps(timing)}; on {card}")
 
 
 def main(argv):
@@ -834,6 +1034,7 @@ def main(argv):
     # ---- 5b. ingest phase: the CLI's chunk loop at batch 8
     launches["ingest"] = ingest_phase(torch, np, estimator, ref0["frames"], order, counters,
                                       rows, card)
+    softargmax_phase(torch, np, dev, estimator, ref0["frames"], order, card)
 
     if "--profile" in argv:
         from torch.autograd import DeviceType
@@ -896,8 +1097,8 @@ def main(argv):
             print(f"golden contract, {key}: pts_err {pts_err} (<= 0.02), conf_err {conf_err} "
                   f"(band 0.002)")
 
-    # ---- 7. core phase: the CLI over a recording folder, where a decoder loads
-    core_phase(np, dev, card, probe)
+    # ---- 7. core phase: the recording entry point with every option
+    launches.update(core_phase(np, torch, dev, card, probe, counters))
 
     entries = []
     for name, (src, replaces, also) in SOURCES.items():
@@ -919,8 +1120,9 @@ def main(argv):
             **({"bound_f32_ms": agg["bound_f32_ms"], "model_err": agg["model_err"],
                 "arithmetic": "3 TF32 MMAs per product, f32 accumulate"}
                if name == "fused_bottleneck" else {}),
-            "per": f"one call of each path ({', '.join(launches)}) at T={BATCH_T}: the "
-                   f"kernel-phase time of every shape, times its launches",
+            "per": f"times: one call of each recorded path ({', '.join(EXPECTED)}, ingest) "
+                   f"at T={BATCH_T}, the kernel-phase time of every shape times its launches; "
+                   f"launches: every counted run ({', '.join(launches)})",
         }
         entries.append(entry)
     print(json.dumps({"kernels": entries}))

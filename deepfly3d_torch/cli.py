@@ -7,12 +7,14 @@ stops the batch), ``--solver``, ``--soft-argmax``, ``--ba-huber-px``,
 ``--checkpoint``, ``--streaming`` / ``--no-streaming``, ``--profile`` and
 ``--calib-prior``, plus ``--device`` (default ``cuda``; ``cpu`` runs every
 kernel's plain version).  A run goes setup -> pose2d -> save -> calibrate
-(parity bundle adjustment) -> save.  The network runs on ``--device``;
-triangulation, bundle adjustment and Procrustes run in float64 on the host.
+(bundle adjustment: ``parity``, or ``lm`` with ``--ba-huber-px``) -> save.
+The network runs on ``--device``; ``--soft-argmax`` refines its argmax cells
+on the same device; triangulation, bundle adjustment and Procrustes run in
+float64 on the host.
 
 Flags whose modules are not ported yet (``--video-2d``, ``--video-3d``,
-``--solver lm``, ``--soft-argmax``, ``--profile h36m``) raise
-NotImplementedError naming ROADMAP.md before any folder is processed.
+``--profile h36m``) raise NotImplementedError naming ROADMAP.md before any
+folder is processed.
 """
 
 from __future__ import annotations
@@ -102,10 +104,11 @@ def parse_cli_args(argv=None):
                         help="FPS for output videos. Defaults to the input video FPS.")
     parser.add_argument("--solver", choices=["parity", "lm"], default="parity",
                         help="Bundle-adjustment solver: 'parity' replicates the "
-                             "reference optimizer; 'lm' is not ported yet.")
+                             "reference optimizer; 'lm' is the batched "
+                             "Levenberg-Marquardt solver (Huber-robust with "
+                             "--ba-huber-px).")
     parser.add_argument("--soft-argmax", action="store_true",
-                        help="Sub-pixel heatmap decoding (not ported yet; off = "
-                             "reference-exact argmax)")
+                        help="Sub-pixel heatmap decoding (off = reference-exact argmax)")
     parser.add_argument("--ba-huber-px", type=float, default=0.0,
                         help="Huber scale of the lm solver, in pixels (lm only).")
     parser.add_argument("--checkpoint", default=None,
@@ -140,11 +143,9 @@ def parse_cli_args(argv=None):
 
 
 _NOT_PORTED = (
-    ("video_2d", True, "--video-2d", "viz/, ROADMAP.md Queue 1 item 14"),
-    ("video_3d", True, "--video-3d", "viz/, ROADMAP.md Queue 1 item 14"),
-    ("solver", "lm", "--solver lm", "ROADMAP.md Queue 1 item 10"),
-    ("soft_argmax", True, "--soft-argmax", "ROADMAP.md Queue 1 item 4"),
-    ("profile", "h36m", "--profile h36m", "skeletons/h36m.py, ROADMAP.md Queue 1"),
+    ("video_2d", True, "--video-2d", "viz/, ROADMAP.md Queue 1 item 1"),
+    ("video_3d", True, "--video-3d", "viz/, ROADMAP.md Queue 1 item 1"),
+    ("profile", "h36m", "--profile h36m", "skeletons/h36m.py, ROADMAP.md Queue 1 item 1"),
 )
 
 
@@ -215,6 +216,14 @@ def run_in_folders(args, folders) -> int:
     return 1 if errors else 0
 
 
+def _solver_kwargs(args) -> dict:
+    """Extra bundle-adjustment options from the flags: the lm solver's
+    ``huber_px`` (the parity solver takes none)."""
+    if args.solver == "lm" and getattr(args, "ba_huber_px", 0.0):
+        return {"huber_px": float(args.ba_huber_px)}
+    return {}
+
+
 def run(args) -> int:
     """One recording: setup -> pose2d -> save -> calibrate -> save.  With
     --skip-pose-estimation there is nothing to do until the video flags are
@@ -245,10 +254,11 @@ def run(args) -> int:
             args.batch_size,
             disable_pin_memory=args.pin_memory_disabled,
             checkpoint=args.checkpoint,
+            soft_argmax=args.soft_argmax,
         )
     core.save()
     with timer.stage("calibrate"):
-        core.calibrate_calc(0, core.max_img_id, solver=args.solver)
+        core.calibrate_calc(0, core.max_img_id, solver=args.solver, **_solver_kwargs(args))
     with timer.stage("save"):
         core.save()
     if args.delete_images:

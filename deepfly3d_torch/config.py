@@ -4,7 +4,9 @@ A jax-free copy of the part of ``deepfly3d_tpu/config.py`` (``Config`` /
 ``NetworkConfig``) that the 2D->3D pipelines, ``Core`` and ``cli`` use:
 camera count and which cameras are fed flipped, the skeleton, the frame
 shape, the network input shape, the default checkpoint and rig template, the
-calibration prior, the Procrustes template and the streaming threshold.
+calibration prior, the Procrustes template, the streaming threshold, the
+pictorial-structures hyperparameters (``BeliefPropagationConfig``) and the
+error-navigation threshold.
 """
 
 from __future__ import annotations
@@ -31,6 +33,17 @@ class NetworkConfig:
 
 
 @dataclasses.dataclass
+class BeliefPropagationConfig:
+    """Pictorial-structures MAP hyperparameters (reference df3d/config.py:55-60)."""
+
+    num_peak: int = 10
+    upper_bound: int = 200
+    alpha_reproj: float = 30.0
+    alpha_heatmap: float = 600.0
+    alpha_bone: float = 10.0
+
+
+@dataclasses.dataclass
 class Config:
     name: str = "fly"
     num_cameras: int = 7
@@ -39,6 +52,9 @@ class Config:
     image_hw: Tuple[int, int] = (480, 960)       # (height, width) of a frame
     image_shape: Optional[Tuple[int, int]] = None   # (width, height), probed by Core
     network: NetworkConfig = dataclasses.field(default_factory=NetworkConfig)
+    bp: BeliefPropagationConfig = dataclasses.field(default_factory=BeliefPropagationConfig)
+    # per-joint reprojection-error threshold in px for error navigation
+    reproj_thr_px: float = 40.0
     calib_prior_path: str = os.path.join(DATA_DIR, "calib.pkl")
     rig_template_path: str = os.path.join(WEIGHTS_DIR, "rig_template_fly.npz")
     procrustes_apply: bool = True
@@ -59,5 +75,5 @@ def fly_config() -> Config:
 
 def h36m_config() -> Config:
     raise NotImplementedError(
-        "the h36m profile is not ported yet (ROADMAP.md Queue 1: skeletons/h36m.py "
-        "comes with it)")
+        "the h36m profile is not ported yet (ROADMAP.md Queue 1 item 1: "
+        "skeletons/h36m.py comes with it)")

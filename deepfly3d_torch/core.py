@@ -12,9 +12,11 @@ Device split, as in the JAX package: the network (``PoseEstimator``) runs on
 bundle adjustment, Procrustes and the One-Euro filter run in float64 on the
 host CPU whatever ``device`` is.
 
-Manual corrections, error navigation, images and plots (``plot_2d``, the
-GUI helpers) and ``solve_pictorial`` are not ported yet: calling them raises
-NotImplementedError naming ROADMAP.md.
+Also the pictorial-structures correction (``solve_pictorial``: the network
+on ``device`` for the heatmaps, the MAP in float32 on the host), manual
+corrections through the pose database, error navigation by reprojection
+error, frame access and the memoised 2D smoother.  Only ``plot_2d`` is not
+ported yet: it raises NotImplementedError naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from deepfly3d_torch.config import Config, fly_config
 from deepfly3d_torch.io import discovery, result_schema
 from deepfly3d_torch.io.posedb import PoseDB
 from deepfly3d_torch.ops import bundle_adjust as ba_mod
-from deepfly3d_torch.ops import filters, geometry, procrustes
+from deepfly3d_torch.ops import filters, geometry, pictorial, procrustes
 
 # Known lab-account camera orderings inferred from the folder path (the
 # reference hardcodes the same table, df3d/core.py:34-42).
@@ -130,6 +132,7 @@ class Core:
         self.points3d: Optional[np.ndarray] = None   # (T,J,3) post-procrustes
         self.calib: Optional[dict] = None            # {cam: {R,tvec,intr,distort}}
         self._points3d_wo: Optional[np.ndarray] = None
+        self._smooth_cache: dict = {}
         self._estimator = None
 
         # resume from an existing result pickle
@@ -283,6 +286,8 @@ class Core:
         from deepfly3d_torch.models import decode as decode_mod
         from deepfly3d_torch.models.inference import PoseEstimator
 
+        # the estimator is cached: ``soft_argmax`` takes effect when it is built
+        # (the first call, or one that names a checkpoint), as in the JAX Core
         ckpt = checkpoint or self.config.network.checkpoint
         if self._estimator is None or checkpoint is not None:
             self._estimator = PoseEstimator(
@@ -342,6 +347,83 @@ class Core:
         err = self.reprojection_error()
         print(f"Reprojection error is {err}")
         return result
+
+    def solve_pictorial(self, batch_size: int = 8, apply: bool = True) -> dict:
+        """Pictorial-structures MAP correction of the legs (``ops/pictorial.py``).
+
+        Per body side, the top-k peaks of the last stack's heatmaps (the
+        network on ``device``) in the side's three cameras become pixel
+        candidates, and ``correct_legs_map`` picks each leg chain's MAP 3D
+        points on the host in float32.  Returns {"left": (T, 15, 3), "right":
+        (T, 15, 3)}; with ``apply`` the corrected legs are reprojected into
+        each side's cameras and written into ``self.points2d``.
+        """
+        from deepfly3d_torch.models.inference import PoseEstimator
+
+        assert self.has_calibration, "Calibrate first."
+        if self._estimator is None:
+            self._estimator = PoseEstimator(
+                self.config.network.checkpoint,
+                input_shape=self.config.network.input_shape,
+                device=self.device,
+            )
+        order = list(self.camera_ordering)
+        flip = [cam for idx, cam in enumerate(order) if idx > 3]
+        _, _, heatmaps = self._estimator.infer_folder(
+            self._input_folder,
+            camera_ids_to_flip=flip,
+            max_img_id=self.max_img_id,
+            batch_size=batch_size,
+            num_cameras=self.config.num_cameras,
+            return_heatmap=True,
+        )
+        W, H = self._image_shape
+        bp = self.config.bp
+        params = pictorial.PictorialParams(bp.num_peak, bp.upper_bound, bp.alpha_reproj,
+                                           bp.alpha_heatmap, bp.alpha_bone)
+        bone_param = self.config.skeleton.bone_param
+        legs, leg_len = 3, 5
+        n_leg = legs * leg_len
+        f32 = torch.float32
+
+        out = {}
+        for side, positions, joint0 in (("left", (0, 1, 2), 0), ("right", (4, 5, 6), 19)):
+            cams = [order[p] for p in positions]
+            hm = heatmaps[cams]                                  # (3, T, h, w, 19)
+            C3, T = hm.shape[:2]
+            coords, scores = pictorial.top_k_peaks(
+                torch.from_numpy(np.ascontiguousarray(hm.reshape((C3 * T,) + hm.shape[2:]),
+                                                      np.float32)), k=params.num_peak)
+            coords = coords.numpy().reshape(C3, T, 19, params.num_peak, 2)
+            scores = scores.numpy().reshape(C3, T, 19, params.num_peak)
+            if side == "right":                                  # unflip the columns
+                coords[..., 1] = 1.0 - coords[..., 1]
+            cand_xy = np.stack([coords[..., 1] * W, coords[..., 0] * H], axis=-1)
+            R, tvec, intr, _ = _f64(*geometry.calib_to_arrays(
+                {i: self.calib[c] for i, c in enumerate(cams)}, C3))
+            P = geometry.projection_matrices(R, tvec, intr)
+            edge_joints = np.asarray([joint0 + l * leg_len + e + 1
+                                      for l in range(legs) for e in range(leg_len - 1)])
+            pts3d = pictorial.correct_legs_map(
+                torch.as_tensor(cand_xy[:, :, :n_leg], dtype=f32),
+                torch.as_tensor(scores[:, :, :n_leg], dtype=f32),
+                P.to(f32),
+                torch.as_tensor(bone_param[edge_joints, 0], dtype=f32),
+                torch.as_tensor(bone_param[edge_joints, 1], dtype=f32),
+                params, legs=legs, leg_len=leg_len,
+            ).numpy()                                            # (T, 15, 3)
+            out[side] = pts3d
+            if apply:
+                flat = torch.from_numpy(pts3d.reshape(1, -1, 3).astype(np.float64))
+                for i, cam in enumerate(cams):
+                    px = geometry.project(flat, R[i:i + 1], tvec[i:i + 1], intr[i:i + 1],
+                                          torch.zeros((1, 5), dtype=torch.float64))
+                    px = px.numpy().reshape(T, n_leg, 2)
+                    self.points2d[cam, :, joint0:joint0 + n_leg, 0] = px[..., 1] / H
+                    self.points2d[cam, :, joint0:joint0 + n_leg, 1] = px[..., 0] / W
+        if apply:
+            self._invalidate_downstream()
+        return out
 
     def triangulate(self) -> np.ndarray:
         """Float64 SVD DLT of the current points2d with the current calibration."""
@@ -408,6 +490,7 @@ class Core:
 
     def _invalidate_downstream(self):
         self._points3d_wo = None
+        self._smooth_cache = {}
 
     # ------------------------------------------------------------- media
 
@@ -420,20 +503,127 @@ class Core:
     def delete_images(self):
         discovery.delete_images(self._input_folder)
 
+    # -------------------------------------------------- corrections / GUI
+
+    def points2d_pixels_xy(self, cam_id: int, img_id: int) -> np.ndarray:
+        """(J, 2) pixel (x, y) predictions for one view."""
+        p = self.points2d[cam_id, img_id]
+        w, h = self._image_shape
+        return np.stack([p[:, 1] * w, p[:, 0] * h], axis=-1)
+
+    def corrected_points2d(self, cam_id: int, img_id: int) -> np.ndarray:
+        """The view's manually corrected (x, y) pixels where the pose database
+        holds a correction, else its predictions."""
+        pts = self.points2d_pixels_xy(cam_id, img_id).copy()
+        corrections = self.db.manual_corrections(self._image_shape)
+        if img_id in corrections.get(cam_id, {}):
+            pts[:] = corrections[cam_id][img_id]
+        return pts
+
+    def corrected_points2d_matrix(self) -> np.ndarray:
+        """(C, T, J, 2) pixel (x, y) with the manual corrections applied."""
+        w, h = self._image_shape
+        pts = np.stack([self.points2d[..., 1] * w, self.points2d[..., 0] * h], axis=-1)
+        corrections = self.db.manual_corrections(self._image_shape)
+        for cam_id in range(self.config.num_cameras):
+            for img_id in corrections.get(cam_id, {}):
+                if img_id < pts.shape[1]:
+                    pts[cam_id, img_id] = corrections[cam_id][img_id]
+        return pts
+
+    def nearest_joint(self, cam_id: int, img_id: int, x: float, y: float) -> int:
+        """Index of the joint nearest to pixel (x, y) among those the camera sees."""
+        pts = self.corrected_points2d(cam_id, img_id)
+        visible = self.config.skeleton.camera_sees_joint_matrix[cam_id]
+        d2 = np.sum((pts - np.array([x, y])) ** 2, axis=-1)
+        return int(np.argmin(np.where(visible, d2, np.inf)))
+
+    def move_joint(self, cam_id: int, img_id: int, joint_id: int, x: float, y: float):
+        modified = sorted(set(self.db.read_modified_joints(cam_id, img_id) + [joint_id]))
+        pts = self.corrected_points2d(cam_id, img_id)
+        pts[joint_id] = np.array([x, y])
+        self.write_corrections(cam_id, img_id, modified, pts)
+
+    def write_corrections(self, cam_id: int, img_id: int, modified_joints: List[int],
+                          points2d_xy):
+        """Persist a correction that moves a checked joint more than 30 px (L1
+        per axis) from the prediction; otherwise drop the view's correction
+        (reference core.py:509-544)."""
+        l1_threshold = 30
+        skel = self.config.skeleton
+        l1 = np.abs(self.points2d_pixels_xy(cam_id, img_id) - points2d_xy)
+        check = [j for j in range(skel.num_joints)
+                 if j not in skel.ignore_joint_id and skel.camera_see_joint(cam_id, j)]
+        unseen = [j for j in range(skel.num_joints) if not skel.camera_see_joint(cam_id, j)]
+        if np.any(l1[check] > l1_threshold):
+            pts = np.array(points2d_xy, dtype=np.float64)
+            pts[unseen] = 0.0
+            pts = pts / np.asarray(self._image_shape, dtype=np.float64)
+            self.db.write(pts, cam_id, img_id, True, modified_joints)
+        else:
+            self.db.remove_corrections(cam_id, img_id)
+
+    def save_corrections(self):
+        self.db.dump()
+
+    # ------------------------------------------------------ error navigation
+
+    def next_error(self, img_id: int) -> Optional[int]:
+        """The next frame after ``img_id`` with a joint reprojected more than
+        ``config.reproj_thr_px`` from its observation, or None."""
+        return self._next_error_in_range(range(img_id + 1, self.max_img_id + 1))
+
+    def prev_error(self, img_id: int) -> Optional[int]:
+        return self._next_error_in_range(range(img_id - 1, -1, -1))
+
+    def _joint_reprojection_errors(self) -> np.ndarray:
+        """(T, J) largest pixel reprojection error over the cameras (float64, host)."""
+        if self._points3d_wo is None:
+            self.triangulate()
+        R, tvec, intr, dist = _f64(*geometry.calib_to_arrays(self.calib,
+                                                              self.config.num_cameras))
+        res, _ = geometry.reprojection_residuals(
+            *_f64(self._points3d_wo, self.points2d), R, tvec, intr, dist,
+            tuple(self._image_shape))
+        return torch.linalg.vector_norm(res, dim=-1).numpy().max(axis=0)
+
+    def _next_error_in_range(self, rng) -> Optional[int]:
+        if not self.has_calibration:
+            return None
+        errors = self._joint_reprojection_errors()
+        thr = self.config.reproj_thr_px
+        pictorial_joints = set(self.config.skeleton.pictorial_joint_list)
+        joints = [j for j in range(self.config.num_joints) if j in pictorial_joints]
+        for img_id in rng:
+            if 0 <= img_id < errors.shape[0] and np.any(errors[img_id, joints] > thr):
+                return int(img_id)
+        return None
+
+    def joint_has_error(self, img_id: int, joint_id: int) -> bool:
+        errors = self._joint_reprojection_errors()
+        return bool(errors[img_id, joint_id] > self.config.reproj_thr_px)
+
+    # ------------------------------------------------------------- frames
+
+    def get_image(self, cam_id: int, img_id: int) -> np.ndarray:
+        """One RGB frame: the JPEG, or the camera video's frame when streaming."""
+        path = discovery.image_path_template(self._input_folder).format(
+            cam_id=cam_id, img_id=img_id)
+        if self.streaming and not os.path.exists(path):
+            vid = os.path.join(self._input_folder, f"camera_{cam_id}.mp4")
+            return discovery.read_video_frame(vid, img_id)
+        return discovery.read_image(path)
+
+    def smooth_points2d(self, cam_id: int) -> np.ndarray:
+        """The camera's (T, J, 2) pixel (x, y) tracks through ``smooth_pose2d``,
+        memoised until the points change."""
+        if cam_id not in self._smooth_cache:
+            w, h = self._image_shape
+            pts = np.stack([self.points2d[cam_id, ..., 1] * w,
+                            self.points2d[cam_id, ..., 0] * h], axis=-1)
+            self._smooth_cache[cam_id] = filters.smooth_pose2d(pts)
+        return self._smooth_cache[cam_id]
+
     # ------------------------------------------- not ported yet (ROADMAP.md)
 
-    solve_pictorial = _not_ported("solve_pictorial", "ROADMAP.md Queue 1 item 11")
-    plot_2d = _not_ported("plot_2d", "ROADMAP.md Queue 1 item 14, viz/")
-    smooth_points2d = _not_ported("smooth_points2d", "ROADMAP.md Queue 1 items 10 and 14")
-    get_image = _not_ported("get_image", "ROADMAP.md Queue 1 item 14, GUI helpers")
-    points2d_pixels_xy = _not_ported("points2d_pixels_xy", "ROADMAP.md Queue 1 item 14")
-    corrected_points2d = _not_ported("corrected_points2d", "ROADMAP.md Queue 1 item 14")
-    corrected_points2d_matrix = _not_ported("corrected_points2d_matrix",
-                                            "ROADMAP.md Queue 1 item 14")
-    nearest_joint = _not_ported("nearest_joint", "ROADMAP.md Queue 1 item 14")
-    move_joint = _not_ported("move_joint", "ROADMAP.md Queue 1 item 14")
-    write_corrections = _not_ported("write_corrections", "ROADMAP.md Queue 1 item 14")
-    save_corrections = _not_ported("save_corrections", "ROADMAP.md Queue 1 item 14")
-    next_error = _not_ported("next_error", "ROADMAP.md Queue 1 item 14")
-    prev_error = _not_ported("prev_error", "ROADMAP.md Queue 1 item 14")
-    joint_has_error = _not_ported("joint_has_error", "ROADMAP.md Queue 1 item 14")
+    plot_2d = _not_ported("plot_2d", "viz/, ROADMAP.md Queue 1 item 1")

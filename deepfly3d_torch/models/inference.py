@@ -118,7 +118,9 @@ class PoseEstimator:
     checkpoint's own ``input_shape`` when it has one, else ``input_shape``,
     else the config's.  ``rig_template``: ``"auto"`` finds the template shipped
     beside the checkpoint, a path loads that one, None (or "off") turns the
-    ingest paths' registration off.
+    ingest paths' registration off.  ``soft_argmax`` decodes sub-cell points
+    (``decode.decode_softargmax``); the registration's un-shift then moves
+    the refined points.
 
     ``net`` (the folded hourglass), ``preprocess`` and ``decode`` are the
     stages, as on a ``pipeline.Pipeline``: ``pipeline.plain_twin`` swaps
@@ -128,16 +130,15 @@ class PoseEstimator:
     def __init__(self, checkpoint: str, input_shape: Optional[Tuple[int, int]] = None,
                  device="cuda", rig_template: Optional[str] = "auto",
                  soft_argmax: bool = False):
-        if soft_argmax:
-            raise NotImplementedError("soft-argmax decoding is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 4)")
         self.device = resolve_device(device)
         full_f32()
         variables, self.spec = load_weights(checkpoint)
         self.net = FoldedHourglass(fold_hourglass(variables, self.spec),
                                    self.spec).to(self.device).eval()
         self.preprocess = image_ops.preprocess_frames
-        self.decode = decode_mod.decode_argmax
+        # soft-argmax: the decode kernel's cells, refined on a patch around each
+        self.decode = (decode_mod.SoftArgmaxDecode() if soft_argmax
+                       else decode_mod.decode_argmax)
         # the checkpoint's training resolution is the source of truth
         self.input_shape = tuple(self.spec.input_shape or input_shape
                                  or fly_config().network.input_shape)

@@ -1,16 +1,25 @@
-"""Sparse bundle adjustment of the camera extrinsics, the ``parity`` solver.
+"""Sparse bundle adjustment of the camera extrinsics: the ``parity`` and ``lm`` solvers.
 
-Counterpart of ``deepfly3d_tpu/ops/bundle_adjust.py`` (``solver="parity"``):
-the reference's optimizer, reverse-engineered from the golden artifacts.
-Observations are ordered camera-major, 3D points start from a float64 SVD
-triangulation through the calibration prior, the parameters are per-camera
-(rvec, tvec) followed by the flat points, and scipy's
+Counterpart of ``deepfly3d_tpu/ops/bundle_adjust.py``.  Both solvers share
+one problem: observations from (C, T, J, 2) normalized (row, col) points,
+3D points started from a float64 SVD triangulation through the calibration
+prior.
+
+``solver="parity"``: the reference's optimizer, reverse-engineered from the
+golden artifacts.  Observations are ordered camera-major, the parameters
+are per-camera (rvec, tvec) followed by the flat points, and scipy's
 ``least_squares(method="trf", x_scale="jac", ftol=1e-4)`` runs with a
 2-point block-sparse Jacobian.  Free-point bundle adjustment has a 7-DoF
 gauge null space, so reaching the golden calibration (1e-4) means taking the
 same optimizer path: scipy on the host, float64, as in the JAX package.
 
-The batched Levenberg-Marquardt ``solver="lm"`` is not ported yet.
+``solver="lm"``: Schur-complement Levenberg-Marquardt on dense masked
+residual grids, with optional intrinsics (fx, fy, cx, cy), 5-coefficient
+distortion and Huber IRLS (``huber_px``).  The per-observation Jacobians are
+``torch.func.jacfwd`` of ``_project_one`` under ``torch.func.vmap``; the
+point blocks are eliminated analytically (3x3 blocks), leaving a dense
+(P*C, P*C) camera system.  The JAX package's ``lax.while_loop`` is a Python
+loop with the same condition.  Float64 on the host, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.func import jacfwd, vmap
 
 from deepfly3d_torch.ops import geometry
 
@@ -56,13 +66,13 @@ def _bundle_adjust_parity(points2d_rowcol, calib_prior, image_shape, update_intr
     if update_intrinsic or update_distort:
         raise NotImplementedError(
             "the parity solver replicates the reference's extrinsics-only mode; "
-            "intrinsic refinement needs the lm solver (ROADMAP.md Queue 1 item 10)")
+            "use solver='lm' for intrinsic or distortion refinement")
     C, R0, t0, K, dist, pts0, obs, mask = _prepare(points2d_rowcol, calib_prior, image_shape)
     if np.any(dist != 0):
         raise NotImplementedError(
             "the parity solver replicates the reference's pinhole residual (the fly "
-            "rig has distort == 0); distortion needs the lm solver (ROADMAP.md "
-            "Queue 1 item 10)")
+            "rig has distort == 0); use solver='lm', whose residual model applies "
+            "the full 5-coefficient distortion")
     T, J = pts0.shape[:2]
     n_pts = T * J
 
@@ -124,6 +134,189 @@ def _bundle_adjust_parity(points2d_rowcol, calib_prior, image_shape, update_intr
     )
 
 
+# ================================================================== LM solver
+
+
+def cam_param_size(update_intrinsic: bool, update_distort: bool) -> int:
+    """Per-camera parameter count: rvec(3) + tvec(3) [+ fx, fy, cx, cy] [+ 5]."""
+    return 6 + (4 if update_intrinsic else 0) + (5 if update_distort else 0)
+
+
+def _unpack_cam(cam_vec, K0, dist0, update_intrinsic: bool, update_distort: bool):
+    """cam_vec (P,) -> (rvec, tvec, K, dist); the optimized blocks override the
+    fixed K0 / dist0 (the skew stays fixed: it is no OpenCV parameter)."""
+    rvec, tvec = cam_vec[:3], cam_vec[3:6]
+    off = 6
+    K, dist = K0, dist0
+    if update_intrinsic:
+        fx, fy, cx, cy = (cam_vec[off + i] for i in range(4))
+        zero, one = torch.zeros_like(fx), torch.ones_like(fx)
+        K = torch.stack([torch.stack([fx, K0[0, 1], cx]), torch.stack([zero, fy, cy]),
+                         torch.stack([zero, zero, one])])
+        off += 4
+    if update_distort:
+        dist = cam_vec[off:off + 5]
+    return rvec, tvec, K, dist
+
+
+def _pack_cam(R, tvec, K, dist, update_intrinsic: bool, update_distort: bool) -> np.ndarray:
+    """Inverse of ``_unpack_cam`` for the initial parameter vector (numpy float64)."""
+    parts = [geometry.inv_rodrigues(torch.from_numpy(np.asarray(R, np.float64))).numpy(),
+             np.asarray(tvec)]
+    if update_intrinsic:
+        parts.append(np.asarray([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))
+    if update_distort:
+        parts.append(np.asarray(dist))
+    return np.concatenate(parts)
+
+
+def _project_one(cam_vec, K, dist, point, update_intrinsic: bool = False,
+                 update_distort: bool = False):
+    """Pixel (x, y) of one 3D point in one camera; cam_vec per ``cam_param_size``."""
+    rvec, tvec, K, dist = _unpack_cam(cam_vec, K, dist, update_intrinsic, update_distort)
+    Xc = geometry.rodrigues(rvec) @ point + tvec
+    xy = geometry.distort_points((Xc[:2] / Xc[2])[None], dist[None])[0]
+    return torch.stack([K[0, 0] * xy[0] + K[0, 1] * xy[1] + K[0, 2],
+                        K[1, 1] * xy[1] + K[1, 2]])
+
+
+def _per_observation(fn, cams, pts, K, dist):
+    """``fn(cam_vec, K, dist, point)`` over every (camera, point) -> (C, N, ...)."""
+    return vmap(lambda c, K_, d_: vmap(lambda p: fn(c, K_, d_, p))(pts))(cams, K, dist)
+
+
+def _residual_grid(cams, pts, K, dist, obs, mask, update_intrinsic=False,
+                   update_distort=False):
+    """(C, P), (N, 3) -> masked residuals (C, N, 2)."""
+    proj = _per_observation(
+        lambda c, K_, d_, p: _project_one(c, K_, d_, p, update_intrinsic, update_distort),
+        cams, pts, K, dist)
+    return (proj - obs) * mask[..., None]
+
+
+def _cost(cams, pts, K, dist, obs, mask, update_intrinsic=False, update_distort=False,
+          huber_delta: float = 0.0) -> torch.Tensor:
+    """0.5 * sum(r^2), or the Huber objective on each observation's 2-norm
+    (quadratic inside ``huber_delta``, linear outside)."""
+    r = _residual_grid(cams, pts, K, dist, obs, mask, update_intrinsic, update_distort)
+    if huber_delta and huber_delta > 0:
+        s = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-30)        # (C, N)
+        rho = torch.where(s <= huber_delta, 0.5 * s * s,
+                          huber_delta * (s - 0.5 * huber_delta))
+        return torch.sum(rho)
+    return 0.5 * torch.sum(r * r)
+
+
+def _lm_solve(cams0, pts0, K, dist, obs, mask, max_iters: int = 30,
+              update_intrinsic: bool = False, update_distort: bool = False,
+              huber_delta: float = 0.0):
+    """Schur-complement Levenberg-Marquardt.
+
+    cams0 (C, P) with P = ``cam_param_size(...)``, pts0 (N, 3), K (C, 3, 3),
+    dist (C, 5), obs (C, N, 2), mask (C, N) float.  Returns (cams, pts, cost0,
+    cost, iters).  ``huber_delta`` (pixels, 0 = plain least squares) weights
+    each observation's residual and Jacobians by sqrt(min(1, delta / |r|))
+    in every step (IRLS), and a step is accepted on the true Huber objective.
+    """
+    C, P = cams0.shape
+    dtype, dev = cams0.dtype, cams0.device
+    flags = (update_intrinsic, update_distort)
+    jac = jacfwd(lambda c, K_, d_, p: _project_one(c, K_, d_, p, *flags), argnums=(0, 3))
+    eyeP = torch.eye(P, dtype=dtype, device=dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    diag = torch.arange(C, device=dev)
+
+    def step(cams, pts, lam):
+        r = _residual_grid(cams, pts, K, dist, obs, mask, *flags)      # (C, N, 2)
+        jc, jp = _per_observation(jac, cams, pts, K, dist)              # (C, N, 2, P|3)
+        m = mask[..., None, None]
+        jc, jp = jc * m, jp * m
+        if huber_delta and huber_delta > 0:
+            # masked observations have r == 0: weight 1, harmless
+            s = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-30)
+            sw = torch.sqrt(torch.where(s > huber_delta, huber_delta / s, 1.0))
+            r = r * sw[..., None]
+            jc = jc * sw[..., None, None]
+            jp = jp * sw[..., None, None]
+        # normal-equation blocks
+        U = torch.einsum("cnri,cnrj->cij", jc, jc)                     # (C, P, P)
+        V = torch.einsum("cnri,cnrj->nij", jp, jp)                     # (N, 3, 3)
+        W = torch.einsum("cnri,cnrj->cnij", jc, jp)                    # (C, N, P, 3)
+        g_c = torch.einsum("cnri,cnr->ci", jc, r)                      # (C, P)
+        g_p = torch.einsum("cnri,cnr->ni", jp, r)                      # (N, 3)
+        # Marquardt damping of the block diagonals, and a tiny absolute floor
+        # for blocks no observation reaches
+        U = U + lam * (U * eyeP)
+        V = V + lam * (V * eye3) + 1e-12 * eye3
+        U = U + 1e-12 * eyeP
+        V_inv = torch.linalg.inv(V)
+        WVi = torch.einsum("cnij,njk->cnik", W, V_inv)                 # (C, N, P, 3)
+        S = -torch.einsum("cnik,dnjk->cdij", WVi, W)                   # (C, C, P, P)
+        S[diag, diag] += U
+        S = S.permute(0, 2, 1, 3).reshape(C * P, C * P)
+        rhs = (g_c - torch.einsum("cnik,nk->ci", WVi, g_p)).reshape(C * P)
+        delta_c = torch.linalg.solve(S, -rhs).reshape(C, P)
+        delta_p = torch.einsum("nij,nj->ni", V_inv,
+                               -(g_p + torch.einsum("cnij,ci->nj", W, delta_c)))
+        return cams + delta_c, pts + delta_p
+
+    def cost_of(cams, pts):
+        return float(_cost(cams, pts, K, dist, obs, mask, *flags, huber_delta=huber_delta))
+
+    cams, pts = cams0, pts0
+    cost0 = cost = cost_of(cams, pts)
+    lam, it, done = 1e-4, 0, False
+    while not done and it < max_iters and lam < 1e10:
+        new_cams, new_pts = step(cams, pts, lam)
+        new_cost = cost_of(new_cams, new_pts)
+        accept = new_cost < cost
+        rel_drop = (cost - new_cost) / max(cost, 1e-30)
+        if accept:
+            cams, pts, cost = new_cams, new_pts, new_cost
+        lam = lam * 0.3 if accept else lam * 4.0
+        done = accept and rel_drop < 1e-10
+        it += 1
+    return cams, pts, cost0, cost, it
+
+
+def _bundle_adjust_lm(points2d_rowcol, calib_prior, image_shape, update_intrinsic,
+                      update_distort, max_iters: int = 30,
+                      huber_px: float = 0.0) -> BundleAdjustResult:
+    C, R0, t0, K, dist, pts0, obs, mask = _prepare(points2d_rowcol, calib_prior, image_shape)
+    T, J = pts0.shape[:2]
+    cams0 = torch.from_numpy(np.stack([
+        _pack_cam(R0[c], t0[c], K[c], dist[c], update_intrinsic, update_distort)
+        for c in range(C)]))
+    K_t, dist_t = torch.from_numpy(K), torch.from_numpy(dist)
+    with torch.no_grad():
+        cams, pts, cost0, cost, iters = _lm_solve(
+            cams0, torch.from_numpy(pts0.reshape(-1, 3)), K_t, dist_t,
+            torch.from_numpy(obs.reshape(C, -1, 2)),
+            torch.from_numpy(mask.reshape(C, -1).astype(np.float64)),
+            max_iters=max_iters, update_intrinsic=update_intrinsic,
+            update_distort=update_distort, huber_delta=float(huber_px))
+        R_out, K_out, d_out = [], [], []
+        for c in range(C):
+            rvec, _, K_c, d_c = _unpack_cam(cams[c], K_t[c], dist_t[c], update_intrinsic,
+                                            update_distort)
+            R_out.append(geometry.rodrigues(rvec).numpy())
+            K_out.append(K_c.numpy())
+            d_out.append(d_c.numpy())
+    cams = cams.numpy()
+    return BundleAdjustResult(
+        calib=geometry.arrays_to_calib(np.stack(R_out), cams[:, 3:6], np.stack(K_out),
+                                       np.stack(d_out)),
+        points3d=pts.numpy().reshape(T, J, 3),
+        cost_initial=cost0,
+        cost_final=cost,
+        iterations=iters,
+        solver="lm",
+    )
+
+
+# ===================================================================== public
+
+
 def bundle_adjust(points2d_rowcol: np.ndarray, calib_prior: Dict[int, dict],
                   image_shape: Tuple[int, int], update_intrinsic: bool = False,
                   update_distort: bool = False, solver: str = "parity",
@@ -131,12 +324,14 @@ def bundle_adjust(points2d_rowcol: np.ndarray, calib_prior: Dict[int, dict],
     """Refine camera extrinsics (and 3D points) from (C, T, J, 2) normalized
     (row, col) observations; zeros and col == 1 are unobserved.
 
-    Only ``solver="parity"`` is ported; ``"lm"`` raises NotImplementedError.
+    ``solver="lm"`` takes ``max_iters`` and ``huber_px`` (the Huber scale in
+    pixels; 0 is plain least squares, the reference's behaviour); the parity
+    solver takes no options.
     """
-    if solver == "parity":       # takes no options (``kwargs`` are the lm solver's)
+    if solver == "parity":
         return _bundle_adjust_parity(points2d_rowcol, calib_prior, image_shape,
                                      update_intrinsic, update_distort)
     if solver == "lm":
-        raise NotImplementedError("the lm bundle-adjustment solver is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 10)")
+        return _bundle_adjust_lm(points2d_rowcol, calib_prior, image_shape,
+                                 update_intrinsic, update_distort, **kwargs)
     raise ValueError(f"unknown solver {solver!r}")

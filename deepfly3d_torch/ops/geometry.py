@@ -142,7 +142,7 @@ def triangulate(points2d_rowcol: torch.Tensor, R: torch.Tensor, tvec: torch.Tens
     """
     if method not in ("normal", "svd"):
         raise NotImplementedError(f"triangulate method {method!r}: 'normal' and 'svd' "
-                                  "are ported")
+                                  "are ported (ROADMAP.md Queue 1 item 4)")
     C, T, J, _ = points2d_rowcol.shape
     P = projection_matrices(R, tvec, intr)
     obs = rowcol_to_pixel_xy(points2d_rowcol, image_shape)
@@ -250,17 +250,22 @@ def reprojection_error(points3d: torch.Tensor, points2d_rowcol: torch.Tensor,
 
 
 def rodrigues(rvec: torch.Tensor) -> torch.Tensor:
-    """Axis-angle (3,) -> rotation matrix (3, 3); the identity at theta < 1e-12."""
+    """Axis-angle (3,) -> rotation matrix (3, 3); the identity at theta < 1e-12.
+
+    No Python branch on the data, as in the JAX function (a guarded
+    ``1 / theta`` and a ``where``), so that it runs under ``torch.func.vmap``
+    and ``jacfwd`` (the lm bundle adjustment's Jacobians).
+    """
     theta = torch.linalg.vector_norm(rvec)
     eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
-    if theta < 1e-12:
-        return eye
-    k = rvec / theta
-    zero = torch.zeros((), dtype=rvec.dtype, device=rvec.device)
+    small = theta < 1e-12
+    k = rvec / torch.where(small, torch.ones_like(theta), theta)
+    zero = torch.zeros_like(theta)
     K = torch.stack([torch.stack([zero, -k[2], k[1]]),
                      torch.stack([k[2], zero, -k[0]]),
                      torch.stack([-k[1], k[0], zero])])
-    return eye + torch.sin(theta) * K + (1.0 - torch.cos(theta)) * (K @ K)
+    R = eye + torch.sin(theta) * K + (1.0 - torch.cos(theta)) * (K @ K)
+    return torch.where(small, eye, R)
 
 
 def inv_rodrigues(R: torch.Tensor) -> torch.Tensor:

@@ -145,7 +145,8 @@ class Pipeline:
 def plain_twin(pipe: Pipeline) -> Pipeline:
     """A copy of ``pipe`` (or of a cascade) whose stages run each kernel's
     plain PyTorch version: bottleneck, upsample-add, preprocess (with the
-    registration's roll and gain as separate steps) and decode.
+    registration's roll and gain as separate steps) and decode (a soft-argmax
+    stage keeps its refinement and takes its cells from the plain decode).
 
     It shares the weights and the device, and launches no kernel: on a card
     it is the yardstick and the check for the kernels.
@@ -156,7 +157,11 @@ def plain_twin(pipe: Pipeline) -> Pipeline:
         net.block_fn, net.merge_fn = bottleneck_plain, upsample2x_add_plain
         setattr(twin, attr, net)
     twin.preprocess = image_ops.preprocess_frames_plain
-    twin.decode = decode_heatmaps_plain
+    if hasattr(pipe.decode, "argmax"):      # soft-argmax: its cells from the plain decode
+        twin.decode = copy.copy(pipe.decode)
+        twin.decode.argmax = decode_heatmaps_plain
+    else:
+        twin.decode = decode_heatmaps_plain
     return twin
 
 

@@ -17,7 +17,9 @@ bit, the kernel on ``apply_shift_tc``'s frames times the gain.  The p16 and
 cascade pipelines, and the conv pipeline on drifted frames, must match their
 plain twins (``pipeline.plain_twin``): p38 equal, conf within 1e-4, points3d
 within 1e-5 relative.  The estimator's ingest loop on the card must give what
-it gives on the CPU: points equal, conf within 2e-5.
+it gives on the CPU: points equal, conf within 2e-5.  The soft-argmax decode
+on the card (its cells from the decode kernel) must give the CPU's cells and
+conf and points within 1e-5.
 """
 
 import ctypes
@@ -184,6 +186,36 @@ def test_ingest_chunk_loop_on_card():
     assert reg_card == reg_cpu and reg_card[1][2] != 1.0
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_allclose(got[1], want[1], atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("method", ["parabolic", "window"])
+def test_soft_argmax_on_card_matches_cpu(method):
+    """decode_softargmax on the card (cells from the decode kernel) against a
+    CPU copy of the same heatmaps: the same cells and conf, points within
+    1e-5; peaks planted on the borders and in the corners, and a flat map."""
+    dev = _card()
+    from deepfly3d_torch.models import decode as decode_mod
+
+    g = torch.Generator().manual_seed(3)
+    hm = torch.rand((8, 64, 128, 19), generator=g) * 0.05
+    rr, cc = torch.meshgrid(torch.arange(64.0), torch.arange(128.0), indexing="ij")
+    centers = torch.rand((8, 19, 2), generator=g) * torch.tensor([66.0, 130.0]) - 1.0
+    centers[0, :4] = torch.tensor([[0.0, 0.0], [63.0, 127.0], [0.0, 64.2], [31.6, 127.0]])
+    for n in range(8):
+        for k in range(19):
+            r, c = centers[n, k].tolist()
+            hm[n, :, :, k] += torch.exp(-((rr - r) ** 2 + (cc - c) ** 2) / 4.5)
+    hm[1, :, :, 5] = 0.25
+    pts, conf = decode_mod.decode_softargmax(hm.to(dev), method=method)
+    launches = kernels.decode_heatmaps.launches
+    cells = decode_mod.argmax_cells(kernels.decode_heatmaps(hm.to(dev))[0], (64, 128))
+    assert kernels.decode_heatmaps.launches == launches + 1
+    torch.cuda.synchronize()
+    want_pts, want_conf = decode_mod.decode_softargmax(hm, method=method)
+    want_cells = decode_mod.argmax_cells(kernels.decode_heatmaps_plain(hm)[0], (64, 128))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(cells, want_cells))
+    assert torch.equal(conf.cpu(), want_conf)
+    assert (pts.cpu() - want_pts).abs().max().item() <= 1e-5
 
 
 def test_golden_frame_on_card():

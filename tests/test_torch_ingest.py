@@ -142,9 +142,18 @@ def test_infer_videos_matches_jax(tiny_checkpoint, working_videos):
     np.testing.assert_allclose(chunked[1], got[1], atol=1e-5, rtol=0)
 
 
-def test_soft_argmax_is_not_ported(tiny_checkpoint):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_inf.PoseEstimator(tiny_checkpoint, device="cpu", soft_argmax=True)
+def test_soft_argmax_is_not_ported(tiny_checkpoint, working_images):
+    """Soft-argmax decoding, once not ported, now runs on the ingest path: the
+    tiny net's refined points against the JAX estimator's."""
+    jest = jax_inf.PoseEstimator(tiny_checkpoint, input_shape=(64, 128), fused=True,
+                                 soft_argmax=True)
+    pest = port_inf.PoseEstimator(tiny_checkpoint, input_shape=(64, 128), device="cpu",
+                                  soft_argmax=True)
+    want = jest.infer_folder(working_images, FLIP, max_img_id=1, batch_size=4)
+    got = pest.infer_folder(working_images, FLIP, max_img_id=1, batch_size=4)
+    np.testing.assert_allclose(got[1], want[1], atol=CONF_ATOL, rtol=0)
+    sure = want[1][..., 0] >= 0.1 * want[1].max()
+    np.testing.assert_allclose(got[0][sure], want[0][sure], atol=1e-4, rtol=0)
 
 
 # ------------------------------------------------------------------ drifted
