@@ -69,7 +69,22 @@ result line):
    ``Core.solve_pictorial`` on frames 0-1 against JAX's; each network run
    with every launch count set to 0 just before (1 preprocess, 31
    bottleneck, 8 upsample-add and 1 decode launch per batch); the StageTimer
-   reports and the host decode time.
+   reports and the host decode time;
+8. h36m phase: the 4-camera human profile's 4-stack 128-wide network
+   (weights from a seed, ``utils/synthetic``; the bottleneck kernel's
+   streamed-w2 instances) over 8 seeded frames of 4 cameras of 1000x1000:
+   (e) the estimator's chunk loop at batch 8 (1 preprocess, 59 bottleneck,
+   16 upsample-add and 1 decode launch per batch) against the JAX package's
+   results (``deepfly3d_torch/data/h36m_t4.npz``: conf within 2e-5, the same
+   cells outside near-ties, their count printed), frames/s and device ms per
+   batch; (f) ``cli.main --profile h36m --solver lm`` over the frames written
+   as JPEGs, with a checkpoint in a folder without a rig template: a finite
+   4-camera 17-joint result whose 2D equals the port's own ingest of the
+   decoded JPEGs on the card.  Its kernel shapes join the kernel phase;
+9. video phase: whether ``cv2.VideoWriter`` opens with mp4v, then ``cli.main
+   --skip-pose-estimation --video-2d --video-3d`` over a copy of the bundled
+   recording seeded with the golden result: both mp4s open with the expected
+   frame count and size; the video2d and video3d stage seconds.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 """
@@ -80,8 +95,10 @@ import collections
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -124,6 +141,17 @@ INGEST_REF = os.path.join("deepfly3d_torch", "data", "ingest_t16.npz")
 # (python tests/test_torch_options.py --write)
 OPTIONS_REF = os.path.join("deepfly3d_torch", "data", "options_t15.npz")
 HEATMAP_HW = (64, 128)
+# the h36m phase: the profile's 4-stack 128-wide network (weights from the
+# seed in H36M_REF, which holds the JAX package's results on the frames)
+# over 8 frames of 4 cameras of 1000x1000 at the CLI's batch of 8
+# (python tests/test_torch_h36m.py --write)
+H36M_REF = os.path.join("deepfly3d_torch", "data", "h36m_t4.npz")
+H36M_BATCH = 8
+H36M_PER_BATCH = {"fused_bottleneck": 59, "upsample2x_add": 16, "decode_heatmaps": 1,
+                  "preprocess_resize": 1}
+H36M_CONF_TOL = 2e-5
+H36M_TIES = 0.05        # at most this share of image-joints within 10x the conf tolerance of a tie
+VIDEO_FRAMES = 4        # frames of the video phase (scripts/make_video_goldens.py)
 # per-shape times that are summed per path and per kernel
 TIMES = ("ms", "plain_ms", "library_ms", "eager_ms", "library_eager_ms", "bound_ms",
          "bound_f32_ms", "unfused_ms")
@@ -676,6 +704,250 @@ def softargmax_phase(torch, np, dev, est, frames0, order, card):
           f"eager: CUDA events around eager calls): {json.dumps(timing)}; on {card}")
 
 
+def h36m_inputs(np, tmp):
+    """The h36m phase's inputs, made from the seed in H36M_REF: -> (reference
+    arrays, checkpoint path in ``tmp``, frames (C, T, 1000, 1000, 3) uint8,
+    the calibration prior of their rig)."""
+    from deepfly3d_torch.utils import synthetic
+
+    with np.load(os.path.join(ROOT, H36M_REF)) as z:
+        ref = {k: z[k] for k in z.files}
+    stacks, features, depth, classes, h, w = (int(v) for v in ref["spec"])
+    ckpt = os.path.join(tmp, "hourglass_h36m_seeded.npz")
+    synthetic.random_checkpoint(ckpt, int(ref["seed"]), stacks, features, depth, classes, (h, w))
+    rig = synthetic.human_rig()
+    frames, _, _ = synthetic.human_frames(int(ref["seed"]), int(ref["frames"]), rig)
+    return ref, ckpt, frames, rig
+
+
+def h36m_chunk(np, frames):
+    """(C, T, H, W, 3) -> the ingest loop's one chunk, camera-major, no flips."""
+    C, T = frames.shape[:2]
+    return [(frames.reshape((C * T,) + frames.shape[2:]), np.repeat(np.arange(C), T),
+             np.zeros(C * T, bool))]
+
+
+def hold_to_reference(np, name, pts, conf, ref):
+    """Raise unless the cells are JAX's (within CELL_ATOL) wherever JAX's top-2
+    margin exceeds 10x the conf tolerance, conf is within H36M_CONF_TOL and at
+    most H36M_TIES of the image-joints are near-ties; print the counts."""
+    conf_diff = float(np.abs(conf - ref["conf"]).max())
+    sure = ref["margin"] > 10 * H36M_CONF_TOL
+    cell_diff = float(np.abs(pts - ref["pts"])[sure].max())
+    ties = int((~sure).sum())
+    moved = int((np.abs(pts - ref["pts"]).max(-1) > CELL_ATOL)[~sure].sum())
+    if conf_diff > H36M_CONF_TOL or cell_diff > CELL_ATOL or ties > H36M_TIES * sure.size:
+        raise AssertionError(f"{name} vs JAX: conf {conf_diff}, cells {cell_diff} outside "
+                             f"near-ties, {ties} near-ties of {sure.size}")
+    print(f"{name} vs JAX ({H36M_REF}): conf max diff {conf_diff} (<= {H36M_CONF_TOL}); same "
+          f"cells (max diff {cell_diff}) on {int(sure.sum())} of {sure.size} image-joints; "
+          f"{ties} near-ties (top-2 margin <= {10 * H36M_CONF_TOL}, <= {H36M_TIES:.0%} allowed) "
+          f"excluded, {moved} of them in another cell")
+
+
+def h36m_phase(torch, np, dev, est, ref, frames, counters, rows, card):
+    """(e) The estimator's chunk loop on the h36m frames at H36M_BATCH: the
+    launches per batch (and as recorded from the plain twin), the output
+    against the JAX package's and against the plain twin on the card,
+    frames/s and device ms per batch.  -> {kernel: launches}."""
+    from deepfly3d_torch.models.inference import infer_batch
+    from deepfly3d_torch.pipeline import plain_twin
+
+    chunk = h36m_chunk(np, frames)
+    C, T = frames.shape[:2]
+    batches = -(-C * T // H36M_BATCH)
+    (pts, conf), got = count_launches(torch, counters,
+                                      lambda: est.infer_chunks(chunk, H36M_BATCH))
+    want = {k: v * batches for k, v in H36M_PER_BATCH.items()}
+    recorded = collections.Counter()
+    for (kernel, _), row in rows.items():
+        recorded[kernel] += row["counts"]["h36m"]
+    if got != want or got != dict(recorded):
+        raise AssertionError(f"(e) h36m launches {got}, want {want} (recorded {dict(recorded)})")
+    print(f"(e) h36m ingest launches for {batches} batches of {H36M_BATCH}: {got} (per batch "
+          f"{' / '.join(str(H36M_PER_BATCH[k]) for k in ('preprocess_resize', 'fused_bottleneck', 'upsample2x_add', 'decode_heatmaps'))}"
+          f" preprocess / bottleneck / upsample-add / decode)")
+    if not (pts.shape == (C * T, 17, 2) and conf.shape == (C * T, 17, 1)
+            and np.isfinite(conf).all()):
+        raise AssertionError(f"(e) h36m outputs {pts.shape}, {conf.shape}")
+    hold_to_reference(np, "(e) h36m ingest on the card", pts, conf, ref)
+    twin = plain_twin(est)
+    before = [c.launches for c in counters]
+    q_pts, q_conf = twin.infer_chunks(chunk, H36M_BATCH)
+    if [c.launches for c in counters] != before:
+        raise AssertionError("the plain h36m estimator launched a kernel")
+    hold_to_reference(np, "(e) h36m plain twin on the card", q_pts, q_conf, ref)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    warm = [timed(lambda: est.infer_chunks(chunk, H36M_BATCH)) for _ in range(3)]
+    images = torch.from_numpy(chunk[0][0][:H36M_BATCH]).to(dev)
+    flip = torch.zeros(H36M_BATCH, dtype=torch.bool, device=dev)
+    batch_ms = graph_ms(torch, lambda: infer_batch(est.net, images, flip, est.input_shape),
+                        iters=3, replays=3)
+    print(f"informational: h36m ingest of {T} 4-camera frames of 1000x1000 from host memory, "
+          f"batch {H36M_BATCH}: {[round(T / t, 1) for t in warm]} frames/s (pinned staging, "
+          f"copy, device); device {batch_ms:.3f} ms per batch of {H36M_BATCH} (replayed CUDA "
+          f"graph: preprocess, network, decode); on {card}")
+    return got
+
+
+def h36m_cli_phase(torch, np, device, ckpt, frames, rig, counters, tmp):
+    """(f) ``cli.main --profile h36m --solver lm`` over the h36m frames written
+    as JPEGs (the checkpoint in ``tmp``, where no rig template lies): a finite
+    4-camera 17-joint result, the launches, and its 2D against the port's own
+    ingest of the decoded JPEGs on the card.  -> {kernel: launches}."""
+    import contextlib
+    import io
+
+    from deepfly3d_torch import cli
+    from deepfly3d_torch.io import result_schema
+    from deepfly3d_torch.models.inference import PoseEstimator, _read_images_threaded
+    from deepfly3d_torch.utils.synthetic import write_jpegs
+
+    C, T = frames.shape[:2]
+    rec = os.path.join(tmp, "h36m_recording")
+    paths = write_jpegs(rec, frames)
+    prior = os.path.join(tmp, "h36m_prior.pkl")
+    with open(prior, "wb") as fh:
+        pickle.dump(rig, fh)
+    out = os.path.join(tmp, "h36m_out")
+    args = [rec, "--output-folder", out, "--profile", "h36m", "--calib-prior", prior,
+            "--checkpoint", ckpt, "--solver", "lm", "--batch-size", str(H36M_BATCH), "-v",
+            "--device", str(device)]
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc, got = count_launches(torch, counters, lambda: cli.main(args))
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"(f) cli.main --profile h36m returned {rc}")
+    batches = -(-C * T // H36M_BATCH)
+    want = {k: v * batches for k, v in H36M_PER_BATCH.items()}
+    if got != want:
+        raise AssertionError(f"(f) cli.main --profile h36m launches {got}, want {want}")
+    saved = result_schema.load_result(result_schema.result_path(out, rec))
+    shapes = (saved["points2d"].shape, saved["heatmap_confidence"].shape, saved["points3d"].shape)
+    if shapes != ((C, T, 17, 2), (C, T, 17, 1), (T, 17, 3)) \
+            or not np.isfinite(saved["points3d"]).all() \
+            or list(saved["camera_ordering"]) != list(range(C)):
+        raise AssertionError(f"(f) h36m result shapes {shapes}, ordering "
+                             f"{saved['camera_ordering']}, finite "
+                             f"{np.isfinite(saved['points3d']).all()}")
+    est = PoseEstimator(ckpt, device=device)
+    if est.rig is not None:
+        raise AssertionError("(f) the h36m checkpoint found a rig template")
+    images = _read_images_threaded(paths)
+    pts, conf = est.infer_images(images, np.zeros(len(paths), bool), H36M_BATCH)
+    pts_diff = float(np.abs(saved["points2d"] - pts.reshape(C, T, 17, 2)).max())
+    conf_diff = float(np.abs(saved["heatmap_confidence"] - conf.reshape(C, T, 17, 1)).max())
+    if pts_diff != 0.0 or conf_diff != 0.0:
+        raise AssertionError(f"(f) h36m cli 2D vs the port's ingest of the same JPEGs: points "
+                             f"{pts_diff}, conf {conf_diff}")
+    reproj = [line for line in printed.getvalue().splitlines() if "Reprojection" in line]
+    print(f"(f) cli.main --profile h36m --solver lm on {C} cameras x {T} frames of 1000x1000 "
+          f"JPEGs: launches {got}; points2d {shapes[0]}, points3d {shapes[2]} finite; 2D equal to "
+          f"the port's ingest of the decoded JPEGs (points {pts_diff}, conf {conf_diff}); "
+          f"{reproj[-1] if reproj else ''} (informational); {wall:.2f} s wall")
+    return got
+
+
+def video_phase(np, device, card):
+    """``cli.main --skip-pose-estimation --video-2d --video-3d`` over a copy of
+    the bundled recording seeded with the golden result (first VIDEO_FRAMES
+    frames): both mp4s open with VIDEO_FRAMES frames of the golden videos'
+    size.  Fails where cv2.VideoWriter cannot write mp4v."""
+    import contextlib
+    import io
+    import logging
+    import shutil
+    import tempfile
+
+    import cv2
+
+    from deepfly3d_torch import cli, logger
+    from deepfly3d_torch.io import result_schema
+
+    def read(path):
+        cap = cv2.VideoCapture(path)
+        frames = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(frame.shape)
+        cap.release()
+        return frames
+
+    tmp = tempfile.mkdtemp(prefix="df3d_smoke_video_")
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    keep = Keep()
+    logger.getLogger().addHandler(keep)
+    try:
+        probe = os.path.join(tmp, "probe.mp4")
+        writer = cv2.VideoWriter(probe, cv2.VideoWriter_fourcc(*"mp4v"), 5, (64, 32))
+        opened = writer.isOpened()
+        writer.write(np.zeros((32, 64, 3), np.uint8))
+        writer.release()
+        print(f"video probe: cv2 {cv2.__version__} VideoWriter mp4v opens: {opened}, "
+              f"{os.path.getsize(probe) if os.path.exists(probe) else 0} bytes for one frame")
+        if not opened:
+            raise SystemExit("chip_smoke: video phase cannot run: cv2.VideoWriter does not open "
+                             "with mp4v on this machine")
+        rec = os.path.join(tmp, "reference")
+        shutil.copytree(os.path.join(ROOT, "tests", "data", "reference"), rec)
+        with open(os.path.join(ROOT, "tests", "data", "reference_df3d", "df3d_result_3d.pkl"),
+                  "rb") as fh:
+            golden = pickle.load(fh)
+        out = os.path.join(tmp, "out")
+        os.makedirs(out)
+        result_schema.save_result(
+            result_schema.result_path(out, rec), points2d=golden["points2d"],
+            camera_ordering=golden["camera_ordering"],
+            heatmap_confidence=golden["heatmap_confidence"],
+            calib=result_schema.extract_calib(golden), points3d=golden["points3d"],
+            points3d_wo_procrustes=golden["points3d_wo_procrustes"])
+        args = [rec, "--output-folder", out, "--skip-pose-estimation", "--video-2d",
+                "--video-3d", "-n", str(VIDEO_FRAMES), "--output-fps", "5", "-v",
+                "--device", str(device)]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(args)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"video phase: cli.main returned {rc}")
+        sizes = {}
+        for kind in ("2d", "3d"):
+            name = f"video_pose{kind}_" + rec.replace("/", "_") + ".mp4"
+            got = read(os.path.join(out, name))
+            want = read(os.path.join(ROOT, "tests", "data", "golden_videos",
+                                     f"video_pose{kind}.mp4"))
+            if len(got) != VIDEO_FRAMES or set(got) != {want[0]}:
+                raise AssertionError(f"video phase: {name} has {len(got)} frames of "
+                                     f"{sorted(set(got))}, want {VIDEO_FRAMES} of {want[0]}")
+            sizes[kind] = want[0]
+        metrics = [m for m in records if m.startswith("stage metrics: ")]
+        stages = json.loads(metrics[-1][len("stage metrics: "):])
+        print(f"video phase: cli.main --skip-pose-estimation --video-2d --video-3d on the bundled "
+              f"recording's first {VIDEO_FRAMES} frames: both mp4s open with {VIDEO_FRAMES} "
+              f"frames, 2D {sizes['2d']}, 3D {sizes['3d']} (the golden videos' size); "
+              f"{wall:.2f} s wall")
+        print(f"informational: video stage times (StageTimer) on {card}: {json.dumps(stages)}")
+    finally:
+        logger.getLogger().removeHandler(keep)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -697,6 +969,7 @@ def main(argv):
     from deepfly3d_torch.pipeline import build_pipeline, plain_twin
     from deepfly3d_torch.utils.devices import full_f32
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     full_f32()
@@ -713,7 +986,7 @@ def main(argv):
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'cached'}")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # ---- 3. the three paths, and the shapes they give each kernel
@@ -747,6 +1020,13 @@ def main(argv):
     estimator = PoseEstimator(os.path.join(WEIGHTS_DIR, CONV), device=dev)
     record_shapes(plain_twin(estimator), "ingest", rows, lambda twin: twin.infer_chunks(
         ingest_chunk(ref0["frames"], order), INGEST_BATCH))
+    # the h36m profile's ingest path (h36m phase): its checkpoint in a folder
+    # without a rig template
+    h36m_tmp = tempfile.mkdtemp(prefix="df3d_smoke_h36m_")
+    h36m_ref, h36m_ckpt, h36m_frames, h36m_rig = h36m_inputs(np, h36m_tmp)
+    h36m_est = PoseEstimator(h36m_ckpt, device=dev)
+    record_shapes(plain_twin(h36m_est), "h36m", rows, lambda twin: twin.infer_chunks(
+        h36m_chunk(np, h36m_frames), H36M_BATCH))
     torch.cuda.synchronize()
 
     # ---- 4. kernel phase
@@ -938,6 +1218,12 @@ def main(argv):
     check_decode((N, 63, 127, 19), {})
     print(json.dumps({"kernel_shapes": shape_rows}))
     print(json.dumps({"per_path": per_path}))
+    h36m_batches = -(-h36m_frames.shape[0] * h36m_frames.shape[1] // H36M_BATCH)
+    print(f"informational: the h36m path per batch of {H36M_BATCH} images (kernel-phase times "
+          f"of its shapes times their launches, over {h36m_batches} batches), on {card}: "
+          + json.dumps({kernel: {key: row[key] / h36m_batches for key in
+                                 ("launches", "ms", "bound_ms", "plain_ms", "library_ms")}
+                        for kernel, row in per_path["h36m"].items()}))
 
     # ---- 5. slice phase, full width
     counters = (bn.fused_bottleneck, kernels.upsample2x_add, kernels.decode_heatmaps,
@@ -1047,6 +1333,8 @@ def main(argv):
             calls = {path: (lambda pipe=pipe: pipe(frames)) for path, pipe in paths.items()}
             calls["ingest"] = lambda: estimator.infer_chunks(chunk, INGEST_BATCH,
                                                              registration=ingest_reg)
+            calls["h36m"] = lambda: h36m_est.infer_chunks(h36m_chunk(np, h36m_frames),
+                                                          H36M_BATCH)
             for path, call in calls.items():
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1063,8 +1351,10 @@ def main(argv):
                         f"{index_ms:.3f} ms in index kernels; {wall_ms:.3f} ms on the host "
                         f"clock under the profiler")
                 print(line)
-                what = (f"{INGEST_T} frames per camera in batches of {INGEST_BATCH}, the "
-                        f"registration known" if path == "ingest" else f"T={BATCH_T}")
+                what = {"ingest": f"{INGEST_T} frames per camera in batches of {INGEST_BATCH}, "
+                                  f"the registration known",
+                        "h36m": f"{h36m_frames.shape[1]} frames of 4 cameras in batches of "
+                                f"{H36M_BATCH}"}.get(path, f"T={BATCH_T}")
                 fh.write(f"\n==== {path} path, one call at {what}; {line}\n")
                 fh.write(events.table(sort_by="cuda_time_total", row_limit=40))
 
@@ -1100,6 +1390,18 @@ def main(argv):
     # ---- 7. core phase: the recording entry point with every option
     launches.update(core_phase(np, torch, dev, card, probe, counters))
 
+    # ---- 8. h36m phase: (e) the ingest loop, (f) the CLI with --profile h36m
+    try:
+        launches["h36m"] = h36m_phase(torch, np, dev, h36m_est, h36m_ref, h36m_frames,
+                                      counters, rows, card)
+        launches["h36m_cli"] = h36m_cli_phase(torch, np, dev, h36m_ckpt, h36m_frames, h36m_rig,
+                                              counters, h36m_tmp)
+    finally:
+        shutil.rmtree(h36m_tmp, ignore_errors=True)
+
+    # ---- 9. video phase
+    video_phase(np, dev, card)
+
     entries = []
     for name, (src, replaces, also) in SOURCES.items():
         agg = per_kernel[name]
@@ -1120,11 +1422,13 @@ def main(argv):
             **({"bound_f32_ms": agg["bound_f32_ms"], "model_err": agg["model_err"],
                 "arithmetic": "3 TF32 MMAs per product, f32 accumulate"}
                if name == "fused_bottleneck" else {}),
-            "per": f"times: one call of each recorded path ({', '.join(EXPECTED)}, ingest) "
+            "per": f"times: one call of each recorded path ({', '.join(EXPECTED)}, ingest, "
+                   f"h36m) "
                    f"at T={BATCH_T}, the kernel-phase time of every shape times its launches; "
                    f"launches: every counted run ({', '.join(launches)})",
         }
         entries.append(entry)
+    print(f"informational: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

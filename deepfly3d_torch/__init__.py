@@ -7,8 +7,11 @@ for every shipped checkpoint, and the student + parity-repair cascade
 (``models/cascade.py``), and the recording entry point: ``python -m
 deepfly3d_torch.cli RECORDING`` (``core.Core``: JPEG or video ingest with the
 per-recording rig registration, parity bundle adjustment, float64
-triangulation and Procrustes, the JAX package's result pickle).  Every
-frame preprocess, bottleneck block, hourglass level merge and heatmap
+triangulation and Procrustes, the JAX package's result pickle), with the
+fly profile's options, the ``h36m`` profile (``config.h36m_config``,
+``skeletons/h36m.py``: 4 cameras, 17 joints, a 4-stack 128-wide network at
+384x384) and the result videos (``viz/``: 2D overlays, 3D views, mp4s).
+Every frame preprocess, bottleneck block, hourglass level merge and heatmap
 decode runs in a CUDA kernel written by hand for ``sm_90a``
 (``ops/csrc``); the glue between them (stem and score
 convolutions, max-pools, 1x1 heads, depth-to-space) is plain PyTorch in

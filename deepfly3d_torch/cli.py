@@ -4,17 +4,16 @@ Counterpart of ``deepfly3d_tpu/cli.py`` with its whole flag surface: the
 reference's options (default ``<input>_df3d`` output folder, recursive and
 from-file folder lists with per-folder error isolation, KeyboardInterrupt
 stops the batch), ``--solver``, ``--soft-argmax``, ``--ba-huber-px``,
-``--checkpoint``, ``--streaming`` / ``--no-streaming``, ``--profile`` and
-``--calib-prior``, plus ``--device`` (default ``cuda``; ``cpu`` runs every
-kernel's plain version).  A run goes setup -> pose2d -> save -> calibrate
-(bundle adjustment: ``parity``, or ``lm`` with ``--ba-huber-px``) -> save.
-The network runs on ``--device``; ``--soft-argmax`` refines its argmax cells
-on the same device; triangulation, bundle adjustment and Procrustes run in
-float64 on the host.
-
-Flags whose modules are not ported yet (``--video-2d``, ``--video-3d``,
-``--profile h36m``) raise NotImplementedError naming ROADMAP.md before any
-folder is processed.
+``--checkpoint``, ``--streaming`` / ``--no-streaming``, ``--profile``
+(``fly``, or ``h36m``: the 4-camera 17-joint human profile) and
+``--calib-prior``, ``--video-2d`` / ``--video-3d``, plus ``--device`` (default
+``cuda``; ``cpu`` runs every kernel's plain version).  A run goes setup ->
+pose2d -> save -> calibrate (bundle adjustment: ``parity``, or ``lm`` with
+``--ba-huber-px``) -> save -> video2d -> video3d; with
+``--skip-pose-estimation`` it calibrates the resumed 2D points.  The network
+runs on ``--device``; ``--soft-argmax`` refines its argmax cells on the same
+device; triangulation, bundle adjustment and Procrustes run in float64 on
+the host, and the videos are drawn on the host (``viz/``).
 """
 
 from __future__ import annotations
@@ -41,7 +40,6 @@ def main(argv=None) -> int:
             '"recursive" but not both.'
         )
         return 1
-    check_ported(args)
     if args.recursive:
         return run_recursive(args)
     if args.from_file:
@@ -90,9 +88,9 @@ def parse_cli_args(argv=None):
                         help="Ordering of the cameras provided as a list of ids. "
                              "Example: --order 0 1 4 3 2 5 6.")
     parser.add_argument("--video-2d", action="store_true",
-                        help="Generate pose2d videos (not ported yet)")
+                        help="Generate pose2d videos")
     parser.add_argument("--video-3d", action="store_true",
-                        help="Generate pose3d videos (not ported yet)")
+                        help="Generate pose3d videos")
     parser.add_argument("--skip-pose-estimation", dest="skip_estimation",
                         action="store_true", help="Skip 2D and 3D pose estimation")
     parser.add_argument("--batch-size", type=int, default=8,
@@ -121,8 +119,8 @@ def parse_cli_args(argv=None):
     parser.add_argument("--no-streaming", dest="streaming", action="store_false",
                         help="Force the JPEG expansion flow regardless of length.")
     parser.add_argument("--profile", choices=["fly", "h36m"], default="fly",
-                        help="Capture profile: 'fly' (7-camera Drosophila); 'h36m' "
-                             "is not ported yet.")
+                        help="Capture profile: 'fly' (7-camera Drosophila) or "
+                             "'h36m' (4-camera 17-joint human, 384x384 network input).")
     parser.add_argument("--calib-prior", default=None,
                         help="Override the calibration-prior pickle "
                              "({cam: {R,tvec,intr,distort}}).")
@@ -140,20 +138,6 @@ def parse_cli_args(argv=None):
     args.input_folder = str(args.input_folder)
     args.output_folder = str(args.output_folder)
     return args
-
-
-_NOT_PORTED = (
-    ("video_2d", True, "--video-2d", "viz/, ROADMAP.md Queue 1 item 1"),
-    ("video_3d", True, "--video-3d", "viz/, ROADMAP.md Queue 1 item 1"),
-    ("profile", "h36m", "--profile h36m", "skeletons/h36m.py, ROADMAP.md Queue 1 item 1"),
-)
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag whose module is not ported yet."""
-    for attr, value, flag, where in _NOT_PORTED:
-        if getattr(args, attr, None) == value:
-            raise NotImplementedError(f"{flag} is not ported to deepfly3d_torch yet ({where})")
 
 
 def print_debug(args) -> int:
@@ -225,42 +209,58 @@ def _solver_kwargs(args) -> dict:
 
 
 def run(args) -> int:
-    """One recording: setup -> pose2d -> save -> calibrate -> save.  With
-    --skip-pose-estimation there is nothing to do until the video flags are
-    ported (they are what it is for)."""
-    from deepfly3d_torch.config import fly_config
+    """One recording: setup -> pose2d -> save -> calibrate -> save, then the
+    videos; with --skip-pose-estimation, calibrate -> save from the resumed
+    2D points, then the videos."""
+    from deepfly3d_torch.config import fly_config, h36m_config
     from deepfly3d_torch.core import Core
     from deepfly3d_torch.utils.profiling import StageTimer
+    from deepfly3d_torch.viz import video
 
-    check_ported(args)
-    if args.skip_estimation:
+    if args.skip_estimation and not args.video_2d and not args.video_3d:
         logger.info("Nothing to do. Check your command-line arguments.")
         return 0
 
     logger.info(f"Working in {args.input_folder}")
-    config = None
-    if getattr(args, "calib_prior", None):
-        config = fly_config()
+    config = h36m_config() if args.profile == "h36m" else None
+    if args.calib_prior:
+        config = config or fly_config()
         config.calib_prior_path = args.calib_prior
+    order = args.order
+    if config is not None and order == [0, 1, 2, 3, 4, 5, 6]:
+        # the untouched default: one position per camera of the profile
+        order = list(range(config.num_cameras))
     timer = StageTimer(device=args.device)
     with timer.stage("setup"):
         core = Core(
             args.input_folder, args.output_folder, args.num_images_max,
-            args.order, config=config, streaming=getattr(args, "streaming", None),
+            order, config=config, streaming=getattr(args, "streaming", None),
             device=args.device,
         )
-    with timer.stage("pose2d"):
-        core.pose2d_estimation(
-            args.batch_size,
-            disable_pin_memory=args.pin_memory_disabled,
-            checkpoint=args.checkpoint,
-            soft_argmax=args.soft_argmax,
-        )
-    core.save()
+    if not args.skip_estimation:
+        with timer.stage("pose2d"):
+            core.pose2d_estimation(
+                args.batch_size,
+                disable_pin_memory=args.pin_memory_disabled,
+                checkpoint=args.checkpoint,
+                soft_argmax=args.soft_argmax,
+            )
+        core.save()
     with timer.stage("calibrate"):
         core.calibrate_calc(0, core.max_img_id, solver=args.solver, **_solver_kwargs(args))
     with timer.stage("save"):
         core.save()
+
+    fps = args.output_fps if args.output_fps is not None else core.fps
+    if args.video_2d:
+        with timer.stage("video2d"):
+            video.make_pose2d_video(core.plot_2d, core.num_images, core.input_folder,
+                                    core.output_folder, fps=fps)
+    if args.video_3d:
+        with timer.stage("video3d"):
+            video.make_pose3d_video(core.get_points3d(), core.plot_2d, core.num_images,
+                                    core.input_folder, core.output_folder, fps=fps,
+                                    skeleton=core.config.skeleton)
     if args.delete_images:
         core.delete_images()
     # structured per-stage metrics at -v

@@ -5,7 +5,7 @@ Counterpart of ``deepfly3d_tpu/compat.py``: code written against pyba's
 through them, df3d/core.py:120-126, 246-250, 355-360) runs on the port's
 ``bundle_adjust``, float64 SVD triangulation and reprojection error, on the
 host.  ``df3d_bones`` / ``df3d_colors`` are the skeleton's, as pyba.config
-exported them.  ``Camera.plot_2d`` needs ``viz/``, which is not ported yet.
+exported them.  ``Camera.plot_2d`` draws through ``viz/plot2d.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from deepfly3d_torch.io import discovery, result_schema
 from deepfly3d_torch.ops import bundle_adjust as ba_mod
 from deepfly3d_torch.ops import geometry
 from deepfly3d_torch.skeletons import fly
+from deepfly3d_torch.viz import plot2d
 
 df3d_bones = np.array(fly.bones)
 df3d_colors = fly.skeleton.joint_colors_rgb()
@@ -48,8 +49,10 @@ class Camera:
 
     def plot_2d(self, img_id: int, points2d: Optional[np.ndarray] = None, bones=None,
                 colors=None) -> np.ndarray:
-        raise NotImplementedError("Camera.plot_2d is not ported yet "
-                                  "(viz/, ROADMAP.md Queue 1 item 1)")
+        """The fly skeleton drawn over this view's frame (``bones`` and
+        ``colors`` are pyba's arguments, accepted and unused)."""
+        pts = points2d if points2d is not None else self[img_id]
+        return plot2d.draw_pose2d(self.get_image(img_id), pts, fly.skeleton, cam_id=self.cam_id)
 
 
 class CameraNetwork:

@@ -1,12 +1,13 @@
-"""Configuration of the fly rig: the fields the port's paths read.
+"""Capture profiles (the fly rig, the h36m human rig): the fields the port's paths read.
 
 A jax-free copy of the part of ``deepfly3d_tpu/config.py`` (``Config`` /
-``NetworkConfig``) that the 2D->3D pipelines, ``Core`` and ``cli`` use:
-camera count and which cameras are fed flipped, the skeleton, the frame
-shape, the network input shape, the default checkpoint and rig template, the
-calibration prior, the Procrustes template, the streaming threshold, the
-pictorial-structures hyperparameters (``BeliefPropagationConfig``) and the
-error-navigation threshold.
+``NetworkConfig``, ``fly_config`` / ``h36m_config``) that the 2D->3D
+pipelines, ``Core``, ``cli`` and ``viz`` use: camera count and which cameras
+are fed flipped, the skeleton, the frame shape, the network input shape, the
+default checkpoint and rig template, the calibration prior, the Procrustes
+template, the streaming threshold, the pictorial-structures hyperparameters
+(``BeliefPropagationConfig``), the error-navigation threshold and the
+overlay style.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import dataclasses
 import os
 from typing import Optional, Tuple
 
-from deepfly3d_torch.skeletons import fly
+from deepfly3d_torch.skeletons import fly, h36m
 from deepfly3d_torch.skeletons.skeleton import Skeleton
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,6 +60,10 @@ class Config:
     rig_template_path: str = os.path.join(WEIGHTS_DIR, "rig_template_fly.npz")
     procrustes_apply: bool = True
     procrustes_template_path: str = DATA_DIR     # dir containing df3d_result*.pkl
+    # overlays (viz/plot2d.py): filled circles of radius scatter_r over bones
+    # of line_thickness
+    line_thickness: int = 5
+    scatter_r: int = 8
     # recordings longer than this stream from the camera videos
     # (Core(streaming=None)): at 480x960x3 uint8 the image flow holds
     # ~9.7 MB per 7-camera frame in host memory
@@ -74,6 +79,20 @@ def fly_config() -> Config:
 
 
 def h36m_config() -> Config:
-    raise NotImplementedError(
-        "the h36m profile is not ported yet (ROADMAP.md Queue 1 item 1: "
-        "skeletons/h36m.py comes with it)")
+    """Human3.6M-style 4-camera human profile: four 128-wide stacks, 384x384
+    input, 96x96 heatmaps of the 17 joints."""
+    return Config(
+        name="h36m",
+        num_cameras=4,
+        skeleton=h36m.skeleton,
+        flip_cameras=(),
+        image_hw=(1000, 1000),                   # a Human3.6M frame
+        # the fly's per-side Procrustes registration does not apply to the
+        # human skeleton: the raw triangulated points are the 3D output
+        procrustes_apply=False,
+        network=NetworkConfig(
+            num_predict=h36m.num_joints,
+            input_shape=(384, 384),
+            checkpoint=os.path.join(WEIGHTS_DIR, "hourglass_h36m.npz"),
+        ),
+    )

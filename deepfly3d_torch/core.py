@@ -15,8 +15,9 @@ host CPU whatever ``device`` is.
 Also the pictorial-structures correction (``solve_pictorial``: the network
 on ``device`` for the heatmaps, the MAP in float32 on the host), manual
 corrections through the pose database, error navigation by reprojection
-error, frame access and the memoised 2D smoother.  Only ``plot_2d`` is not
-ported yet: it raises NotImplementedError naming ROADMAP.md.
+error, frame access, the memoised 2D smoother and ``plot_2d`` (the 2D
+overlay of one view, ``viz/plot2d.py``, which the result videos and the GUI
+controller draw).
 """
 
 from __future__ import annotations
@@ -61,14 +62,6 @@ def find_default_camera_ordering(input_folder: str) -> np.ndarray:
         "camera ordering using the --order flag. Example usage is "
         "df3d-cli /your/path/images/ --order 0 1 2 3 4 5 6"
     )
-
-
-def _not_ported(name: str, item: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"Core.{name} is not ported yet ({item})")
-
-    method.__name__ = name
-    return method
 
 
 def _f64(*arrays):
@@ -624,6 +617,19 @@ class Core:
             self._smooth_cache[cam_id] = filters.smooth_pose2d(pts)
         return self._smooth_cache[cam_id]
 
-    # ------------------------------------------- not ported yet (ROADMAP.md)
+    def plot_2d(self, cam_id: int, img_id: int, with_corrections: bool = False,
+                smooth: bool = False, joints: Sequence[int] = ()) -> np.ndarray:
+        """The 2D pose overlay of one view (reference core.py:298-319): the
+        corrected, smoothed or raw points drawn over ``get_image``."""
+        from deepfly3d_torch.viz import plot2d
 
-    plot_2d = _not_ported("plot_2d", "viz/, ROADMAP.md Queue 1 item 1")
+        if with_corrections:
+            pts = self.corrected_points2d(cam_id, img_id)
+        elif smooth:
+            pts = self.smooth_points2d(cam_id)[img_id]
+        else:
+            pts = self.points2d_pixels_xy(cam_id, img_id)
+        return plot2d.draw_pose2d(
+            self.get_image(cam_id, img_id), pts, self.config.skeleton, cam_id=cam_id,
+            joints=joints, line_thickness=self.config.line_thickness,
+            scatter_r=self.config.scatter_r)

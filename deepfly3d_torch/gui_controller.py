@@ -4,8 +4,8 @@ A numpy-only copy of ``deepfly3d_tpu/gui_controller.py`` (``GuiController``)
 driving the port's ``Core``: navigation clamping, mode gating,
 mouse-to-pixel mapping, the click-drag correction flow and the error-jump
 messages (the interaction flow of reference df3d/gui.py:269-322, 437-463),
-testable headlessly.  The pose views call ``Core.plot_2d``, which is not
-ported yet; the GUI shell itself (``gui.py``, PyQt5) is not ported.
+testable headlessly.  The pose views render through ``Core.plot_2d``.  The
+GUI shell itself (``gui.py``) is not ported: it waits on PyQt5.
 """
 
 from __future__ import annotations

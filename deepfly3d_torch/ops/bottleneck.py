@@ -26,7 +26,10 @@ fragments, once per block on the host, and ``choose_tile`` picks a thread
 block's output tile for an image size and batch.  The kernel splits each weight
 fragment into hi and lo in registers with the same mask, because hi and lo
 of all weights together (238 KB) do not fit one thread block's shared
-memory beside the activations.
+memory beside the activations.  The 128-wide blocks' float32 weights alone
+(215-231 KB) do not fit either: their instances keep w1, w3 and wp resident
+and stream w2 through shared memory one tap at a time (``streams_w2``;
+``smem_bytes`` and ``choose_tile`` know both layouts).
 """
 
 from __future__ import annotations
@@ -49,8 +52,11 @@ TILE_WARPS = 12
 TILE_MAX_WIDTH = 16
 NUM_SMS = 132                     # H100 SXM
 MAX_SMEM = 227 * 1024             # bytes one thread block can use
-# (Cin, Cmid, Cout, projects) the kernel is instantiated for
-INSTANCES = ((96, 48, 96, False), (48, 48, 96, True), (64, 32, 64, False), (32, 32, 64, True))
+# (Cin, Cmid, Cout, projects) the kernel is instantiated for: the 96- and
+# 64-wide fly networks' blocks (every weight resident in shared memory), and
+# the 128-wide h36m network's (the 3x3's weights streamed, ``streams_w2``)
+INSTANCES = ((96, 48, 96, False), (48, 48, 96, True), (64, 32, 64, False), (32, 32, 64, True),
+             (128, 64, 128, False), (64, 64, 128, True))
 _TF32_MASK = -8192                # 0xffffe000 as int32: clears 13 mantissa bits
 
 
@@ -201,11 +207,27 @@ def packed_size(cin: int, cmid: int, cout: int, has_proj: bool) -> int:
             + 2 * cin + 2 * cmid + cout)
 
 
-def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool) -> int:
-    """Dynamic shared memory of one thread block: the packed weights and two
-    buffers of a2 on the (th+2) x (tw+2) halo tile at pitch Cmid+4."""
+def _smem(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
+          stream: bool) -> int:
     hp = (th + 2) * (tw + 2)
-    return 4 * (packed_size(cin, cmid, cout, has_proj) + 2 * hp * (cmid + 4))
+    weights = packed_size(cin, cmid, cout, has_proj)
+    if stream:
+        weights += (2 - 9) * cmid * cmid           # a ring of two w2 taps instead of nine
+    return 4 * (weights + 2 * hp * (cmid + 4))
+
+
+def streams_w2(cin: int, cmid: int, cout: int, has_proj: bool) -> bool:
+    """Whether the kernel streams the 3x3's weights through shared memory one
+    tap at a time: where all the weights and the smallest tile (one row of
+    16 pixels) do not fit, as for the 128-wide networks' blocks."""
+    return _smem(cin, cmid, cout, 1, TILE_MAX_WIDTH, has_proj, False) > MAX_SMEM
+
+
+def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool) -> int:
+    """Dynamic shared memory of one thread block: the packed weights (without
+    w2 and with a ring of two w2 taps where ``streams_w2``) and two buffers of
+    a2 on the (th+2) x (tw+2) halo tile at pitch Cmid+4."""
+    return _smem(cin, cmid, cout, th, tw, has_proj, streams_w2(cin, cmid, cout, has_proj))
 
 
 # Microseconds one thread block took for a tile of m 16-pixel MMA row tiles
@@ -215,23 +237,30 @@ def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool)
 # between).  The steps at m = 5 and m = 9 are a second and a third warp on an
 # SM's four schedulers.
 _TILE_US = (None, 9.0, 9.7, 9.7, 11.0, 15.7, 16.8, 17.7, 18.6, 22.0, 23.6, 25.2, 26.1)
+# The same for the streamed-w2 design, 128->64->128 and 64->64->128 (+proj)
+# blocks: device time of the launch over its waves, tile sweep with
+# ``scripts/bench_torch_kernels.py --tiles`` at the h36m shapes (8 x 192x192
+# ... 6x6; m = 12 extrapolated), NVIDIA H100 80GB HBM3 at 700 W.
+_TILE_US_STREAMED = (None, 18.0, 19.5, 20.5, 22.5, 31.0, 32.5, 34.0, 35.5, 47.0, 49.0, 50.5,
+                     52.0)
 
 
 @lru_cache(maxsize=None)
 def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj: bool):
     """Output tile (rows, cols) of one thread block for an (n, h, w) batch:
     the one whose launch should take least time, waves of thread blocks over
-    the SMs times the measured time of such a tile, among those that fit
-    shared memory.  Large images get 8x16 tiles; small images and batches
+    the SMs times the measured time of such a tile (the streamed design's
+    own table where w2 streams), among those that fit shared memory.  Large images get 8x16 tiles; small images and batches
     fewer rows, until one wave covers the launch.  Raises ValueError if no
     tile fits."""
     tw = min(TILE_MAX_WIDTH, w)
+    tile_us = _TILE_US_STREAMED if streams_w2(cin, cmid, cout, has_proj) else _TILE_US
     best = None
     for th in range(1, min(h, 16 * TILE_WARPS // tw) + 1):
         if smem_bytes(cin, cmid, cout, th, tw, has_proj) > MAX_SMEM:
             break
         waves = -(-n * -(-h // th) * -(-w // tw) // NUM_SMS)
-        cost = waves * _TILE_US[-(-th * tw // 16)]
+        cost = waves * tile_us[-(-th * tw // 16)]
         if best is None or cost < best[0]:
             best = (cost, th)
     if best is None:

@@ -68,6 +68,20 @@
 // neighbouring tiles overlap.  The wrapper picks the tile per image size and
 // batch (ops/bottleneck.py::choose_tile): fewer rows at small images and
 // batches, so that a launch has a thread block for every SM.
+//
+// Blocks whose weights do not fit (128->64->128 and the projecting 64->64->128
+// of the 128-wide networks: 215-231 KB of weights against 227 KB of shared
+// memory) stream the 3x3's weights instead (STREAM, chosen at compile time by
+// the same arithmetic as ops/bottleneck.py::streams_w2).  w1, w3, wp and the
+// vectors stay resident; w2 passes through a ring of two tap slots (Cmid x
+// Cmid floats, 16 KB at Cmid = 64), each tap copied with cp.async while the
+// previous one is multiplied.  One barrier per tap makes a landed tap visible
+// and frees the slot the next copy overwrites; the barrier of tap 0 is also
+// the one after stage 2, and the copy issued at tap 8 is the next tile's tap
+// 0.  The 3x3 reads every tap once per tile from L2 (147 KB per tile at Cmid
+// = 64, 1.2 KB per pixel of an 8x16 tile), and neighbouring tiles' stages no
+// longer overlap.  The arithmetic, and so the result, is the resident
+// design's: the same fragments in the same order.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -79,6 +93,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr uint32_t kHiMask = 0xffffe000u;   // keeps sign, exponent, 10 mantissa bits
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDevices = 64;
+constexpr size_t kMaxSmem = 227 * 1024;      // dynamic shared memory of one thread block
 
 __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
   hi = __float_as_uint(v) & kHiMask;
@@ -195,12 +210,48 @@ struct Packed {
   static constexpr int total = b3 + COUT;
 };
 
-template <int CIN, int CMID, int COUT, bool PROJ>
+// Bytes of dynamic shared memory: the weights that stay resident, the ring
+// of two w2 taps when the 3x3's weights stream, and two a2 halo tiles.
+constexpr size_t smem_size(int cin, int cmid, int cout, bool proj, bool stream, int th, int tw) {
+  const size_t w2 = 9 * (size_t)cmid * cmid;
+  const size_t packed = (size_t)cin * cmid + w2 + (size_t)cmid * cout +
+                        (proj ? (size_t)cin * cout : 0) + 2 * cin + 2 * cmid + cout;
+  const size_t weights = stream ? packed - w2 + 2 * (size_t)cmid * cmid : packed;
+  return (weights + 2 * (size_t)(th + 2) * (tw + 2) * (cmid + 4)) * sizeof(float);
+}
+
+// w2 streams where the resident weights and the smallest tile (one row of
+// 16) do not fit one thread block's shared memory
+constexpr bool streams_w2(int cin, int cmid, int cout, bool proj) {
+  return smem_size(cin, cmid, cout, proj, false, 1, 16) > kMaxSmem;
+}
+
+// Offsets (in floats) into shared memory: the packed buffer's, or with
+// STREAM the packed buffer without w2 followed by the ring of two w2 taps
+template <int CIN, int CMID, int COUT, bool PROJ, bool STREAM>
+struct Smem {
+  using P = Packed<CIN, CMID, COUT, PROJ>;
+  static constexpr int tap = CMID * CMID;
+  static constexpr int moved = STREAM ? 9 * tap : 0;     // w2 leaves the resident block
+  static constexpr int w1 = P::w1;
+  static constexpr int w3 = P::w3 - moved;
+  static constexpr int wp = P::wp - moved;
+  static constexpr int s1 = P::s1 - moved;
+  static constexpr int t1 = P::t1 - moved;
+  static constexpr int b1 = P::b1 - moved;
+  static constexpr int b2 = P::b2 - moved;
+  static constexpr int b3 = P::b3 - moved;
+  static constexpr int w2 = STREAM ? P::total - moved : P::w2;   // the ring with STREAM
+  static constexpr int total = STREAM ? w2 + 2 * tap : P::total;
+};
+
+template <int CIN, int CMID, int COUT, bool PROJ, bool STREAM>
 __global__ void __launch_bounds__(kThreads, 1)
 bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
                   float* __restrict__ y, int H, int W, int th, int tw,
                   int tiles_x, int tiles_y, int num_tiles) {
-  using P = Packed<CIN, CMID, COUT, PROJ>;
+  using G = Packed<CIN, CMID, COUT, PROJ>;            // the packed buffer in global memory
+  using P = Smem<CIN, CMID, COUT, PROJ, STREAM>;      // ... and its copy in shared memory
   constexpr int P2 = CMID + 4;                     // a2 row pitch, = 4 (mod 8) words
   constexpr int KS1 = CIN / 8, NT2 = CMID / 8, NT4 = COUT / 8;
   constexpr int NH2 = NT2 / 2;                     // column tiles per stage-2 unit
@@ -208,7 +259,8 @@ bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
   constexpr int CL = CIN / 4;                      // x channels of one lane column t
   static_assert(CIN % 16 == 0 && CMID % 16 == 0 && NT4 % NG == 0, "channel counts");
   static_assert(PROJ || CIN == COUT, "identity skip needs Cin == Cout");
-  static_assert(P::total % 4 == 0, "packed buffer is copied in 16-byte pieces");
+  static_assert(G::total % 4 == 0 && P::tap % 4 == 0, "packed buffer is copied in 16-byte pieces");
+  constexpr int TAP = P::tap;
 
   extern __shared__ __align__(16) float smem[];
   const int hw = tw + 2, hp = (th + 2) * hw, tp = th * tw;
@@ -218,8 +270,16 @@ bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
   const int g = lane >> 2, t = lane & 3;
   const int tiles_per_image = tiles_x * tiles_y;
 
-  // the weights -> shared memory, once for every tile of this thread block
-  for (int i = tid * 4; i < P::total; i += kThreads * 4) cp_async16(smem + i, packed + i);
+  // the weights -> shared memory, once for every tile of this thread block;
+  // with STREAM all but w2, and w2's first tap into ring slot 0
+  if constexpr (STREAM) {
+    for (int i = tid * 4; i < G::w2; i += kThreads * 4) cp_async16(smem + i, packed + i);
+    for (int i = tid * 4; i < G::total - G::w3; i += kThreads * 4)
+      cp_async16(smem + P::w3 + i, packed + G::w3 + i);
+    for (int i = tid * 4; i < TAP; i += kThreads * 4) cp_async16(smem + P::w2 + i, packed + G::w2 + i);
+  } else {
+    for (int i = tid * 4; i < P::total; i += kThreads * 4) cp_async16(smem + i, packed + i);
+  }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -249,6 +309,7 @@ bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
   };
 
   int buf = 0;
+  int slot = 0;                           // STREAM: the ring slot of the next tap
   for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x, buf ^= 1) {
     const int n = tile / tiles_per_image, rest = tile - n * tiles_per_image;
     const int y0 = (rest / tiles_x) * th, x0 = (rest % tiles_x) * tw;
@@ -302,22 +363,65 @@ bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
         }
       }
     }
-    // The only barrier of a tile: a2 is complete.  The other a2 buffer was last
-    // read in the previous tile's 3x3, which every warp left before it came
-    // here, so the next tile's stage 2 may fill it while slower warps are still
-    // in this tile's 3x3.
-    __syncthreads();
+    // The only barrier of a tile (with STREAM, the first of tap 0's): a2 is
+    // complete.  The other a2 buffer was last read in the previous tile's 3x3,
+    // which every warp left before it came here, so the next tile's stage 2 may
+    // fill it while slower warps are still in this tile's 3x3.
+    if constexpr (!STREAM) __syncthreads();
+
+    // warp m owns the tile's pixels 16m .. 16m+15 from here on
+    const int q0 = min(warp * 16 + g, tp - 1), q1 = min(warp * 16 + g + 8, tp - 1);
+    const int q0y = q0 / tw, q0x = q0 - q0y * tw;
+    const int q1y = q1 / tw, q1x = q1 - q1y * tw;
+    float acc3[NT2][4];
+
+    if constexpr (STREAM) {
+      // 3. z2 = conv3x3(a2), one tap at a time out of the ring.  Every warp
+      // copies and meets the barriers; the warps that own pixels multiply.
+      init_bias<NT2>(acc3, smem + P::b2, t);
+      float small[NT2][4];
+      zero<NT2>(small);
+      const float* r0 = a2 + (q0y * hw + q0x) * P2 + t;
+      const float* r1 = a2 + (q1y * hw + q1x) * P2 + t;
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap, slot ^= 1) {
+        // this thread's copies of the tap have landed; after the barrier
+        // everyone's have, and every warp has left the other slot's tap
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        __syncthreads();
+        const float* next = tap < 8 ? packed + G::w2 + (tap + 1) * TAP
+                                    : (tile + (int)gridDim.x < num_tiles ? packed + G::w2 : nullptr);
+        if (next) {
+          float* dst = smem + P::w2 + (slot ^ 1) * TAP;
+          for (int i = tid * 4; i < TAP; i += kThreads * 4) cp_async16(dst + i, next + i);
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+        if (warp < nmt_t) {
+          const int off = ((tap / 3) * hw + tap % 3) * P2;
+          const float* wt = smem + P::w2 + slot * TAP;
+          AFrag fa, fa_next;
+          BFrag<NT2> fb, fb_next;
+          load_a(fa, r0 + off, r1 + off);
+          load_b<NT2>(fb, wt, lane);
+#pragma unroll
+          for (int ks = 0; ks < NT2; ++ks) {
+            if (ks + 1 < NT2) {
+              load_a(fa_next, r0 + off + (ks + 1) * 8, r1 + off + (ks + 1) * 8);
+              load_b<NT2>(fb_next, wt + (ks + 1) * NT2 * 64, lane);
+            }
+            mma_step<NT2>(acc3, small, fa, fb);
+            fa = fa_next;
+            fb = fb_next;
+          }
+        }
+      }
+      add_small<NT2>(acc3, small);
+    }
 
     if (warp < nmt_t) {
-      // warp m owns the tile's pixels 16m .. 16m+15 from here on
-      const int q0 = min(warp * 16 + g, tp - 1), q1 = min(warp * 16 + g + 8, tp - 1);
-      const int q0y = q0 / tw, q0x = q0 - q0y * tw;
-      const int q1y = q1 / tw, q1x = q1 - q1y * tw;
-
-      // 3. z2 = conv3x3(a2): taps are whole-pixel offsets in the halo tile
-      float acc3[NT2][4];
-      init_bias<NT2>(acc3, smem + P::b2, t);
-      {
+      if constexpr (!STREAM) {
+        // 3. z2 = conv3x3(a2): taps are whole-pixel offsets in the halo tile
+        init_bias<NT2>(acc3, smem + P::b2, t);
         float small[NT2][4];
         zero<NT2>(small);
         const float* r0 = a2 + (q0y * hw + q0x) * P2 + t;
@@ -432,17 +536,18 @@ bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
 }
 
 size_t smem_bytes(int cin, int cmid, int cout, int th, int tw, int has_proj) {
-  const size_t hp = (size_t)(th + 2) * (tw + 2);
-  const size_t weights = (size_t)cin * cmid + 9 * (size_t)cmid * cmid + (size_t)cmid * cout +
-                         (has_proj ? (size_t)cin * cout : 0) + 2 * cin + 2 * cmid + cout;
-  return (weights + 2 * hp * (cmid + 4)) * sizeof(float);
+  return smem_size(cin, cmid, cout, has_proj != 0, streams_w2(cin, cmid, cout, has_proj != 0),
+                   th, tw);
 }
 
 template <int CIN, int CMID, int COUT, bool PROJ>
 int launch(const float* x, const float* packed, float* y, int n, int h, int w,
            int th, int tw, int dev, int sms, cudaStream_t stream) {
-  auto kernel = bottleneck_kernel<CIN, CMID, COUT, PROJ>;
-  const size_t smem = smem_bytes(CIN, CMID, COUT, th, tw, PROJ);
+  constexpr bool kStream = streams_w2(CIN, CMID, COUT, PROJ);
+  static_assert(smem_size(CIN, CMID, COUT, PROJ, kStream, 1, 16) <= kMaxSmem,
+                "the block does not fit one thread block even with w2 streamed");
+  auto kernel = bottleneck_kernel<CIN, CMID, COUT, PROJ, kStream>;
+  const size_t smem = smem_size(CIN, CMID, COUT, PROJ, kStream, th, tw);
   // the opt-in to more than 48 KB is kept per device and only ever raised
   static size_t allowed[kMaxDevices] = {};
   if (smem > allowed[dev]) {
@@ -463,7 +568,8 @@ int launch(const float* x, const float* packed, float* y, int n, int h, int w,
 
 extern "C" {
 
-// Dynamic shared memory of one thread block, in bytes.
+// Dynamic shared memory of one thread block, in bytes (w2 streamed where
+// streams_w2 says so).
 size_t df3d_bottleneck_smem(int cin, int cmid, int cout, int th, int tw, int has_proj) {
   return smem_bytes(cin, cmid, cout, th, tw, has_proj);
 }
@@ -493,6 +599,8 @@ int df3d_bottleneck(const float* x, const float* packed, float* y,
   DF3D_CASE(48, 48, 96, true)
   DF3D_CASE(64, 32, 64, false)
   DF3D_CASE(32, 32, 64, true)
+  DF3D_CASE(128, 64, 128, false)    // the 128-wide networks: w2 streams
+  DF3D_CASE(64, 64, 128, true)
 #undef DF3D_CASE
   return (int)cudaErrorInvalidValue;
 }

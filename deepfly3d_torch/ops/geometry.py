@@ -142,7 +142,7 @@ def triangulate(points2d_rowcol: torch.Tensor, R: torch.Tensor, tvec: torch.Tens
     """
     if method not in ("normal", "svd"):
         raise NotImplementedError(f"triangulate method {method!r}: 'normal' and 'svd' "
-                                  "are ported (ROADMAP.md Queue 1 item 4)")
+                                  "are ported (ROADMAP.md Queue 1 item 3)")
     C, T, J, _ = points2d_rowcol.shape
     P = projection_matrices(R, tvec, intr)
     obs = rowcol_to_pixel_xy(points2d_rowcol, image_shape)

@@ -5,6 +5,7 @@
     python3 scripts/bench_torch_kernels.py --trees OLD . . OLD   # two checkouts, in turns
     python3 scripts/bench_torch_kernels.py --quick               # one launch per shape, no timing
     python3 scripts/bench_torch_kernels.py --match 56x480x960x256x512 --stage-rows 4,8,12
+    python3 scripts/bench_torch_kernels.py --match 8x96x96 --tiles   # sweep the tile height
 
 Needs one CUDA card.  Each tree runs in its own process (each builds its own
 kernels with nvcc): every shape below goes through the tree's
@@ -20,7 +21,13 @@ composition they replace (``unfused_device_ms``: ``apply_shift_tc``'s
 gathers, the kernel, the gain multiply), and the fused result must equal
 that composition bit for bit.  ``--stage-rows`` times the preprocess at
 other budgets of staged input rows, and so other band heights (trees with
-``kernels.preprocess_plan``).  One JSON line per
+``kernels.preprocess_plan``).  The h36m network's blocks (128 wide, the
+3x3's weights streamed) run at the shapes of its ingest path, with weights
+from ``utils/synthetic.random_checkpoint`` (seed 0), in the trees that have
+those instances.  Every bottleneck output is hashed (``out_sha``), and after
+the last tree the outputs of each shape are compared across the trees: the
+script fails where they differ (``COMPARE`` line).  ``--tiles`` times every
+tile height that fits, per bottleneck shape (``tile_ms``).  One JSON line per
 tree, prefixed ``RESULT``; the card's name and power limit first.  Comparing
 two versions is only meaningful inside one call, on one card.
 """
@@ -28,11 +35,13 @@ two versions is only meaningful inside one call, on one card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import os
 import subprocess
 import sys
+import tempfile
 
 # (N, H, W, block): the shapes the conv, p16 and cascade paths give the kernel
 BLOCK_SHAPES = [
@@ -44,6 +53,11 @@ BLOCK_SHAPES = [
     (7, 16, 32, "stem_res2"), (7, 8, 16, "stem_res2"), (7, 4, 8, "stem_res2"),
     (3, 13, 21, "stem_res2"),
 ]
+# the h36m network at the CLI's batch of 8 images: the projecting stem block at
+# 192x192, the 128-wide blocks from 96x96 down to 6x6
+H36M_SHAPES = [(8, 192, 192, "stem_res1"), (8, 96, 96, "stem_res2"), (8, 48, 48, "stem_res2"),
+               (8, 24, 24, "stem_res2"), (8, 12, 12, "stem_res2"), (8, 6, 6, "stem_res2")]
+H36M_SPEC = dict(num_stacks=4, features=128, depth=4, num_classes=17, input_shape=(384, 384))
 DECODE_SHAPES = [(56, 64, 128, 19), (56, 48, 96, 19), (7, 64, 128, 19), (5, 7, 9, 19),
                  (3, 16, 32, 6)]
 # (N, H, W, h, w): the conv and p16 paths, the cascade's student and teacher,
@@ -138,7 +152,25 @@ def preprocess_rows(torch, kernels, image_ops, shape, dev, gen, quick, no_check,
     return row
 
 
-def run_tree(root, quick, no_check=False, match=None, budgets=None):
+def sweep_tiles(bn, x, f, device_ms):
+    """{"th x tw": device ms} of every tile height that fits, the wrapper's own
+    choice of tile put aside for the sweep."""
+    n, h, w, cin = x.shape
+    cmid, cout, proj = f["w1"].shape[1], f["w3"].shape[1], "wp" in f
+    chosen, tw = bn.choose_tile, min(bn.TILE_MAX_WIDTH, w)
+    out = {}
+    try:
+        for th in range(1, min(h, 16 * bn.TILE_WARPS // tw) + 1):
+            if bn.smem_bytes(cin, cmid, cout, th, tw, proj) > bn.MAX_SMEM:
+                break
+            bn.choose_tile = lambda *args, th=th: (th, tw)
+            out[f"{th}x{tw}"] = device_ms(lambda: bn.fused_bottleneck(x, f))
+    finally:
+        bn.choose_tile = chosen
+    return out
+
+
+def run_tree(root, quick, no_check=False, match=None, budgets=None, h36m=None, tiles=False):
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -159,21 +191,31 @@ def run_tree(root, quick, no_check=False, match=None, budgets=None):
             if any(word in line for word in ("registers", "spill", "error", "warning")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     blocks = fold_hourglass(*load_weights(os.path.join(WEIGHTS_DIR, "hourglass_fly.npz")))["blocks"]
+    wide = fold_hourglass(*load_weights(h36m))["blocks"] if h36m else {}
     pack = getattr(bn, "add_packed", lambda f: f)
     model = getattr(bn, "bottleneck_tf32_model", None)
     gen = torch.Generator().manual_seed(0)
     iters = 1 if quick else 20
     rows = []
     picked = lambda *shape: match is None or "x".join(map(str, shape)) in match
-    for n, h, w, name in BLOCK_SHAPES:
-        if not picked(n, h, w):
+    instances = getattr(bn, "INSTANCES", ())
+    shapes = [(s, blocks) for s in BLOCK_SHAPES] + [(s, wide) for s in H36M_SHAPES]
+    for (n, h, w, name), net in shapes:
+        if not picked(n, h, w) or name not in net:
             continue
-        f = {k: v.to(dev) for k, v in pack(blocks[name]).items()}
-        x = torch.randn((n, h, w, f["w1"].shape[0]), generator=gen).to(dev)
+        folded = net[name]
+        cin, cmid, cout = folded["w1"].shape[0], folded["w1"].shape[1], folded["w3"].shape[1]
+        if net is wide and (cin, cmid, cout, "wp" in folded) not in instances:
+            continue                                  # a tree without the 128-wide instances
+        f = {k: v.to(dev) for k, v in pack(folded).items()}
+        seed = torch.Generator().manual_seed(n * 1000003 + h * 1009 + w)   # per shape
+        x = torch.randn((n, h, w, cin), generator=seed).to(dev)
         y = bn.fused_bottleneck(x, f)
         torch.cuda.synchronize()
         ref = bn.bottleneck_plain(x, f)
         row = {"kernel": "bottleneck", "shape": [n, h, w], "block": name,
+               "channels": [cin, cmid, cout], "proj": "wp" in folded,
+               "out_sha": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16],
                "scale": ref.abs().max().item(), "err_plain": (y - ref).abs().max().item()}
         if model is not None:
             row["err_model"] = (y - model(x, f)).abs().max().item()
@@ -183,6 +225,8 @@ def run_tree(root, quick, no_check=False, match=None, budgets=None):
             row["ms"] = cuda_ms(torch, lambda: bn.fused_bottleneck(x, f), iters)
             row["device_ms"] = graph_ms(torch, lambda: bn.fused_bottleneck(x, f))
             row["plain_ms"] = cuda_ms(torch, lambda: bn.bottleneck_plain(x, f), iters)
+            if tiles:
+                row["tile_ms"] = sweep_tiles(bn, x, f, lambda fn: graph_ms(torch, fn))
         rows.append(row)
         print(row, flush=True)
         del x, y, ref
@@ -239,20 +283,51 @@ def main():
                                     "default all")
     ap.add_argument("--stage-rows", help="comma-separated budgets of staged input rows per "
                                          "preprocess band to time")
+    ap.add_argument("--tiles", action="store_true",
+                    help="time every tile height that fits, per bottleneck shape")
     ap.add_argument("--one", help=argparse.SUPPRESS)
+    ap.add_argument("--h36m", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
         return run_tree(args.one, args.quick, args.no_check,
                         args.match.split(",") if args.match else None,
-                        [int(r) for r in args.stage_rows.split(",")] if args.stage_rows else None)
+                        [int(r) for r in args.stage_rows.split(",")] if args.stage_rows else None,
+                        args.h36m, args.tiles)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip(), flush=True)
-    for tree in args.trees:
-        cmd = [sys.executable, os.path.abspath(__file__), "--one", tree]
-        cmd += (["--quick"] if args.quick else []) + (["--no-check"] if args.no_check else [])
-        cmd += ["--match", args.match] if args.match else []
-        cmd += ["--stage-rows", args.stage_rows] if args.stage_rows else []
-        subprocess.run(cmd, check=True)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from deepfly3d_torch.utils.synthetic import random_checkpoint
+
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        h36m = os.path.join(tmp, "hourglass_h36m_seed0.npz")
+        random_checkpoint(h36m, 0, **H36M_SPEC)
+        for tree in args.trees:
+            cmd = [sys.executable, os.path.abspath(__file__), "--one", tree, "--h36m", h36m]
+            cmd += (["--quick"] if args.quick else []) + (["--no-check"] if args.no_check else [])
+            cmd += ["--match", args.match] if args.match else []
+            cmd += ["--stage-rows", args.stage_rows] if args.stage_rows else []
+            cmd += ["--tiles"] if args.tiles else []
+            with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
+                for line in proc.stdout:
+                    print(line, end="", flush=True)
+                    if line.startswith("RESULT "):
+                        results.append(json.loads(line[len("RESULT "):]))
+            if proc.returncode:
+                raise SystemExit(f"tree {tree} failed ({proc.returncode})")
+    # every bottleneck output, shape by shape, across the trees that ran it
+    outputs = {}
+    for result in results:
+        for row in result["rows"]:
+            if "out_sha" in row:
+                key = f"{row['block']}@{'x'.join(map(str, row['shape']))}"
+                outputs.setdefault(key, {})[result["tree"]] = row["out_sha"]
+    differ = {k: v for k, v in outputs.items() if len(set(v.values())) > 1}
+    print("COMPARE " + json.dumps({"shapes": len(outputs), "trees": args.trees,
+                                   "equal": sorted(set(outputs) - set(differ)),
+                                   "differ": differ}), flush=True)
+    if differ and not args.no_check:
+        raise SystemExit(f"bottleneck outputs differ across trees at {sorted(differ)}")
 
 
 if __name__ == "__main__":

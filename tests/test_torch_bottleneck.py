@@ -264,3 +264,34 @@ def test_shared_memory_budget_numbers():
     with pytest.raises(ValueError):
         port_bn.choose_tile(1, 8, 16, 256, 128, 256, False)       # weights alone too large
     assert (96, 48, 96, False) in port_bn.INSTANCES and (48, 48, 96, True) in port_bn.INSTANCES
+
+
+def test_streamed_w2_budget_numbers():
+    # the 128-wide blocks: every weight resident does not fit even one row of
+    # 16 pixels, so w2 streams through a ring of two 16 KB taps
+    for block in ((128, 64, 128, False), (64, 64, 128, True)):
+        assert block in port_bn.INSTANCES and port_bn.streams_w2(*block)
+        assert port_bn.packed_size(*block) * 4 + 2 * 3 * 18 * 68 * 4 > port_bn.MAX_SMEM
+    assert not any(port_bn.streams_w2(*b) for b in port_bn.INSTANCES[:4])
+    assert port_bn.smem_bytes(128, 64, 128, 8, 16, False) == 4 * (16896 + 8192) + 97920 \
+        == 198272
+    assert port_bn.smem_bytes(64, 64, 128, 8, 16, True) == 214144
+    assert port_bn.smem_bytes(128, 64, 128, 11, 16, False) <= port_bn.MAX_SMEM
+    assert port_bn.smem_bytes(128, 64, 128, 12, 16, False) > port_bn.MAX_SMEM
+    assert port_bn.smem_bytes(64, 64, 128, 9, 16, True) <= port_bn.MAX_SMEM
+    assert port_bn.smem_bytes(64, 64, 128, 10, 16, True) > port_bn.MAX_SMEM
+
+
+H36M_SHAPES = [(8, 192, 192), (8, 96, 96), (8, 48, 48), (8, 24, 24), (8, 12, 12), (8, 6, 6),
+               (3, 19, 37), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("n,h,w", H36M_SHAPES)
+@pytest.mark.parametrize("cin,proj", [(128, False), (64, True)])
+def test_tile_chooser_at_the_h36m_shapes(n, h, w, cin, proj):
+    th, tw = port_bn.choose_tile(n, h, w, cin, 64, 128, proj)
+    assert 1 <= th <= h and tw == min(w, 16) and th * tw <= 192
+    assert port_bn.smem_bytes(cin, 64, 128, th, tw, proj) <= port_bn.MAX_SMEM
+    blocks = n * -(-h // th) * -(-w // tw)
+    if n * h * w >= 16 * port_bn.NUM_SMS and w >= 8:
+        assert blocks >= 0.8 * port_bn.NUM_SMS                    # the card is filled

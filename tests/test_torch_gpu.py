@@ -93,6 +93,62 @@ def test_bottleneck_kernel_matches_plain(blocks, name, shape):
     assert smem(*args) == bn.smem_bytes(*args[:5], "wp" in folded)
 
 
+@pytest.fixture(scope="module")
+def wide_blocks(tmp_path_factory):
+    """The 128-wide h36m network's folded blocks, weights from a seed."""
+    from deepfly3d_torch.utils.synthetic import random_checkpoint
+
+    path = str(tmp_path_factory.mktemp("h36m") / "h36m.npz")
+    random_checkpoint(path, 0, num_stacks=1, features=128, depth=1, num_classes=17,
+                      input_shape=(64, 64))
+    return fold_hourglass(*load_weights(path))["blocks"]
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("stem_res1", (8, 192, 192, 64)),     # the projecting stem block of the h36m path
+    ("stem_res1", (3, 19, 37, 64)),       # tiles cut by the image edge
+    ("stem_res2", (8, 96, 96, 128)),
+    ("stem_res2", (8, 12, 12, 128)),
+    ("hg0/innermost_0", (8, 6, 6, 128)),
+    ("hg0/innermost_0", (5, 13, 21, 128)),
+    ("feat_res0", (1, 1, 1, 128)),        # one tile: no next tile's tap 0 to fetch
+])
+def test_streamed_bottleneck_matches_plain(wide_blocks, name, shape):
+    """The 128-wide instances stream w2 through shared memory one tap at a
+    time; held to the resident instances' tolerance, and their shared-memory
+    figure is the wrapper's."""
+    dev = _card()
+    folded = {k: v.to(dev) for k, v in bn.add_packed(wide_blocks[name]).items()}
+    cin, cmid, cout, proj = shape[3], folded["w1"].shape[1], folded["w3"].shape[1], \
+        "wp" in folded
+    assert bn.streams_w2(cin, cmid, cout, proj)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(shape, generator=g).to(dev)
+    before = bn.fused_bottleneck.launches
+    got = bn.fused_bottleneck(x, folded)
+    torch.cuda.synchronize()
+    assert bn.fused_bottleneck.launches == before + 1
+    want = bn.bottleneck_plain(x, folded)
+    tol = 5e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+    assert (got - bn.bottleneck_tf32_model(x, folded)).abs().max().item() <= tol
+    n, h, w, _ = shape
+    args = (cin, cmid, cout, *bn.choose_tile(n, h, w, cin, cmid, cout, proj), int(proj))
+    smem = _build.library("bottleneck").df3d_bottleneck_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 6, ctypes.c_size_t
+    assert smem(*args) == bn.smem_bytes(*args[:5], proj)
+
+
+def test_block_without_an_instance_raises_on_the_card(wide_blocks):
+    dev = _card()
+    folded = {k: v.to(dev) for k, v in bn.add_packed(wide_blocks["stem_res2"]).items()}
+    narrow = {k: (v[:, :96] if k in ("s1", "t1") else v[:96] if k == "w1" else v)
+              for k, v in folded.items()}
+    with pytest.raises(ValueError, match="Cin=96, Cmid=64, Cout=128"):
+        bn.fused_bottleneck(torch.zeros((1, 4, 4, 96), device=dev), {**narrow, "wp": torch.zeros(
+            (96, 128), device=dev), "bp": torch.zeros((1, 128), device=dev)})
+
+
 @pytest.mark.parametrize("shape", [(56, 4, 8, 96), (7, 32, 64, 96), (2, 3, 5, 6)])
 def test_upsample_kernel_matches_plain(shape):
     dev = _card()

@@ -7,8 +7,7 @@
   smoother) against the JAX ``Core``'s on the same seeded state; ``compat``
   (``CameraNetwork``) and ``GuiController`` as analogues of
   ``tests/test_compat.py`` and ``tests/test_gui_controller.py``.
-* The flags and methods that still raise name an item of ROADMAP.md's
-  Queue 1 that is about them.
+* What still raises names an item of ROADMAP.md's Queue 1 that is about it.
 * ``cli.main`` with ``--soft-argmax --solver lm --ba-huber-px 5`` on the CPU.
 * At full width, ``deepfly3d_torch/data/options_t15.npz`` holds the JAX
   package's results that the chip smoke run's core phase checks the card
@@ -278,8 +277,12 @@ def test_compat_bundle_adjust_and_accessors(cam_nets, golden_2d, golden_3d, cali
     assert net[2].get_image(1).shape == (480, 960, 3)
     assert compat.df3d_bones.shape[1] == 2 and compat.df3d_colors.shape == (38, 3)
     np.testing.assert_array_equal(compat.df3d_bones, jax_compat.df3d_bones)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        cam.plot_2d(0)
+    ref = jax_compat.CameraNetwork(golden_2d["points2d"] * [480, 960],
+                                   image_path=os.path.join(REFERENCE,
+                                                           "camera_{cam_id}_img_{img_id}.jpg"))
+    drawn = net[2].plot_2d(1)
+    np.testing.assert_array_equal(drawn, ref[2].plot_2d(1))
+    assert (drawn != net[2].get_image(1)).any()
 
 
 def test_procrustes_seperate_reference_spelling(golden_3d):
@@ -318,8 +321,9 @@ def test_gui_modes_and_render(ctl, working_images):
     assert not fresh.set_mode("pose") and not fresh.set_mode("correction")
     assert fresh.mode == "image" and not fresh.joint_filter_enabled
     assert ctl.set_mode("pose") and ctl.joint_filter_enabled
-    with pytest.raises(NotImplementedError, match="plot_2d"):
-        ctl.render(0)                                       # the pose overlay needs viz/
+    pose = ctl.render(0)                                    # the overlay of viz/plot2d.py
+    assert pose.shape == (480, 960, 3) and (pose != ctl.core.get_image(0, ctl.img_id)).any()
+    np.testing.assert_array_equal(pose, ctl.core.plot_2d(0, ctl.img_id, joints=ctl.joint_filter))
     assert ctl.set_mode("correction") and ctl.set_mode("image")
     assert not ctl.joint_filter_enabled
     assert ctl.render(0).shape == (480, 960, 3)
@@ -379,29 +383,21 @@ def _named_item(message):
     return int(m.group(1))
 
 
-def test_not_ported_messages_name_current_roadmap_items(working_images):
-    """Every flag and method that still raises names a Queue 1 item, and the
-    item is about it."""
+def test_not_ported_messages_name_current_roadmap_items(working_images, golden_2d):
+    """What still raises names a Queue 1 item, and the item is about it.
+    Since the video flags, ``plot_2d`` and the h36m profile are ported, that
+    is the ``eigh`` triangulation alone."""
     items = _queue1_items()
     assert items
-    keywords = {"video_2d": "viz/", "video_3d": "viz/", "profile": "h36m"}
-    assert [entry[0] for entry in cli._NOT_PORTED] == list(keywords)
-    for attr, _, flag, where in cli._NOT_PORTED:
-        assert keywords[attr] in items[_named_item(where)], (flag, where)
-    core = _core(working_images)
-    not_ported = {"plot_2d": "viz/"}
-    for name, keyword in not_ported.items():
-        with pytest.raises(NotImplementedError) as e:
-            getattr(core, name)(0, 0)
-        assert keyword in items[_named_item(str(e.value))]
+    assert not hasattr(cli, "_NOT_PORTED")
+    assert _seeded(working_images, golden_2d).plot_2d(0, 0).shape == (480, 960, 3)
     from deepfly3d_torch.config import h36m_config
     from deepfly3d_torch.ops import geometry
 
-    for call, keyword in ((h36m_config, "h36m"),
-                          (lambda: geometry.triangulate(
+    assert h36m_config().num_cameras == 4
+    for call, keyword in ((lambda: geometry.triangulate(
                               torch.zeros(7, 1, 38, 2), torch.zeros(7, 3, 3), torch.zeros(7, 3),
-                              torch.zeros(7, 3, 3), (960, 480), method="eigh"), "eigh"),
-                          (lambda: compat.Camera(0, None).plot_2d(0), "viz/")):
+                              torch.zeros(7, 3, 3), (960, 480), method="eigh"), "eigh"),):
         with pytest.raises(NotImplementedError) as e:
             call()
         assert keyword in items[_named_item(str(e.value))]
