@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference paths and its CLI on one CUDA card.
+"""Drive the PyTorch port's inference paths, its CLI and its fleet path on one CUDA card.
 
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --profile FILE   # also a torch.profiler table per path
@@ -84,7 +84,27 @@ result line):
 9. video phase: whether ``cv2.VideoWriter`` opens with mp4v, then ``cli.main
    --skip-pose-estimation --video-2d --video-3d`` over a copy of the bundled
    recording seeded with the golden result: both mp4s open with the expected
-   frame count and size; the video2d and video3d stage seconds.
+   frame count and size; the video2d and video3d stage seconds;
+10. fleet phase (``parallel/``): (g) ``fleet.process_recordings`` over two
+   copies of ``tests/data/reference`` (15 frames x 7 cameras each) and an
+   empty folder, conv checkpoint, ``solver="lm"``, no mesh: the empty
+   folder fails alone, the copies agree (2D equal, 3D within 1e-8), each
+   holds the golden contract; (h) the same on a mesh of every visible card
+   and on two entries of this card: one forward per entry (31 bottleneck
+   launches each, as recorded from the plain twin), 2D within 1e-6 and conf
+   within 1e-5 of (g); (i) ``make_batched_calibration`` of 8 perturbed golden
+   problems in float64 on the card: each member has its unbatched
+   ``_lm_solve``'s iterations and cameras within 1e-10 of the largest
+   parameter, and JAX's result (``deepfly3d_torch/data/parallel_lm_b8.npz``)
+   within 1e-4 / 1e-5; (j) ``make_sharded_triangulate`` over two entries:
+   the golden ``points3d_wo_procrustes`` within 1e-5.  Frames/s split into
+   decode, inference and calibrate (each stage reached once, calibrate once
+   per good recording), the peak memory of the one-entry call, one entry's
+   forward memory at 105 / 210 / 420 images and the shard size that would
+   fill the card, the batched solve against 8 unbatched ones (each timed
+   alone after a warm-up) and the fleet call's kernel column
+   (informational).  A mesh over several
+   cards runs the same code; one card cannot show that it overlaps them.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 """
@@ -92,6 +112,7 @@ Then one JSON line with every kernel's numbers and, last, the device line.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import pickle
@@ -152,6 +173,16 @@ H36M_PER_BATCH = {"fused_bottleneck": 59, "upsample2x_add": 16, "decode_heatmaps
 H36M_CONF_TOL = 2e-5
 H36M_TIES = 0.05        # at most this share of image-joints within 10x the conf tolerance of a tie
 VIDEO_FRAMES = 4        # frames of the video phase (scripts/make_video_goldens.py)
+# the fleet phase: two copies of the bundled recording (15 frames x 7 cameras)
+# and an empty folder through parallel.fleet.process_recordings; one forward
+# per mesh entry; the batched lm solve of 8 perturbed golden problems against
+# the JAX package's (python tests/test_torch_parallel.py --write)
+FLEET_COPIES, FLEET_T = 2, 15
+PER_FORWARD = {"fused_bottleneck": 31, "upsample2x_add": 8, "decode_heatmaps": 1,
+               "preprocess_resize": 1}
+LM_BATCH_REF = os.path.join("deepfly3d_torch", "data", "parallel_lm_b8.npz")
+SAME_SOLVE_RTOL = 1e-10  # batched vs unbatched lm: of the largest camera parameter
+FLEET_QUICK_N = 100      # kernel-phase shapes of >= this many images are timed with fewer repeats
 # per-shape times that are summed per path and per kernel
 TIMES = ("ms", "plain_ms", "library_ms", "eager_ms", "library_eager_ms", "bound_ms",
          "bound_f32_ms", "unfused_ms")
@@ -239,14 +270,17 @@ def graph_ms(torch, fn, iters=10, replays=5):
     return start.elapsed_time(end) / (iters * replays)
 
 
-def times(torch, kernel, plain, library):
+def times(torch, kernel, plain, library, quick=False):
     """The time keys of one kernel row: device times of the kernel's wrapper and
     of the one library call, their eager times beside, and the plain version's
     eager time (it is no yardstick of speed, and the preprocess's copies its
-    resize matrices from the host in every call, which no graph captures)."""
-    return {"ms": graph_ms(torch, kernel), "library_ms": graph_ms(torch, library),
-            "eager_ms": cuda_ms(torch, kernel), "library_eager_ms": cuda_ms(torch, library),
-            "plain_ms": cuda_ms(torch, plain)}
+    resize matrices from the host in every call, which no graph captures).
+    ``quick``: fewer repeats, for the fleet's whole-shard shapes."""
+    g, e = (dict(iters=3, replays=2), dict(iters=3, warmup=1)) if quick else ({}, {})
+    return {"ms": graph_ms(torch, kernel, **g), "library_ms": graph_ms(torch, library, **g),
+            "eager_ms": cuda_ms(torch, kernel, **e),
+            "library_eager_ms": cuda_ms(torch, library, **e),
+            "plain_ms": cuda_ms(torch, plain, **e)}
 
 
 def bound_ms(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
@@ -948,6 +982,255 @@ def video_phase(np, device, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def fleet_inputs(np):
+    """The fleet's images as ``process_recordings`` decodes them: (the bundled
+    recording's 15 x 7 JPEG paths, camera-major) -> ((FLEET_COPIES * 105,
+    480, 960, 3) uint8, flips), one recording's images after the other."""
+    from deepfly3d_torch.models.inference import _read_images_threaded
+
+    paths = [os.path.join(ROOT, "tests", "data", "reference", f"camera_{c}_img_{t}.jpg")
+             for c in range(7) for t in range(FLEET_T)]
+    images = _read_images_threaded(paths)
+    flips = np.repeat(np.arange(7) >= 4, FLEET_T)
+    return np.concatenate([images] * FLEET_COPIES), np.concatenate([flips] * FLEET_COPIES)
+
+
+@contextlib.contextmanager
+def fleet_stage_timer(torch):
+    """Host-clock spans (the card synchronised at both ends) of the fleet's
+    stages, by wrapping what ``process_recordings`` calls: JPEG decode,
+    inference (the estimator's batched loop or the sharded forward) and each
+    recording's calibration.  Yields {stage: [seconds]}."""
+    from deepfly3d_torch.core import Core
+    from deepfly3d_torch.models import inference
+    from deepfly3d_torch.parallel import pipeline
+
+    spans = collections.defaultdict(list)
+
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[stage].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    make_infer = pipeline.make_sharded_infer
+    patched = [(inference, "_read_images_threaded", timed("decode", inference._read_images_threaded)),
+               (inference.PoseEstimator, "infer_images",
+                timed("inference", inference.PoseEstimator.infer_images)),
+               (pipeline, "make_sharded_infer",
+                lambda *a, **k: timed("inference", make_infer(*a, **k))),
+               (Core, "calibrate_calc", timed("calibrate", Core.calibrate_calc))]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patched]
+    try:
+        for owner, name, fn in patched:
+            setattr(owner, name, fn)
+        yield spans
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def fleet_memory(torch, np, dev):
+    """The card memory one mesh entry's forward needs, which grows with the
+    images of its shard (a fleet call runs one forward per entry): the peak
+    of ``make_sharded_infer`` on a one-entry mesh over 105, 210 and 420 of
+    the fleet's images above what was allocated before it, and the shard
+    size at which the card would be full, extrapolated from the last two.
+    -> the informational text."""
+    from deepfly3d_torch.config import WEIGHTS_DIR
+    from deepfly3d_torch.models.hourglass import load_weights
+    from deepfly3d_torch.parallel import mesh, pipeline
+
+    images, flips = fleet_inputs(np)
+    images, flips = np.concatenate([images, images]), np.concatenate([flips, flips])
+    variables, spec = load_weights(os.path.join(WEIGHTS_DIR, CONV))
+    infer = pipeline.make_sharded_infer(spec, mesh.data_mesh(devices=[dev]), (256, 512))
+    infer(variables, images[:8], flips[:8])           # the replica folded and kept
+    peaks = {}
+    for n in (105, 210, 420):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        infer(variables, images[:n], flips[:n])
+        torch.cuda.synchronize()
+        peaks[n] = torch.cuda.max_memory_allocated(dev) - base
+    per_image = (peaks[420] - peaks[210]) / 210
+    total = torch.cuda.get_device_properties(dev).total_memory
+    ceiling = 420 + (total - base - peaks[420]) / per_image
+    return (f"one entry's forward needs "
+            f"{', '.join(f'{peaks[n] / 2**30:.3f} GiB at {n}' for n in peaks)} images "
+            f"({per_image / 2**20:.2f} MiB per image): the card's "
+            f"{total / 2**30:.1f} GiB hold a shard of about {int(ceiling)} images")
+
+
+def fleet_phase(torch, np, dev, card, counters, rows):
+    """(g)-(j): ``parallel.fleet.process_recordings`` over two copies of the
+    bundled recording and an empty folder, without a mesh and on meshes of one
+    and two entries, the batched lm solve, and the sharded triangulation.
+    -> {path: {kernel: launches}}."""
+    import io
+
+    from deepfly3d_torch.config import WEIGHTS_DIR
+    from deepfly3d_torch.ops import bundle_adjust, geometry
+    from deepfly3d_torch.parallel import fleet, mesh, pipeline
+
+    golden_dir = os.path.join(ROOT, "tests", "data", "reference_df3d")
+    with open(os.path.join(golden_dir, "df3d_result_2d.pkl"), "rb") as fh:
+        golden_2d = pickle.load(fh)
+    with open(os.path.join(golden_dir, "df3d_result_3d.pkl"), "rb") as fh:
+        golden_3d = pickle.load(fh)
+    frames = FLEET_COPIES * FLEET_T
+    images = FLEET_COPIES * 7 * FLEET_T
+    launches, lines = {}, []
+    tmp = tempfile.mkdtemp(prefix="df3d_smoke_fleet_")
+    try:
+        folders = []
+        for name in ("flyA", "flyB")[:FLEET_COPIES]:
+            folders.append(os.path.join(tmp, name, "images"))
+            shutil.copytree(os.path.join(ROOT, "tests", "data", "reference"), folders[-1])
+        empty = os.path.join(tmp, "empty")
+        os.makedirs(empty)
+
+        def run(name, fleet_mesh):
+            with fleet_stage_timer(torch) as spans, contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                results, got = count_launches(torch, counters, lambda: fleet.process_recordings(
+                    folders + [empty], checkpoint=os.path.join(WEIGHTS_DIR, CONV),
+                    mesh=fleet_mesh, solver="lm", num_images_max=FLEET_T,
+                    camera_ordering=range(7), device=dev))
+                wall = time.perf_counter() - t0
+            if not (all(r.ok for r in results[:-1]) and not results[-1].ok
+                    and results[-1].error is not None):
+                raise AssertionError(f"{name}: ok {[r.ok for r in results]}, errors "
+                                     f"{[str(r.error) for r in results]}")
+            # one shared decode, one inference pass, one calibration per good recording:
+            # a stage the timer no longer reaches would print 0 s
+            calls = {stage: len(spans[stage]) for stage in ("decode", "inference", "calibrate")}
+            if calls != {"decode": 1, "inference": 1, "calibrate": len(folders)}:
+                raise AssertionError(f"{name}: stage spans {calls}, want one decode, one "
+                                     f"inference and {len(folders)} calibrations")
+            lines.append(f"{name} {frames / wall:.1f} frames/s ({wall:.3f} s: decode "
+                         f"{sum(spans['decode']):.3f}, inference {sum(spans['inference']):.3f}, "
+                         f"calibrate {[round(t, 3) for t in spans['calibrate']]} s)")
+            return results, got
+
+        # (g) no mesh: the estimator's batched loop at 8
+        g_res, got = run("(g) no mesh", None)
+        batches = -(-images // 8)
+        want = {k: v * batches for k, v in PER_FORWARD.items()}
+        if got != want:
+            raise AssertionError(f"(g) launches {got}, want {want}")
+        launches["fleet_g"] = got
+        a, b = g_res[:2]
+        d3 = float(np.abs(a.points3d - b.points3d).max())
+        if not np.array_equal(a.points2d, b.points2d) or d3 > 1e-8:
+            raise AssertionError(f"(g) copies differ: 2D equal {np.array_equal(a.points2d, b.points2d)}, "
+                                 f"3D {d3}")
+        errs = [(float(np.abs(r.points2d - golden_2d["points2d"][:, :FLEET_T]).max()),
+                 float(np.abs(r.conf - golden_2d["heatmap_confidence"][:, :FLEET_T]).max()))
+                for r in g_res[:2]]
+        if any(p > 0.02 or c > 0.002 for p, c in errs):
+            raise AssertionError(f"(g) golden contract (pts_err, conf_err) per copy: {errs}")
+        print(f"(g) process_recordings, no mesh, over {FLEET_COPIES} copies of the bundled "
+              f"recording ({FLEET_T} frames x 7 cameras) and an empty folder: the empty folder "
+              f"failed alone ({type(g_res[-1].error).__name__}); the copies' 2D equal, 3D within "
+              f"{d3} (<= 1e-8); golden contract (pts_err, conf_err) {errs}; launches {got} "
+              f"({batches} batches of 8)")
+
+        # (h) meshes of every visible card (one entry here) and of two entries on this card
+        for key, fleet_mesh in (("fleet", mesh.data_mesh()),
+                                ("fleet2", mesh.data_mesh(devices=[dev, dev]))):
+            torch.cuda.reset_peak_memory_stats(dev)
+            h_res, got = run(f"(h) {fleet_mesh.size}-entry mesh", fleet_mesh)
+            peak = torch.cuda.max_memory_allocated(dev)
+            want = {k: v * fleet_mesh.size for k, v in PER_FORWARD.items()}
+            recorded = collections.Counter()
+            for (kernel, _), row in rows.items():
+                recorded[kernel] += row["counts"][key]
+            if got != want or got != dict(recorded):
+                raise AssertionError(f"(h) {fleet_mesh.size}-entry mesh launches {got}, want "
+                                     f"{want} (recorded {dict(recorded)})")
+            launches[key] = got
+            d2 = max(float(np.abs(h.points2d - g.points2d).max()) for h, g in zip(h_res, g_res[:2]))
+            dc = max(float(np.abs(h.conf - g.conf).max()) for h, g in zip(h_res, g_res[:2]))
+            if d2 > 1e-6 or dc > 1e-5:
+                raise AssertionError(f"(h) {fleet_mesh.size}-entry mesh vs (g): points {d2}, conf {dc}")
+            print(f"(h) process_recordings on a {fleet_mesh.size}-entry mesh "
+                  f"({[str(d) for d in fleet_mesh.devices.flat]}): one forward per entry, "
+                  f"launches {got}; vs (g) points {d2} (<= 1e-6), conf {dc} (<= 1e-5)")
+            if key == "fleet":
+                lines.append(f"max_memory_allocated during the {fleet_mesh.size}-entry call "
+                             f"(one forward of {images // fleet_mesh.size} images per entry) "
+                             f"{peak / 2**30:.2f} GiB")
+
+        lines.append(fleet_memory(torch, np, dev))
+
+        # (i) the batched lm solve of 8 perturbed golden problems, float64 on the card
+        with np.load(os.path.join(ROOT, LM_BATCH_REF)) as z:
+            ref = {k: z[k] for k in z.files}
+        B = ref["cams0"].shape[0]
+        args = [torch.from_numpy(np.ascontiguousarray(np.broadcast_to(ref[k], (B,) + ref[k].shape)
+                                                      if k not in ("cams0", "pts0") else ref[k]))
+                .to(dev) for k in ("cams0", "pts0", "K", "dist", "obs", "mask")]
+        iters_max = int(ref["max_iters"])
+        calibrate = pipeline.make_batched_calibration((960, 480), max_iters=iters_max, device=dev)
+        cams, pts, cost0, cost, iters = (t.cpu().numpy() for t in calibrate(*args))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calibrate(*args)
+        torch.cuda.synchronize()
+        t_batched = time.perf_counter() - t0
+        with torch.no_grad():
+            bundle_adjust._lm_solve(*(a[0] for a in args), max_iters=iters_max)   # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ones = [bundle_adjust._lm_solve(*(a[m] for a in args), max_iters=iters_max)
+                    for m in range(B)]
+            torch.cuda.synchronize()
+            t_unbatched = time.perf_counter() - t0
+        worst = 0.0
+        for m, one in enumerate(ones):
+            scale = one[0].abs().max().item()
+            diff = float(np.abs(cams[m] - one[0].cpu().numpy()).max())
+            worst = max(worst, diff / scale)
+            if int(iters[m]) != one[4] or diff > SAME_SOLVE_RTOL * scale:
+                raise AssertionError(f"(i) member {m}: {int(iters[m])} iterations against its "
+                                     f"unbatched {one[4]}, cameras {diff} apart")
+        c_diff = float(np.abs(cams - ref["cams"]).max())
+        p_diff = float(np.abs(pts - ref["pts"]).max())
+        if not (np.array_equal(iters, ref["iters"]) and c_diff <= 1e-4 and p_diff <= 1e-5):
+            raise AssertionError(f"(i) vs JAX: iterations {iters.tolist()} / "
+                                 f"{ref['iters'].tolist()}, cameras {c_diff}, points {p_diff}")
+        print(f"(i) make_batched_calibration of {B} perturbed golden problems on the card "
+              f"(float64): iterations {iters.tolist()}, each member's those of its unbatched "
+              f"_lm_solve on the card, cameras within {worst:.3g} of the largest parameter "
+              f"(<= {SAME_SOLVE_RTOL}); vs JAX ({LM_BATCH_REF}): same iterations, cameras "
+              f"{c_diff} (<= 1e-4), points {p_diff} (<= 1e-5)")
+        lines.append(f"(i) one batched solve {t_batched:.3f} s against {B} unbatched "
+                     f"{t_unbatched:.3f} s (each timed alone after a warm-up)")
+
+        # (j) frame-sharded triangulation over two entries (T=15 padded to 16)
+        R, tvec, intr, _ = geometry.calib_to_arrays({c: golden_3d[c] for c in range(7)}, 7)
+        p2 = np.concatenate([golden_3d["points2d"], golden_3d["points2d"][:, :1]], axis=1)
+        tri = pipeline.make_sharded_triangulate(mesh.data_mesh(devices=[dev, dev]), (960, 480))
+        out = tri(torch.from_numpy(p2).to(dev), *(torch.from_numpy(a).to(dev)
+                                                  for a in (R, tvec, intr)))
+        T = golden_3d["points2d"].shape[1]
+        j_diff = float(np.abs(out.cpu().numpy()[:T] - golden_3d["points3d_wo_procrustes"]).max())
+        if out.shape != (T + 1, 38, 3) or j_diff > 1e-5:
+            raise AssertionError(f"(j) sharded triangulation {tuple(out.shape)}, vs golden {j_diff}")
+        print(f"(j) make_sharded_triangulate over 2 entries, the {T} golden frames padded to "
+              f"{T + 1}, float64 svd on the card: points3d_wo_procrustes within {j_diff} "
+              f"(<= 1e-5)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, lines
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -962,10 +1245,11 @@ def main(argv):
     from deepfly3d_torch.config import WEIGHTS_DIR, fly_config
     from deepfly3d_torch.models.cascade import build_cascade_pipeline
     from deepfly3d_torch.models.hourglass import load_weights
-    from deepfly3d_torch.models.inference import PoseEstimator
+    from deepfly3d_torch.models.inference import PoseEstimator, infer_batch
     from deepfly3d_torch.ops import _build, canonicalize, geometry, image as image_ops
     from deepfly3d_torch.ops import bottleneck as bn
     from deepfly3d_torch.ops import kernels
+    from deepfly3d_torch.parallel import mesh as mesh_mod
     from deepfly3d_torch.pipeline import build_pipeline, plain_twin
     from deepfly3d_torch.utils.devices import full_f32
 
@@ -1027,6 +1311,24 @@ def main(argv):
     h36m_est = PoseEstimator(h36m_ckpt, device=dev)
     record_shapes(plain_twin(h36m_est), "h36m", rows, lambda twin: twin.infer_chunks(
         h36m_chunk(np, h36m_frames), H36M_BATCH))
+    # the fleet path (fleet phase): one forward per mesh entry over every image of
+    # the recordings, on every visible card ("fleet") and on two entries of this
+    # card ("fleet2"), padded with the first images as process_recordings pads
+    fleet_images, fleet_flips = fleet_inputs(np)
+    for key, entries in (("fleet", mesh_mod.data_mesh().size), ("fleet2", 2)):
+        pad = (-len(fleet_images)) % entries
+        per = (len(fleet_images) + pad) // entries
+
+        def forwards(twin, entries=entries, pad=pad, per=per):
+            x = torch.from_numpy(np.concatenate([fleet_images, fleet_images[:pad]]))
+            f = torch.from_numpy(np.concatenate([fleet_flips, fleet_flips[:pad]]))
+            for e in range(entries):
+                infer_batch(twin.net, x[e * per:(e + 1) * per].to(dev),
+                            f[e * per:(e + 1) * per].to(dev), twin.input_shape,
+                            preprocess=twin.preprocess, decode=twin.decode)
+
+        record_shapes(plain_twin(estimator), key, rows, forwards)
+    del fleet_images, fleet_flips
     torch.cuda.synchronize()
 
     # ---- 4. kernel phase
@@ -1091,7 +1393,7 @@ def main(argv):
             "max_abs_err": err, "model_err": model_err, "magnitude": scale,
             "library_err": lib_err, "bound_f32_ms": bound_ms(flops, nbytes)[0],
             **times(torch, lambda: bn.fused_bottleneck(x, f),
-                    lambda: bn.bottleneck_plain(x, f), library),
+                    lambda: bn.bottleneck_plain(x, f), library, quick=n >= FLEET_QUICK_N),
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}, counts)
 
     def check_merge(key, counts):
@@ -1113,7 +1415,8 @@ def main(argv):
         record("upsample2x_add", {
             "shape": list(key), "max_abs_err": err,
             **times(torch, lambda: kernels.upsample2x_add(inner, skip),
-                    lambda: kernels.upsample2x_add_plain(inner, skip), library),
+                    lambda: kernels.upsample2x_add_plain(inner, skip), library,
+                    quick=n >= FLEET_QUICK_N),
             "bound_ms": b_ms, "bound_by": b_by, "flops": float(skip.numel()),
             "bytes": nbytes}, counts)
 
@@ -1143,7 +1446,7 @@ def main(argv):
             "shape": list(key), "max_abs_err": err,
             **times(torch, lambda: kernels.decode_heatmaps(hm),
                     lambda: kernels.decode_heatmaps_plain(hm),
-                    lambda: torch.max(hm_flat, dim=1)),
+                    lambda: torch.max(hm_flat, dim=1), quick=n >= FLEET_QUICK_N),
             "bound_ms": b_ms, "bound_by": b_by, "flops": float(hm.numel()),
             "bytes": nbytes}, counts)
 
@@ -1199,8 +1502,9 @@ def main(argv):
                "taps": [kh, kw], "plan": list(kernels.preprocess_plan(
                    h_in, w_in, c, h, w, kernels.PREPROCESS_STAGE_ROWS)),
                "max_abs_err": err, "tolerance": tol, "library_err": lib_err,
-               **times(torch, kernel, lambda: plain(**reg), library),
-               "unfused_ms": graph_ms(torch, unfused),
+               **times(torch, kernel, lambda: plain(**reg), library, quick=n >= FLEET_QUICK_N),
+               "unfused_ms": graph_ms(torch, unfused, **({"iters": 3, "replays": 2}
+                                                         if n >= FLEET_QUICK_N else {})),
                "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
         record("preprocess_resize", row, counts)
 
@@ -1402,6 +1706,20 @@ def main(argv):
     # ---- 9. video phase
     video_phase(np, dev, card)
 
+    # ---- 10. fleet phase: (g)-(j)
+    t0 = time.perf_counter()
+    fleet_launches, fleet_lines = fleet_phase(torch, np, dev, card, counters, rows)
+    launches.update(fleet_launches)
+    print(f"informational: the fleet path ({FLEET_COPIES} x {FLEET_T} 7-camera frames, lm "
+          f"calibration per recording): {'; '.join(fleet_lines)}; the phase took "
+          f"{time.perf_counter() - t0:.1f} s; per fleet call on the "
+          f"{mesh_mod.data_mesh().size}-entry mesh (kernel-phase times of its shapes times "
+          f"their launches): " + json.dumps({kernel: {key: row[key] for key in
+                                               ("launches", "ms", "bound_ms", "plain_ms",
+                                                "library_ms")}
+                                             for kernel, row in per_path["fleet"].items()})
+          + f"; on {card}")
+
     entries = []
     for name, (src, replaces, also) in SOURCES.items():
         agg = per_kernel[name]
@@ -1423,7 +1741,7 @@ def main(argv):
                 "arithmetic": "3 TF32 MMAs per product, f32 accumulate"}
                if name == "fused_bottleneck" else {}),
             "per": f"times: one call of each recorded path ({', '.join(EXPECTED)}, ingest, "
-                   f"h36m) "
+                   f"h36m, fleet, fleet2) "
                    f"at T={BATCH_T}, the kernel-phase time of every shape times its launches; "
                    f"launches: every counted run ({', '.join(launches)})",
         }

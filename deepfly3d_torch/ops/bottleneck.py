@@ -330,10 +330,11 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
     if y.numel() == 0:
         return y
     th, tw = choose_tile(n, h, w, cin, cmid, cout, has_proj)
-    rc = _kernel()(
-        x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
-        int(has_proj), th, tw, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):     # the library asks cudaGetDevice for the SM count
+        rc = _kernel()(
+            x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
+            int(has_proj), th, tw, torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _build.check(rc, "bottleneck kernel")
     fused_bottleneck.launches += 1
     return y

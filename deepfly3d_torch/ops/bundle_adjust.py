@@ -181,13 +181,18 @@ def _project_one(cam_vec, K, dist, point, update_intrinsic: bool = False,
 
 
 def _per_observation(fn, cams, pts, K, dist):
-    """``fn(cam_vec, K, dist, point)`` over every (camera, point) -> (C, N, ...)."""
+    """``fn(cam_vec, K, dist, point)`` over every (camera, point): cams (..., C,
+    P), pts (..., N, 3), K (..., C, 3, 3), dist (..., C, 5) -> (..., C, N,
+    ...).  Leading axes are independent members, each camera against its own
+    member's points; a member gets the bits of its own unbatched call."""
+    if cams.dim() > 2:
+        return vmap(lambda c, p, K_, d_: _per_observation(fn, c, p, K_, d_))(cams, pts, K, dist)
     return vmap(lambda c, K_, d_: vmap(lambda p: fn(c, K_, d_, p))(pts))(cams, K, dist)
 
 
 def _residual_grid(cams, pts, K, dist, obs, mask, update_intrinsic=False,
                    update_distort=False):
-    """(C, P), (N, 3) -> masked residuals (C, N, 2)."""
+    """(..., C, P), (..., N, 3) -> masked residuals (..., C, N, 2)."""
     proj = _per_observation(
         lambda c, K_, d_, p: _project_one(c, K_, d_, p, update_intrinsic, update_distort),
         cams, pts, K, dist)
@@ -198,13 +203,68 @@ def _cost(cams, pts, K, dist, obs, mask, update_intrinsic=False, update_distort=
           huber_delta: float = 0.0) -> torch.Tensor:
     """0.5 * sum(r^2), or the Huber objective on each observation's 2-norm
     (quadratic inside ``huber_delta``, linear outside)."""
-    r = _residual_grid(cams, pts, K, dist, obs, mask, update_intrinsic, update_distort)
+    return _objective(_residual_grid(cams, pts, K, dist, obs, mask, update_intrinsic,
+                                     update_distort), huber_delta)
+
+
+def _objective(r, huber_delta: float = 0.0) -> torch.Tensor:
+    """The objective of residuals r (..., C, N, 2), summed over (C, N): 0.5 *
+    sum(r^2), or with ``huber_delta`` the Huber function of each
+    observation's 2-norm."""
     if huber_delta and huber_delta > 0:
-        s = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-30)        # (C, N)
+        s = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-30)        # (..., C, N)
         rho = torch.where(s <= huber_delta, 0.5 * s * s,
                           huber_delta * (s - 0.5 * huber_delta))
-        return torch.sum(rho)
-    return 0.5 * torch.sum(r * r)
+        return torch.sum(rho, dim=(-2, -1))
+    return 0.5 * torch.sum(r * r, dim=(-3, -2, -1))
+
+
+def _damped_step(r, jc, jp, mask, lam, huber_delta: float = 0.0):
+    """One damped Gauss-Newton step with the points eliminated (Schur complement).
+
+    r (..., C, N, 2) residuals, jc (..., C, N, 2, P) and jp (..., C, N, 2, 3)
+    Jacobians, mask (..., C, N); ``lam`` a float, or one damping per leading
+    index.  Any leading axes are independent problems.  -> (delta_c (..., C,
+    P), delta_p (..., N, 3)).
+    """
+    C, P = jc.shape[-4], jc.shape[-1]
+    dtype, dev = jc.dtype, jc.device
+    if isinstance(lam, torch.Tensor):
+        lam = lam.reshape(lam.shape + (1, 1, 1))
+    m = mask[..., None, None]
+    jc, jp = jc * m, jp * m
+    if huber_delta and huber_delta > 0:
+        # masked observations have r == 0: weight 1, harmless
+        s = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-30)
+        sw = torch.sqrt(torch.where(s > huber_delta, huber_delta / s, 1.0))
+        r = r * sw[..., None]
+        jc = jc * sw[..., None, None]
+        jp = jp * sw[..., None, None]
+    eyeP = torch.eye(P, dtype=dtype, device=dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    diag = torch.arange(C, device=dev)
+    # normal-equation blocks
+    U = torch.einsum("...cnri,...cnrj->...cij", jc, jc)                # (C, P, P)
+    V = torch.einsum("...cnri,...cnrj->...nij", jp, jp)                # (N, 3, 3)
+    W = torch.einsum("...cnri,...cnrj->...cnij", jc, jp)               # (C, N, P, 3)
+    g_c = torch.einsum("...cnri,...cnr->...ci", jc, r)                 # (C, P)
+    g_p = torch.einsum("...cnri,...cnr->...ni", jp, r)                 # (N, 3)
+    # Marquardt damping of the block diagonals, and a tiny absolute floor
+    # for blocks no observation reaches
+    U = U + lam * (U * eyeP)
+    V = V + lam * (V * eye3) + 1e-12 * eye3
+    U = U + 1e-12 * eyeP
+    V_inv = torch.linalg.inv(V)
+    WVi = torch.einsum("...cnij,...njk->...cnik", W, V_inv)            # (C, N, P, 3)
+    S = -torch.einsum("...cnik,...dnjk->...cdij", WVi, W)              # (C, C, P, P)
+    S[..., diag, diag, :, :] += U
+    lead = S.shape[:-4]
+    S = S.transpose(-3, -2).reshape(lead + (C * P, C * P))
+    rhs = (g_c - torch.einsum("...cnik,...nk->...ci", WVi, g_p)).reshape(lead + (C * P,))
+    delta_c = torch.linalg.solve(S, -rhs).reshape(lead + (C, P))
+    delta_p = torch.einsum("...nij,...nj->...ni", V_inv,
+                           -(g_p + torch.einsum("...cnij,...ci->...nj", W, delta_c)))
+    return delta_c, delta_p
 
 
 def _lm_solve(cams0, pts0, K, dist, obs, mask, max_iters: int = 30,
@@ -218,46 +278,13 @@ def _lm_solve(cams0, pts0, K, dist, obs, mask, max_iters: int = 30,
     each observation's residual and Jacobians by sqrt(min(1, delta / |r|))
     in every step (IRLS), and a step is accepted on the true Huber objective.
     """
-    C, P = cams0.shape
-    dtype, dev = cams0.dtype, cams0.device
     flags = (update_intrinsic, update_distort)
     jac = jacfwd(lambda c, K_, d_, p: _project_one(c, K_, d_, p, *flags), argnums=(0, 3))
-    eyeP = torch.eye(P, dtype=dtype, device=dev)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    diag = torch.arange(C, device=dev)
 
     def step(cams, pts, lam):
         r = _residual_grid(cams, pts, K, dist, obs, mask, *flags)      # (C, N, 2)
         jc, jp = _per_observation(jac, cams, pts, K, dist)              # (C, N, 2, P|3)
-        m = mask[..., None, None]
-        jc, jp = jc * m, jp * m
-        if huber_delta and huber_delta > 0:
-            # masked observations have r == 0: weight 1, harmless
-            s = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-30)
-            sw = torch.sqrt(torch.where(s > huber_delta, huber_delta / s, 1.0))
-            r = r * sw[..., None]
-            jc = jc * sw[..., None, None]
-            jp = jp * sw[..., None, None]
-        # normal-equation blocks
-        U = torch.einsum("cnri,cnrj->cij", jc, jc)                     # (C, P, P)
-        V = torch.einsum("cnri,cnrj->nij", jp, jp)                     # (N, 3, 3)
-        W = torch.einsum("cnri,cnrj->cnij", jc, jp)                    # (C, N, P, 3)
-        g_c = torch.einsum("cnri,cnr->ci", jc, r)                      # (C, P)
-        g_p = torch.einsum("cnri,cnr->ni", jp, r)                      # (N, 3)
-        # Marquardt damping of the block diagonals, and a tiny absolute floor
-        # for blocks no observation reaches
-        U = U + lam * (U * eyeP)
-        V = V + lam * (V * eye3) + 1e-12 * eye3
-        U = U + 1e-12 * eyeP
-        V_inv = torch.linalg.inv(V)
-        WVi = torch.einsum("cnij,njk->cnik", W, V_inv)                 # (C, N, P, 3)
-        S = -torch.einsum("cnik,dnjk->cdij", WVi, W)                   # (C, C, P, P)
-        S[diag, diag] += U
-        S = S.permute(0, 2, 1, 3).reshape(C * P, C * P)
-        rhs = (g_c - torch.einsum("cnik,nk->ci", WVi, g_p)).reshape(C * P)
-        delta_c = torch.linalg.solve(S, -rhs).reshape(C, P)
-        delta_p = torch.einsum("nij,nj->ni", V_inv,
-                               -(g_p + torch.einsum("cnij,ci->nj", W, delta_c)))
+        delta_c, delta_p = _damped_step(r, jc, jp, mask, lam, huber_delta)
         return cams + delta_c, pts + delta_p
 
     def cost_of(cams, pts):
@@ -276,6 +303,54 @@ def _lm_solve(cams0, pts0, K, dist, obs, mask, max_iters: int = 30,
         lam = lam * 0.3 if accept else lam * 4.0
         done = accept and rel_drop < 1e-10
         it += 1
+    return cams, pts, cost0, cost, it
+
+
+def _lm_solve_batched(cams0, pts0, K, dist, obs, mask, max_iters: int = 30,
+                      update_intrinsic: bool = False, update_distort: bool = False,
+                      huber_delta: float = 0.0):
+    """B independent ``_lm_solve``s in one batched solve on the inputs' device.
+
+    cams0 (B, C, P), pts0 (B, N, 3), K (B, C, 3, 3), dist (B, C, 5), obs
+    (B, C, N, 2), mask (B, C, N).  Returns (cams, pts, cost0 (B,), cost (B,),
+    iters (B,)), each member what its own ``_lm_solve`` returns (up to the
+    order of the sums): what ``jax.vmap`` of the JAX ``lax.while_loop``
+    computes.  Every member steps while any runs; a member whose own
+    condition has ended (converged, ``max_iters`` or the damping at 1e10)
+    keeps its state, its damping and its iteration count.  One host read per
+    iteration: whether any member still runs.
+    """
+    B = cams0.shape[0]
+    dtype, dev = cams0.dtype, cams0.device
+    flags = (update_intrinsic, update_distort)
+    jac = jacfwd(lambda c, K_, d_, p: _project_one(c, K_, d_, p, *flags), argnums=(0, 3))
+
+    def cost_of(cams, pts):
+        return _cost(cams, pts, K, dist, obs, mask, *flags, huber_delta=huber_delta)
+
+    cams, pts = cams0, pts0
+    cost0 = cost = cost_of(cams, pts)
+    lam = torch.full((B,), 1e-4, dtype=dtype, device=dev)
+    it = torch.zeros(B, dtype=torch.int64, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    while True:
+        running = ~done & (it < max_iters) & (lam < 1e10)
+        if not bool(running.any()):
+            break
+        r = _residual_grid(cams, pts, K, dist, obs, mask, *flags)      # (B, C, N, 2)
+        jc, jp = _per_observation(jac, cams, pts, K, dist)              # (B, C, N, 2, P|3)
+        delta_c, delta_p = _damped_step(r, jc, jp, mask, lam, huber_delta)
+        new_cams, new_pts = cams + delta_c, pts + delta_p
+        new_cost = cost_of(new_cams, new_pts)
+        accept = new_cost < cost
+        rel_drop = (cost - new_cost) / cost.clamp_min(1e-30)
+        take = running & accept
+        cams = torch.where(take[:, None, None], new_cams, cams)
+        pts = torch.where(take[:, None, None], new_pts, pts)
+        cost = torch.where(take, new_cost, cost)
+        lam = torch.where(running, torch.where(accept, lam * 0.3, lam * 4.0), lam)
+        done = torch.where(running, accept & (rel_drop < 1e-10), done)
+        it = it + running.to(it.dtype)
     return cams, pts, cost0, cost, it
 
 

@@ -1,7 +1,7 @@
 """Rig registration: canonicalize camera frames against the calibration session.
 
-Counterpart of ``deepfly3d_tpu/ops/canonicalize.py`` (template I/O and the
-batch-level device path).  Per camera, an integer translation (±8 px on both
+Counterpart of ``deepfly3d_tpu/ops/canonicalize.py`` (building and I/O of
+the template, and the batch-level device path).  Per camera, an integer translation (±8 px on both
 axes) is found by correlating the batch-averaged row and column intensity
 profiles against the rig template's zero-mean profiles, and a global gain
 as the mean-intensity ratio, snapped to exactly 1 inside a ±1.5% dead zone.
@@ -44,6 +44,28 @@ class RigTemplate(NamedTuple):
     @property
     def image_hw(self) -> Tuple[int, int]:
         return self.row_profile.shape[1], self.col_profile.shape[1]
+
+
+def build_template(frames: np.ndarray) -> RigTemplate:
+    """(C, T, H, W, 3) uint8 calibration frames -> RigTemplate (the JAX
+    package's float64 means, stored as float32)."""
+    f = frames.astype(np.float64)
+    return RigTemplate(
+        row_profile=f.mean(axis=(1, 3, 4)).astype(np.float32),
+        col_profile=f.mean(axis=(1, 2, 4)).astype(np.float32),
+        mean=f.reshape(f.shape[0], -1).mean(axis=1).astype(np.float32),
+    )
+
+
+def save_template(path: str, tpl: RigTemplate, source: str = "") -> None:
+    """Write ``tpl`` as ``load_template`` (in either package) reads it."""
+    np.savez(
+        path,
+        row_profile=tpl.row_profile.astype(np.float32),
+        col_profile=tpl.col_profile.astype(np.float32),
+        mean=tpl.mean.astype(np.float32),
+        source=np.str_(source),
+    )
 
 
 def load_template(path: str) -> RigTemplate:

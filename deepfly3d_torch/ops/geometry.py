@@ -111,19 +111,24 @@ def _dlt_normal(obs_xy: torch.Tensor, P: torch.Tensor, mask: torch.Tensor) -> to
     return torch.where(valid, point, torch.zeros_like(point))
 
 
-def _dlt_svd(obs_xy: torch.Tensor, P: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Masked homogeneous DLT of B points, the JAX ``method="svd"`` path.
+def _dlt_homogeneous(obs_xy: torch.Tensor, P: torch.Tensor, mask: torch.Tensor,
+                     method: str = "svd") -> torch.Tensor:
+    """Masked homogeneous DLT of B points, the JAX ``"svd"`` and ``"eigh"`` paths.
 
-    obs_xy (B, C, 2) pixels, P (C, 3, 4), mask (B, C) -> (B, 3): the right
-    singular vector of the smallest singular value of each (2C, 4) matrix
-    (x rows, then y rows; unseen cameras' rows zeroed) over its w; zeros
-    where fewer than two cameras see the point.
+    obs_xy (B, C, 2) pixels, P (C, 3, 4), mask (B, C) -> (B, 3): the null
+    vector of each (2C, 4) matrix A (x rows, then y rows; unseen cameras'
+    rows zeroed) over its w, zeros where fewer than two cameras see the
+    point.  ``"svd"``: the right singular vector of A's smallest singular
+    value; ``"eigh"``: the eigenvector of A^T A's smallest eigenvalue.
     """
     m = mask[..., None].to(obs_xy.dtype)
     rows_x = (obs_xy[..., 0:1] * P[None, :, 2, :] - P[None, :, 0, :]) * m
     rows_y = (obs_xy[..., 1:2] * P[None, :, 2, :] - P[None, :, 1, :]) * m
     A = torch.cat([rows_x, rows_y], dim=1)                    # (B, 2C, 4)
-    X = torch.linalg.svd(A, full_matrices=True).Vh[:, -1]     # (B, 4)
+    if method == "eigh":
+        X = torch.linalg.eigh(A.transpose(1, 2) @ A).eigenvectors[..., 0]   # (B, 4)
+    else:
+        X = torch.linalg.svd(A, full_matrices=True).Vh[:, -1]
     point = X[:, :3] / X[:, 3:]
     valid = (mask.sum(dim=1) >= 2)[:, None]
     return torch.where(valid, point, torch.zeros_like(point))
@@ -131,18 +136,18 @@ def _dlt_svd(obs_xy: torch.Tensor, P: torch.Tensor, mask: torch.Tensor) -> torch
 
 def triangulate(points2d_rowcol: torch.Tensor, R: torch.Tensor, tvec: torch.Tensor,
                 intr: torch.Tensor, image_shape: Tuple[int, int],
-                method: str = "normal", distort: Optional[torch.Tensor] = None) -> torch.Tensor:
+                method: str = "svd", distort: Optional[torch.Tensor] = None) -> torch.Tensor:
     """DLT-triangulate every (frame, joint): (C, T, J, 2) -> (T, J, 3).
 
-    Zeros where fewer than two cameras see the joint.  ``method``: "normal"
-    (closed form, the float32 pipelines) or "svd" (run it in float64 for the
-    reference's 1e-5).  ``distort``: optional (C, 5) OpenCV coefficients;
-    the pixel observations are undistorted first (identity for zeros).  The
-    JAX "eigh" method is not ported.
+    Zeros where fewer than two cameras see the joint.  ``method``: "svd"
+    (the default, as in the JAX package; run it in float64 for the
+    reference's 1e-5), "eigh" (the smallest eigenvector of A^T A) or
+    "normal" (closed form, the float32 pipelines).  ``distort``: optional
+    (C, 5) OpenCV coefficients; the pixel observations are undistorted first
+    (identity for zeros).
     """
-    if method not in ("normal", "svd"):
-        raise NotImplementedError(f"triangulate method {method!r}: 'normal' and 'svd' "
-                                  "are ported (ROADMAP.md Queue 1 item 3)")
+    if method not in ("normal", "svd", "eigh"):
+        raise ValueError(f"unknown triangulate method {method!r} (normal, svd or eigh)")
     C, T, J, _ = points2d_rowcol.shape
     P = projection_matrices(R, tvec, intr)
     obs = rowcol_to_pixel_xy(points2d_rowcol, image_shape)
@@ -151,8 +156,9 @@ def triangulate(points2d_rowcol: torch.Tensor, R: torch.Tensor, tvec: torch.Tens
         obs = _undistort_pixels(obs, intr, distort)
     obs_flat = obs.reshape(C, T * J, 2).transpose(0, 1)     # (TJ, C, 2)
     mask_flat = mask.reshape(C, T * J).T                    # (TJ, C)
-    dlt = _dlt_normal if method == "normal" else _dlt_svd
-    return dlt(obs_flat, P, mask_flat).reshape(T, J, 3)
+    if method == "normal":
+        return _dlt_normal(obs_flat, P, mask_flat).reshape(T, J, 3)
+    return _dlt_homogeneous(obs_flat, P, mask_flat, method).reshape(T, J, 3)
 
 
 def distort_points(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,11 @@ Counterpart of ``deepfly3d_tpu/ops/pallas/kernels.py``:
   per-image integer roll and gain correction around it (``csrc/preprocess.cu``).
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs the
-plain PyTorch version on a CPU tensor.
+plain PyTorch version on a CPU tensor.  It launches under
+``torch.cuda.device(<the input's device>)``: a launch goes to the calling
+thread's current device, and the libraries read its SM count and
+shared-memory opt-in through ``cudaGetDevice``; on a second card that need
+not be the input's device.
 """
 
 from __future__ import annotations
@@ -66,8 +70,9 @@ def upsample2x_add(inner: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     fn = _build.library("upsample_add").df3d_upsample2x_add
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(inner.data_ptr(), skip.data_ptr(), out.data_ptr(), n, h, w, c,
-            torch.cuda.current_stream(inner.device).cuda_stream)
+    with torch.cuda.device(inner.device):      # a launch goes to the current device
+        rc = fn(inner.data_ptr(), skip.data_ptr(), out.data_ptr(), n, h, w, c,
+                torch.cuda.current_stream(inner.device).cuda_stream)
     _build.check(rc, "upsample2x_add kernel")
     upsample2x_add.launches += 1
     return out
@@ -143,9 +148,10 @@ def decode_heatmaps(heatmaps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     splits = decode_splits(n, h * w)
     # the first pass's partial (value, index) pairs: values in the first half
     part = torch.empty((2, n, splits, k), device=dev, dtype=torch.int32)
-    rc = _decode_kernel()(heatmaps.data_ptr(), pts.data_ptr(), conf.data_ptr(), part.data_ptr(),
-                          part.data_ptr() + part.numel() * 2, n, h, w, k, splits,
-                          torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = _decode_kernel()(heatmaps.data_ptr(), pts.data_ptr(), conf.data_ptr(),
+                              part.data_ptr(), part.data_ptr() + part.numel() * 2, n, h, w, k,
+                              splits, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "decode kernel")
     decode_heatmaps.launches += 1
     return pts, conf
@@ -275,10 +281,12 @@ def preprocess_resize(frames_u8: torch.Tensor, flip: torch.Tensor, out_shape: Tu
     fn = _build.library("preprocess").df3d_preprocess_resize
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(frames_u8.data_ptr(), flip.data_ptr(), dy, dx, 0 if gain is None else gain.data_ptr(),
-            sh.data_ptr(), wh.data_ptr(), sw.data_ptr(), ww.data_ptr(), out.data_ptr(),
-            n, h_in, w_in, c, h_out, w_out, wh.shape[1], ww.shape[1], rows, stage_rows,
-            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):          # the library asks cudaGetDevice for the SM count
+        rc = fn(frames_u8.data_ptr(), flip.data_ptr(), dy, dx,
+                0 if gain is None else gain.data_ptr(), sh.data_ptr(), wh.data_ptr(),
+                sw.data_ptr(), ww.data_ptr(), out.data_ptr(), n, h_in, w_in, c, h_out, w_out,
+                wh.shape[1], ww.shape[1], rows, stage_rows,
+                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "preprocess kernel")
     preprocess_resize.launches += 1
     return out

@@ -1,10 +1,11 @@
-"""Per-stage wall-clock timing (``StageTimer``).
+"""Per-stage wall-clock timing (``StageTimer``) and device traces (``trace_to``).
 
-Counterpart of ``deepfly3d_tpu/utils/profiling.py::StageTimer``: the host
-clock per named stage, with derived frames per second.  Work queued on a
-card is asynchronous, so a timer given a CUDA ``device`` synchronizes it at
-the end of every stage: a stage's time then includes the device work it
-queued.
+Counterpart of ``deepfly3d_tpu/utils/profiling.py``: the host clock per
+named stage, with derived frames per second.  Work queued on a card is
+asynchronous, so a timer given a CUDA ``device`` synchronizes it at the end
+of every stage: a stage's time then includes the device work it queued.
+``trace_to`` writes a ``torch.profiler`` trace where the JAX package writes
+a ``jax.profiler`` one.
 """
 
 from __future__ import annotations
@@ -58,3 +59,23 @@ class StageTimer:
 
     def report(self, frames: Optional[int] = None) -> str:
         return json.dumps(self.metrics(frames), indent=2)
+
+
+@contextlib.contextmanager
+def trace_to(logdir: str):
+    """Capture a ``torch.profiler`` trace of the enclosed region into
+    ``logdir`` as a Chrome trace (``trace_<pid>_<ns>.json``): CPU activity,
+    and CUDA activity where a card is present."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(
+        os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -212,7 +212,9 @@ def test_port_core_imports_no_jax():
             "deepfly3d_torch.models.decode, deepfly3d_torch.viz.video, "
             "deepfly3d_torch.viz.plot2d, deepfly3d_torch.viz.plot3d, "
             "deepfly3d_torch.viz.raster3d, deepfly3d_torch.skeletons.h36m, "
-            "deepfly3d_torch.utils.synthetic, deepfly3d_torch.config; "
+            "deepfly3d_torch.utils.synthetic, deepfly3d_torch.config, "
+            "deepfly3d_torch.parallel, deepfly3d_torch.parallel.mesh, "
+            "deepfly3d_torch.parallel.pipeline, deepfly3d_torch.parallel.fleet; "
             "assert 'jax' not in sys.modules; "
             "assert not any(m.startswith('deepfly3d_tpu') for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)

@@ -128,10 +128,11 @@ def test_triangulate_normal_matches_jax(golden_calib):
 
 
 def test_triangulate_rejects_other_methods():
-    with pytest.raises(NotImplementedError):
+    # "normal", "svd" and "eigh" are the JAX package's methods, all ported
+    with pytest.raises(ValueError, match="unknown triangulate method"):
         port_geo.triangulate(torch.zeros(7, 1, 38, 2), torch.zeros(7, 3, 3),
                              torch.zeros(7, 3), torch.zeros(7, 3, 3), (960, 480),
-                             method="eigh")
+                             method="qr")
 
 
 @pytest.fixture(scope="module")

@@ -424,3 +424,93 @@ def test_pipeline_matches_plain_twin(path):
     assert ((p3d - q3d).abs().max() / q3d.abs().max()).item() <= 1e-5
     if path == "cascade":
         assert torch.equal(pipe.last_repaired, twin.last_repaired)
+
+
+def test_kernel_wrappers_launch_under_their_input_device(blocks, monkeypatch):
+    """Each wrapper enters ``torch.cuda.device(<its input's device>)`` around
+    its launch: the libraries take the device from ``cudaGetDevice``."""
+    dev = _card()
+    real = torch.cuda.device
+    entered = []
+
+    class Spy:                  # PyTorch itself enters torch.cuda.device(None) too
+        def __init__(self, device):
+            self.device, self.inner = device, real(device)
+
+        def __enter__(self):
+            if self.device is not None:
+                entered.append(torch.device(self.device))
+            return self.inner.__enter__()
+
+        def __exit__(self, *exc):
+            return self.inner.__exit__(*exc)
+
+    monkeypatch.setattr(torch.cuda, "device", Spy)
+    g = torch.Generator().manual_seed(5)
+    folded = {k: v.to(dev) for k, v in bn.add_packed(blocks["stem_res2"]).items()}
+    calls = {
+        bn.fused_bottleneck: lambda: bn.fused_bottleneck(
+            torch.randn((2, 8, 16, 96), generator=g).to(dev), folded),
+        kernels.upsample2x_add: lambda: kernels.upsample2x_add(
+            torch.randn((2, 4, 8, 96), generator=g).to(dev),
+            torch.randn((2, 8, 16, 96), generator=g).to(dev)),
+        kernels.decode_heatmaps: lambda: kernels.decode_heatmaps(
+            torch.randn((2, 16, 32, 19), generator=g).to(dev)),
+        kernels.preprocess_resize: lambda: kernels.preprocess_resize(
+            torch.randint(0, 256, (2, 48, 96, 3), generator=g, dtype=torch.uint8).to(dev),
+            torch.tensor([False, True], device=dev), (16, 32)),
+    }
+    for wrapper, call in calls.items():
+        entered.clear()
+        before = wrapper.launches
+        call()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert dev in entered and all(d == dev for d in entered), (wrapper.__name__, entered)
+
+
+def test_batched_lm_on_card_matches_cpu():
+    """The committed 8-member batched solve (parallel_lm_b8.npz) on the card
+    in float64 against the CPU: the same iteration counts, cameras within
+    1e-10 of the largest camera parameter, costs within 1e-9 relative."""
+    dev = _card()
+    from deepfly3d_torch.parallel import pipeline
+
+    with np.load(os.path.join(REPO, "deepfly3d_torch", "data", "parallel_lm_b8.npz")) as z:
+        ref = {k: z[k] for k in z.files}
+    B = ref["cams0"].shape[0]
+    args = [ref["cams0"], ref["pts0"]] + [np.broadcast_to(ref[k], (B,) + ref[k].shape)
+                                          for k in ("K", "dist", "obs", "mask")]
+    iters = int(ref["max_iters"])
+    card = pipeline.make_batched_calibration((960, 480), max_iters=iters)(*args)
+    cpu = pipeline.make_batched_calibration((960, 480), max_iters=iters, device="cpu")(*args)
+    assert card[0].device == dev and card[0].dtype == torch.float64
+    assert torch.equal(card[4].cpu(), cpu[4])
+    scale = cpu[0].abs().max().item()
+    assert (card[0].cpu() - cpu[0]).abs().max().item() <= 1e-10 * scale
+    np.testing.assert_allclose(card[3].cpu().numpy(), cpu[3].numpy(), rtol=1e-9)
+
+
+def test_two_entry_mesh_infer_matches_one_forward():
+    """make_sharded_infer over two entries of the one card (golden frame 0 of
+    7 cameras, padded to 8): one forward per entry (31 bottleneck launches
+    each), points within 1e-6 and conf within 1e-5 of one forward over all 8."""
+    dev = _card()
+    from deepfly3d_torch.models.fused_inference import FoldedHourglass, fold_hourglass
+    from deepfly3d_torch.models.inference import infer_batch
+    from deepfly3d_torch.parallel import mesh, pipeline
+
+    with np.load(os.path.join(REPO, "deepfly3d_torch", "data", "golden_t0.npz")) as z:
+        images = z["frames"]
+    images = np.concatenate([images, images[:1]])
+    flip = np.array([False] * 4 + [True] * 3 + [False])
+    variables, spec = load_weights(CHECKPOINT)
+    infer = pipeline.make_sharded_infer(spec, mesh.data_mesh(devices=[dev, dev]), (256, 512))
+    before = bn.fused_bottleneck.launches
+    pts, conf = infer(variables, images, flip)
+    assert bn.fused_bottleneck.launches == before + 2 * 31
+    net = FoldedHourglass(fold_hourglass(variables, spec), spec).to(dev).eval()
+    want = infer_batch(net, torch.from_numpy(images).to(dev), torch.from_numpy(flip).to(dev),
+                       (256, 512))
+    np.testing.assert_allclose(pts.numpy(), want[0].cpu().numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(conf.numpy(), want[1].cpu().numpy(), atol=1e-5, rtol=0)

@@ -385,19 +385,24 @@ def _named_item(message):
 
 def test_not_ported_messages_name_current_roadmap_items(working_images, golden_2d):
     """What still raises names a Queue 1 item, and the item is about it.
-    Since the video flags, ``plot_2d`` and the h36m profile are ported, that
-    is the ``eigh`` triangulation alone."""
+    Since the video flags, ``plot_2d``, the h36m profile and the ``eigh``
+    triangulation are ported, that is the sharded training step alone."""
     items = _queue1_items()
     assert items
     assert not hasattr(cli, "_NOT_PORTED")
     assert _seeded(working_images, golden_2d).plot_2d(0, 0).shape == (480, 960, 3)
     from deepfly3d_torch.config import h36m_config
+    from deepfly3d_torch.models.hourglass import HourglassSpec
     from deepfly3d_torch.ops import geometry
+    from deepfly3d_torch.parallel import mesh, pipeline
 
     assert h36m_config().num_cameras == 4
-    for call, keyword in ((lambda: geometry.triangulate(
-                              torch.zeros(7, 1, 38, 2), torch.zeros(7, 3, 3), torch.zeros(7, 3),
-                              torch.zeros(7, 3, 3), (960, 480), method="eigh"), "eigh"),):
+    assert geometry.triangulate(torch.zeros(7, 1, 38, 2), torch.eye(3).repeat(7, 1, 1),
+                                torch.ones(7, 3), torch.eye(3).repeat(7, 1, 1), (960, 480),
+                                method="eigh").shape == (1, 38, 3)
+    for call, keyword in ((lambda: pipeline.make_sharded_train_step(
+                              HourglassSpec(), mesh.data_mesh(devices=["cpu"])),
+                           "make_sharded_train_step"),):
         with pytest.raises(NotImplementedError) as e:
             call()
         assert keyword in items[_named_item(str(e.value))]
