@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference paths, its CLI and its fleet path on one CUDA card.
+"""Drive the PyTorch port's inference paths, its CLI, its fleet path and its trainer on one CUDA card.
 
     python3 chip_smoke.py                  # from the root of a checkout
-    python3 chip_smoke.py --profile FILE   # also a torch.profiler table per path
+    python3 chip_smoke.py --profile FILE   # also a torch.profiler table per path and of
+                                           # one training step
 
 Phases (any failure raises, so the script exits non-zero and prints no
 result line):
@@ -104,7 +105,26 @@ result line):
    fill the card, the batched solve against 8 unbatched ones (each timed
    alone after a warm-up) and the fleet call's kernel column
    (informational).  A mesh over several
-   cards runs the same code; one card cannot show that it overlaps them.
+   cards runs the same code; one card cannot show that it overlaps them;
+11. training phase (``models/train.py``, ``train_fly_weights``,
+   ``parallel.make_sharded_train_step``): (k) golden frame 0 of the 7
+   cameras through the trainable network's eval forward (cuDNN, TF32 off)
+   against the folded forward through the kernels: heatmaps within 5e-5 of
+   their magnitude, conf within 2e-5, the same cells; (o) the conv
+   checkpoint read as one converted from torch (``proj_from_raw``) at T=8
+   through the bottleneck kernel's raw-projection instances, with every
+   launch count set to 0 just before (31 / 8 / 1 / 1), against its plain
+   twin (its shapes join the kernel phase, with the raw instances at the
+   h36m width and the 64-wide one); (l) 5 frozen-statistics Adam steps of
+   the conv checkpoint on golden frame 0 of 4 cameras against the JAX
+   package's trajectory (``deepfly3d_torch/data/train_fly_k5.npz``, the CPU
+   test's tolerances); (m) ``train_fly_weights.main`` with ``--resume --steps
+   200 --batch-size 24`` from a copy of the conv checkpoint in a temporary
+   folder, every count set to 0 just before (its two evals run the serving
+   path: 62 / 16 / 2 / 3 launches), steps/s, images/s, peak memory and the
+   golden errors (informational); (n) ``make_sharded_train_step`` at full
+   width, batch 8, on one entry and on two entries of this card, against
+   each other and the one-device step (losses rtol 1e-5, parameters 1e-5).
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 """
@@ -113,6 +133,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import pickle
@@ -121,6 +142,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -187,6 +209,21 @@ FLEET_QUICK_N = 100      # kernel-phase shapes of >= this many images are timed 
 TIMES = ("ms", "plain_ms", "library_ms", "eager_ms", "library_eager_ms", "bound_ms",
          "bound_f32_ms", "unfused_ms")
 CELL_ATOL = 1e-6        # same argmax cell: cells are >= 1/128 apart
+# the training phase: (l) the frozen-statistics fine-tune (the recipe's last
+# phase, lr 1e-4) of the conv checkpoint for 5 full-batch steps on golden
+# frame 0 of 4 cameras (4 and 5 flipped) against the JAX package's trajectory
+# (python tests/test_torch_train.py --write); (m) the training script
+K5_REF = os.path.join("deepfly3d_torch", "data", "train_fly_k5.npz")
+K5_CAMERAS = (0, 1, 4, 5)
+K5_LR = 1e-4
+K5_LEAVES = ("params/stem_conv/kernel", "params/stem_bn/scale", "params/stem_res1/proj/kernel",
+             "params/hg1/up_d4_0/conv2/kernel", "params/feat_bn1/bias", "params/score1/kernel",
+             "params/score1/bias", "batch_stats/stem_bn/var", "batch_stats/hg0/skip_d4_0/bn1/var",
+             "batch_stats/feat_bn1/var")
+TRAIN_HM_TOL = 5e-5     # trainable (cuDNN f32) vs folded (kernels) heatmaps, of their magnitude
+SHARDED_BATCH = 8       # (n) the data-parallel step at full width, 2 steps
+TRAIN_BATCH = 24        # the script's batch: (m) and --profile's training step
+SCRIPT_ARGS = ["--resume", "--steps", "200", "--batch-size", str(TRAIN_BATCH)]
 SOURCES = {
     "fused_bottleneck": ("deepfly3d_torch/ops/csrc/bottleneck.cu",
                          "deepfly3d_tpu/ops/pallas/bottleneck.py:433",
@@ -310,7 +347,8 @@ def record_shapes(twin, path, rows, run):
 
     def block(x, folded):
         note("fused_bottleneck", tuple(x.shape) + (folded["w1"].shape[1],
-                                                   folded["w3"].shape[1], "wp" in folded),
+                                                   folded["w3"].shape[1], "wp" in folded,
+                                                   "proj_raw" in folded),
              folded)
         return bn.bottleneck_plain(x, folded)
 
@@ -1231,6 +1269,338 @@ def fleet_phase(torch, np, dev, card, counters, rows):
     return launches, lines
 
 
+def k5_batch(np):
+    """(l)'s inputs: golden frame 0 of the K5_CAMERAS (uint8), their flips,
+    and the golden targets at 64x128 (sigma 1.25, the script's)."""
+    from deepfly3d_torch.models import train as train_mod
+
+    with np.load(os.path.join(ROOT, "deepfly3d_torch", "data", "golden_t0.npz")) as z:
+        frames, order = z["frames"], list(z["camera_ordering"])
+    with open(os.path.join(ROOT, "tests", "data", "reference_df3d", "df3d_result_2d.pkl"),
+              "rb") as fh:
+        golden = pickle.load(fh)
+    coords, peaks, known = train_mod.golden_training_targets(
+        golden["points2d"], golden["heatmap_confidence"], order)
+    cams = list(K5_CAMERAS)
+    flips = np.asarray([order.index(c) > 3 for c in cams])
+    targets, cells = train_mod.render_target_heatmaps(
+        coords[cams, 0], peaks[cams, 0], known[cams, 0], (64, 128), sigma=1.25)
+    return frames[cams], flips, targets, cells, peaks[cams, 0].astype(np.float32)
+
+
+def _leaf(np, tree, path):
+    for part in path.split("/"):
+        tree = tree[part]
+    return np.asarray(tree)
+
+
+def k5_trajectory(torch, np, device):
+    """(l): the port's 5 steps (preprocess kernel on a card) -> (per-step
+    [loss, mse, peak_err], {leaf: array})."""
+    from deepfly3d_torch.models import hourglass as hg
+    from deepfly3d_torch.models import train as train_mod
+    from deepfly3d_torch.ops import image as image_ops
+
+    frames, flips, targets, cells, peaks = k5_batch(np)
+    variables, spec = hg.load_weights(os.path.join(ROOT, "weights", CONV))
+    x = image_ops.preprocess_frames(torch.from_numpy(frames).to(device),
+                                    torch.from_numpy(flips).to(device), (256, 512))
+    net = hg.trainable(variables, spec, device=device)
+    tx = train_mod.adam(K5_LR)
+    opt_state = tx(net.parameters())
+    epoch = train_mod.make_train_epoch(spec, tx, 100.0, 1, len(frames), freeze_bn=True)
+    rng = torch.Generator(device=device).manual_seed(0)
+    losses = [epoch(net, opt_state, rng, x, torch.from_numpy(targets).to(device),
+                    torch.from_numpy(cells).long().to(device), torch.from_numpy(peaks).to(device))
+              for _ in range(5)]
+    out = hg.module_variables(net)
+    return np.asarray(losses), {k: _leaf(np, out, k) for k in K5_LEAVES}
+
+
+def k5_check(np, losses, leaves, ref):
+    """(l)'s tolerances, the CPU test's (tests/test_torch_train.py).
+
+    Adam divides each element's step by the root of its squared gradient, so
+    an element whose gradient is at rounding level steps by ~lr in a
+    direction that rounding decides, in either package and on either device
+    (ROADMAP Queue 3).  Hence, after the first update, a share of the
+    parameters differs by up to lr per step and the losses follow them.
+    Losses ([loss, mse, peak_err] per step): the first step's, computed at
+    the checkpoint, rtol 1e-4 (each package's resize, 2e-6 apart, and f32
+    convolutions in another order: 5.2e-5 measured on the CPU, 5.0e-5 on the
+    card); mse after an update rtol 1e-3 (CPU 5.2e-5, card 2.1e-4); loss and
+    peak_err after an update rtol 5e-3, as they follow single cells, the
+    worst offender and the maximum (CPU 1.1e-4, card 2.0e-3).  Parameters:
+    every element within 2 * lr per step (Adam's step), and at most 1% of a
+    leaf's elements beyond 2e-5 of its largest magnitude (CPU 0.01%, card
+    0.3%).  The frozen batch statistics are unchanged: equal.  Card figures:
+    NVIDIA H100 80GB HBM3, 700 W.  Raises AssertionError listing every
+    violation.  -> the largest differences, for the record.
+    """
+    want = ref["losses"]
+    rel = np.abs(losses - want) / np.abs(want)
+    worst = {"first_step_rel": float(rel[0].max()), "mse_rel": float(rel[1:, 1].max()),
+             "loss_peak_rel": float(rel[1:][:, [0, 2]].max())}
+    bad = [f"losses {name} {worst[name]}" for name, tol in
+           (("first_step_rel", 1e-4), ("mse_rel", 1e-3), ("loss_peak_rel", 5e-3))
+           if not worst[name] <= tol]
+    for k in K5_LEAVES:
+        if k.startswith("batch_stats/"):
+            if not np.array_equal(leaves[k], ref[k]):
+                bad.append(f"{k} changed")
+            continue
+        diff = np.abs(leaves[k] - ref[k])
+        beyond = int((diff > 2e-5 * max(1.0, float(np.abs(ref[k]).max()))).sum())
+        worst[k] = [float(diff.max()), beyond, int(diff.size)]
+        if diff.max() > 2 * K5_LR * 5 or beyond > 1e-2 * diff.size:
+            bad.append(f"{k}: max diff {diff.max()}, {beyond} of {diff.size} beyond 2e-5")
+    if bad:
+        raise AssertionError(f"5-step trajectory off JAX's: {bad}; measured {worst}")
+    return worst
+
+
+def seeded_block(np, cin, cmid, cout):
+    """A projecting block's params and batch statistics from seed 0."""
+    rng = np.random.default_rng(0)
+
+    def bn(c):
+        return ({"scale": rng.uniform(0.5, 1.5, c), "bias": 0.1 * rng.standard_normal(c)},
+                {"mean": 0.1 * rng.standard_normal(c), "var": rng.uniform(0.5, 1.5, c)})
+
+    def conv(k, ci, co):
+        return {"kernel": rng.standard_normal((k, k, ci, co)) / np.sqrt(k * k * ci),
+                "bias": 0.1 * rng.standard_normal(co)}
+
+    (p1, s1), (p2, s2), (p3, s3) = bn(cin), bn(cmid), bn(cmid)
+    params = {"bn1": p1, "bn2": p2, "bn3": p3, "conv1": conv(1, cin, cmid),
+              "conv2": conv(3, cmid, cmid), "conv3": conv(1, cmid, cout),
+              "proj": conv(1, cin, cout)}
+    return params, {"bn1": s1, "bn2": s2, "bn3": s3}
+
+
+def raw_block(np, torch, dev, params, stats):
+    """One block's fold with the raw-input projection, packed, on ``dev``."""
+    from deepfly3d_torch.ops import bottleneck as bn
+
+    f = bn.add_packed(bn.fold_bottleneck(params, stats, proj_from_raw=True))
+    return {k: v.to(dev) for k, v in f.items()}
+
+
+def train_phase(torch, np, dev, card, counters, converted):
+    """(k)-(o) on the card; ``converted`` is the conv checkpoint read as a
+    checkpoint converted from torch (proj_from_raw), as a pipeline.
+    -> ({path: launches}, informational lines)."""
+    import io
+
+    from deepfly3d_torch import train_fly_weights
+    from deepfly3d_torch.config import WEIGHTS_DIR
+    from deepfly3d_torch.models import hourglass as hg
+    from deepfly3d_torch.models import train as train_mod
+    from deepfly3d_torch.models.fused_inference import FoldedHourglass, fold_hourglass
+    from deepfly3d_torch.ops import image as image_ops
+    from deepfly3d_torch.ops import kernels
+    from deepfly3d_torch.parallel import mesh as mesh_mod
+    from deepfly3d_torch.parallel import pipeline as par
+    from deepfly3d_torch.pipeline import plain_twin
+
+    launches, lines = {}, []
+    variables, spec = hg.load_weights(os.path.join(WEIGHTS_DIR, CONV))
+    with np.load(os.path.join(ROOT, "deepfly3d_torch", "data", "golden_t0.npz")) as z:
+        frames0, order = z["frames"], list(z["camera_ordering"])
+    flips0 = torch.from_numpy(np.isin(np.arange(7), order[4:])).to(dev)
+
+    # (k) the trainable network's eval forward (cuDNN, TF32 off) against the
+    # folded forward through the kernels, golden frame 0 of the 7 cameras
+    x0 = image_ops.preprocess_frames(torch.from_numpy(frames0).to(dev), flips0, (256, 512))
+    net = hg.trainable(variables, spec, dev)
+    folded = FoldedHourglass(fold_hourglass(variables, spec), spec).to(dev)
+    with torch.no_grad():
+        want, got = net(x0)[-1], folded(x0)[-1]
+        torch.cuda.synchronize()
+        scale = max(1.0, want.abs().max().item())
+        hm_err = (got - want).abs().max().item()
+        (pts_t, conf_t), (pts_k, conf_k) = (kernels.decode_heatmaps(h) for h in (want, got))
+        conf_err = (conf_t - conf_k).abs().max().item()
+        if hm_err > TRAIN_HM_TOL * scale or conf_err > 2e-5 or not torch.equal(pts_t, pts_k):
+            raise AssertionError(f"(k) trainable vs folded forward: heatmaps {hm_err} (of "
+                                 f"{scale}), conf {conf_err}, cells equal "
+                                 f"{torch.equal(pts_t, pts_k)}")
+        t_cudnn = cuda_ms(torch, lambda: net(x0), iters=5)
+        t_kernels = cuda_ms(torch, lambda: folded(x0), iters=5)
+    print(f"(k) golden frame 0, 7 images at 256x512: the trainable net's eval forward "
+          f"(cuDNN f32) against the folded kernels: heatmaps max diff {hm_err} (magnitude "
+          f"{scale:.3f}, tolerance {TRAIN_HM_TOL} of it), conf {conf_err}, the same cells; "
+          f"informational: {t_cudnn:.3f} ms (cuDNN, unfolded) against {t_kernels:.3f} ms "
+          f"(kernels) per forward, on {card}")
+    del net, folded
+
+    # (o) a checkpoint converted from torch (proj_from_raw) served through the
+    # kernels' raw-projection instances, against its plain twin
+    frames = converted.frames
+    (pts3d, p38, conf), got = count_launches(torch, counters, lambda: converted.pipe(frames))
+    if got != EXPECTED["conv"]:
+        raise AssertionError(f"(o) converted path launches {got}, want {EXPECTED['conv']}")
+    launches["converted"] = got
+    q3d, q38, qconf = plain_twin(converted.pipe)(frames)
+    torch.cuda.synchronize()
+    conf_diff = (conf - qconf).abs().max().item()
+    if not torch.equal(p38, q38) or conf_diff > 1e-4 or not torch.isfinite(pts3d).all():
+        raise AssertionError(f"(o) converted path vs plain: p38 equal {torch.equal(p38, q38)}, "
+                             f"conf {conf_diff}")
+    print(f"(o) the conv checkpoint as a converted one (proj_from_raw) at T={BATCH_T}: "
+          f"launches {got}; vs plain: p38 equal, conf max diff {conf_diff}")
+
+    # (l) the committed 5-step trajectory
+    with np.load(os.path.join(ROOT, K5_REF)) as z:
+        ref = {k: z[k] for k in z.files}
+    t0 = time.perf_counter()
+    losses, leaves = k5_trajectory(torch, np, dev)
+    worst = k5_check(np, losses, leaves, ref)
+    print(f"(l) 5 frozen-statistics steps of the conv checkpoint on {len(K5_CAMERAS)} golden "
+          f"images against JAX's trajectory: losses {losses[:, 0].tolist()} (JAX "
+          f"{ref['losses'][:, 0].tolist()}); largest differences {json.dumps(worst)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (m) the training script, resumed from the conv checkpoint in a temporary
+    # folder; its evals run the serving path through the kernels
+    tmp = tempfile.mkdtemp(prefix="df3d_smoke_train_")
+    try:
+        out = os.path.join(tmp, CONV)
+        shutil.copy(os.path.join(WEIGHTS_DIR, CONV), out)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc, got = count_launches(torch, counters, lambda: train_fly_weights.main(
+                SCRIPT_ARGS + ["--out", out]))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        text = buf.getvalue()
+        print("\n".join("  train_fly_weights: " + line for line in text.splitlines()
+                        if not line.startswith("{'step'")))
+        # 3 preprocess launches (the inputs and two evals: step 200 and the
+        # final one), 31 bottleneck, 8 upsample-add and 1 decode per eval
+        want = {"fused_bottleneck": 62, "upsample2x_add": 16, "decode_heatmaps": 2,
+                "preprocess_resize": 3}
+        if got != want or rc not in (0, 1) or not os.path.exists(out):
+            raise AssertionError(f"(m) train_fly_weights: rc {rc}, launches {got} (want {want})")
+        launches["train_script"] = got
+        seconds = float(text.split("training took ")[1].split("s")[0])
+        final = text.split("final (after BN recalibration): ")[1].splitlines()[0]
+        steps = int(SCRIPT_ARGS[SCRIPT_ARGS.index("--steps") + 1])
+        batch = int(SCRIPT_ARGS[SCRIPT_ARGS.index("--batch-size") + 1])
+        hg.load_weights(out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines.append(f"(m) python -m deepfly3d_torch.train_fly_weights {' '.join(SCRIPT_ARGS)}: "
+                 f"exit {rc}, {steps / seconds:.2f} steps/s, {steps * batch / seconds:.1f} "
+                 f"images/s ({seconds:.1f} s of training with one eval, {wall:.1f} s in all), "
+                 f"peak memory {peak / 2**30:.2f} GiB, golden {final}; launches {got}")
+    print("informational: " + lines[-1] + f", on {card}")
+
+    # (n) the data-parallel step at full width: one entry, two entries on this
+    # card, and the one-device step (Adam eps 10, as the CPU test)
+    rng = np.random.default_rng(0)
+    xs = rng.uniform(size=(SHARDED_BATCH, 256, 512, 3)).astype(np.float32)
+    ts = rng.uniform(size=(SHARDED_BATCH, 64, 128, 19)).astype(np.float32)
+    init = hg.init_params(spec, (256, 512), torch.Generator(device=dev).manual_seed(0), dev)
+
+    def sharded(entries):
+        init_fn, step_fn = par.make_sharded_train_step(spec, mesh_mod.data_mesh(
+            devices=[dev] * entries))
+        params, stats, opt = init_fn(0, (256, 512))
+        with torch.no_grad():
+            _copy_tree(params, init["params"])
+            _copy_tree(stats, init["batch_stats"])
+        for group in opt.param_groups:
+            group["eps"] = 10.0
+        out = []
+        for _ in range(2):
+            params, stats, opt, loss = step_fn(params, stats, opt, xs, ts)
+            out.append(loss.item())
+        return out, params
+
+    def one_device():
+        net = hg.trainable(init, spec, dev)
+        opt = train_mod.adam(1e-3, eps=10.0)(net.parameters())
+        x, t = torch.from_numpy(xs).to(dev), torch.from_numpy(ts).to(dev)
+        out = []
+        for _ in range(2):
+            loss = ((net(x, train=True) - t[None]) ** 2).mean()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            out.append(loss.item())
+        return out, hg.module_variables(net)["params"]
+
+    t0 = time.perf_counter()
+    runs = {"1 entry": sharded(1), "2 entries on one card": sharded(2),
+            "one device": one_device()}
+    base_losses, base_params = runs["one device"]
+    diffs = {}
+    for name, (losses_n, params_n) in runs.items():
+        a = {k: v.detach().cpu().numpy() if hasattr(v, "detach") else v
+             for k, v in _flat(params_n).items()}
+        b = _flat(base_params)
+        d = max(float(np.abs(a[k] - b[k]).max()) for k in b)
+        rel = max(abs(x - y) / abs(y) for x, y in zip(losses_n, base_losses))
+        diffs[name] = (rel, d)
+        if rel > 1e-5 or d > 1e-5:
+            raise AssertionError(f"(n) {name}: losses rel {rel}, parameters {d} off the "
+                                 f"one-device step")
+    print(f"(n) make_sharded_train_step at full width, batch {SHARDED_BATCH}, 2 steps: losses "
+          f"{runs['1 entry'][0]}; against the one-device step (losses rel, parameters abs): "
+          f"{json.dumps(diffs)}; {time.perf_counter() - t0:.1f} s")
+    return launches, lines
+
+
+def train_step_call(torch, np, dev):
+    """``--profile``'s training path: one BN-training Adam step of the conv
+    checkpoint at TRAIN_BATCH on seeded inputs (the script's loss weights),
+    warmed up once.  -> the call."""
+    from deepfly3d_torch.config import WEIGHTS_DIR
+    from deepfly3d_torch.models import hourglass as hg
+    from deepfly3d_torch.models import train as train_mod
+
+    variables, spec = hg.load_weights(os.path.join(WEIGHTS_DIR, CONV))
+    net = hg.trainable(variables, spec, dev)
+    tx = train_mod.adam(1e-4)
+    opt_state = tx(net.parameters())
+    epoch = train_mod.make_train_epoch(spec, tx, 100.0, 1, TRAIN_BATCH, noise_scale=0.008)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(size=(TRAIN_BATCH, 256, 512, 3)).astype(np.float32)).to(dev)
+    t = torch.from_numpy(rng.uniform(size=(TRAIN_BATCH, 64, 128, 19)).astype(np.float32)).to(dev)
+    cells = torch.from_numpy(rng.integers(0, 64, size=(TRAIN_BATCH, 19, 2))).to(dev)
+    peaks = torch.from_numpy(rng.uniform(0.3, 0.9, size=(TRAIN_BATCH, 19)).astype(
+        np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def call():
+        return epoch(net, opt_state, gen, x, t, cells, peaks)
+
+    call()
+    return call
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _copy_tree(dst, src):
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _copy_tree(v, src[k])
+        else:
+            v.copy_(src[k])
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -1300,6 +1670,13 @@ def main(argv):
     rows = {}
     for path, pipe in paths.items():
         record_shapes(plain_twin(pipe), path, rows, lambda twin: twin(frames))
+    # the training phase's converted path (o): the conv checkpoint read as a
+    # checkpoint converted from torch (proj_from_raw), T=8, rig off
+    conv_vars, conv_spec = ckpt[CONV]
+    converted = types.SimpleNamespace(frames=frames, pipe=build_pipeline(
+        dataclasses.replace(conv_spec, proj_from_raw=True), conv_vars, calib, order, rig=None,
+        device=dev))
+    record_shapes(plain_twin(converted.pipe), "converted", rows, lambda twin: twin(frames))
     # the CLI's path: the estimator's chunk loop at batch 8 (ingest phase)
     estimator = PoseEstimator(os.path.join(WEIGHTS_DIR, CONV), device=dev)
     record_shapes(plain_twin(estimator), "ingest", rows, lambda twin: twin.infer_chunks(
@@ -1358,7 +1735,7 @@ def main(argv):
         return w2d.t().contiguous()[:, :, None, None]
 
     def check_bottleneck(key, counts, f):
-        n, h, w, cin, cmid, cout, proj = key
+        n, h, w, cin, cmid, cout, proj, raw = key
         x = torch.randn((n, h, w, cin), generator=gen).to(dev)
         y = bn.fused_bottleneck(x, f)
         ref = bn.bottleneck_plain(x, f)
@@ -1380,16 +1757,18 @@ def main(argv):
             a2 = torch.relu(F.conv2d(a1, lw["w1"], f["b1"][0]))
             a3 = torch.relu(F.conv2d(a2, lw["w2"], f["b2"][0], padding=1))
             z = F.conv2d(a3, lw["w3"], f["b3"][0])
-            return z + (F.conv2d(a1, lw["wp"], f["bp"][0]) if proj else xc)
+            return z + (F.conv2d(xc if raw else a1, lw["wp"], f["bp"][0]) if proj else xc)
 
         lib_err = (library().permute(0, 2, 3, 1) - ref).abs().max().item()
         flops = 2.0 * n * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
                                    + (cin * cout if proj else 0))
         nbytes = 4.0 * (n * h * w * (cin + cout)
-                        + sum(t.numel() for name, t in f.items() if name != "packed"))
+                        + sum(t.numel() for name, t in f.items()
+                              if name not in ("packed", "proj_raw")))
         b_ms, b_by = bound_ms(3.0 * flops, nbytes, PEAK_TF32_FLOPS)   # 3 MMAs per product
         record("fused_bottleneck", {
-            "shape": list(key[:6]), "proj": proj, "tile": list(bn.choose_tile(*key)),
+            "shape": list(key[:6]), "proj": proj, "raw": raw,
+            "tile": list(bn.choose_tile(*key[:7])),
             "max_abs_err": err, "model_err": model_err, "magnitude": scale,
             "library_err": lib_err, "bound_f32_ms": bound_ms(flops, nbytes)[0],
             **times(torch, lambda: bn.fused_bottleneck(x, f),
@@ -1518,6 +1897,14 @@ def main(argv):
         torch.cuda.empty_cache()
     # identity mode: exactly the TPU kernel (u8 * 1/255, flip); on no path
     check_preprocess((N,) + tuple(cfg.image_hw) + (3,) + tuple(cfg.image_hw), {})
+    # (o) the raw-input projection at the h36m width (the h36m checkpoint's
+    # stem_res1 read as converted, at its 192x192 after the stem) and the
+    # 64-wide instance (seeded weights), a batch of 8 each; on no path
+    h36m_vars, _ = load_weights(h36m_ckpt)
+    check_bottleneck((8, 192, 192, 64, 64, 128, True, True), {}, raw_block(
+        np, torch, dev, h36m_vars["params"]["stem_res1"], h36m_vars["batch_stats"]["stem_res1"]))
+    check_bottleneck((8, 128, 256, 32, 32, 64, True, True), {}, raw_block(
+        np, torch, dev, *seeded_block(np, 32, 32, 64)))
     # K x cells no multiple of 4: the decode kernel's scalar loads; on no path
     check_decode((N, 63, 127, 19), {})
     print(json.dumps({"kernel_shapes": shape_rows}))
@@ -1639,6 +2026,7 @@ def main(argv):
                                                              registration=ingest_reg)
             calls["h36m"] = lambda: h36m_est.infer_chunks(h36m_chunk(np, h36m_frames),
                                                           H36M_BATCH)
+            calls["train"] = train_step_call(torch, np, dev)
             for path, call in calls.items():
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1657,6 +2045,7 @@ def main(argv):
                 print(line)
                 what = {"ingest": f"{INGEST_T} frames per camera in batches of {INGEST_BATCH}, "
                                   f"the registration known",
+                        "train": f"one training step of the conv checkpoint at batch {TRAIN_BATCH}",
                         "h36m": f"{h36m_frames.shape[1]} frames of 4 cameras in batches of "
                                 f"{H36M_BATCH}"}.get(path, f"T={BATCH_T}")
                 fh.write(f"\n==== {path} path, one call at {what}; {line}\n")
@@ -1720,6 +2109,12 @@ def main(argv):
                                              for kernel, row in per_path["fleet"].items()})
           + f"; on {card}")
 
+    # ---- 11. training phase: (k)-(o)
+    t0 = time.perf_counter()
+    train_launches, train_lines = train_phase(torch, np, dev, card, counters, converted)
+    launches.update(train_launches)
+    print(f"informational: the training phase took {time.perf_counter() - t0:.1f} s")
+
     entries = []
     for name, (src, replaces, also) in SOURCES.items():
         agg = per_kernel[name]
@@ -1741,7 +2136,7 @@ def main(argv):
                 "arithmetic": "3 TF32 MMAs per product, f32 accumulate"}
                if name == "fused_bottleneck" else {}),
             "per": f"times: one call of each recorded path ({', '.join(EXPECTED)}, ingest, "
-                   f"h36m, fleet, fleet2) "
+                   f"h36m, fleet, fleet2, converted) "
                    f"at T={BATCH_T}, the kernel-phase time of every shape times its launches; "
                    f"launches: every counted run ({', '.join(launches)})",
         }

@@ -30,8 +30,12 @@ leaves it to XLA:
 from some layer on.  The port runs every convolution and matmul in full
 float32 with TF32 off (``utils/devices.full_f32``), which is what
 "highest" asks for, so every scope maps to the port's one float32 policy
-and the field is accepted and otherwise ignored.  ``proj_from_raw`` and a
-compute dtype other than float32 raise.
+and the field is accepted and otherwise ignored.  ``proj_from_raw`` (the
+skip projection of width-changing blocks reads the raw block input, the
+convention of checkpoints converted from torch) is folded into the blocks
+and runs in the bottleneck kernel's raw-projection instances; the JAX fold
+ignores it (ROADMAP Queue 3), so the port is held to ``HourglassNet.apply``
+there.  A compute dtype other than float32 raises.
 
 Tensors are NHWC throughout; the output is the JAX contract
 (num_stacks, N, H', W', K) with H' = H/4 for every shipped spec.
@@ -69,8 +73,6 @@ def check_foldable(spec: HourglassSpec) -> None:
         problems.append(f"score_ksize={spec.score_ksize} (odd k only: SAME padding)")
     if spec.head_upsample < 1:
         problems.append(f"head_upsample={spec.head_upsample} (>= 1)")
-    if spec.proj_from_raw:
-        problems.append("proj_from_raw=True (only False)")
     if spec.compute_dtype != "float32":
         problems.append(f"compute_dtype={spec.compute_dtype!r} (only float32)")
     if problems:
@@ -137,7 +139,8 @@ def fold_hourglass(variables: Dict, spec: HourglassSpec) -> Dict[str, Any]:
         params[stem], params["stem_bn"], stats["stem_bn"]
     )
     for name in block_names(spec):
-        folded["blocks"][name] = fold_bottleneck(node(params, name), node(stats, name))
+        folded["blocks"][name] = fold_bottleneck(node(params, name), node(stats, name),
+                                                 spec.proj_from_raw)
 
     folded["stacks"] = []
     for s in range(spec.num_stacks):

@@ -7,7 +7,10 @@ three batch norms folded, to
     a1 = relu(x * s1 + t1)
     a2 = relu(a1 @ w1 + b1)
     a3 = relu(conv3x3(a2, w2) + b2)
-    y  = a3 @ w3 + b3 + (x  or  a1 @ wp + bp)
+    y  = a3 @ w3 + b3 + (x  or  a1 @ wp + bp  or  x @ wp + bp)
+
+(the last form, the raw-input projection, for a spec with
+``proj_from_raw``: the folded dict then holds the flag ``"proj_raw"``)
 
 ``fold_bottleneck`` builds the folded arrays exactly as the JAX package
 does (float64 fold, float32 result); ``bottleneck_plain`` is the plain
@@ -54,7 +57,8 @@ NUM_SMS = 132                     # H100 SXM
 MAX_SMEM = 227 * 1024             # bytes one thread block can use
 # (Cin, Cmid, Cout, projects) the kernel is instantiated for: the 96- and
 # 64-wide fly networks' blocks (every weight resident in shared memory), and
-# the 128-wide h36m network's (the 3x3's weights streamed, ``streams_w2``)
+# the 128-wide h36m network's (the 3x3's weights streamed, ``streams_w2``).
+# Each projecting instance is also built with the raw-input projection.
 INSTANCES = ((96, 48, 96, False), (48, 48, 96, True), (64, 32, 64, False), (32, 32, 64, True),
              (128, 64, 128, False), (64, 64, 128, True))
 _TF32_MASK = -8192                # 0xffffe000 as int32: clears 13 mantissa bits
@@ -67,13 +71,16 @@ def bn_affine(scale, bias, mean, var, eps: float = BN_EPS):
     return s.astype(np.float32), t.astype(np.float32)
 
 
-def fold_bottleneck(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
+def fold_bottleneck(params: Dict, stats: Dict,
+                    proj_from_raw: bool = False) -> Dict[str, torch.Tensor]:
     """Fold one block's batch norms; arrays as the JAX ``fold_bottleneck``.
 
     ``params``/``stats`` are one Bottleneck's numpy collections (bn1..bn3,
     conv1..conv3, optional proj).  Returns float32 CPU tensors: s1/t1
     (1, Cin); w1 (Cin, Cmid); w2 (9, Cmid, Cmid); w3 (Cmid, Cout); biases
-    (1, C); wp (Cin, Cout) and bp (1, Cout) when the block projects.
+    (1, C); wp (Cin, Cout) and bp (1, Cout) when the block projects, and
+    then with ``proj_from_raw`` the flag ``proj_raw`` (a 0-d bool tensor
+    whose presence says that the projection reads x, not a1).
     """
     s1, t1 = bn_affine(**params["bn1"], **stats["bn1"])
     s2, t2 = bn_affine(**params["bn2"], **stats["bn2"])
@@ -98,8 +105,15 @@ def fold_bottleneck(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
     if "proj" in params:
         out["wp"] = np.asarray(params["proj"]["kernel"], np.float64)[0, 0]
         out["bp"] = np.asarray(params["proj"]["bias"], np.float64)[None, :]
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
-            for k, v in out.items()}
+    folded = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in out.items()}
+    if proj_from_raw and "proj" in params:
+        folded["proj_raw"] = torch.ones((), dtype=torch.bool)
+    return folded
+
+
+def _proj_input(x: torch.Tensor, a1: torch.Tensor, folded: Dict[str, torch.Tensor]):
+    """What the skip projection reads: x with the raw-input flag, else a1."""
+    return x if "proj_raw" in folded else a1
 
 
 def bottleneck_plain(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -112,7 +126,7 @@ def bottleneck_plain(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
     a3 = torch.relu(z2 + folded["b2"][0])
     z3 = a3 @ folded["w3"] + folded["b3"][0]
     if "wp" in folded:
-        res = a1 @ folded["wp"] + folded["bp"][0]
+        res = _proj_input(x, a1, folded) @ folded["wp"] + folded["bp"][0]
     else:
         res = x
     return (z3 + res).contiguous()
@@ -152,7 +166,7 @@ def bottleneck_tf32_model(x: torch.Tensor, folded: Dict[str, torch.Tensor],
     a3 = torch.relu(product(a2, w2, conv3x3) + folded["b2"][0])
     z3 = product(a3, folded["w3"], torch.matmul) + folded["b3"][0]
     if "wp" in folded:
-        res = product(a1, folded["wp"], torch.matmul) + folded["bp"][0]
+        res = product(_proj_input(x, a1, folded), folded["wp"], torch.matmul) + folded["bp"][0]
     else:
         res = x
     return (z3 + res).contiguous()
@@ -183,7 +197,8 @@ def pack_bottleneck(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
     ("paired") and wp ("lanes") in fragment order, then s1, t1, b1, b2 and
     b3 (+ bp).  Every value is a folded float32 weight unchanged; the kernel
     splits hi/lo as it loads."""
-    f = {k: v.detach().cpu().numpy() for k, v in folded.items() if k != "packed"}
+    f = {k: v.detach().cpu().numpy() for k, v in folded.items()
+         if k not in ("packed", "proj_raw")}
     cmid = f["w1"].shape[1]
     parts = [_pack_fragments(f["w1"], "lanes"),
              _pack_fragments(f["w2"].reshape(9 * cmid, cmid), "mma"),
@@ -284,6 +299,8 @@ def _shapes(x: torch.Tensor, folded: Dict[str, torch.Tensor]):
         want.update(wp=(cin, cout), bp=(1, cout))
     elif cin != cout:
         raise ValueError(f"block without projection needs Cin == Cout ({cin} != {cout})")
+    elif "proj_raw" in folded:
+        raise ValueError("folded has the raw-input flag but no projection")
     for k, shape in want.items():
         if tuple(folded[k].shape) != shape:
             raise ValueError(f"folded[{k!r}] has shape {tuple(folded[k].shape)}, want {shape}")
@@ -293,7 +310,7 @@ def _shapes(x: torch.Tensor, folded: Dict[str, torch.Tensor]):
 @lru_cache(maxsize=None)
 def _kernel():
     fn = _build.library("bottleneck").df3d_bottleneck
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -303,7 +320,9 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
 
     On a CUDA tensor this launches ``csrc/bottleneck.cu`` (one launch, every
     intermediate on chip; ``folded`` must hold the ``"packed"`` buffer of
-    ``add_packed``) or raises; on a CPU tensor it runs ``bottleneck_plain``.
+    ``add_packed``; the instance with the raw-input projection where
+    ``folded`` has ``"proj_raw"``) or raises; on a CPU tensor it runs
+    ``bottleneck_plain``.
     ``fused_bottleneck.launches`` counts launches.
     """
     cin, cmid, cout = _shapes(x, folded)
@@ -333,7 +352,8 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
     with torch.cuda.device(x.device):     # the library asks cudaGetDevice for the SM count
         rc = _kernel()(
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
-            int(has_proj), th, tw, torch.cuda.current_stream(x.device).cuda_stream,
+            int(has_proj), int("proj_raw" in folded), th, tw,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(rc, "bottleneck kernel")
     fused_bottleneck.launches += 1

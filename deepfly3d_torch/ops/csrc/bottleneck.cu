@@ -8,7 +8,13 @@
 //   a1 = relu(x * s1 + t1)
 //   a2 = relu(a1 @ w1 + b1)                       (bn2 folded into w1, b1)
 //   a3 = relu(conv3x3(a2, w2, zero pad 1) + b2)   (bn3 folded into w2, b2)
-//   y  = a3 @ w3 + b3 + (x  or  a1 @ wp + bp)
+//   y  = a3 @ w3 + b3 + (x  or  a1 @ wp + bp  or  x @ wp + bp)
+//
+// The last form is the raw-input projection of checkpoints converted from the
+// torch stacked-hourglass lineage (HourglassSpec.proj_from_raw): the skip of a
+// width-changing block projects x itself, not relu(bn1(x)).  RAW, a compile-time
+// flag of the projecting instances, makes the projection's A fragments x
+// instead of a1; everything else is the same kernel.
 //
 // x, y are NHWC float32.  The weights arrive in one buffer, `packed`, that the
 // host builds once per block (ops/bottleneck.py::pack_bottleneck): w1, w2 (as a
@@ -245,7 +251,7 @@ struct Smem {
   static constexpr int total = STREAM ? w2 + 2 * tap : P::total;
 };
 
-template <int CIN, int CMID, int COUT, bool PROJ, bool STREAM>
+template <int CIN, int CMID, int COUT, bool PROJ, bool STREAM, bool RAW>
 __global__ void __launch_bounds__(kThreads, 1)
 bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
                   float* __restrict__ y, int H, int W, int th, int tw,
@@ -259,6 +265,7 @@ bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
   constexpr int CL = CIN / 4;                      // x channels of one lane column t
   static_assert(CIN % 16 == 0 && CMID % 16 == 0 && NT4 % NG == 0, "channel counts");
   static_assert(PROJ || CIN == COUT, "identity skip needs Cin == Cout");
+  static_assert(PROJ || !RAW, "the raw-input flag is one of the projection");
   static_assert(G::total % 4 == 0 && P::tap % 4 == 0, "packed buffer is copied in 16-byte pieces");
   constexpr int TAP = P::tap;
 
@@ -301,6 +308,13 @@ bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
     f.a[1] = fmaxf(fmaf(xb[2 * ks], s.x, b.x), 0.f);
     f.a[2] = fmaxf(fmaf(xa[2 * ks + 1], s.y, b.y), 0.f);
     f.a[3] = fmaxf(fmaf(xb[2 * ks + 1], s.y, b.y), 0.f);
+  };
+  // x itself as the same fragment (the raw-input projection)
+  auto x_frag = [&](AFrag& f, const float (&xa)[CL], const float (&xb)[CL], int ks) {
+    f.a[0] = xa[2 * ks];
+    f.a[1] = xb[2 * ks];
+    f.a[2] = xa[2 * ks + 1];
+    f.a[3] = xb[2 * ks + 1];
   };
   auto load_x = [&](float (&xr)[CL], const float* src) {
 #pragma unroll
@@ -453,7 +467,8 @@ bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
         add_small<NT2>(acc3, small);
       }
 
-      // the projection's A fragments: a1 at the warp's own pixels, from x
+      // the projection's A fragments at the warp's own pixels: a1 from x, or
+      // with RAW x itself
       AFrag pa[PROJ ? KS1 : 1];
       if (PROJ) {
         const int cy0 = min(y0 + q0y, H - 1), cx0 = min(x0 + q0x, W - 1);
@@ -462,7 +477,10 @@ bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
         load_x(xa, xn + ((size_t)cy0 * W + cx0) * CIN + t * CL);
         load_x(xb, xn + ((size_t)cy1 * W + cx1) * CIN + t * CL);
 #pragma unroll
-        for (int ks = 0; ks < KS1; ++ks) a1_frag(pa[ks], xa, xb, ks);
+        for (int ks = 0; ks < KS1; ++ks) {
+          if constexpr (RAW) x_frag(pa[ks], xa, xb, ks);
+          else a1_frag(pa[ks], xa, xb, ks);
+        }
       }
 
       // a3 = relu(z2) as A fragments: k slot t <-> column 2t, slot t+4 <-> 2t+1
@@ -540,13 +558,13 @@ size_t smem_bytes(int cin, int cmid, int cout, int th, int tw, int has_proj) {
                    th, tw);
 }
 
-template <int CIN, int CMID, int COUT, bool PROJ>
+template <int CIN, int CMID, int COUT, bool PROJ, bool RAW>
 int launch(const float* x, const float* packed, float* y, int n, int h, int w,
            int th, int tw, int dev, int sms, cudaStream_t stream) {
   constexpr bool kStream = streams_w2(CIN, CMID, COUT, PROJ);
   static_assert(smem_size(CIN, CMID, COUT, PROJ, kStream, 1, 16) <= kMaxSmem,
                 "the block does not fit one thread block even with w2 streamed");
-  auto kernel = bottleneck_kernel<CIN, CMID, COUT, PROJ, kStream>;
+  auto kernel = bottleneck_kernel<CIN, CMID, COUT, PROJ, kStream, RAW>;
   const size_t smem = smem_size(CIN, CMID, COUT, PROJ, kStream, th, tw);
   // the opt-in to more than 48 KB is kept per device and only ever raised
   static size_t allowed[kMaxDevices] = {};
@@ -576,10 +594,11 @@ size_t df3d_bottleneck_smem(int cin, int cmid, int cout, int th, int tw, int has
 
 // Launch on `stream`; returns the CUDA error code (0 = launched), or
 // cudaErrorInvalidValue for channel counts without an instantiation.
-// `packed` is pack_bottleneck's buffer; th * tw <= 192.
+// `packed` is pack_bottleneck's buffer; th * tw <= 192; proj_raw: the
+// projection reads x, not relu(bn1(x)) (projecting instances only).
 int df3d_bottleneck(const float* x, const float* packed, float* y,
                     int n, int h, int w, int cin, int cmid, int cout, int has_proj,
-                    int th, int tw, void* stream) {
+                    int proj_raw, int th, int tw, void* stream) {
   if (th < 1 || tw < 1 || th * tw > 16 * kWarps) return (int)cudaErrorInvalidValue;
   static int sm_count[kMaxDevices] = {};
   int dev = 0;
@@ -592,15 +611,18 @@ int df3d_bottleneck(const float* x, const float* packed, float* y,
   }
   const int sms = sm_count[dev];
   cudaStream_t s = (cudaStream_t)stream;
-#define DF3D_CASE(CI, CM, CO, PR) \
-  if (cin == CI && cmid == CM && cout == CO && (has_proj != 0) == PR) \
-    return launch<CI, CM, CO, PR>(x, packed, y, n, h, w, th, tw, dev, sms, s);
-  DF3D_CASE(96, 48, 96, false)
-  DF3D_CASE(48, 48, 96, true)
-  DF3D_CASE(64, 32, 64, false)
-  DF3D_CASE(32, 32, 64, true)
-  DF3D_CASE(128, 64, 128, false)    // the 128-wide networks: w2 streams
-  DF3D_CASE(64, 64, 128, true)
+#define DF3D_CASE(CI, CM, CO, PR, RW) \
+  if (cin == CI && cmid == CM && cout == CO && (has_proj != 0) == PR && (proj_raw != 0) == RW) \
+    return launch<CI, CM, CO, PR, RW>(x, packed, y, n, h, w, th, tw, dev, sms, s);
+  DF3D_CASE(96, 48, 96, false, false)
+  DF3D_CASE(48, 48, 96, true, false)
+  DF3D_CASE(48, 48, 96, true, true)       // raw-input projection (converted checkpoints)
+  DF3D_CASE(64, 32, 64, false, false)
+  DF3D_CASE(32, 32, 64, true, false)
+  DF3D_CASE(32, 32, 64, true, true)
+  DF3D_CASE(128, 64, 128, false, false)   // the 128-wide networks: w2 streams
+  DF3D_CASE(64, 64, 128, true, false)
+  DF3D_CASE(64, 64, 128, true, true)
 #undef DF3D_CASE
   return (int)cudaErrorInvalidValue;
 }

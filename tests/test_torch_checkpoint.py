@@ -119,8 +119,14 @@ def test_fold_hourglass_matches_jax_or_raises(name):
     for k in jfold:
         assert pfold[k].dtype == np.float32, k
         np.testing.assert_array_equal(pfold[k], jfold[k], err_msg=k)
-    with pytest.raises(ValueError):
-        port_fused.fold_hourglass(pvars, dataclasses.replace(pspec, proj_from_raw=True))
+    # the raw-input projection folds the same arrays and flags the projecting blocks
+    raw = port_fused.fold_hourglass(pvars, dataclasses.replace(pspec, proj_from_raw=True))
+    projecting = sorted(b for b, t in raw["blocks"].items() if "wp" in t)
+    assert sorted(b for b, t in raw["blocks"].items() if "proj_raw" in t) == projecting
+    rfold = _flat(_to_numpy(raw))
+    assert sorted(rfold) == sorted(list(pfold) + [f"blocks/{b}/proj_raw" for b in projecting])
+    for k in pfold:
+        np.testing.assert_array_equal(rfold[k], pfold[k], err_msg=k)
 
 
 def _to_numpy(tree):

@@ -11,8 +11,11 @@ points of the last stack.
 Every stem (conv, patchify, patch8, patch16) with both heads (1x1 score,
 and a 3x3 score conv into a 2x subpixel head, with ``hp_scope="score"``)
 is held to ``HourglassNet.apply`` the same way; the JAX ``fused_apply``
-covers only the conv stem with a 1x1 head.  Specs the port does not
-compute (``proj_from_raw``, an even score kernel) raise.
+covers only the conv stem with a 1x1 head.  ``proj_from_raw`` (the skip
+projection reads the raw block input) is held to ``HourglassNet.apply``
+too; the JAX fold ignores it.  Specs the port does not compute (an even
+score kernel, a bfloat16 compute dtype, an unknown stem, a head upsampling
+below 1) raise.
 """
 
 import dataclasses
@@ -118,12 +121,32 @@ def test_stem_and_head_match_flax(stem, head):
     np.testing.assert_allclose(conf_p.numpy(), np.asarray(conf_j), atol=1e-4)
 
 
-@pytest.mark.parametrize("field", [dict(proj_from_raw=True), dict(score_ksize=2),
+@pytest.mark.parametrize("field", [dict(head_upsample=0), dict(score_ksize=2),
                                    dict(compute_dtype="bfloat16"), dict(stem="patch4")])
 def test_uncovered_spec_raises(field):
     spec = dataclasses.replace(port_hg.HourglassSpec(**SPEC_KW), **field)
     with pytest.raises(ValueError):
         port_fused.check_foldable(spec)
+
+
+def test_proj_from_raw_matches_flax():
+    """The raw-input projection (checkpoints converted from torch) folds:
+    the projecting blocks carry the flag, and the forward is flax's."""
+    kw = dict(SPEC_KW, proj_from_raw=True)
+    spec = jax_hg.HourglassSpec(**kw)
+    variables, rng = _moved_variables(spec, INPUT, seed=11)
+    x = rng.uniform(size=(2,) + INPUT + (3,)).astype(np.float32)
+    want = np.asarray(jax_hg.HourglassNet(spec).apply(variables, jnp.asarray(x), train=False))
+    pspec = port_hg.HourglassSpec(**kw)
+    folded = port_fused.fold_hourglass(variables, pspec)
+    assert [n for n, b in folded["blocks"].items() if "proj_raw" in b] == ["stem_res1"]
+    with torch.no_grad():
+        got = port_fused.FoldedHourglass(folded, pspec)(torch.from_numpy(x)).numpy()
+        native = port_fused.FoldedHourglass(port_fused.fold_hourglass(
+            variables, dataclasses.replace(pspec, proj_from_raw=False)), pspec)(
+                torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert np.abs(native - want).max() > 1e-3       # the flag changes the function
 
 
 def test_block_count_of_patch_stem_spec():

@@ -139,6 +139,61 @@ def test_streamed_bottleneck_matches_plain(wide_blocks, name, shape):
     assert smem(*args) == bn.smem_bytes(*args[:5], proj)
 
 
+@pytest.mark.parametrize("width,shape", [
+    ("fly", (8, 128, 256, 48)),           # a converted fly checkpoint's stem_res1
+    ("fly", (3, 19, 37, 48)),             # tiles cut by the image edge
+    ("h36m", (8, 192, 192, 64)),          # the streamed instance
+    ("h36m", (3, 19, 37, 64)),
+])
+def test_raw_projection_matches_plain(blocks, wide_blocks, width, shape):
+    """The raw-input projection (checkpoints converted from torch): the
+    projecting instances with x, not relu(bn1(x)), as the projection's
+    input; the resident instances' tolerance, and another function than the
+    a1 projection."""
+    dev = _card()
+    block = (blocks if width == "fly" else wide_blocks)["stem_res1"]
+    raw = {**{k: v for k, v in block.items() if k != "packed"},
+           "proj_raw": torch.ones((), dtype=torch.bool)}
+    folded = {k: v.to(dev) for k, v in bn.add_packed(raw).items()}
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(3)).to(dev)
+    got = bn.fused_bottleneck(x, folded)
+    torch.cuda.synchronize()
+    want = bn.bottleneck_plain(x, folded)
+    tol = 5e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+    assert (got - bn.bottleneck_tf32_model(x, folded)).abs().max().item() <= tol
+    a1 = {k: v for k, v in folded.items() if k != "proj_raw"}
+    assert (bn.fused_bottleneck(x, a1) - got).abs().max().item() > 100 * tol
+
+
+def test_trainable_net_on_card_matches_cpu():
+    """One training step of the trainable net (cuDNN, TF32 off) on the card
+    against the CPU: losses and gradients within 1e-4 of their scale."""
+    from deepfly3d_torch.models import hourglass as hg
+    from deepfly3d_torch.models import train as train_mod
+
+    dev = _card()
+    spec = hg.HourglassSpec(num_stacks=2, features=16, depth=2, num_classes=5)
+    variables = hg.init_params(spec, (32, 64), torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(size=(4, 32, 64, 3)).astype(np.float32))
+    t = torch.from_numpy(rng.uniform(size=(4, 8, 16, 5)).astype(np.float32))
+    cells = torch.from_numpy(rng.integers(0, 8, size=(4, 5, 2)))
+    peaks = torch.from_numpy(rng.uniform(0.3, 0.9, size=(4, 5)).astype(np.float32))
+    out = {}
+    for d in ("cpu", dev):
+        net = hg.trainable(variables, spec, device=d)
+        loss = train_mod.loss_terms(net(x.to(d), train=True), t.to(d), cells.to(d),
+                                    peaks.to(d), 30.0, 1.0)[0]
+        loss.backward()
+        out[str(d)] = (loss.item(), {n: p.grad.cpu() for n, p in net.named_parameters()})
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[str(dev)]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    scale = max(g.abs().max().item() for g in g_cpu.values())
+    for n in g_cpu:
+        assert (g_card[n] - g_cpu[n]).abs().max().item() <= 1e-4 * scale, n
+
+
 def test_block_without_an_instance_raises_on_the_card(wide_blocks):
     dev = _card()
     folded = {k: v.to(dev) for k, v in bn.add_packed(wide_blocks["stem_res2"]).items()}

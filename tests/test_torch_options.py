@@ -385,8 +385,9 @@ def _named_item(message):
 
 def test_not_ported_messages_name_current_roadmap_items(working_images, golden_2d):
     """What still raises names a Queue 1 item, and the item is about it.
-    Since the video flags, ``plot_2d``, the h36m profile and the ``eigh``
-    triangulation are ported, that is the sharded training step alone."""
+    Since the video flags, ``plot_2d``, the h36m profile, the ``eigh``
+    triangulation and training are ported, that is a compute dtype other
+    than float32, wherever a network is trained."""
     items = _queue1_items()
     assert items
     assert not hasattr(cli, "_NOT_PORTED")
@@ -400,9 +401,15 @@ def test_not_ported_messages_name_current_roadmap_items(working_images, golden_2
     assert geometry.triangulate(torch.zeros(7, 1, 38, 2), torch.eye(3).repeat(7, 1, 1),
                                 torch.ones(7, 3), torch.eye(3).repeat(7, 1, 1), (960, 480),
                                 method="eigh").shape == (1, 38, 3)
+    from deepfly3d_torch import train_fly_weights
+    from deepfly3d_torch.models.hourglass import HourglassNet
+
+    bf16 = HourglassSpec(compute_dtype="bfloat16")
     for call, keyword in ((lambda: pipeline.make_sharded_train_step(
-                              HourglassSpec(), mesh.data_mesh(devices=["cpu"])),
-                           "make_sharded_train_step"),):
+                              bf16, mesh.data_mesh(devices=["cpu"])), "train step"),
+                          (lambda: HourglassNet(bf16), "trainable network"),
+                          (lambda: train_fly_weights.main(["--dtype", "bfloat16", "--device",
+                                                           "cpu"]), "--dtype bfloat16")):
         with pytest.raises(NotImplementedError) as e:
             call()
         assert keyword in items[_named_item(str(e.value))]

@@ -32,6 +32,7 @@ the port's analogue is a mesh over an explicit list of 8 ``cpu`` entries.
       python tests/test_torch_parallel.py --write
 """
 
+import dataclasses
 import os
 import pickle
 import sys
@@ -125,9 +126,14 @@ def test_data_mesh_raises_without_a_card(monkeypatch):
 
 
 def test_sharded_train_step_raises_naming_the_training_item():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 1 \(training\)"):
-        pipeline.make_sharded_train_step(port_hg.HourglassSpec(**SPEC_KW),
-                                         mesh.data_mesh(devices=CPU8))
+    """The train step exists (tests/test_torch_train_parallel.py); a compute
+    dtype it does not train in raises, naming the ROADMAP item that adds it."""
+    spec = dataclasses.replace(port_hg.HourglassSpec(**SPEC_KW), compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 2"):
+        pipeline.make_sharded_train_step(spec, mesh.data_mesh(devices=CPU8))
+    init_fn, step_fn = pipeline.make_sharded_train_step(port_hg.HourglassSpec(**SPEC_KW),
+                                                        mesh.data_mesh(devices=CPU8))
+    assert callable(init_fn) and callable(step_fn)
 
 
 # ------------------------------------------------------------- inference
