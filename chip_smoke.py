@@ -11,7 +11,7 @@ result line):
 1. the card's name and power limit, torch and CUDA versions, and the host
    probe: whether OpenCV imports, whether the native ingest library loads,
    and whether the libjpeg and libav headers are there;
-2. build the four CUDA kernels from ``deepfly3d_torch/ops/csrc``;
+2. build the five CUDA sources of ``deepfly3d_torch/ops/csrc``;
 3. the three main paths at full width, T=8 frames (56 images of 480x960,
    rig registration on): ``conv`` (``build_pipeline`` with the shipped
    2-stack f96 ``hourglass_fly.npz``), ``p16`` (``hourglass_fly_p16_tpu.npz``,
@@ -124,7 +124,29 @@ result line):
    path: 62 / 16 / 2 / 3 launches), steps/s, images/s, peak memory and the
    golden errors (informational); (n) ``make_sharded_train_step`` at full
    width, batch 8, on one entry and on two entries of this card, against
-   each other and the one-device step (losses rtol 1e-5, parameters 1e-5).
+   each other and the one-device step (losses rtol 1e-5, parameters 1e-5);
+12. bf16 phase (``compute_dtype="bfloat16"``, the JAX package's bf16
+   deployment): four paths at full width, T=8, rig on: ``conv_bf16``
+   (``hourglass_fly_tpu.npz``), ``p16_bf16`` (``hourglass_fly_p16_tpu.npz``),
+   ``cascade_bf16`` (both nets at bf16) and ``p16_bf16_preprocess`` (also
+   ``preprocess_dtype="bfloat16"``).  (p) their plain twins record every
+   shape; (q) the kernel phase at bf16 at those shapes and at the h36m
+   network's 128-wide blocks (seeded, batch 8): the bottleneck within 2 bf16
+   ulps of its plain version's largest magnitude, upsample-add bit-equal,
+   the bf16-output preprocess within one ulp of each element, the share that
+   differs printed; ``bound_ms`` at 989 TFLOP/s and 2-byte activations,
+   ``library_ms`` cuDNN / PyTorch in native bf16; (r) each path with every
+   count set to 0 just before and read just after: the bf16 instances only
+   (and the float32 decode, and the float32 preprocess where the spec's
+   ``preprocess_dtype`` is), each net against its plain twin on the same
+   input (heatmaps within 6% of their magnitude, conf within 5e-3 or twice
+   the twin's gap to the float32 net, the same cells wherever the twin's
+   top-2 margin exceeds 1e-2, twice the 5e-3 peak bound), frames/s and device ms per
+   call beside the float32 path of the same checkpoints (informational); (s) golden frame 0
+   (rig off) through every bf16 configuration and the bf16 cascade against
+   the JAX package's bf16 results (``deepfly3d_torch/data/bf16_t0.npz``,
+   ``bf16_cells_check``), with the golden errors printed beside the JAX
+   package's on the CPU (informational).
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 """
@@ -224,6 +246,31 @@ TRAIN_HM_TOL = 5e-5     # trainable (cuDNN f32) vs folded (kernels) heatmaps, of
 SHARDED_BATCH = 8       # (n) the data-parallel step at full width, 2 steps
 TRAIN_BATCH = 24        # the script's batch: (m) and --profile's training step
 SCRIPT_ARGS = ["--resume", "--steps", "200", "--batch-size", str(TRAIN_BATCH)]
+# the bfloat16 serving path (phase 12): the JAX package's bf16 results on golden
+# frame 0 (python tests/test_torch_bf16.py --write), its configurations (spec
+# fields besides compute_dtype="bfloat16"), and the forward bound, the JAX
+# package's own bf16 spread: heatmaps within 6% of their largest magnitude;
+# confidences within 5e-3, or within twice the largest difference between a
+# bf16 and the float32 forward on the same input where that is larger (two
+# bf16 forwards each lie that far from the float32 one); the same argmax cell
+# wherever the reference's top-2 heatmap margin exceeds 2e-3 (the largest
+# margin at which the port's plain bf16 forward leaves JAX's cell on the CPU
+# is 1.76e-3; JAX's own bf16 and float32 forwards part at up to 1.0e-3), and
+# no more differing cells in all than 2 + twice the number at which the bf16
+# and float32 forwards differ
+BF16_REF = os.path.join("deepfly3d_torch", "data", "bf16_t0.npz")
+BF16_CONFIGS = {"hourglass_fly": {}, "hourglass_fly_tpu": {}, "hourglass_fly_p16": {},
+                "hourglass_fly_p16_tpu": {}, "hourglass_fly_fast_nearparity": {},
+                "hourglass_fly_p16_tpu+bf16_preprocess": {"preprocess_dtype": "bfloat16"}}
+BF16_HEATMAP_TOL = 0.06
+BF16_CONF_TOL = 5e-3
+BF16_MARGIN = 2e-3
+
+
+def bf16_conf_tol(spread):
+    """The confidence bound of two bf16 forwards whose bf16 and float32
+    forwards differ by at most ``spread``."""
+    return max(BF16_CONF_TOL, 2.0 * float(spread))
 SOURCES = {
     "fused_bottleneck": ("deepfly3d_torch/ops/csrc/bottleneck.cu",
                          "deepfly3d_tpu/ops/pallas/bottleneck.py:433",
@@ -235,7 +282,65 @@ SOURCES = {
                         "deepfly3d_tpu/ops/pallas/kernels.py:97", []),
     "preprocess_resize": ("deepfly3d_torch/ops/csrc/preprocess.cu",
                           "deepfly3d_tpu/ops/pallas/kernels.py:133", []),
+    # the bfloat16 instances of the bf16 paths (phase 12)
+    "fused_bottleneck_bf16": ("deepfly3d_torch/ops/csrc/bottleneck_bf16.cu",
+                              "deepfly3d_tpu/ops/pallas/bottleneck.py:433",
+                              ["deepfly3d_tpu/ops/pallas/bottleneck.py:359",
+                               "deepfly3d_tpu/ops/pallas/bottleneck.py:486"]),
+    "upsample2x_add_bf16": ("deepfly3d_torch/ops/csrc/upsample_add.cu",
+                            "deepfly3d_tpu/ops/pallas/kernels.py:49", []),
+    "preprocess_resize_bf16": ("deepfly3d_torch/ops/csrc/preprocess.cu",
+                               "deepfly3d_tpu/ops/pallas/kernels.py:133", []),
 }
+
+
+def decode_np(np, hm):
+    """(N, H, W, K) heatmaps -> (cells (N, K) first-index argmax, conf (N, K),
+    top-2 margin (N, K)), in numpy."""
+    n, h, w, k = hm.shape
+    flat = hm.reshape(n, h * w, k)
+    top2 = np.sort(flat, axis=1)[:, -2:]
+    return flat.argmax(axis=1).astype(np.int32), top2[:, 1], top2[:, 1] - top2[:, 0]
+
+
+def assemble38_np(np, pts19, order):
+    """(C, T, 19, 2) -> (C, T, 38, 2), ``pipeline.assemble38`` in numpy."""
+    C, T, K, _ = pts19.shape
+    order = np.asarray(order)
+    left, right = order[:3], order[4:]
+    p38 = np.zeros((C, T, 2 * K, 2), np.float32)
+    p38[left, :, :K] = pts19[left]
+    p38[right, :, K:] = pts19[right]
+    p38[int(order[2]), :, 15:] = 0.0
+    p38[int(order[4]), :, K + 15:] = 0.0
+    p38[right, ..., 1] = 1.0 - p38[right, ..., 1]
+    return p38
+
+
+def cells_p38(np, cells, order, hw):
+    """Per-image cells (C, K) of (H, W) heatmaps -> the assembled (C, 1, 38, 2)."""
+    pts = np.stack([(cells // hw[1]).astype(np.float32) / np.float32(hw[0]),
+                    (cells % hw[1]).astype(np.float32) / np.float32(hw[1])], axis=-1)
+    return assemble38_np(np, pts[:, None], order)
+
+
+def bf16_cells_check(np, what, p38, want, margin, jax_spread, order):
+    """The argmax-cell part of the bf16 forward bound, on golden frame 0 (or
+    any (C, 1, 38, 2) pair): ``p38`` must equal ``want`` wherever the
+    reference's margin (C, 19) exceeds BF16_MARGIN, and differ at no more than
+    2 + 2 * ``jax_spread`` entries in all.  -> (differing entries, allowed,
+    share of image-joints at or below the margin); raises otherwise."""
+    order = np.asarray(order)
+    decided = np.zeros(p38.shape[:3], bool)
+    decided[order[:3], :, :19] = (margin[order[:3]] > BF16_MARGIN)[:, None]
+    decided[order[4:], :, 19:] = (margin[order[4:]] > BF16_MARGIN)[:, None]
+    differ = (np.abs(p38 - want) > CELL_ATOL).any(-1)
+    allowed = 2 + 2 * int(jax_spread)
+    if differ[decided].any() or differ.sum() > allowed:
+        raise AssertionError(f"{what}: {int(differ[decided].sum())} cells differ where the "
+                             f"margin exceeds {BF16_MARGIN}, {int(differ.sum())} in all "
+                             f"(allowed {allowed})")
+    return int(differ.sum()), allowed, float((margin <= BF16_MARGIN).mean())
 
 
 def ingest_frames(frames0, drift=True):
@@ -341,7 +446,8 @@ def record_shapes(twin, path, rows, run):
     from deepfly3d_torch.ops import image as image_ops
     from deepfly3d_torch.ops import kernels
 
-    def note(kernel, key, extra=None):
+    def note(kernel, key, extra=None, dtype="float32"):
+        kernel += "_bf16" if str(dtype).endswith("bfloat16") else ""   # the bf16 instances
         row = rows.setdefault((kernel, key), {"counts": collections.Counter(), "extra": extra})
         row["counts"][path] += 1
 
@@ -349,11 +455,11 @@ def record_shapes(twin, path, rows, run):
         note("fused_bottleneck", tuple(x.shape) + (folded["w1"].shape[1],
                                                    folded["w3"].shape[1], "wp" in folded,
                                                    "proj_raw" in folded),
-             folded)
+             folded, x.dtype)
         return bn.bottleneck_plain(x, folded)
 
     def merge(inner, skip):
-        note("upsample2x_add", tuple(inner.shape))
+        note("upsample2x_add", tuple(inner.shape), dtype=skip.dtype)
         return kernels.upsample2x_add_plain(inner, skip)
 
     def decode(hm):
@@ -361,7 +467,7 @@ def record_shapes(twin, path, rows, run):
         return kernels.decode_heatmaps_plain(hm)
 
     def preprocess(x_u8, flip, out_shape, dtype, shift=None, gain=None):
-        note("preprocess_resize", tuple(x_u8.shape) + tuple(out_shape))
+        note("preprocess_resize", tuple(x_u8.shape) + tuple(out_shape), dtype=dtype)
         return image_ops.preprocess_frames_plain(x_u8, flip, out_shape, dtype, shift=shift,
                                                  gain=gain)
 
@@ -1601,6 +1707,434 @@ def _copy_tree(dst, src):
             v.copy_(src[k])
 
 
+# phase 12: the bf16 paths at full width, T=8, rig on, each named by its
+# configuration (BF16_CONFIGS, or the bf16 cascade), and their launches per
+# call (the bf16 instances apart)
+BF16_PATHS = {"conv_bf16": "hourglass_fly_tpu", "p16_bf16": "hourglass_fly_p16_tpu",
+              "cascade_bf16": "cascade",
+              "p16_bf16_preprocess": "hourglass_fly_p16_tpu+bf16_preprocess"}
+BF16_EXPECTED = {
+    "conv_bf16": {"fused_bottleneck_bf16": 31, "upsample2x_add_bf16": 8, "decode_heatmaps": 1,
+                  "preprocess_resize": 1},
+    "p16_bf16": {"fused_bottleneck_bf16": 16, "upsample2x_add_bf16": 4, "decode_heatmaps": 1,
+                 "preprocess_resize": 1},
+    "cascade_bf16": {"fused_bottleneck_bf16": 16 + 31, "upsample2x_add_bf16": 4 + 8,
+                     "decode_heatmaps": 2, "preprocess_resize": 2},
+    "p16_bf16_preprocess": {"fused_bottleneck_bf16": 16, "upsample2x_add_bf16": 4,
+                            "decode_heatmaps": 1, "preprocess_resize_bf16": 1},
+}
+BF16_BLOCK_ULPS = 2     # kernel vs plain, in bf16 ulps of the block output's largest magnitude
+PEAK_BF16_FLOPS = 989e12
+
+
+def counts_with_bf16(wrappers):
+    """{wrapper name: launches}, each bf16 instance's launches under name + "_bf16"."""
+    out = {}
+    for fn in wrappers:
+        out[fn.__name__] = fn.launches
+        if hasattr(fn, "launches_bf16"):
+            out[fn.__name__ + "_bf16"] = fn.launches_bf16
+    return out
+
+
+def zero_counts(wrappers):
+    for fn in wrappers:
+        fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
+
+
+def bf16_ulps(np, got, want):
+    """-> (share of elements that differ, max difference in bf16 ulps of
+    ``want``'s largest magnitude); float32 numpy arrays of bf16 values."""
+    scale = float(np.abs(want).max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7) if scale > 0 else 2.0 ** -133
+    return float((got != want).mean()), float(np.abs(got - want).max() / ulp)
+
+
+def device_ms(torch, call, table=None):
+    """Device time of one ``call()`` (torch.profiler: the CUDA kernels' own
+    time) -> (ms, the five kernels that took most, as (name, ms)); with a
+    ``table`` file, the profiler's table is appended to it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if table is not None:
+        with open(table, "a") as fh:
+            fh.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    return (sum(e.self_device_time_total for e in events) / 1e3,
+            [(e.key[:60], round(e.self_device_time_total / 1e3, 3)) for e in top])
+
+
+def bf16_phase(torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, checks, record,
+               shape_rows, gen, profile=None):
+    """Phase 12: the bfloat16 serving path.  -> ({path: launches}, informational lines).
+
+    (p) the four bf16 paths' plain twins record every shape they give each
+    kernel; (q) the kernel phase at bf16 at every recorded shape and at the
+    h36m network's 128-wide block shapes (seeded weights, its batch of 8):
+    the bottleneck within BF16_BLOCK_ULPS of its plain version, upsample-add
+    bit-equal, the bf16-output preprocess within one ulp of each element (the
+    float32 kernels at the shapes the bf16 paths give them, as in phase 4);
+    (r) each path once with every launch count set to 0 just before and read
+    just after: the recorded counts, the bf16 instances only; each net's
+    heatmaps and confidences against its plain twin's on the same input at
+    the forward bound (the confidence bound taken from the twin against the
+    float32 net of the same checkpoint, ``bf16_conf_tol``), and its cells:
+    the same wherever the twin's top-2 margin exceeds twice the 5e-3 peak
+    bound (two bf16 forwards part only at near-ties); the path's output
+    against the twin's; frames/s and device ms per call beside the float32
+    path of the same checkpoints (with ``profile``, a file, the profiler's table of each is
+    appended to it); (s) golden frame 0 (rig off) through every bf16 configuration
+    and the bf16 cascade: the plain twin on the card against the JAX
+    package's bf16 results (``BF16_REF``, ``bf16_cells_check``), the kernels
+    within 5e-3 of JAX's confidences and with no more differing cells than
+    the twin's allowance plus the cells in which the kernels leave the twin;
+    the golden errors of frame 0 beside the JAX package's CPU errors on the
+    15 golden frames.
+    """
+    from deepfly3d_torch.models.fused_inference import FoldedHourglass, fold_hourglass
+    import copy
+
+    from deepfly3d_torch.models.cascade import build_cascade_pipeline
+    from deepfly3d_torch.ops import bottleneck as bn
+    from deepfly3d_torch.ops import image as image_ops
+    from deepfly3d_torch.ops import kernels
+    from deepfly3d_torch.pipeline import build_pipeline, plain_twin
+
+    wrappers = (bn.fused_bottleneck, kernels.upsample2x_add, kernels.decode_heatmaps,
+                kernels.preprocess_resize)
+    counted = tuple(counts_with_bf16(wrappers))
+
+    def bf16_spec(key, bf16=True):
+        _, spec = ckpt[key.split("+")[0] + ".npz"]
+        if not bf16:                                    # the checkpoint's float32 path
+            return spec
+        return dataclasses.replace(spec, compute_dtype="bfloat16", **BF16_CONFIGS[key])
+
+    def checkpoint_of(path, attr):
+        key = BF16_PATHS[path]
+        if key == "cascade":
+            return STUDENT if attr == "net" else CONV
+        return key.split("+")[0] + ".npz"
+
+    def build(key, rig, bf16=True):
+        if key == "cascade":
+            return build_cascade_pipeline(
+                ckpt[STUDENT][0], bf16_spec(STUDENT[:-len(".npz")], bf16), ckpt[CONV][0],
+                bf16_spec(CONV[:-len(".npz")], bf16), calib, order, rig=rig, device=dev)
+        return build_pipeline(bf16_spec(key, bf16), ckpt[key.split("+")[0] + ".npz"][0], calib,
+                              order, rig=rig, device=dev)
+
+    pipes = {path: build(key, "auto") for path, key in BF16_PATHS.items()}
+    # (p) the shapes
+    rows16 = {}
+    for path, pipe in pipes.items():
+        record_shapes(plain_twin(pipe), path, rows16, lambda twin: twin(frames))
+
+    # (q) the kernel phase at bf16
+    def check_bottleneck(key, counts, f):
+        n, h, w, cin, cmid, cout, proj, raw = key
+        x = torch.randn((n, h, w, cin), generator=gen).to(dev).to(torch.bfloat16)
+        y = bn.fused_bottleneck(x, f)
+        ref = bn.bottleneck_plain(x, f)
+        torch.cuda.synchronize()
+        share, ulps = bf16_ulps(np, y.float().cpu().numpy(), ref.float().cpu().numpy())
+        if not ulps <= BF16_BLOCK_ULPS:
+            raise AssertionError(f"bf16 bottleneck {key}: {ulps} ulps of the output's magnitude "
+                                 f"(> {BF16_BLOCK_ULPS}), {share} of the elements differ")
+        lw = {k: f[k].t().contiguous()[:, :, None, None] for k in ("w1", "w3", "wp") if k in f}
+        lw["w2"] = f["w2"].reshape(3, 3, cmid, cmid).permute(3, 2, 0, 1).contiguous()
+        lb = {k: f[k][0].to(torch.bfloat16) for k in ("b1", "b2", "b3", "bp") if k in f}
+
+        def library():                                     # cuDNN in native bf16
+            xc = x.permute(0, 3, 1, 2)
+            a1 = torch.relu(xc * f["s1"].view(1, -1, 1, 1) + f["t1"].view(1, -1, 1, 1))
+            a2 = torch.relu(F.conv2d(a1, lw["w1"], lb["b1"]))
+            a3 = torch.relu(F.conv2d(a2, lw["w2"], lb["b2"], padding=1))
+            z = F.conv2d(a3, lw["w3"], lb["b3"])
+            return z + (F.conv2d(xc if raw else a1, lw["wp"], lb["bp"]) if proj else xc)
+
+        lib_err = (library().permute(0, 2, 3, 1).float() - ref.float()).abs().max().item()
+        flops = 2.0 * n * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
+                                   + (cin * cout if proj else 0))
+        nbytes = 2.0 * n * h * w * (cin + cout) + f["packed"].numel()
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        record("fused_bottleneck_bf16", {
+            "shape": list(key[:6]), "proj": proj, "raw": raw,
+            "tile": list(bn.choose_tile(*key[:7], "bfloat16")),
+            "max_abs_err": (y.float() - ref.float()).abs().max().item(), "ulps": ulps,
+            "share_differing": share, "magnitude": ref.float().abs().max().item(),
+            "library_err": lib_err,
+            **times(torch, lambda: bn.fused_bottleneck(x, f), lambda: bn.bottleneck_plain(x, f),
+                    library),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}, counts)
+
+    def check_merge(key, counts):
+        n, h, w, c = key
+        inner = torch.randn(key, generator=gen).to(dev).to(torch.bfloat16)
+        skip = torch.randn((n, 2 * h, 2 * w, c), generator=gen).to(dev).to(torch.bfloat16)
+        out = kernels.upsample2x_add(inner, skip)
+        ref = kernels.upsample2x_add_plain(inner, skip)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"bf16 upsample2x_add {key}: not bit-equal to its plain version")
+        nbytes = 2.0 * (inner.numel() + 2 * skip.numel())
+        b_ms, b_by = bound_ms(float(skip.numel()), nbytes)
+        record("upsample2x_add_bf16", {
+            "shape": list(key), "max_abs_err": 0.0,
+            **times(torch, lambda: kernels.upsample2x_add(inner, skip),
+                    lambda: kernels.upsample2x_add_plain(inner, skip),
+                    lambda: skip + inner.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": float(skip.numel()), "bytes": nbytes},
+            counts)
+
+    def check_preprocess(key, counts):
+        n, h_in, w_in, c, h, w = key
+        x = torch.randint(0, 256, (n, h_in, w_in, c), generator=gen, dtype=torch.uint8).to(dev)
+        flip = (torch.arange(n) % 3 == 1).to(dev)
+        dy, dx = (torch.randint(-8, 9, (n,), generator=gen, dtype=torch.int32).to(dev)
+                  for _ in range(2))
+        gain = 0.9 + 0.2 * torch.rand(n, generator=gen)
+        gain[::4] = 1.0
+        gain = gain.to(dev)
+
+        def kernel():
+            return kernels.preprocess_resize(x, flip, (h, w), shift=(dy, dx), gain=gain,
+                                             dtype="bfloat16")
+
+        def plain():
+            return image_ops.preprocess_frames_plain(x, flip, (h, w), "bfloat16", shift=(dy, dx),
+                                                     gain=gain)
+
+        def unfused():           # the registration as separate steps around the kernel
+            rolled = image_ops.roll_frames(x, (dy, dx))
+            bare = kernels.preprocess_resize(rolled, flip, (h, w), dtype="bfloat16")
+            return (bare.float() * gain.to(torch.bfloat16).float()[:, None, None, None]
+                    ).to(torch.bfloat16)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(out, unfused()):
+            raise AssertionError(f"bf16 preprocess {key}: the fused shift and gain differ from "
+                                 f"the kernel on rolled frames times the bf16 gain")
+        got, want = out.float().cpu().numpy(), ref.float().cpu().numpy()
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126))) - 7)
+        if not (np.abs(got - want) <= ulp).all():
+            raise AssertionError(f"bf16 preprocess {key}: more than one ulp off its plain version")
+
+        def library():       # the same triangle filter (it has no bf16 antialiased
+            # instance: float32, the result cast to bf16), flip and bf16 gain
+            xc = (image_ops.roll_frames(x, (dy, dx)).float() * (1.0 / 255.0)).permute(0, 3, 1, 2)
+            y = F.interpolate(xc, size=(h, w), mode="bilinear", antialias=True,
+                              align_corners=False).permute(0, 2, 3, 1).to(torch.bfloat16)
+            y = torch.where(flip.reshape(n, 1, 1, 1), y.flip(2), y)
+            return y * gain.to(torch.bfloat16)[:, None, None, None]
+
+        kh = image_ops.resize_taps(h_in, h, 1.0 / 255.0)[1].shape[1]
+        kw = image_ops.resize_taps(w_in, w, 1.0)[1].shape[1]
+        flops = 2.0 * n * c * (h * w_in * kh + h * w * kw) + n * h * w * c
+        nbytes = float(x.numel() + 2 * out.numel() + 13 * n + 8 * (h * kh + w * kw)
+                       + 4 * (h + w))
+        b_ms, b_by = bound_ms(flops, nbytes)
+        record("preprocess_resize_bf16", {
+            "shape": list(key), "taps": [kh, kw], "max_abs_err": float(np.abs(got - want).max()),
+            "share_differing": float((got != want).mean()),
+            "library_err": (library().float() - ref.float()).abs().max().item(),
+            **times(torch, kernel, plain, library),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}, counts)
+
+    bf16_checks = {"fused_bottleneck_bf16": check_bottleneck, "upsample2x_add_bf16": check_merge,
+                   "preprocess_resize_bf16": check_preprocess,
+                   "decode_heatmaps": checks["decode_heatmaps"],
+                   "preprocess_resize": checks["preprocess_resize"]}
+    for (kernel, key), row in sorted(rows16.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+        if kernel == "fused_bottleneck_bf16":
+            check_bottleneck(key, row["counts"], row["extra"])
+        elif kernel in bf16_checks:
+            bf16_checks[kernel](key, row["counts"])
+        else:
+            raise AssertionError(f"a bf16 path gave the float32 kernel {kernel} the shape {key}")
+        torch.cuda.empty_cache()
+    # the h36m network's 128-wide blocks at its batch of 8, seeded; on no bf16 path
+    h36m_blocks = sorted({key for (kernel, key), row in rows.items()
+                          if kernel == "fused_bottleneck" and row["counts"]["h36m"]
+                          and 128 in (key[3], key[5]) and not key[7]})
+    for key in h36m_blocks:
+        params, stats = seeded_block(np, key[3], key[4], key[5])
+        if not key[6]:
+            params.pop("proj")
+        f = bn.add_packed(bn.fold_bottleneck(params, stats, dtype="bfloat16"))
+        check_bottleneck((8,) + key[1:], {}, {k: v.to(dev) for k, v in f.items()})
+    print(json.dumps({"bf16_kernel_shapes": [r for r in shape_rows
+                                             if r["kernel"].endswith("_bf16")]}))
+
+    # (r) each path once, counted, against its plain twin
+    launches, lines = {}, []
+
+    def fps(p, iters=5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            p(frames)
+        torch.cuda.synchronize()
+        return BATCH_T * iters / (time.perf_counter() - t)
+
+    for path, pipe in pipes.items():
+        zero_counts(wrappers)
+        torch.cuda.synchronize()
+        pts3d, p38, conf = pipe(frames)
+        torch.cuda.synchronize()
+        got = counts_with_bf16(wrappers)
+        want = {k: BF16_EXPECTED[path].get(k, 0) for k in counted}
+        recorded = {k: sum(row["counts"][path] for (kernel, _), row in rows16.items()
+                           if kernel == k) for k in counted}
+        if got != want or got != recorded:
+            raise AssertionError(f"{path} launches {got}, want {want} (recorded {recorded})")
+        launches[path] = got
+        print(f"bf16 slice {path} launches: {got}")
+        num_cameras = p38.shape[0]
+        if not (torch.isfinite(pts3d).all() and pts3d.shape == (BATCH_T, 38, 3)
+                and conf.shape == (num_cameras, BATCH_T, 19, 1)):
+            raise AssertionError(f"{path} outputs have the wrong shape or are not finite")
+        twin = plain_twin(pipe)
+        before = counts_with_bf16(wrappers)
+        q3d, q38, qconf = twin(frames)
+        torch.cuda.synchronize()
+        if counts_with_bf16(wrappers) != before:
+            raise AssertionError(f"the plain {path} pipeline launched a kernel")
+        if path == "cascade_bf16" and not torch.equal(pipe.last_repaired, twin.last_repaired):
+            raise AssertionError("the bf16 cascade repaired other images than its plain twin")
+        # each net against its twin's on the same input: the forward bound, and
+        # the cells against what bf16 rounding moves (the twin against the
+        # float32 net of the same checkpoint, through the float32 kernels)
+        x_u8, flip, reg, _, _ = pipe._register(frames)
+        allowed_all, conf_spread, notes = 0, 0.0, []
+        for attr, net in pipe.nets().items():
+            shape = pipe.teacher_shape if attr == "teacher" else pipe.input_shape
+            x = pipe.preprocess(x_u8, flip, shape, net.spec.preprocess_dtype,
+                                shift=None if reg is None else reg[:2],
+                                gain=None if reg is None else reg[2])
+            spec32 = dataclasses.replace(net.spec, compute_dtype="float32")
+            net32 = FoldedHourglass(fold_hourglass(ckpt[checkpoint_of(path, attr)][0], spec32),
+                                    spec32).to(dev).eval()
+            with torch.inference_mode():
+                hk = net(x)[-1].float().cpu().numpy()
+                hp = twin.nets()[attr](x)[-1].float().cpu().numpy()
+                hf = net32(x)[-1].float().cpu().numpy()
+            del net32
+            err = float(np.abs(hk - hp).max() / np.abs(hp).max())
+            (ck, confk, _), (cp, confp, mp) = decode_np(np, hk), decode_np(np, hp)
+            cf, conff, _ = decode_np(np, hf)
+            # two bf16 forwards may part only where the twin's top-2 margin is
+            # within the peak differences the confidence bound admits, on both cells
+            n_diff, spread = int((ck != cp).sum()), int((cf != cp).sum())
+            n_kf, allowed = int((ck != cf).sum()), 2 + 2 * spread
+            allowed_all += allowed
+            conf_err = float(np.abs(confk - confp).max())
+            gap = float(np.abs(conff - confp).max())
+            conf_spread = max(conf_spread, gap)
+            decided = int(((ck != cp) & (mp > 2 * BF16_CONF_TOL)).sum())
+            notes.append(f"{attr}: heatmaps {err:.4f} of their magnitude, conf {conf_err:.2e} "
+                         f"(allowed {bf16_conf_tol(gap):.2e}: the float32 net's {gap:.2e}); "
+                         f"kernels and twin differ at {n_diff} of {ck.size} cells, at {decided} "
+                         f"where the twin's top-2 margin exceeds {2 * BF16_CONF_TOL} (the margin "
+                         f"there up to {float(mp[ck != cp].max()) if n_diff else 0.0:.2e}); the "
+                         f"float32 net's cells left by the kernels at {n_kf}, by the twin at "
+                         f"{spread}")
+            print(f"bf16 slice {path} vs plain, same input: {notes[-1]}")
+            if err > BF16_HEATMAP_TOL or decided or conf_err > bf16_conf_tol(gap):
+                raise AssertionError(f"{path} vs plain: {notes[-1]}")
+        # the outputs: the preprocess kernel's float32 sums differ from the plain
+        # version's at the last bit, which a bf16 net's first rounding can amplify
+        conf_diff = float((conf - qconf).abs().max())
+        n_diff = int((p38 != q38).any(-1).sum())
+        if conf_diff > bf16_conf_tol(conf_spread) or n_diff > allowed_all:
+            raise AssertionError(f"{path} vs plain: conf {conf_diff} (allowed "
+                                 f"{bf16_conf_tol(conf_spread)}), {n_diff} p38 entries differ "
+                                 f"(allowed {allowed_all})")
+        print(f"bf16 slice {path} vs plain on the card: output conf max diff {conf_diff} (allowed "
+              f"{bf16_conf_tol(conf_spread)}), {n_diff} p38 entries differ (allowed "
+              f"{allowed_all})")
+        f32_pipe = build(BF16_PATHS[path], "auto", bf16=False)
+        pipe(frames), f32_pipe(frames)                          # warm both
+        turns = [(fps(f32_pipe), fps(pipe)) for _ in range(2)]   # f32, bf16, f32, bf16
+        if profile is not None:
+            with open(profile, "a") as fh:
+                fh.write(f"\n==== {path} path and the float32 path of its checkpoints, one "
+                         f"call each at T={BATCH_T}\n")
+        dms = (device_ms(torch, lambda: f32_pipe(frames), profile),
+               device_ms(torch, lambda: pipe(frames), profile))
+        lines.append(f"informational: {path} frames/s in turns (T={BATCH_T}, frames on the card) "
+                     f"bf16 {[b for _, b in turns]} against float32 {[a for a, _ in turns]} "
+                     f"(the same checkpoints); device ms per call (torch.profiler) bf16 "
+                     f"{dms[1][0]:.3f} against float32 {dms[0][0]:.3f}; the kernels that took most "
+                     f"(ms) bf16 {dms[1][1]}, float32 {dms[0][1]}; on {card}")
+        print(lines[-1])
+
+    # (s) golden frame 0 against the JAX package's bf16 results
+    with open(os.path.join(ROOT, "tests", "data", "reference_df3d", "df3d_result_2d.pkl"),
+              "rb") as fh:
+        golden = pickle.load(fh)
+    with np.load(os.path.join(ROOT, BF16_REF)) as z:
+        ref = {k: z[k] for k in z.files}
+    in_slice = {key: path for path, key in BF16_PATHS.items()}
+    for key in list(BF16_CONFIGS) + ["cascade"]:
+        if key in in_slice:
+            pipe = copy.copy(pipes[in_slice[key]])
+            pipe.rig = None
+        else:
+            pipe = build(key, None)
+        _, g38, gconf = pipe(ref0["frames"][None])
+        _, t38, tconf = plain_twin(pipe)(ref0["frames"][None])
+        g38, gconf, t38, tconf = (a.cpu().numpy() for a in (g38, gconf, t38, tconf))
+        if key == "cascade":
+            margin = ref[f"{STUDENT[:-4]}/flax/margin"].copy()
+            rep = int(pipe.last_repaired[0])
+            margin[rep] = ref[f"{CONV[:-4]}/flax/margin"][rep]
+            spread = sum(int((ref[f"{k[:-4]}/flax/f32_cells"] != ref[f"{k[:-4]}/flax/cells"]).sum())
+                         for k in (STUDENT, CONV))
+            conf_tol = bf16_conf_tol(max(np.abs(ref[f"{k[:-4]}/flax/f32_conf"]
+                                                - ref[f"{k[:-4]}/flax/conf"]).max()
+                                         for k in (STUDENT, CONV)))
+            want38, jconf = ref["cascade/p38"], ref["cascade/conf"][:, 0, :, 0]
+        else:
+            kind = "fused" if key == CONV[:-4] else "flax"
+            cells, jconf, margin = (ref[f"{key}/{kind}/{a}"] for a in ("cells", "conf", "margin"))
+            spread = int((ref[f"{key}/flax/f32_cells"] != ref[f"{key}/flax/cells"]).sum())
+            conf_tol = bf16_conf_tol(np.abs(ref[f"{key}/flax/f32_conf"]
+                                            - ref[f"{key}/flax/conf"]).max())
+            want38 = cells_p38(np, cells, order, tuple(v // 4 for v in pipe.input_shape))
+        t_diff, allowed, excluded = bf16_cells_check(np, f"bf16 golden frame 0, {key}, plain",
+                                                     t38, want38, margin, spread, order)
+        kt_diff = int((np.abs(g38 - t38) > CELL_ATOL).any(-1).sum())
+        n_diff = int((np.abs(g38 - want38) > CELL_ATOL).any(-1).sum())
+        conf_err = float(np.abs(gconf[:, 0, :, 0] - jconf).max())
+        t_conf_err = float(np.abs(tconf[:, 0, :, 0] - jconf).max())
+        if n_diff > allowed + kt_diff or max(conf_err, t_conf_err) > conf_tol:
+            raise AssertionError(f"bf16 golden frame 0, {key}: {n_diff} cells differ from JAX "
+                                 f"(allowed {allowed} + the {kt_diff} where the kernels leave "
+                                 f"the plain twin), conf vs JAX {conf_err} (plain {t_conf_err})")
+        pts_err = float(np.abs(g38 - golden["points2d"][:, :1]).max())
+        g_conf_err = float(np.abs(gconf - golden["heatmap_confidence"][:, :1]).max())
+        cpu = ref.get(f"golden/{key.split('+')[0]}/bfloat16")
+        print(f"bf16 golden frame 0, {key}: the kernels' cells differ from JAX's bf16 at "
+              f"{n_diff}, the plain twin's at {t_diff} (allowed {allowed}; {excluded:.3f} of the "
+              f"image-joints within the {BF16_MARGIN} margin), the kernels leave the twin at "
+              f"{kt_diff}; conf vs JAX {conf_err:.2e} (plain {t_conf_err:.2e}, <= "
+              f"{conf_tol:.2e}); informational: pts_err {pts_err}, conf_err "
+              f"{g_conf_err} on frame 0"
+              + ("" if cpu is None else f" (the JAX package on the CPU, 15 frames: pts_err "
+                                        f"{cpu[0]}, conf_err {cpu[1]})"))
+    return launches, lines
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -2115,17 +2649,32 @@ def main(argv):
     launches.update(train_launches)
     print(f"informational: the training phase took {time.perf_counter() - t0:.1f} s")
 
+    # ---- 12. bf16 phase: (p)-(s)
+    t0 = time.perf_counter()
+    bf16_launches, bf16_lines = bf16_phase(
+        torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, checks, record,
+        shape_rows, gen, argv[argv.index("--profile") + 1] if "--profile" in argv else None)
+    launches.update(bf16_launches)
+    print(f"informational: the bf16 phase took {time.perf_counter() - t0:.1f} s; per bf16 path "
+          f"(kernel-phase times of its shapes times their launches): " + json.dumps(
+              {path: {kernel: {key: row[key] for key in ("launches", "ms", "bound_ms",
+                                                         "plain_ms", "library_ms")}
+                      for kernel, row in per_path[path].items()} for path in BF16_PATHS})
+          + f"; on {card}")
+
     entries = []
     for name, (src, replaces, also) in SOURCES.items():
         agg = per_kernel[name]
         if name == "fused_bottleneck":
             _, b_by = bound_ms(3.0 * agg["flops"], agg["bytes"], PEAK_TF32_FLOPS)
+        elif name == "fused_bottleneck_bf16":
+            _, b_by = bound_ms(agg["flops"], agg["bytes"], PEAK_BF16_FLOPS)
         else:
             _, b_by = bound_ms(agg["flops"], agg["bytes"])
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "also_replaces": also, "launches": sum(launches[p][name] for p in launches),
-            "launches_by_path": {p: launches[p][name] for p in launches},
+            "also_replaces": also, "launches": sum(launches[p].get(name, 0) for p in launches),
+            "launches_by_path": {p: launches[p][name] for p in launches if launches[p].get(name)},
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"],
             "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"], "bound_by": b_by,
             "library_ms": agg["library_ms"],
@@ -2135,8 +2684,10 @@ def main(argv):
             **({"bound_f32_ms": agg["bound_f32_ms"], "model_err": agg["model_err"],
                 "arithmetic": "3 TF32 MMAs per product, f32 accumulate"}
                if name == "fused_bottleneck" else {}),
+            **({"arithmetic": "1 bf16 MMA per product, f32 accumulate"}
+               if name == "fused_bottleneck_bf16" else {}),
             "per": f"times: one call of each recorded path ({', '.join(EXPECTED)}, ingest, "
-                   f"h36m, fleet, fleet2, converted) "
+                   f"h36m, fleet, fleet2, converted, {', '.join(BF16_PATHS)}) "
                    f"at T={BATCH_T}, the kernel-phase time of every shape times its launches; "
                    f"launches: every counted run ({', '.join(launches)})",
         }

@@ -35,7 +35,34 @@ skip projection of width-changing blocks reads the raw block input, the
 convention of checkpoints converted from torch) is folded into the blocks
 and runs in the bottleneck kernel's raw-projection instances; the JAX fold
 ignores it (ROADMAP Queue 3), so the port is held to ``HourglassNet.apply``
-there.  A compute dtype other than float32 raises.
+there.
+
+``compute_dtype="bfloat16"`` is the JAX ``fold_hourglass(..., dtype=
+jnp.bfloat16)`` with ``fused_apply``: tensors between layers are bfloat16,
+every product has bfloat16 operands and float32 sums (computed here as
+float32 products of bf16-valued tensors), and each layer rounds to
+bfloat16 where JAX casts:
+
+* the input is rounded at the start (a float32 preprocess), or arrives in
+  bfloat16 (``preprocess_dtype="bfloat16"``);
+* the stem is ``bf16(relu(conv(x, w) + b))``, the blocks those of
+  ``ops/bottleneck.py``, the max-pools exact, the level merge
+  ``bf16(skip + up)``, the feature head ``bf16(relu(f @ feat_w + feat_b))``;
+* the score head reads ``f`` in float32 with float32 weights, so the
+  heatmaps are float32 in both dtypes;
+* the re-injection is ``bf16(bf16(y + bf16(f @ remap_feat_w + b)) +
+  bf16(bf16(raw) @ remap_score_w + b))``;
+* every folded weight is rounded to bfloat16 once, and so are the two remap
+  biases (the JAX fold casts them to the dtype); the stem, feature-head,
+  score and block biases and the score weights stay float32.
+
+JAX's fold covers only the conv stem with a 1x1 score head; the patch stems
+and the k x k score heads follow the same rule here, and are held to the
+flax graph at ``compute_dtype=bfloat16`` (``tests/test_torch_bf16.py``).
+``hp_scope`` changes nothing at bfloat16 either: its operands are bf16
+values, and the score head is float32 in both packages.  A float32 net
+whose spec has ``preprocess_dtype="bfloat16"`` takes the bfloat16 frames
+upcast.  Any other dtype name raises.
 
 Tensors are NHWC throughout; the output is the JAX contract
 (num_stacks, N, H', W', K) with H' = H/4 for every shipped spec.
@@ -51,6 +78,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepfly3d_torch.models.hourglass import HourglassSpec
+from deepfly3d_torch.ops import bottleneck as bn_ops
+from deepfly3d_torch.ops import image as image_ops
 from deepfly3d_torch.ops.bottleneck import (add_packed, bn_affine, fold_bottleneck,
                                             fused_bottleneck)
 from deepfly3d_torch.ops.kernels import upsample2x_add
@@ -73,23 +102,34 @@ def check_foldable(spec: HourglassSpec) -> None:
         problems.append(f"score_ksize={spec.score_ksize} (odd k only: SAME padding)")
     if spec.head_upsample < 1:
         problems.append(f"head_upsample={spec.head_upsample} (>= 1)")
-    if spec.compute_dtype != "float32":
-        problems.append(f"compute_dtype={spec.compute_dtype!r} (only float32)")
+    if spec.compute_dtype not in bn_ops.DTYPES:
+        problems.append(f"compute_dtype={spec.compute_dtype!r} (one of {bn_ops.DTYPES})")
+    if spec.preprocess_dtype not in image_ops.PREPROCESS_DTYPES:
+        problems.append(f"preprocess_dtype={spec.preprocess_dtype!r} "
+                        f"(one of {image_ops.PREPROCESS_DTYPES})")
     if problems:
         raise ValueError("fold_hourglass does not cover " + ", ".join(problems))
 
 
-def _fold_conv_bn(conv: Dict, bn_params: Dict, bn_stats: Dict):
-    """conv -> bn folds into the conv: W' = W*s (out channels), b' = b*s + t."""
+def _fold_conv_bn(conv: Dict, bn_params: Dict, bn_stats: Dict, dtype: torch.dtype):
+    """conv -> bn folds into the conv: W' = W*s (out channels), b' = b*s + t;
+    W' in ``dtype``, b' float32."""
     s, t = bn_affine(**bn_params, **bn_stats)
     kernel = np.asarray(conv["kernel"], np.float64)
     w = kernel * s.reshape((1,) * (kernel.ndim - 1) + (-1,))
     b = np.asarray(conv["bias"], np.float64) * s + t
-    return _f32(w), _f32(b)
+    return _cast(w, dtype), _f32(b)
 
 
 def _f32(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))    # a writable copy
+
+
+def _cast(a, dtype: torch.dtype) -> torch.Tensor:
+    """float64 or float32 numpy -> ``dtype``, rounded once (``jnp.asarray(a, dtype)``)."""
+    if dtype == torch.float32:
+        return _f32(a)
+    return torch.from_numpy(np.array(a)).to(dtype)
 
 
 def block_names(spec: HourglassSpec) -> List[str]:
@@ -115,7 +155,9 @@ def block_names(spec: HourglassSpec) -> List[str]:
 def fold_hourglass(variables: Dict, spec: HourglassSpec) -> Dict[str, Any]:
     """One-time host-side fold of a checkpoint's numpy ``variables``.
 
-    Returns float32 CPU tensors laid out as the JAX ``fold_hourglass``:
+    Returns CPU tensors laid out as the JAX ``fold_hourglass`` at the
+    spec's ``compute_dtype`` (weights in it, biases float32; module
+    docstring):
     ``stem_w`` (HWIO: (7, 7, 3, F/2) for the conv stem, (k, k, 3, F) for
     ``patch16``/``patch8``, (1, 1, 48, F) for ``patchify``) and ``stem_b``;
     ``blocks[name]`` as ``fold_bottleneck``; ``stacks[i]`` with ``feat_w``
@@ -125,6 +167,7 @@ def fold_hourglass(variables: Dict, spec: HourglassSpec) -> Dict[str, Any]:
     it does not cover.
     """
     check_foldable(spec)
+    dtype = bn_ops.check_dtype(spec.compute_dtype)
     params = variables["params"]
     stats = variables["batch_stats"]
 
@@ -136,17 +179,17 @@ def fold_hourglass(variables: Dict, spec: HourglassSpec) -> Dict[str, Any]:
     folded: Dict[str, Any] = {"blocks": {}}
     stem = "stem_conv" if spec.stem == "conv" else "patch_embed"
     folded["stem_w"], folded["stem_b"] = _fold_conv_bn(
-        params[stem], params["stem_bn"], stats["stem_bn"]
+        params[stem], params["stem_bn"], stats["stem_bn"], dtype
     )
     for name in block_names(spec):
         folded["blocks"][name] = fold_bottleneck(node(params, name), node(stats, name),
-                                                 spec.proj_from_raw)
+                                                 spec.proj_from_raw, spec.compute_dtype)
 
     folded["stacks"] = []
     for s in range(spec.num_stacks):
         stack: Dict[str, torch.Tensor] = {}
         fw, stack["feat_b"] = _fold_conv_bn(
-            params[f"feat_conv{s}"], params[f"feat_bn{s}"], stats[f"feat_bn{s}"]
+            params[f"feat_conv{s}"], params[f"feat_bn{s}"], stats[f"feat_bn{s}"], dtype
         )
         stack["feat_w"] = fw[0, 0].contiguous()
         score = np.asarray(params[f"score{s}"]["kernel"])
@@ -155,8 +198,8 @@ def fold_hourglass(variables: Dict, spec: HourglassSpec) -> Dict[str, Any]:
         if s < spec.num_stacks - 1:
             for kind in ("feat", "score"):
                 p = params[f"remap_{kind}{s}"]
-                stack[f"remap_{kind}_w"] = _f32(np.asarray(p["kernel"])[0, 0])
-                stack[f"remap_{kind}_b"] = _f32(p["bias"])
+                stack[f"remap_{kind}_w"] = _cast(np.asarray(p["kernel"])[0, 0], dtype)
+                stack[f"remap_{kind}_b"] = _cast(p["bias"], dtype)
         folded["stacks"].append(stack)
     return folded
 
@@ -208,20 +251,25 @@ def _conv_nhwc(x: torch.Tensor, w_oihw: torch.Tensor, b: torch.Tensor,
 
 
 class FoldedHourglass(nn.Module):
-    """Stacked-hourglass forward over folded weights; NHWC float32.
+    """Stacked-hourglass forward over folded weights; NHWC, float32 or
+    bfloat16 between layers (the spec's ``compute_dtype``).
 
-    ``forward`` maps (N, H, W, 3) to (num_stacks, N, H/4, W/4, K) — the
-    output contract of ``HourglassNet.apply(..., train=False)``.  Blocks
+    ``forward`` maps (N, H, W, 3) to float32 (num_stacks, N, H/4, W/4, K) —
+    the output contract of ``HourglassNet.apply(..., train=False)``.  Blocks
     run through ``block_fn`` (``fused_bottleneck``) and level merges through
-    ``merge_fn`` (``upsample2x_add``), which launch the CUDA kernels on a
-    card; ``pipeline.plain_twin`` swaps in their plain versions.
+    ``merge_fn`` (``upsample2x_add``), which launch the CUDA kernels (their
+    bfloat16 instances in a bfloat16 net) on a card; ``pipeline.plain_twin``
+    swaps in their plain versions.  The glue's weights are kept as float32
+    tensors (bf16 values in a bfloat16 net), the operands of its float32
+    products.
     """
 
     def __init__(self, folded: Dict[str, Any], spec: HourglassSpec):
         super().__init__()
         check_foldable(spec)
         self.spec = spec
-        stem_w = folded["stem_w"]
+        self.bf16 = spec.compute_dtype == "bfloat16"
+        stem_w = folded["stem_w"].float()
         if spec.stem == "patchify":
             stem_w = stem_w[0, 0]                       # (48, F) matmul
         else:
@@ -235,7 +283,7 @@ class FoldedHourglass(nn.Module):
         )
         stacks = []
         for t in folded["stacks"]:
-            t = dict(t)
+            t = {k: v.float() for k, v in t.items()}
             if spec.score_ksize > 1:
                 t["score_w"] = t["score_w"].permute(3, 2, 0, 1)
             stacks.append(_Tensors(t))
@@ -267,8 +315,14 @@ class FoldedHourglass(nn.Module):
             inner = self.block(f"{prefix}/up_d{d}_{i}", inner)
         return self.merge(inner, skip)
 
+    def _act(self, t: torch.Tensor) -> torch.Tensor:
+        """A layer's float32 result as the trunk carries it: rounded to
+        bfloat16 in a bfloat16 net, as it is in a float32 one."""
+        return t.to(torch.bfloat16) if self.bf16 else t
+
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         stem = self.spec.stem
+        x = x.float()                                   # the products in float32
         if stem == "patchify":
             y = _dot1x1(space_to_depth4(x), self.stem_w, self.stem_b)
         elif stem == "conv":
@@ -276,7 +330,7 @@ class FoldedHourglass(nn.Module):
         else:
             _, stride, padding = _PATCH_CONV[stem]
             y = _conv_nhwc(x, self.stem_w, self.stem_b, stride=stride, padding=padding)
-        y = torch.relu(y).contiguous()
+        y = self._act(torch.relu(y)).contiguous()
         if stem == "conv":
             y = maxpool2(self.block("stem_res1", y))
         y = self.block("stem_res2", y)
@@ -284,23 +338,24 @@ class FoldedHourglass(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         spec = self.spec
-        y = self._stem(x.float())
+        # a bfloat16 net rounds a float32 input first (fused_apply's x.astype)
+        y = self._stem(self._act(x.float()) if self.bf16 else x.float())
         k, u = spec.score_ksize, spec.head_upsample
         outputs = []
         for s in range(spec.num_stacks):
             stack = self.stacks[s]
             hg = self._level(y, f"hg{s}", spec.depth)
-            f = self.block(f"feat_res{s}", hg)
-            f = torch.relu(_dot1x1(f, stack.feat_w, stack.feat_b))
+            f = self.block(f"feat_res{s}", hg).float()
+            f = self._act(torch.relu(_dot1x1(f, stack.feat_w, stack.feat_b))).float()
             if k == 1:
                 raw = _dot1x1(f, stack.score_w, stack.score_b)
             else:
                 raw = _conv_nhwc(f, stack.score_w, stack.score_b, stride=1, padding=k // 2)
             outputs.append(depth_to_space(raw, u) if u > 1 else raw)
             if s < spec.num_stacks - 1:
-                y = (
-                    y
-                    + _dot1x1(f, stack.remap_feat_w, stack.remap_feat_b)
-                    + _dot1x1(raw, stack.remap_score_w, stack.remap_score_b)
-                ).contiguous()
+                # y + remap(f) + remap(raw), each term and sum rounded in a bf16 net
+                rf = self._act(_dot1x1(f, stack.remap_feat_w, stack.remap_feat_b)).float()
+                rs = self._act(_dot1x1(self._act(raw).float(), stack.remap_score_w,
+                                       stack.remap_score_b)).float()
+                y = self._act(self._act(y.float() + rf).float() + rs).contiguous()
         return torch.stack(outputs)

@@ -151,8 +151,9 @@ def check_trainable(spec: HourglassSpec) -> None:
     """Raise for a spec the trainable network does not compute."""
     if spec.compute_dtype != "float32":
         raise NotImplementedError(
-            f"compute_dtype={spec.compute_dtype!r}: the port computes in float32 only; a "
-            "bfloat16 compute dtype is ROADMAP.md Queue 1 item 2")
+            f"compute_dtype={spec.compute_dtype!r}: the trainable network computes in "
+            "float32 only (the serving forward, models/fused_inference.py, takes bfloat16); "
+            "bfloat16 training is ROADMAP.md Queue 1 item 3")
     if spec.stem not in ("conv", "patchify", "patch8", "patch16"):
         raise ValueError(f"unknown stem {spec.stem!r}")
     if spec.score_ksize < 1 or spec.score_ksize % 2 == 0:
@@ -284,7 +285,7 @@ class HourglassNet(nn.Module):
     ``train=True`` normalises with batch statistics and moves the running
     statistics in place (the flax ``mutable=["batch_stats"]`` update).
     ``hp_scope`` is accepted and ignored: every product runs in float32.
-    Raises for a compute dtype other than float32 (ROADMAP Queue 1 item 2).
+    Raises for a compute dtype other than float32 (bf16 training: ROADMAP Queue 1 item 3).
     """
 
     def __init__(self, spec: HourglassSpec):

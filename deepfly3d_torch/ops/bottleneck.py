@@ -12,6 +12,17 @@ three batch norms folded, to
 (the last form, the raw-input projection, for a spec with
 ``proj_from_raw``: the folded dict then holds the flag ``"proj_raw"``)
 
+A bfloat16 net (``fold_bottleneck(..., dtype="bfloat16")``, the JAX fold at
+``dtype=jnp.bfloat16``) keeps s1, t1 and the four weights in bfloat16 and the
+biases in float32, and its blocks take and give bfloat16 tensors.  Every
+product has bfloat16 operands and float32 sums, and the block rounds to
+bfloat16 (round to nearest even) exactly where ``bottleneck_xla`` casts:
+
+    a1 = bf16(relu(bf16(bf16(x * s1) + t1)))
+    a2 = bf16(relu(a1 @ w1 + b1))
+    a3 = bf16(relu(conv3x3(a2, w2) + b2))
+    y  = bf16((a3 @ w3 + b3) + (x  or  a1 @ wp + bp  or  x @ wp + bp))
+
 ``fold_bottleneck`` builds the folded arrays exactly as the JAX package
 does (float64 fold, float32 result); ``bottleneck_plain`` is the plain
 PyTorch version (the counterpart of ``bottleneck_xla``); ``fused_bottleneck``
@@ -33,6 +44,15 @@ memory beside the activations.  The 128-wide blocks' float32 weights alone
 (215-231 KB) do not fit either: their instances keep w1, w3 and wp resident
 and stream w2 through shared memory one tap at a time (``streams_w2``;
 ``smem_bytes`` and ``choose_tile`` know both layouts).
+
+A bfloat16 block runs ``csrc/bottleneck_bf16.cu`` instead: one bf16 MMA per
+product (bf16 products are exact in float32, so nothing is split), and
+``pack_bottleneck`` gives it a byte buffer of bf16 weights in the fragment
+order of ``mma.m16n8k16`` followed by the float32 vectors.  Every width of
+``INSTANCES`` keeps all its weights resident at bf16 (109-117 KB for the
+128-wide blocks), so no bf16 instance streams w2.  The plain version computes
+each product as a float32 matmul of bfloat16-valued tensors (a PyTorch bf16
+matmul would round its output before the float32 bias, and JAX does not).
 """
 
 from __future__ import annotations
@@ -62,6 +82,15 @@ MAX_SMEM = 227 * 1024             # bytes one thread block can use
 INSTANCES = ((96, 48, 96, False), (48, 48, 96, True), (64, 32, 64, False), (32, 32, 64, True),
              (128, 64, 128, False), (64, 64, 128, True))
 _TF32_MASK = -8192                # 0xffffe000 as int32: clears 13 mantissa bits
+DTYPES = ("float32", "bfloat16")  # the compute dtypes a folded block comes in
+_WEIGHTS = ("s1", "t1", "w1", "w2", "w3", "wp")    # in the compute dtype; biases stay float32
+
+
+def check_dtype(dtype: str) -> torch.dtype:
+    """A compute dtype name -> its torch dtype; ValueError for any other name."""
+    if str(dtype) not in DTYPES:
+        raise ValueError(f"compute dtype {dtype!r}: the port computes in {DTYPES}")
+    return getattr(torch, str(dtype))
 
 
 def bn_affine(scale, bias, mean, var, eps: float = BN_EPS):
@@ -71,17 +100,20 @@ def bn_affine(scale, bias, mean, var, eps: float = BN_EPS):
     return s.astype(np.float32), t.astype(np.float32)
 
 
-def fold_bottleneck(params: Dict, stats: Dict,
-                    proj_from_raw: bool = False) -> Dict[str, torch.Tensor]:
+def fold_bottleneck(params: Dict, stats: Dict, proj_from_raw: bool = False,
+                    dtype: str = "float32") -> Dict[str, torch.Tensor]:
     """Fold one block's batch norms; arrays as the JAX ``fold_bottleneck``.
 
     ``params``/``stats`` are one Bottleneck's numpy collections (bn1..bn3,
-    conv1..conv3, optional proj).  Returns float32 CPU tensors: s1/t1
-    (1, Cin); w1 (Cin, Cmid); w2 (9, Cmid, Cmid); w3 (Cmid, Cout); biases
-    (1, C); wp (Cin, Cout) and bp (1, Cout) when the block projects, and
-    then with ``proj_from_raw`` the flag ``proj_raw`` (a 0-d bool tensor
-    whose presence says that the projection reads x, not a1).
+    conv1..conv3, optional proj).  Returns CPU tensors: s1/t1 (1, Cin); w1
+    (Cin, Cmid); w2 (9, Cmid, Cmid); w3 (Cmid, Cout); biases (1, C); wp (Cin,
+    Cout) and bp (1, Cout) when the block projects, and then with
+    ``proj_from_raw`` the flag ``proj_raw`` (a 0-d bool tensor whose presence
+    says that the projection reads x, not a1).  The biases are float32; s1,
+    t1 and the weights are in ``dtype`` ("float32" or "bfloat16"), rounded
+    once from the float64 fold as JAX rounds them (s1 and t1 from float32).
     """
+    tdtype = check_dtype(dtype)
     s1, t1 = bn_affine(**params["bn1"], **stats["bn1"])
     s2, t2 = bn_affine(**params["bn2"], **stats["bn2"])
     s3, t3 = bn_affine(**params["bn3"], **stats["bn3"])
@@ -106,6 +138,9 @@ def fold_bottleneck(params: Dict, stats: Dict,
         out["wp"] = np.asarray(params["proj"]["kernel"], np.float64)[0, 0]
         out["bp"] = np.asarray(params["proj"]["bias"], np.float64)[None, :]
     folded = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in out.items()}
+    if tdtype != torch.float32:
+        folded.update({k: torch.from_numpy(np.ascontiguousarray(out[k])).to(tdtype)
+                       for k in _WEIGHTS if k in out})
     if proj_from_raw and "proj" in params:
         folded["proj_raw"] = torch.ones((), dtype=torch.bool)
     return folded
@@ -116,8 +151,16 @@ def _proj_input(x: torch.Tensor, a1: torch.Tensor, folded: Dict[str, torch.Tenso
     return x if "proj_raw" in folded else a1
 
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to its nearest bfloat16 value (ties to even), kept in float32."""
+    return t.to(torch.bfloat16).float()
+
+
 def bottleneck_plain(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Plain PyTorch version of the block (matmuls + one F.conv2d), float32."""
+    """Plain PyTorch version of the block (matmuls + one F.conv2d), in x's
+    dtype: float32, or bfloat16 with the roundings of ``bottleneck_xla``."""
+    if x.dtype == torch.bfloat16:
+        return _bottleneck_plain_bf16(x, folded)
     a1 = torch.relu(x * folded["s1"][0] + folded["t1"][0])
     a2 = torch.relu(a1 @ folded["w1"] + folded["b1"][0])
     cmid = folded["w2"].shape[1]
@@ -130,6 +173,25 @@ def bottleneck_plain(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
     else:
         res = x
     return (z3 + res).contiguous()
+
+
+def _bottleneck_plain_bf16(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The bfloat16 block: float32 products of bf16-valued tensors, each
+    rounding where the JAX oracle casts (module docstring)."""
+    f = {k: v.float() for k, v in folded.items() if k not in ("packed", "proj_raw")}
+    xf = x.float()
+    a1 = torch.relu(round_bf16(round_bf16(xf * f["s1"][0]) + f["t1"][0]))
+    a2 = round_bf16(torch.relu(a1 @ f["w1"] + f["b1"][0]))
+    cmid = f["w2"].shape[1]
+    w2 = f["w2"].reshape(3, 3, cmid, cmid).permute(3, 2, 0, 1)   # OIHW
+    z2 = F.conv2d(a2.permute(0, 3, 1, 2), w2, padding=1).permute(0, 2, 3, 1)
+    a3 = round_bf16(torch.relu(z2 + f["b2"][0]))
+    z3 = a3 @ f["w3"] + f["b3"][0]
+    if "wp" in f:
+        res = _proj_input(xf, a1, folded) @ f["wp"] + f["bp"][0]
+    else:
+        res = xf
+    return (z3 + res).to(torch.bfloat16).contiguous()
 
 
 def split_tf32(x: torch.Tensor):
@@ -191,15 +253,53 @@ def _pack_fragments(w: np.ndarray, order: str) -> np.ndarray:
     return np.stack([w[k0, cols], w[k1, cols]], axis=-1).reshape(-1)
 
 
+def _pack_fragments16(w: np.ndarray, order: str) -> np.ndarray:
+    """(K, N) -> flat (K/16, N/8, 32 lanes, 4): the B fragments of
+    mma.m16n8k16 with bf16 operands, lane 4g+t holding column 8*nt+g of the
+    four rows of k step ks that its registers b0 (slots 2t, 2t+1) and b1
+    (slots 2t+8, 2t+9) stand for.  ``"mma"``: rows 16*ks + (2t, 2t+1, 2t+8,
+    2t+9), A read out of a row-major tile or an accumulator fragment reused
+    (the two layouts agree at k16); ``"lanes"``: t*K/4 + 4*ks + (0, 1, 2, 3),
+    A the K/4 neighbouring channels of a pixel that lane column t reads from x."""
+    k, n = w.shape
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    step = np.arange(k // 16)[:, None, None]
+    if order == "mma":
+        rows = [16 * step + 2 * t + d for d in (0, 1, 8, 9)]
+    else:
+        rows = [t * (k // 4) + 4 * step + d for d in range(4)]
+    cols = 8 * np.arange(n // 8)[None, :, None] + g[None, None, :]
+    return np.stack([w[r, cols] for r in rows], axis=-1).reshape(-1)
+
+
 def pack_bottleneck(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The kernel's weight buffer of one block, a flat float32 CPU tensor:
-    w1 ("lanes" k order), w2 (as (9*Cmid, Cmid), tap-major, "mma"), w3
-    ("paired") and wp ("lanes") in fragment order, then s1, t1, b1, b2 and
-    b3 (+ bp).  Every value is a folded float32 weight unchanged; the kernel
-    splits hi/lo as it loads."""
-    f = {k: v.detach().cpu().numpy() for k, v in folded.items()
+    """The kernel's weight buffer of one block, a flat CPU tensor.
+
+    float32 block: float32 values, w1 ("lanes" k order), w2 (as (9*Cmid,
+    Cmid), tap-major, "mma"), w3 ("paired") and wp ("lanes") in fragment
+    order, then s1, t1, b1, b2 and b3 (+ bp).  Every value is a folded
+    float32 weight unchanged; the kernel splits hi/lo as it loads.
+
+    bfloat16 block: bytes (uint8), the four weights as bf16 in the
+    fragment order of ``_pack_fragments16`` (w1 and wp "lanes", w2 and w3
+    "mma"), then s1, t1, b1, b2, b3 and bp as float32 (s1 and t1 hold bf16
+    values); bp is kept apart from b3, as the JAX oracle adds it.
+    """
+    f = {k: v.detach().cpu().float().numpy() for k, v in folded.items()
          if k not in ("packed", "proj_raw")}
     cmid = f["w1"].shape[1]
+    if folded["w1"].dtype == torch.bfloat16:
+        weights = [_pack_fragments16(f["w1"], "lanes"),
+                   _pack_fragments16(f["w2"].reshape(9 * cmid, cmid), "mma"),
+                   _pack_fragments16(f["w3"], "mma")]
+        vectors = [f["s1"][0], f["t1"][0], f["b1"][0], f["b2"][0], f["b3"][0]]
+        if "wp" in f:
+            weights.insert(3, _pack_fragments16(f["wp"], "lanes"))
+            vectors.append(f["bp"][0])
+        w = torch.from_numpy(np.concatenate(weights)).to(torch.bfloat16)  # exact: bf16 values
+        v = torch.from_numpy(np.concatenate(vectors).astype(np.float32))
+        return torch.cat([w.view(torch.uint8), v.view(torch.uint8)])
     parts = [_pack_fragments(f["w1"], "lanes"),
              _pack_fragments(f["w2"].reshape(9 * cmid, cmid), "mma"),
              _pack_fragments(f["w3"], "paired")]
@@ -216,10 +316,14 @@ def add_packed(folded: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {**folded, "packed": pack_bottleneck(folded)}
 
 
-def packed_size(cin: int, cmid: int, cout: int, has_proj: bool) -> int:
-    """Number of float32 values in a block's packed weight buffer."""
-    return (cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout if has_proj else 0)
-            + 2 * cin + 2 * cmid + cout)
+def packed_size(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "float32") -> int:
+    """Length of a block's packed weight buffer: float32 values for a
+    float32 block, bytes for a bfloat16 block (2-byte weights, 4-byte
+    vectors, bp apart from b3)."""
+    weights = cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout if has_proj else 0)
+    if dtype == "bfloat16":
+        return 2 * weights + 4 * (2 * cin + 2 * cmid + cout + (cout if has_proj else 0))
+    return weights + 2 * cin + 2 * cmid + cout
 
 
 def _smem(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
@@ -231,17 +335,26 @@ def _smem(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
     return 4 * (weights + 2 * hp * (cmid + 4))
 
 
-def streams_w2(cin: int, cmid: int, cout: int, has_proj: bool) -> bool:
+def streams_w2(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "float32") -> bool:
     """Whether the kernel streams the 3x3's weights through shared memory one
     tap at a time: where all the weights and the smallest tile (one row of
-    16 pixels) do not fit, as for the 128-wide networks' blocks."""
+    16 pixels) do not fit, as for the 128-wide networks' float32 blocks.
+    A bfloat16 block never does."""
+    if dtype == "bfloat16":
+        return False
     return _smem(cin, cmid, cout, 1, TILE_MAX_WIDTH, has_proj, False) > MAX_SMEM
 
 
-def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool) -> int:
+def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
+               dtype: str = "float32") -> int:
     """Dynamic shared memory of one thread block: the packed weights (without
     w2 and with a ring of two w2 taps where ``streams_w2``) and two buffers of
-    a2 on the (th+2) x (tw+2) halo tile at pitch Cmid+4."""
+    a2 on the (th+2) x (tw+2) halo tile at pitch Cmid+4 float32 values, or,
+    for a bfloat16 block, the packed bytes and two a2 buffers at pitch Cmid+8
+    bf16 values."""
+    if dtype == "bfloat16":
+        return (packed_size(cin, cmid, cout, has_proj, dtype)
+                + 2 * 2 * (th + 2) * (tw + 2) * (cmid + 8))
     return _smem(cin, cmid, cout, th, tw, has_proj, streams_w2(cin, cmid, cout, has_proj))
 
 
@@ -261,18 +374,20 @@ _TILE_US_STREAMED = (None, 18.0, 19.5, 20.5, 22.5, 31.0, 32.5, 34.0, 35.5, 47.0,
 
 
 @lru_cache(maxsize=None)
-def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj: bool):
+def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj: bool,
+                dtype: str = "float32"):
     """Output tile (rows, cols) of one thread block for an (n, h, w) batch:
     the one whose launch should take least time, waves of thread blocks over
     the SMs times the measured time of such a tile (the streamed design's
     own table where w2 streams), among those that fit shared memory.  Large images get 8x16 tiles; small images and batches
-    fewer rows, until one wave covers the launch.  Raises ValueError if no
-    tile fits."""
+    fewer rows, until one wave covers the launch.  The bfloat16 instances
+    reuse the resident float32 table (no sweep of their own yet).  Raises
+    ValueError if no tile fits."""
     tw = min(TILE_MAX_WIDTH, w)
-    tile_us = _TILE_US_STREAMED if streams_w2(cin, cmid, cout, has_proj) else _TILE_US
+    tile_us = _TILE_US_STREAMED if streams_w2(cin, cmid, cout, has_proj, dtype) else _TILE_US
     best = None
     for th in range(1, min(h, 16 * TILE_WARPS // tw) + 1):
-        if smem_bytes(cin, cmid, cout, th, tw, has_proj) > MAX_SMEM:
+        if smem_bytes(cin, cmid, cout, th, tw, has_proj, dtype) > MAX_SMEM:
             break
         waves = -(-n * -(-h // th) * -(-w // tw) // NUM_SMS)
         cost = waves * tile_us[-(-th * tw // 16)]
@@ -285,6 +400,8 @@ def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj
 
 
 def _shapes(x: torch.Tensor, folded: Dict[str, torch.Tensor]):
+    """-> (Cin, Cmid, Cout, dtype name); raises for a folded block that does
+    not fit x, or whose weights are in another dtype than x."""
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     cin = x.shape[3]
@@ -304,28 +421,37 @@ def _shapes(x: torch.Tensor, folded: Dict[str, torch.Tensor]):
     for k, shape in want.items():
         if tuple(folded[k].shape) != shape:
             raise ValueError(f"folded[{k!r}] has shape {tuple(folded[k].shape)}, want {shape}")
-    return cin, cmid, cout
+    dtype = str(x.dtype).replace("torch.", "")
+    check_dtype(dtype)
+    for k in _WEIGHTS:
+        if k in folded and folded[k].dtype != x.dtype:
+            raise ValueError(f"x is {x.dtype} but folded[{k!r}] is {folded[k].dtype}: a block "
+                             f"runs in the dtype it was folded for")
+    return cin, cmid, cout, dtype
 
 
 @lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.library("bottleneck").df3d_bottleneck
+def _kernel(dtype: str):
+    lib = _build.library("bottleneck" if dtype == "float32" else "bottleneck_bf16")
+    fn = lib.df3d_bottleneck if dtype == "float32" else lib.df3d_bottleneck_bf16
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """One folded bottleneck block, (N, H, W, Cin) -> (N, H, W, Cout) float32.
+    """One folded bottleneck block, (N, H, W, Cin) -> (N, H, W, Cout) in x's
+    dtype (float32, or bfloat16 for a block folded at bfloat16).
 
-    On a CUDA tensor this launches ``csrc/bottleneck.cu`` (one launch, every
-    intermediate on chip; ``folded`` must hold the ``"packed"`` buffer of
-    ``add_packed``; the instance with the raw-input projection where
-    ``folded`` has ``"proj_raw"``) or raises; on a CPU tensor it runs
-    ``bottleneck_plain``.
-    ``fused_bottleneck.launches`` counts launches.
+    On a CUDA tensor this launches ``csrc/bottleneck.cu`` (float32) or
+    ``csrc/bottleneck_bf16.cu`` (bfloat16) (one launch, every intermediate
+    on chip; ``folded`` must hold the ``"packed"`` buffer of ``add_packed``;
+    the instance with the raw-input projection where ``folded`` has
+    ``"proj_raw"``) or raises; on a CPU tensor it runs ``bottleneck_plain``.
+    ``fused_bottleneck.launches`` counts launches of the float32 instances,
+    ``fused_bottleneck.launches_bf16`` those of the bfloat16 ones.
     """
-    cin, cmid, cout = _shapes(x, folded)
+    cin, cmid, cout, dtype = _shapes(x, folded)
     if x.device.type == "cpu":
         return bottleneck_plain(x, folded)
     if x.device.type != "cuda":
@@ -334,30 +460,35 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
     if "packed" not in folded:
         raise ValueError("folded lacks the kernel's weight buffer: pass add_packed(folded)")
     packed = folded["packed"]
-    for name, t in (("x", x), ("folded['packed']", packed)):     # what the kernel reads
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
+    packed_dtype = torch.float32 if dtype == "float32" else torch.uint8
+    for name, t, want in (("x", x, x.dtype), ("folded['packed']", packed, packed_dtype)):
+        if t.device != x.device or t.dtype != want or not t.is_contiguous():       # what the kernel reads
+            raise ValueError(f"{name} must be a contiguous {want} tensor on {x.device}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if (cin, cmid, cout, has_proj) not in INSTANCES:
-        raise ValueError(f"kernel has no instantiation for Cin={cin}, Cmid={cmid}, "
+        raise ValueError(f"kernel has no {dtype} instantiation for Cin={cin}, Cmid={cmid}, "
                          f"Cout={cout}, projection={has_proj}; it has {INSTANCES}")
-    if packed.numel() != packed_size(cin, cmid, cout, has_proj):
+    if packed.numel() != packed_size(cin, cmid, cout, has_proj, dtype):
         raise ValueError(f"folded['packed'] has {packed.numel()} values: not this block's")
     n, h, w, _ = x.shape
-    y = torch.empty((n, h, w, cout), device=x.device, dtype=torch.float32)
+    y = torch.empty((n, h, w, cout), device=x.device, dtype=x.dtype)
     if y.numel() == 0:
         return y
-    th, tw = choose_tile(n, h, w, cin, cmid, cout, has_proj)
+    th, tw = choose_tile(n, h, w, cin, cmid, cout, has_proj, dtype)
     with torch.cuda.device(x.device):     # the library asks cudaGetDevice for the SM count
-        rc = _kernel()(
+        rc = _kernel(dtype)(
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
             int(has_proj), int("proj_raw" in folded), th, tw,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _build.check(rc, "bottleneck kernel")
-    fused_bottleneck.launches += 1
+    _build.check(rc, f"{dtype} bottleneck kernel")
+    if dtype == "float32":
+        fused_bottleneck.launches += 1
+    else:
+        fused_bottleneck.launches_bf16 += 1
     return y
 
 
 fused_bottleneck.launches = 0
+fused_bottleneck.launches_bf16 = 0

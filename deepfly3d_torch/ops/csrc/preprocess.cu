@@ -56,11 +56,20 @@
 //   launch and the items are walked without division: with 512 threads a
 //   block's per-band setup cost more than its work at small bands.
 //
+// The bfloat16-output instances (df3d_preprocess_resize_bf16, for a checkpoint
+// whose preprocess_dtype is "bfloat16") compute ops/image.py::preprocess_frames
+// at dtype=bfloat16 as the JAX package does: the taps are bf16 values (the
+// wrapper rounds the tables; the sums stay float32), the H-pass band is rounded
+// to bf16 as it is stored, the W pass's sum is rounded, then multiplied by the
+// gain rounded to bf16 and rounded again (`x * gain.astype(bf16)`), and stored
+// as bf16: half the output bytes.
+//
 // On an H100 the kernel is bound by the latency of its two compute phases,
 // not by memory and not by one stage: at 56 x 480x960 -> 256x512 it ran
 // 12-20% faster without any one of the H pass's arithmetic, the W taps, the
 // global loads or the global stores (stage ablation, PERF.md).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -134,6 +143,16 @@ __device__ __forceinline__ float byte_f32(uint32_t v, int i) {
   return __int_as_float((int)__byte_perm(v, 0x4b000000u, 0x7540u | (unsigned)i)) - 8388608.f;
 }
 
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// four float32 values that hold bf16 values -> their 8 bytes of bf16
+__device__ __forceinline__ uint2 bf16x4(float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
+
 // a per-image shift reduced to [0, len)
 __device__ __forceinline__ int wrap_shift(const int* shift, int n, int len) {
   if (shift == nullptr) return 0;
@@ -147,17 +166,19 @@ __device__ __forceinline__ int wrap_shift(const int* shift, int n, int len) {
 
 // KH, KW > 0: compile-time taps, c == 3, rows of a multiple of 16 bytes,
 // 16-byte aligned frames and output, w_out % 4 == 0.  KH == KW == 0: any
-// shape, runtime taps (kh_rt, kw_rt).
-template <int KH, int KW>
+// shape, runtime taps (kh_rt, kw_rt).  OutT: float, or __nv_bfloat16 with
+// the bf16 roundings.
+template <int KH, int KW, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 preprocess_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ flip,
                   const int* __restrict__ dy, const int* __restrict__ dx,
                   const float* __restrict__ gain, const int* __restrict__ sh,
                   const float* __restrict__ wh, const int* __restrict__ sw,
-                  const float* __restrict__ ww, float* __restrict__ out, int h_in, int w_in,
+                  const float* __restrict__ ww, OutT* __restrict__ out, int h_in, int w_in,
                   int c, int h_out, int w_out, int kh_rt, int kw_rt, int rows, int stage_rows,
                   int bands, long long items) {
   constexpr bool kFast = KH > 0;
+  constexpr bool kBf16 = sizeof(OutT) == 2;
   const int kh = kFast ? KH : kh_rt;
   const int kw = kFast ? KW : kw_rt;
   const long long first = items * blockIdx.x / gridDim.x;
@@ -254,7 +275,9 @@ preprocess_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ f
             a2 = fmaf(wt[k], byte_f32(v[k], 2), a2);
             a3 = fmaf(wt[k], byte_f32(v[k], 3), a3);
           }
-          const float4 val = make_float4(a0, a1, a2, a3);
+          const float4 val = kBf16 ? make_float4(bf16_round(a0), bf16_round(a1), bf16_round(a2),
+                                                 bf16_round(a3))
+                                   : make_float4(a0, a1, a2, a3);
           dst[wd] = val;
           if (wd < margin) dst[words + wd] = val;
         }
@@ -265,6 +288,7 @@ preprocess_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ f
           float acc = 0.f;
           for (int k = 0; k < kh; ++k)
             acc = fmaf(wh_s[o * kh + k], (float)rows8[(size_t)k * L.stage_pitch + x], acc);
+          if constexpr (kBf16) acc = bf16_round(acc);
           band[r * bp + x] = acc;
           if (x < margin) band[r * bp + row_len + x] = acc;
         }
@@ -274,9 +298,10 @@ preprocess_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ f
 
     // 2. W pass with the column shift and the flip as a column permutation
     const bool flipped = flip[n] != 0;
-    const float g = gain == nullptr ? 1.f : __ldg(gain + n);
+    float g = gain == nullptr ? 1.f : __ldg(gain + n);
+    if constexpr (kBf16) g = bf16_round(g);
     const int sx = wrap_shift(dx, n, w_in);
-    float* dst_rows = out + ((size_t)n * h_out + o0) * w_out * c;
+    OutT* dst_rows = out + ((size_t)n * h_out + o0) * w_out * c;
     int r = w_r0, u = w_u0;
     while (r < nr) {
       if constexpr (kFast) {  // 4 pixels: 12 floats, three 16-byte stores
@@ -298,24 +323,40 @@ preprocess_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ f
             a1 = fmaf(wt[k], x[3 * k + 1], a1);
             a2 = fmaf(wt[k], x[3 * k + 2], a2);
           }
-          res[3 * p] = __fmul_rn(a0, g);
-          res[3 * p + 1] = __fmul_rn(a1, g);
-          res[3 * p + 2] = __fmul_rn(a2, g);
+          if constexpr (kBf16) {
+            res[3 * p] = bf16_round(__fmul_rn(bf16_round(a0), g));
+            res[3 * p + 1] = bf16_round(__fmul_rn(bf16_round(a1), g));
+            res[3 * p + 2] = bf16_round(__fmul_rn(bf16_round(a2), g));
+          } else {
+            res[3 * p] = __fmul_rn(a0, g);
+            res[3 * p + 1] = __fmul_rn(a1, g);
+            res[3 * p + 2] = __fmul_rn(a2, g);
+          }
         }
-        float4* o4 = reinterpret_cast<float4*>(dst_rows + (size_t)r * w_out * 3 + 12 * u);
-        o4[0] = make_float4(res[0], res[1], res[2], res[3]);
-        o4[1] = make_float4(res[4], res[5], res[6], res[7]);
-        o4[2] = make_float4(res[8], res[9], res[10], res[11]);
+        if constexpr (kBf16) {  // 24 bytes: three 8-byte stores
+          uint2* o2 = reinterpret_cast<uint2*>(dst_rows + (size_t)r * w_out * 3 + 12 * u);
+          o2[0] = bf16x4(res[0], res[1], res[2], res[3]);
+          o2[1] = bf16x4(res[4], res[5], res[6], res[7]);
+          o2[2] = bf16x4(res[8], res[9], res[10], res[11]);
+        } else {
+          float4* o4 = reinterpret_cast<float4*>(dst_rows + (size_t)r * w_out * 3 + 12 * u);
+          o4[0] = make_float4(res[0], res[1], res[2], res[3]);
+          o4[1] = make_float4(res[4], res[5], res[6], res[7]);
+          o4[2] = make_float4(res[8], res[9], res[10], res[11]);
+        }
       } else {  // one pixel of c channels
         const int jj = flipped ? w_out - 1 - u : u;
         int c0 = sw_s[jj] + sx;
         if (c0 >= w_in) c0 -= w_in;
         const float* x = band + r * bp + c * c0;
-        float* o = dst_rows + ((size_t)r * w_out + u) * c;
+        OutT* o = dst_rows + ((size_t)r * w_out + u) * c;
         for (int ch = 0; ch < c; ++ch) {
           float acc = 0.f;
           for (int k = 0; k < kw; ++k) acc = fmaf(ww_s[jj * kw + k], x[c * k + ch], acc);
-          o[ch] = __fmul_rn(acc, g);
+          if constexpr (kBf16)
+            o[ch] = __float2bfloat16_rn(__fmul_rn(bf16_round(acc), g));
+          else
+            o[ch] = __fmul_rn(acc, g);
         }
       }
       for (u += kThreads; u >= units; u -= units) ++r;
@@ -331,12 +372,12 @@ int instance(int c, int w_in, int w_out, int kh, int kw, const void* src, const 
   return taps && vec ? kh * 16 + kw : 0;
 }
 
-template <int KH, int KW>
+template <int KH, int KW, typename OutT>
 int launch(const uint8_t* src, const uint8_t* flip, const int* dy, const int* dx,
            const float* gain, const int* sh, const float* wh, const int* sw, const float* ww,
-           float* out, int n, int h_in, int w_in, int c, int h_out, int w_out, int kh, int kw,
+           OutT* out, int n, int h_in, int w_in, int c, int h_out, int w_out, int kh, int kw,
            int rows, int stage_rows, int dev, int sms, cudaStream_t stream) {
-  auto kernel = preprocess_kernel<KH, KW>;
+  auto kernel = preprocess_kernel<KH, KW, OutT>;
   const size_t smem = layout(w_in, c, h_out, w_out, kh, kw, rows, stage_rows).total;
   // the opt-in to more than 48 KB is kept per device and only ever raised;
   // the blocks that fit on an SM are kept for the last size asked
@@ -363,6 +404,37 @@ int launch(const uint8_t* src, const uint8_t* flip, const int* dy, const int* dx
                                            w_in, c, h_out, w_out, kh, kw, rows, stage_rows,
                                            bands, items);
   return (int)cudaGetLastError();
+}
+
+// the instance for these arguments, launched
+template <typename OutT>
+int preprocess_resize(const uint8_t* src, const uint8_t* flip, const int* dy, const int* dx,
+                      const float* gain, const int* sh, const float* wh, const int* sw,
+                      const float* ww, OutT* out, int n, int h_in, int w_in, int c,
+                      int h_out, int w_out, int kh, int kw, int rows, int stage_rows,
+                      void* stream) {
+  if (n == 0 || h_out == 0 || w_out == 0) return 0;
+  if (rows < 1 || stage_rows < 1 || kh < 1 || kw < 1 || c < 1) return (int)cudaErrorInvalidValue;
+  static int sm_count[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (sm_count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+#define DF3D_ARGS src, flip, dy, dx, gain, sh, wh, sw, ww, out, n, h_in, w_in, c, h_out, w_out, \
+                  kh, kw, rows, stage_rows, dev, sm_count[dev], s
+#define DF3D_CASE(A, B) \
+  case A * 16 + B: return launch<A, B, OutT>(DF3D_ARGS);
+  switch (instance(c, w_in, w_out, kh, kw, src, out)) {
+    DF3D_CASE(1, 1) DF3D_CASE(4, 4) DF3D_CASE(5, 5)
+    default: return launch<0, 0, OutT>(DF3D_ARGS);
+  }
+#undef DF3D_CASE
+#undef DF3D_ARGS
 }
 
 }  // namespace
@@ -393,28 +465,20 @@ int df3d_preprocess_resize(const uint8_t* src, const uint8_t* flip, const int* d
                            const float* ww, float* out, int n, int h_in, int w_in, int c,
                            int h_out, int w_out, int kh, int kw, int rows, int stage_rows,
                            void* stream) {
-  if (n == 0 || h_out == 0 || w_out == 0) return 0;
-  if (rows < 1 || stage_rows < 1 || kh < 1 || kw < 1 || c < 1) return (int)cudaErrorInvalidValue;
-  static int sm_count[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (sm_count[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-#define DF3D_ARGS src, flip, dy, dx, gain, sh, wh, sw, ww, out, n, h_in, w_in, c, h_out, w_out, \
-                  kh, kw, rows, stage_rows, dev, sm_count[dev], s
-#define DF3D_CASE(A, B) \
-  case A * 16 + B: return launch<A, B>(DF3D_ARGS);
-  switch (instance(c, w_in, w_out, kh, kw, src, out)) {
-    DF3D_CASE(1, 1) DF3D_CASE(4, 4) DF3D_CASE(5, 5)
-    default: return launch<0, 0>(DF3D_ARGS);
-  }
-#undef DF3D_CASE
-#undef DF3D_ARGS
+  return preprocess_resize<float>(src, flip, dy, dx, gain, sh, wh, sw, ww, out, n, h_in, w_in,
+                                  c, h_out, w_out, kh, kw, rows, stage_rows, stream);
+}
+
+// The same with a bf16 output (n, h_out, w_out, c) and the bf16 roundings;
+// wh and ww must hold bf16 values (float32 tensors), gain is rounded here.
+int df3d_preprocess_resize_bf16(const uint8_t* src, const uint8_t* flip, const int* dy,
+                                const int* dx, const float* gain, const int* sh, const float* wh,
+                                const int* sw, const float* ww, void* out, int n, int h_in,
+                                int w_in, int c, int h_out, int w_out, int kh, int kw, int rows,
+                                int stage_rows, void* stream) {
+  return preprocess_resize<__nv_bfloat16>(src, flip, dy, dx, gain, sh, wh, sw, ww,
+                                          static_cast<__nv_bfloat16*>(out), n, h_in, w_in, c,
+                                          h_out, w_out, kh, kw, rows, stage_rows, stream);
 }
 
 }  // extern "C"

@@ -27,6 +27,13 @@ is the plain version, two dense matmuls:
 /255 is folded into the H matrix, and the flip comes after the resize:
 flipping commutes with the symmetric resampling grid.  The roll is
 ``canonicalize.apply_shift_tc``, the multiply the pipeline's own.
+
+With ``dtype="bfloat16"`` (a checkpoint's ``preprocess_dtype``) the result
+is the JAX ``preprocess_frames(dtype=bfloat16)`` bit for bit: both matrices
+rounded to bfloat16 (RH after the /255 is folded in), each einsum's float32
+sums rounded to bfloat16 (the H pass before the W pass), the flip, then the
+gain as the JAX pipelines apply it, ``bf16(x * bf16(gain))``.  The kernel
+has a bfloat16-output instance that rounds at the same places.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from deepfly3d_torch.ops import canonicalize
+from deepfly3d_torch.ops.bottleneck import round_bf16
 
 
 @lru_cache(maxsize=16)
@@ -97,9 +105,14 @@ def resize_taps(n_in: int, n_out: int, scale: float = 1.0) -> Tuple[np.ndarray, 
     return starts, weights
 
 
-def _check_dtype(dtype: str) -> None:
-    if str(dtype) != "float32":
-        raise ValueError(f"preprocess dtype {dtype!r}: the port computes float32 only")
+PREPROCESS_DTYPES = ("float32", "bfloat16")
+
+
+def check_dtype(dtype: str) -> torch.dtype:
+    """A ``preprocess_dtype`` name -> its torch dtype; ValueError for any other."""
+    if str(dtype) not in PREPROCESS_DTYPES:
+        raise ValueError(f"preprocess dtype {dtype!r}: the port computes {PREPROCESS_DTYPES}")
+    return getattr(torch, str(dtype))
 
 
 def roll_frames(frames_u8: torch.Tensor, shift) -> torch.Tensor:
@@ -119,32 +132,38 @@ def preprocess_frames_plain(frames_u8: torch.Tensor, flip: torch.Tensor,
                             out_shape: Tuple[int, int], dtype: str = "float32",
                             shift=None, gain=None) -> torch.Tensor:
     """Plain version of ``preprocess_frames``: the roll, two dense float32
-    matmuls, the flip and the gain."""
-    _check_dtype(dtype)
+    matmuls, the flip and the gain; at bfloat16 with the roundings of the
+    module docstring, and a bfloat16 result."""
+    bf16 = check_dtype(dtype) == torch.bfloat16
     n, h_in, w_in, c = frames_u8.shape
     rh, rw = resize_matrices((h_in, w_in), tuple(out_shape), frames_u8.device,
                              scale=1.0 / 255.0)
+    rnd = round_bf16 if bf16 else (lambda t: t)
     x = roll_frames(frames_u8, shift).float()
-    x = torch.einsum("oh,nhwc->nowc", rh, x)     # H first: shrinks the tensor
-    x = torch.einsum("ow,nhwc->nhoc", rw, x)
-    return times_gain(torch.where(flip.reshape(n, 1, 1, 1), x.flip(2), x), gain)
+    x = rnd(torch.einsum("oh,nhwc->nowc", rnd(rh), x))     # H first: shrinks the tensor
+    x = rnd(torch.einsum("ow,nhwc->nhoc", rnd(rw), x))
+    x = torch.where(flip.reshape(n, 1, 1, 1), x.flip(2), x)
+    if not bf16:
+        return times_gain(x, gain)
+    return (x if gain is None else x * round_bf16(gain)[:, None, None, None]).to(torch.bfloat16)
 
 
 def preprocess_frames(frames_u8: torch.Tensor, flip: torch.Tensor,
                       out_shape: Tuple[int, int], dtype: str = "float32",
                       shift=None, gain=None) -> torch.Tensor:
-    """(N, H, W, 3) uint8 + (N,) bool flip -> (N, h, w, 3) float32.
+    """(N, H, W, 3) uint8 + (N,) bool flip -> (N, h, w, 3) in ``dtype``.
 
     Equal, up to the order of the sums, to casting to float, /255,
     flipping where ``flip`` and resizing with jax.image.resize "bilinear".
     ``shift`` = (dy, dx), (N,) int32 each, and ``gain``, (N,) float32, are
     the rig registration's: the frames rolled by (-dy, -dx) first
     (``canonicalize.apply_shift_tc``), the result times ``gain``.
-    ``dtype`` is the checkpoint's ``preprocess_dtype``; only "float32" is
-    computed, any other raises.  Runs ``kernels.preprocess_resize``: the
-    CUDA kernel on a card, ``preprocess_frames_plain`` on the CPU.
+    ``dtype`` is the checkpoint's ``preprocess_dtype``, "float32" or
+    "bfloat16" (module docstring); any other raises.  Runs
+    ``kernels.preprocess_resize``: the CUDA kernel on a card,
+    ``preprocess_frames_plain`` on the CPU.
     """
     from deepfly3d_torch.ops.kernels import preprocess_resize   # kernels imports this module
 
-    _check_dtype(dtype)
-    return preprocess_resize(frames_u8, flip, tuple(out_shape), shift=shift, gain=gain)
+    return preprocess_resize(frames_u8, flip, tuple(out_shape), shift=shift, gain=gain,
+                             dtype=dtype)

@@ -32,53 +32,68 @@ from deepfly3d_torch.ops import _build
 from deepfly3d_torch.ops import image as image_ops
 
 
-def _check_cuda(name: str, t: torch.Tensor, device: torch.device) -> None:
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 tensor on {device}")
+def _check_cuda(name: str, t: torch.Tensor, device: torch.device,
+                dtype: torch.dtype = torch.float32) -> None:
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor on {device}")
 
 
 # ------------------------------------------------------- upsample 2x + add
 
 
 def upsample2x_add_plain(inner: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-    """(N, H, W, C) inner + (N, 2H, 2W, C) skip -> (N, 2H, 2W, C)."""
+    """(N, H, W, C) inner + (N, 2H, 2W, C) skip -> (N, 2H, 2W, C), in their
+    dtype (bfloat16: each sum in float32, rounded once)."""
     n, h, w, c = inner.shape
     up = inner[:, :, None, :, None, :].expand(n, h, 2, w, 2, c)
+    if skip.dtype == torch.bfloat16:
+        return (skip.float() + up.reshape(n, 2 * h, 2 * w, c).float()).to(torch.bfloat16)
     return skip + up.reshape(n, 2 * h, 2 * w, c)
 
 
-def upsample2x_add(inner: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-    """Nearest-2x upsample of ``inner`` plus ``skip``, float32 NHWC.
+_MERGE_DTYPES = {torch.float32: "df3d_upsample2x_add", torch.bfloat16: "df3d_upsample2x_add_bf16"}
 
-    Launches ``csrc/upsample_add.cu`` on CUDA tensors (counted in
-    ``upsample2x_add.launches``) or raises; plain version on CPU tensors.
+
+def upsample2x_add(inner: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """Nearest-2x upsample of ``inner`` plus ``skip``, NHWC, float32 or bfloat16.
+
+    Launches ``csrc/upsample_add.cu``'s instance of their dtype on CUDA
+    tensors (counted in ``upsample2x_add.launches``, float32, and
+    ``upsample2x_add.launches_bf16``) or raises; plain version on CPU tensors.
     """
     if inner.dim() != 4 or skip.dim() != 4:
         raise ValueError("inner and skip must be NHWC")
     n, h, w, c = inner.shape
     if tuple(skip.shape) != (n, 2 * h, 2 * w, c):
         raise ValueError(f"skip shape {tuple(skip.shape)} != {(n, 2 * h, 2 * w, c)}")
+    if inner.dtype != skip.dtype or skip.dtype not in _MERGE_DTYPES:
+        raise ValueError(f"inner and skip must share one of {list(_MERGE_DTYPES)}, got "
+                         f"{inner.dtype} and {skip.dtype}")
     if inner.device.type == "cpu":
         return upsample2x_add_plain(inner, skip)
     if inner.device.type != "cuda":
         raise ValueError(f"upsample2x_add runs on cuda or cpu, not {inner.device}")
-    _check_cuda("inner", inner, inner.device)
-    _check_cuda("skip", skip, inner.device)
+    _check_cuda("inner", inner, inner.device, skip.dtype)
+    _check_cuda("skip", skip, inner.device, skip.dtype)
     out = torch.empty_like(skip)
     if out.numel() == 0:
         return out
-    fn = _build.library("upsample_add").df3d_upsample2x_add
+    fn = getattr(_build.library("upsample_add"), _MERGE_DTYPES[skip.dtype])
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(inner.device):      # a launch goes to the current device
         rc = fn(inner.data_ptr(), skip.data_ptr(), out.data_ptr(), n, h, w, c,
                 torch.cuda.current_stream(inner.device).cuda_stream)
     _build.check(rc, "upsample2x_add kernel")
-    upsample2x_add.launches += 1
+    if skip.dtype == torch.float32:
+        upsample2x_add.launches += 1
+    else:
+        upsample2x_add.launches_bf16 += 1
     return out
 
 
 upsample2x_add.launches = 0
+upsample2x_add.launches_bf16 = 0
 
 
 # ------------------------------------------------------------ heatmap decode
@@ -184,10 +199,15 @@ def preprocess_u8_plain(frames_u8: torch.Tensor, flip: torch.Tensor, shift=None,
 
 
 @lru_cache(maxsize=16)
-def _device_taps(n_in: int, n_out: int, scale: float, device: torch.device):
+def _device_taps(n_in: int, n_out: int, scale: float, device: torch.device,
+                 bf16: bool = False):
+    """The tap tables on ``device``; with ``bf16`` the weights rounded to
+    bfloat16 values (kept float32: the kernel sums in float32)."""
     starts, weights = image_ops.resize_taps(n_in, n_out, scale)
-    return (torch.from_numpy(starts.copy()).to(device),
-            torch.from_numpy(weights.copy()).to(device))
+    weights = torch.from_numpy(weights.copy())
+    if bf16:
+        weights = weights.to(torch.bfloat16).float()
+    return torch.from_numpy(starts.copy()).to(device), weights.to(device)
 
 
 def preprocess_smem(w_in: int, c: int, h_out: int, w_out: int, kh: int, kw: int,
@@ -235,19 +255,23 @@ def _check_per_image(name: str, t, n: int, dtype: torch.dtype, device: torch.dev
 
 def preprocess_resize(frames_u8: torch.Tensor, flip: torch.Tensor, out_shape: Tuple[int, int],
                       shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                      gain: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(N, H, W, C) uint8 + (N,) bool flip -> (N, h, w, C) float32.
+                      gain: Optional[torch.Tensor] = None, dtype: str = "float32") -> torch.Tensor:
+    """(N, H, W, C) uint8 + (N,) bool flip -> (N, h, w, C) in ``dtype``.
 
     ``/255``, the flip and the antialiased bilinear resize to ``out_shape``
     in one pass, and with ``shift`` = (dy, dx), (N,) int32 each, and
     ``gain``, (N,) float32, the rig registration around it: bit for bit the
     resize of ``canonicalize.apply_shift_tc``'s frames (rolled by (-dy, -dx))
     times ``gain``.  At ``out_shape == (H, W)`` the taps are the identity and
-    this is exactly ``preprocess_u8_plain``.  Launches ``csrc/preprocess.cu``
-    on CUDA tensors (counted in ``preprocess_resize.launches``) or raises;
+    this is exactly ``preprocess_u8_plain``.  ``dtype="bfloat16"``: the
+    bfloat16 result of ``image.preprocess_frames`` (its roundings).
+    Launches ``csrc/preprocess.cu``'s instance of ``dtype`` on CUDA tensors
+    (counted in ``preprocess_resize.launches``, float32, and
+    ``preprocess_resize.launches_bf16``) or raises;
     ``image.preprocess_frames_plain`` on CPU tensors.  Reads nothing back
     from the card.
     """
+    bf16 = image_ops.check_dtype(dtype) == torch.bfloat16
     if frames_u8.dim() != 4 or frames_u8.dtype != torch.uint8:
         raise ValueError("frames_u8 must be an (N, H, W, C) uint8 tensor")
     n, h_in, w_in, c = frames_u8.shape
@@ -265,20 +289,22 @@ def preprocess_resize(frames_u8: torch.Tensor, flip: torch.Tensor, out_shape: Tu
     if gain is not None:
         _check_per_image("gain", gain, n, torch.float32, dev)
     if dev.type == "cpu":
-        return image_ops.preprocess_frames_plain(frames_u8, flip, (h_out, w_out),
+        return image_ops.preprocess_frames_plain(frames_u8, flip, (h_out, w_out), dtype,
                                                  shift=shift, gain=gain)
     if dev.type != "cuda":
         raise ValueError(f"preprocess_resize runs on cuda or cpu, not {dev}")
     if not frames_u8.is_contiguous() or flip.device != dev or not flip.is_contiguous():
         raise ValueError(f"frames_u8 and flip must be contiguous tensors on {dev}")
     rows, stage_rows, _ = preprocess_plan(h_in, w_in, c, h_out, w_out, PREPROCESS_STAGE_ROWS)
-    sh, wh = _device_taps(h_in, h_out, 1.0 / 255.0, dev)
-    sw, ww = _device_taps(w_in, w_out, 1.0, dev)
-    out = torch.empty((n, h_out, w_out, c), device=dev, dtype=torch.float32)
+    sh, wh = _device_taps(h_in, h_out, 1.0 / 255.0, dev, bf16)
+    sw, ww = _device_taps(w_in, w_out, 1.0, dev, bf16)
+    out = torch.empty((n, h_out, w_out, c), device=dev,
+                      dtype=torch.bfloat16 if bf16 else torch.float32)
     if n == 0:
         return out
     dy, dx = (0, 0) if shift is None else (shift[0].data_ptr(), shift[1].data_ptr())
-    fn = _build.library("preprocess").df3d_preprocess_resize
+    lib = _build.library("preprocess")
+    fn = lib.df3d_preprocess_resize_bf16 if bf16 else lib.df3d_preprocess_resize
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):          # the library asks cudaGetDevice for the SM count
@@ -288,8 +314,12 @@ def preprocess_resize(frames_u8: torch.Tensor, flip: torch.Tensor, out_shape: Tu
                 wh.shape[1], ww.shape[1], rows, stage_rows,
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "preprocess kernel")
-    preprocess_resize.launches += 1
+    if bf16:
+        preprocess_resize.launches_bf16 += 1
+    else:
+        preprocess_resize.launches += 1
     return out
 
 
 preprocess_resize.launches = 0
+preprocess_resize.launches_bf16 = 0

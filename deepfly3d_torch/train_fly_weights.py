@@ -16,7 +16,7 @@ preprocess, bottleneck, upsample-add and decode kernels.  The kernel has
 instances for the widths in ``ops/bottleneck.INSTANCES`` only; for another
 width the script raises before the first step.  ``--device cpu`` runs
 every kernel's plain version.  ``--dtype bfloat16`` raises (ROADMAP Queue 1
-item 2).  The default ``--out`` is the shipped ``weights/hourglass_fly.npz``.
+item 3).  The default ``--out`` is the shipped ``weights/hourglass_fly.npz``.
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def parse_args(argv=None):
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--input", default="256x512", help="network input HxW; heatmaps are input/4")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
-                    help="trunk compute dtype; only float32 is ported (ROADMAP Queue 1 item 2)")
+                    help="trunk compute dtype; only float32 is ported (ROADMAP Queue 1 item 3)")
     ap.add_argument("--batch-size", type=int, default=24)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--sigma", type=float, default=1.25)
@@ -109,7 +109,7 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.dtype != "float32":
         raise NotImplementedError("--dtype bfloat16: the port trains in float32 only; a "
-                                  "bfloat16 compute dtype is ROADMAP.md Queue 1 item 2")
+                                  "bfloat16 compute dtype is ROADMAP.md Queue 1 item 3")
     dev = resolve_device(args.device)
     full_f32()
 

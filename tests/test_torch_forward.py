@@ -14,7 +14,7 @@ is held to ``HourglassNet.apply`` the same way; the JAX ``fused_apply``
 covers only the conv stem with a 1x1 head.  ``proj_from_raw`` (the skip
 projection reads the raw block input) is held to ``HourglassNet.apply``
 too; the JAX fold ignores it.  Specs the port does not compute (an even
-score kernel, a bfloat16 compute dtype, an unknown stem, a head upsampling
+score kernel, a float16 compute dtype, an unknown stem, a head upsampling
 below 1) raise.
 """
 
@@ -122,7 +122,7 @@ def test_stem_and_head_match_flax(stem, head):
 
 
 @pytest.mark.parametrize("field", [dict(head_upsample=0), dict(score_ksize=2),
-                                   dict(compute_dtype="bfloat16"), dict(stem="patch4")])
+                                   dict(compute_dtype="float16"), dict(stem="patch4")])
 def test_uncovered_spec_raises(field):
     spec = dataclasses.replace(port_hg.HourglassSpec(**SPEC_KW), **field)
     with pytest.raises(ValueError):

@@ -569,3 +569,97 @@ def test_two_entry_mesh_infer_matches_one_forward():
                        (256, 512))
     np.testing.assert_allclose(pts.numpy(), want[0].cpu().numpy(), atol=1e-6, rtol=0)
     np.testing.assert_allclose(conf.numpy(), want[1].cpu().numpy(), atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------- bfloat16
+
+
+def _smoke():
+    import sys
+
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _bf16_block(width, proj, raw=False):
+    params, stats = _smoke().seeded_block(np, *width)
+    if not proj:
+        params.pop("proj")
+    return bn.add_packed(bn.fold_bottleneck(params, stats, raw, "bfloat16"))
+
+
+@pytest.mark.parametrize("cin,cmid,cout,proj,raw", [
+    (*b, False) for b in bn.INSTANCES] + [(*b, True) for b in bn.INSTANCES if b[3]])
+def test_bf16_bottleneck_kernel_matches_plain(cin, cmid, cout, proj, raw):
+    """The bf16 instance within 2 bf16 ulps of the output's largest magnitude
+    (its k16 sums against float32 sums in another order; chip_smoke.py's
+    tolerance), at a shape whose tiles the image edge cuts."""
+    dev = _card()
+    folded = {k: v.to(dev) for k, v in _bf16_block((cin, cmid, cout), proj, raw).items()}
+    x = torch.randn((3, 19, 37, cin), generator=torch.Generator().manual_seed(2))
+    x = x.to(dev).to(torch.bfloat16)
+    before = (bn.fused_bottleneck.launches, bn.fused_bottleneck.launches_bf16)
+    got = bn.fused_bottleneck(x, folded)
+    torch.cuda.synchronize()
+    assert (bn.fused_bottleneck.launches, bn.fused_bottleneck.launches_bf16) == \
+        (before[0], before[1] + 1)
+    assert got.dtype == torch.bfloat16
+    want = bn.bottleneck_plain(x, folded).float()
+    ulp = 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+    assert (got.float() - want).abs().max().item() <= 2 * ulp
+
+
+def test_bf16_block_refusals_on_the_card():
+    """A bf16 tensor of a width without a bf16 instance, or a block folded at
+    float32, raises; nothing falls back to the plain version or float32."""
+    dev = _card()
+    params, stats = _smoke().seeded_block(np, 256, 128, 256)
+    params.pop("proj")
+    wide = {k: v.to(dev) for k, v in bn.add_packed(
+        bn.fold_bottleneck(params, stats, dtype="bfloat16")).items()}
+    with pytest.raises(ValueError, match="no bfloat16 instantiation for Cin=256"):
+        bn.fused_bottleneck(torch.zeros((1, 4, 4, 256), device=dev, dtype=torch.bfloat16), wide)
+    f32 = {k: v.to(dev) for k, v in bn.add_packed(
+        bn.fold_bottleneck(*_smoke().seeded_block(np, 48, 48, 96))).items()}
+    with pytest.raises(ValueError, match="dtype it was folded for"):
+        bn.fused_bottleneck(torch.zeros((1, 4, 4, 48), device=dev, dtype=torch.bfloat16), f32)
+
+
+@pytest.mark.parametrize("shape", [(56, 4, 8, 96), (7, 32, 64, 96), (2, 3, 5, 6)])
+def test_bf16_upsample_kernel_matches_plain(shape):
+    dev = _card()
+    n, h, w, c = shape
+    g = torch.Generator().manual_seed(1)
+    inner = torch.randn(shape, generator=g).to(dev).to(torch.bfloat16)
+    skip = torch.randn((n, 2 * h, 2 * w, c), generator=g).to(dev).to(torch.bfloat16)
+    before = kernels.upsample2x_add.launches_bf16
+    got = kernels.upsample2x_add(inner, skip)
+    torch.cuda.synchronize()
+    assert kernels.upsample2x_add.launches_bf16 == before + 1
+    assert torch.equal(got, kernels.upsample2x_add_plain(inner, skip))
+
+
+@pytest.mark.parametrize("n,in_hw,out_hw", [(7, (480, 960), (256, 512)),
+                                            (7, (480, 960), (192, 384)),
+                                            (2, (1000, 1000), (384, 384))])
+def test_bf16_preprocess_kernel_matches_plain(n, in_hw, out_hw):
+    """The bf16-output instance within one ulp of each element of its plain
+    version (its float32 sums in another order), with the registration."""
+    dev = _card()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(0, 256, (n,) + in_hw + (3,), generator=g, dtype=torch.uint8).to(dev)
+    flip = (torch.arange(n) % 2 == 1).to(dev)
+    shift = tuple(torch.randint(-8, 9, (n,), generator=g, dtype=torch.int32).to(dev)
+                  for _ in range(2))
+    gain = (0.9 + 0.2 * torch.rand(n, generator=g)).to(dev)
+    before = kernels.preprocess_resize.launches_bf16
+    got = kernels.preprocess_resize(x, flip, out_hw, shift=shift, gain=gain, dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert kernels.preprocess_resize.launches_bf16 == before + 1 and got.dtype == torch.bfloat16
+    want = image_ops.preprocess_frames_plain(x, flip, out_hw, "bfloat16", shift=shift,
+                                             gain=gain).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+    assert bool(((got.float() - want).abs() <= ulp).all())

@@ -95,4 +95,4 @@ def test_preprocess_dtype_other_than_float32_raises():
     frames = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
     with pytest.raises(ValueError):
         port_image.preprocess_frames(frames, torch.zeros(1, dtype=torch.bool), (4, 4),
-                                     "bfloat16")
+                                     "float16")

@@ -129,7 +129,7 @@ def test_sharded_train_step_raises_naming_the_training_item():
     """The train step exists (tests/test_torch_train_parallel.py); a compute
     dtype it does not train in raises, naming the ROADMAP item that adds it."""
     spec = dataclasses.replace(port_hg.HourglassSpec(**SPEC_KW), compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 3"):
         pipeline.make_sharded_train_step(spec, mesh.data_mesh(devices=CPU8))
     init_fn, step_fn = pipeline.make_sharded_train_step(port_hg.HourglassSpec(**SPEC_KW),
                                                         mesh.data_mesh(devices=CPU8))

@@ -5,7 +5,7 @@ the serving path with every kernel's plain version: a fresh network with
 shift and gain augmentation, then resumed with frozen statistics and the
 envelope pool, then distilled; each run writes a checkpoint that both
 packages read, and parity fails at this size (exit 1).  The refusals: a
-bfloat16 compute dtype (ROADMAP Queue 1 item 2), and on a card a width the
+bfloat16 compute dtype (ROADMAP Queue 1 item 3), and on a card a width the
 bottleneck kernel has no instance for (``INSTANCES``).
 """
 
@@ -44,7 +44,7 @@ def test_train_fly_weights_script_on_the_cpu(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "augment-envelope pool: 945 images" in text and "distilling from" in text
     assert "PARITY: FAIL" in text and not os.path.exists(out + ".PARITY")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 3"):
         script.main(base + ["--dtype", "bfloat16"])
     with pytest.raises(ValueError, match="INSTANCES"):
         script.check_kernel_widths(pspec)
