@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference paths, its CLI, its fleet path and its trainer on one CUDA card.
+"""Drive the PyTorch port's inference paths, its CLI, its fleet path, its trainer and the converted 256-wide checkpoint on one CUDA card.
 
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --profile FILE   # also a torch.profiler table per path and of
@@ -11,7 +11,7 @@ result line):
 1. the card's name and power limit, torch and CUDA versions, and the host
    probe: whether OpenCV imports, whether the native ingest library loads,
    and whether the libjpeg and libav headers are there;
-2. build the five CUDA sources of ``deepfly3d_torch/ops/csrc``;
+2. build the six CUDA sources of ``deepfly3d_torch/ops/csrc``;
 3. the three main paths at full width, T=8 frames (56 images of 480x960,
    rig registration on): ``conv`` (``build_pipeline`` with the shipped
    2-stack f96 ``hourglass_fly.npz``), ``p16`` (``hourglass_fly_p16_tpu.npz``,
@@ -146,7 +146,28 @@ result line):
    (rig off) through every bf16 configuration and the bf16 cascade against
    the JAX package's bf16 results (``deepfly3d_torch/data/bf16_t0.npz``,
    ``bf16_cells_check``), with the golden errors printed beside the JAX
-   package's on the CPU (informational).
+   package's on the CPU (informational);
+13. wide phase (the converter's default output, a 256-wide checkpoint, which
+   runs the bottleneck kernel's general instance ``bottleneck_general.cu``):
+   a seeded torch state dict under the sh8 names at a trained net's scale,
+   converted by ``convert_torch.main`` at its defaults.  (u) the kernel phase
+   of the general instance at every shape the two paths below give it (the
+   raw projecting stem block at 56x128x256, the 256->128->256 blocks at
+   56x64x128 ... 56x4x8) and at the README toy trainer's widths and a width
+   no multiple of 8 (TOY_SHAPES), float32 within 5e-5 of the output's
+   magnitude, bf16 within 2 bf16 ulps; ``bound_ms`` at three TF32 MMAs per
+   product (float32) and 989 TFLOP/s (bf16), ``library_ms`` cuDNN
+   ``F.conv2d`` (TF32 off; native bf16); (t) ``build_pipeline`` at T=8, rig
+   on, with every count set to 0 just before and read just after (31
+   general-instance launches, 8 upsample-add, 1 decode, 1 preprocess, none
+   of the six-width instances), each net against its plain twin on the same
+   input (conf within 2e-5, the same cells above a 2e-4 top-2 margin, at most
+   5% of the image-joints within it), frames/s and device ms per call
+   (informational); ``PoseEstimator.infer_images`` on golden frame 0 and
+   ``cli.main --checkpoint`` over the bundled recording's first frames, each
+   counted; (v) the same spec at ``compute_dtype="bfloat16"`` under phase
+   12's rule (``bf16_twin_check``); (w) ``train_fly_weights`` at the README's
+   toy size in a temporary folder: its evals run the general instance.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 """
@@ -291,6 +312,15 @@ SOURCES = {
                             "deepfly3d_tpu/ops/pallas/kernels.py:49", []),
     "preprocess_resize_bf16": ("deepfly3d_torch/ops/csrc/preprocess.cu",
                                "deepfly3d_tpu/ops/pallas/kernels.py:133", []),
+    # the general-width instances of the converted 256-wide paths (phase 13)
+    "fused_bottleneck_general": ("deepfly3d_torch/ops/csrc/bottleneck_general.cu",
+                                 "deepfly3d_tpu/ops/pallas/bottleneck.py:433",
+                                 ["deepfly3d_tpu/ops/pallas/bottleneck.py:359",
+                                  "deepfly3d_tpu/ops/pallas/bottleneck.py:486"]),
+    "fused_bottleneck_general_bf16": ("deepfly3d_torch/ops/csrc/bottleneck_general.cu",
+                                      "deepfly3d_tpu/ops/pallas/bottleneck.py:433",
+                                      ["deepfly3d_tpu/ops/pallas/bottleneck.py:359",
+                                       "deepfly3d_tpu/ops/pallas/bottleneck.py:486"]),
 }
 
 
@@ -452,10 +482,10 @@ def record_shapes(twin, path, rows, run):
         row["counts"][path] += 1
 
     def block(x, folded):
-        note("fused_bottleneck", tuple(x.shape) + (folded["w1"].shape[1],
-                                                   folded["w3"].shape[1], "wp" in folded,
-                                                   "proj_raw" in folded),
-             folded, x.dtype)
+        key = tuple(x.shape) + (folded["w1"].shape[1], folded["w3"].shape[1], "wp" in folded,
+                                "proj_raw" in folded)
+        general = bn.kernel_for(*key[3:7]) == "general"
+        note("fused_bottleneck_general" if general else "fused_bottleneck", key, folded, x.dtype)
         return bn.bottleneck_plain(x, folded)
 
     def merge(inner, skip):
@@ -1727,21 +1757,25 @@ BF16_BLOCK_ULPS = 2     # kernel vs plain, in bf16 ulps of the block output's la
 PEAK_BF16_FLOPS = 989e12
 
 
+# a wrapper's launch counters and the kernel name each counts under (the
+# bottleneck's general instance since phase 13)
+COUNTERS = {"launches": "", "launches_bf16": "_bf16", "launches_general": "_general",
+            "launches_general_bf16": "_general_bf16"}
+
+
 def counts_with_bf16(wrappers):
-    """{wrapper name: launches}, each bf16 instance's launches under name + "_bf16"."""
-    out = {}
-    for fn in wrappers:
-        out[fn.__name__] = fn.launches
-        if hasattr(fn, "launches_bf16"):
-            out[fn.__name__ + "_bf16"] = fn.launches_bf16
-    return out
+    """{kernel name: launches}: each wrapper's counters, the bf16 instance's
+    launches under name + "_bf16", the general instance's under name +
+    "_general" and name + "_general_bf16"."""
+    return {fn.__name__ + suffix: getattr(fn, attr)
+            for fn in wrappers for attr, suffix in COUNTERS.items() if hasattr(fn, attr)}
 
 
 def zero_counts(wrappers):
     for fn in wrappers:
-        fn.launches = 0
-        if hasattr(fn, "launches_bf16"):
-            fn.launches_bf16 = 0
+        for attr in COUNTERS:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def bf16_ulps(np, got, want):
@@ -1772,9 +1806,75 @@ def device_ms(torch, call, table=None):
             [(e.key[:60], round(e.self_device_time_total / 1e3, 3)) for e in top])
 
 
+def bf16_twin_check(torch, np, dev, what, pipe, twin, frames, weights_of, out, twin_out):
+    """A bf16 pipeline against its plain twin under phase 12's rule: each net
+    against its twin's on the same input (the path's preprocessed frames) at
+    the forward bound (heatmaps within BF16_HEATMAP_TOL of their magnitude,
+    conf within ``bf16_conf_tol`` of the twin's gap to the float32 net of the
+    same weights, ``weights_of(attr)``, through the float32 kernels; the same
+    cells wherever the twin's top-2 margin exceeds twice the 5e-3 peak bound),
+    and the path's outputs ``out`` = (p38, conf) against ``twin_out``.
+    Raises otherwise."""
+    from deepfly3d_torch.models.fused_inference import FoldedHourglass, fold_hourglass
+
+    p38, conf = out
+    q38, qconf = twin_out
+    # each net against its twin's on the same input: the forward bound, and
+    # the cells against what bf16 rounding moves (the twin against the
+    # float32 net of the same checkpoint, through the float32 kernels)
+    x_u8, flip, reg, _, _ = pipe._register(frames)
+    allowed_all, conf_spread, notes = 0, 0.0, []
+    for attr, net in pipe.nets().items():
+        shape = pipe.teacher_shape if attr == "teacher" else pipe.input_shape
+        x = pipe.preprocess(x_u8, flip, shape, net.spec.preprocess_dtype,
+                            shift=None if reg is None else reg[:2],
+                            gain=None if reg is None else reg[2])
+        spec32 = dataclasses.replace(net.spec, compute_dtype="float32")
+        net32 = FoldedHourglass(fold_hourglass(weights_of(attr), spec32), spec32).to(dev).eval()
+        with torch.inference_mode():
+            hk = net(x)[-1].float().cpu().numpy()
+            hp = twin.nets()[attr](x)[-1].float().cpu().numpy()
+            hf = net32(x)[-1].float().cpu().numpy()
+        del net32
+        err = float(np.abs(hk - hp).max() / np.abs(hp).max())
+        (ck, confk, _), (cp, confp, mp) = decode_np(np, hk), decode_np(np, hp)
+        cf, conff, _ = decode_np(np, hf)
+        # two bf16 forwards may part only where the twin's top-2 margin is
+        # within the peak differences the confidence bound admits, on both cells
+        n_diff, spread = int((ck != cp).sum()), int((cf != cp).sum())
+        n_kf, allowed = int((ck != cf).sum()), 2 + 2 * spread
+        allowed_all += allowed
+        conf_err = float(np.abs(confk - confp).max())
+        gap = float(np.abs(conff - confp).max())
+        conf_spread = max(conf_spread, gap)
+        decided = int(((ck != cp) & (mp > 2 * BF16_CONF_TOL)).sum())
+        notes.append(f"{attr}: heatmaps {err:.4f} of their magnitude, conf {conf_err:.2e} "
+                     f"(allowed {bf16_conf_tol(gap):.2e}: the float32 net's {gap:.2e}); "
+                     f"kernels and twin differ at {n_diff} of {ck.size} cells, at {decided} "
+                     f"where the twin's top-2 margin exceeds {2 * BF16_CONF_TOL} (the margin "
+                     f"there up to {float(mp[ck != cp].max()) if n_diff else 0.0:.2e}); the "
+                     f"float32 net's cells left by the kernels at {n_kf}, by the twin at "
+                     f"{spread}")
+        print(f"{what} vs plain, same input: {notes[-1]}")
+        if err > BF16_HEATMAP_TOL or decided or conf_err > bf16_conf_tol(gap):
+            raise AssertionError(f"{what} vs plain: {notes[-1]}")
+    # the outputs: the preprocess kernel's float32 sums differ from the plain
+    # version's at the last bit, which a bf16 net's first rounding can amplify
+    conf_diff = float((conf - qconf).abs().max())
+    n_diff = int((p38 != q38).any(-1).sum())
+    if conf_diff > bf16_conf_tol(conf_spread) or n_diff > allowed_all:
+        raise AssertionError(f"{what} vs plain: conf {conf_diff} (allowed "
+                             f"{bf16_conf_tol(conf_spread)}), {n_diff} p38 entries differ "
+                             f"(allowed {allowed_all})")
+    print(f"{what} vs plain on the card: output conf max diff {conf_diff} (allowed "
+          f"{bf16_conf_tol(conf_spread)}), {n_diff} p38 entries differ (allowed "
+          f"{allowed_all})")
+
+
 def bf16_phase(torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, checks, record,
                shape_rows, gen, profile=None):
-    """Phase 12: the bfloat16 serving path.  -> ({path: launches}, informational lines).
+    """Phase 12: the bfloat16 serving path.  -> ({path: launches}, informational
+    lines, the kernel-phase checks of the bf16 instances by kernel name).
 
     (p) the four bf16 paths' plain twins record every shape they give each
     kernel; (q) the kernel phase at bf16 at every recorded shape and at the
@@ -1799,7 +1899,6 @@ def bf16_phase(torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, 
     the golden errors of frame 0 beside the JAX package's CPU errors on the
     15 golden frames.
     """
-    from deepfly3d_torch.models.fused_inference import FoldedHourglass, fold_hourglass
     import copy
 
     from deepfly3d_torch.models.cascade import build_cascade_pipeline
@@ -1840,41 +1939,8 @@ def bf16_phase(torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, 
 
     # (q) the kernel phase at bf16
     def check_bottleneck(key, counts, f):
-        n, h, w, cin, cmid, cout, proj, raw = key
-        x = torch.randn((n, h, w, cin), generator=gen).to(dev).to(torch.bfloat16)
-        y = bn.fused_bottleneck(x, f)
-        ref = bn.bottleneck_plain(x, f)
-        torch.cuda.synchronize()
-        share, ulps = bf16_ulps(np, y.float().cpu().numpy(), ref.float().cpu().numpy())
-        if not ulps <= BF16_BLOCK_ULPS:
-            raise AssertionError(f"bf16 bottleneck {key}: {ulps} ulps of the output's magnitude "
-                                 f"(> {BF16_BLOCK_ULPS}), {share} of the elements differ")
-        lw = {k: f[k].t().contiguous()[:, :, None, None] for k in ("w1", "w3", "wp") if k in f}
-        lw["w2"] = f["w2"].reshape(3, 3, cmid, cmid).permute(3, 2, 0, 1).contiguous()
-        lb = {k: f[k][0].to(torch.bfloat16) for k in ("b1", "b2", "b3", "bp") if k in f}
-
-        def library():                                     # cuDNN in native bf16
-            xc = x.permute(0, 3, 1, 2)
-            a1 = torch.relu(xc * f["s1"].view(1, -1, 1, 1) + f["t1"].view(1, -1, 1, 1))
-            a2 = torch.relu(F.conv2d(a1, lw["w1"], lb["b1"]))
-            a3 = torch.relu(F.conv2d(a2, lw["w2"], lb["b2"], padding=1))
-            z = F.conv2d(a3, lw["w3"], lb["b3"])
-            return z + (F.conv2d(xc if raw else a1, lw["wp"], lb["bp"]) if proj else xc)
-
-        lib_err = (library().permute(0, 2, 3, 1).float() - ref.float()).abs().max().item()
-        flops = 2.0 * n * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
-                                   + (cin * cout if proj else 0))
-        nbytes = 2.0 * n * h * w * (cin + cout) + f["packed"].numel()
-        b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
-        record("fused_bottleneck_bf16", {
-            "shape": list(key[:6]), "proj": proj, "raw": raw,
-            "tile": list(bn.choose_tile(*key[:7], "bfloat16")),
-            "max_abs_err": (y.float() - ref.float()).abs().max().item(), "ulps": ulps,
-            "share_differing": share, "magnitude": ref.float().abs().max().item(),
-            "library_err": lib_err,
-            **times(torch, lambda: bn.fused_bottleneck(x, f), lambda: bn.bottleneck_plain(x, f),
-                    library),
-            "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}, counts)
+        record("fused_bottleneck_bf16",
+               bottleneck_row(torch, np, F, dev, gen, key, f, "bfloat16"), counts)
 
     def check_merge(key, counts):
         n, h, w, c = key
@@ -2011,57 +2077,9 @@ def bf16_phase(torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, 
             raise AssertionError(f"the plain {path} pipeline launched a kernel")
         if path == "cascade_bf16" and not torch.equal(pipe.last_repaired, twin.last_repaired):
             raise AssertionError("the bf16 cascade repaired other images than its plain twin")
-        # each net against its twin's on the same input: the forward bound, and
-        # the cells against what bf16 rounding moves (the twin against the
-        # float32 net of the same checkpoint, through the float32 kernels)
-        x_u8, flip, reg, _, _ = pipe._register(frames)
-        allowed_all, conf_spread, notes = 0, 0.0, []
-        for attr, net in pipe.nets().items():
-            shape = pipe.teacher_shape if attr == "teacher" else pipe.input_shape
-            x = pipe.preprocess(x_u8, flip, shape, net.spec.preprocess_dtype,
-                                shift=None if reg is None else reg[:2],
-                                gain=None if reg is None else reg[2])
-            spec32 = dataclasses.replace(net.spec, compute_dtype="float32")
-            net32 = FoldedHourglass(fold_hourglass(ckpt[checkpoint_of(path, attr)][0], spec32),
-                                    spec32).to(dev).eval()
-            with torch.inference_mode():
-                hk = net(x)[-1].float().cpu().numpy()
-                hp = twin.nets()[attr](x)[-1].float().cpu().numpy()
-                hf = net32(x)[-1].float().cpu().numpy()
-            del net32
-            err = float(np.abs(hk - hp).max() / np.abs(hp).max())
-            (ck, confk, _), (cp, confp, mp) = decode_np(np, hk), decode_np(np, hp)
-            cf, conff, _ = decode_np(np, hf)
-            # two bf16 forwards may part only where the twin's top-2 margin is
-            # within the peak differences the confidence bound admits, on both cells
-            n_diff, spread = int((ck != cp).sum()), int((cf != cp).sum())
-            n_kf, allowed = int((ck != cf).sum()), 2 + 2 * spread
-            allowed_all += allowed
-            conf_err = float(np.abs(confk - confp).max())
-            gap = float(np.abs(conff - confp).max())
-            conf_spread = max(conf_spread, gap)
-            decided = int(((ck != cp) & (mp > 2 * BF16_CONF_TOL)).sum())
-            notes.append(f"{attr}: heatmaps {err:.4f} of their magnitude, conf {conf_err:.2e} "
-                         f"(allowed {bf16_conf_tol(gap):.2e}: the float32 net's {gap:.2e}); "
-                         f"kernels and twin differ at {n_diff} of {ck.size} cells, at {decided} "
-                         f"where the twin's top-2 margin exceeds {2 * BF16_CONF_TOL} (the margin "
-                         f"there up to {float(mp[ck != cp].max()) if n_diff else 0.0:.2e}); the "
-                         f"float32 net's cells left by the kernels at {n_kf}, by the twin at "
-                         f"{spread}")
-            print(f"bf16 slice {path} vs plain, same input: {notes[-1]}")
-            if err > BF16_HEATMAP_TOL or decided or conf_err > bf16_conf_tol(gap):
-                raise AssertionError(f"{path} vs plain: {notes[-1]}")
-        # the outputs: the preprocess kernel's float32 sums differ from the plain
-        # version's at the last bit, which a bf16 net's first rounding can amplify
-        conf_diff = float((conf - qconf).abs().max())
-        n_diff = int((p38 != q38).any(-1).sum())
-        if conf_diff > bf16_conf_tol(conf_spread) or n_diff > allowed_all:
-            raise AssertionError(f"{path} vs plain: conf {conf_diff} (allowed "
-                                 f"{bf16_conf_tol(conf_spread)}), {n_diff} p38 entries differ "
-                                 f"(allowed {allowed_all})")
-        print(f"bf16 slice {path} vs plain on the card: output conf max diff {conf_diff} (allowed "
-              f"{bf16_conf_tol(conf_spread)}), {n_diff} p38 entries differ (allowed "
-              f"{allowed_all})")
+        bf16_twin_check(torch, np, dev, f"bf16 slice {path}", pipe, twin, frames,
+                        lambda attr, path=path: ckpt[checkpoint_of(path, attr)][0],
+                        (p38, conf), (q38, qconf))
         f32_pipe = build(BF16_PATHS[path], "auto", bf16=False)
         pipe(frames), f32_pipe(frames)                          # warm both
         turns = [(fps(f32_pipe), fps(pipe)) for _ in range(2)]   # f32, bf16, f32, bf16
@@ -2132,6 +2150,336 @@ def bf16_phase(torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, 
               f"{g_conf_err} on frame 0"
               + ("" if cpu is None else f" (the JAX package on the CPU, 15 frames: pts_err "
                                         f"{cpu[0]}, conf_err {cpu[1]})"))
+    return launches, lines, bf16_checks
+
+
+# phase 13: the converter's default output, a 256-wide checkpoint (the df2d
+# sh8 lineage: 2 stacks, depth 4, 19 joints, 256x512, proj_from_raw), from a
+# seeded torch state dict under the sh8 names at a trained net's scale (heatmap
+# peaks ~2, utils/synthetic.random_checkpoint), served at T=8 with the rig on;
+# every block runs the bottleneck kernel's general instance
+WIDE_SEED = 0
+WIDE_EXPECTED = {"fused_bottleneck_general": 31, "upsample2x_add": 8, "decode_heatmaps": 1,
+                 "preprocess_resize": 1}
+WIDE_BF16_EXPECTED = {"fused_bottleneck_general_bf16": 31, "upsample2x_add_bf16": 8,
+                      "decode_heatmaps": 1, "preprocess_resize": 1}
+WIDE_CONF_TOL = 2e-5    # kernels vs plain twin on the same input, float32
+WIDE_MARGIN = 2e-4      # ... and the same cells above this top-2 margin
+WIDE_TIES = 0.05        # at most this share of the image-joints below it (PERF.md §2's h36m rule)
+WIDE_CLI_FRAMES = 3     # cli.main --checkpoint over the bundled recording's first frames
+# (w) the README's toy trainer; its evals run the general instance (11 blocks
+# of 16->8->16 and 8->8->16 per forward, one forward of the 105 golden images)
+TOY_ARGS = ["--input", "64x128", "--features", "16", "--stacks", "1", "--depth", "2",
+            "--steps", "4", "--batch-size", "8"]
+TOY_BLOCKS = 11
+# (u) rows beside the path's shapes: the toy trainer's eval shapes and a width
+# that is no multiple of 8, at float32 and bf16
+TOY_SHAPES = [(105, 32, 64, 8, 8, 16, True, False), (105, 16, 32, 16, 8, 16, False, False),
+              (105, 16, 32, 20, 10, 20, False, False)]
+GENERAL_QUICK_FLOPS = 4e10      # rows of more work than this are timed with fewer repeats
+
+
+def block_flops(key):
+    """Operations of one folded block at ``key`` = (N, H, W, Cin, Cmid, Cout,
+    projection, raw): two per multiply-add of its four products."""
+    n, h, w, cin, cmid, cout, proj, _ = key
+    return 2.0 * n * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
+                              + (cin * cout if proj else 0))
+
+
+def bottleneck_row(torch, np, F, dev, gen, key, f, dtype, quick=False):
+    """One kernel-phase row of the bottleneck kernel (whichever instance
+    ``fused_bottleneck`` launches) at ``key`` = (N, H, W, Cin, Cmid, Cout,
+    projection, raw) and dtype, on a seeded input: the kernel against its
+    plain version (float32: BLOCK_TOL of the output's magnitude, and against
+    its 3xTF32 model; bf16: BF16_BLOCK_ULPS), its times (``quick``: fewer
+    repeats) against the bound (float32: three TF32 MMAs per product, the f32
+    CUDA-core bound beside; bf16 at 989 TFLOP/s and 2-byte activations) and
+    one library call (cuDNN ``F.conv2d``, TF32 off at float32, native bf16).
+    -> the row; raises."""
+    from deepfly3d_torch.ops import bottleneck as bn
+
+    n, h, w, cin, cmid, cout, proj, raw = key
+    f32 = dtype == "float32"
+    x = torch.randn((n, h, w, cin), generator=gen).to(dev).to(getattr(torch, dtype))
+    y = bn.fused_bottleneck(x, f)
+    ref = bn.bottleneck_plain(x, f)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    if f32:
+        scale = max(1.0, ref.abs().max().item())
+        acc = {"model_err": (y - bn.bottleneck_tf32_model(x, f)).abs().max().item(),
+               "magnitude": scale}
+        if not max(err, acc["model_err"]) <= BLOCK_TOL * scale:
+            raise AssertionError(f"bottleneck {key}: max abs err {err} (against its arithmetic "
+                                 f"model {acc['model_err']}) > {BLOCK_TOL} x {scale}")
+    else:
+        share, ulps = bf16_ulps(np, y.float().cpu().numpy(), ref.float().cpu().numpy())
+        acc = {"ulps": ulps, "share_differing": share,
+               "magnitude": ref.float().abs().max().item()}
+        if not ulps <= BF16_BLOCK_ULPS:
+            raise AssertionError(f"bf16 bottleneck {key}: {ulps} ulps of the output's magnitude "
+                                 f"(> {BF16_BLOCK_ULPS}), {share} of the elements differ")
+    lw = {k: f[k].t().contiguous()[:, :, None, None] for k in ("w1", "w3", "wp") if k in f}
+    lw["w2"] = f["w2"].reshape(3, 3, cmid, cmid).permute(3, 2, 0, 1).contiguous()
+    lb = {k: f[k][0].to(x.dtype) for k in ("b1", "b2", "b3", "bp") if k in f}
+
+    def library():
+        xc = x.permute(0, 3, 1, 2)                          # channels_last NCHW view
+        a1 = torch.relu(xc * f["s1"].view(1, -1, 1, 1) + f["t1"].view(1, -1, 1, 1))
+        a2 = torch.relu(F.conv2d(a1, lw["w1"], lb["b1"]))
+        a3 = torch.relu(F.conv2d(a2, lw["w2"], lb["b2"], padding=1))
+        z = F.conv2d(a3, lw["w3"], lb["b3"])
+        return z + (F.conv2d(xc if raw else a1, lw["wp"], lb["bp"]) if proj else xc)
+
+    lib_err = (library().permute(0, 2, 3, 1).float() - ref.float()).abs().max().item()
+    flops = block_flops(key)
+    e = 4 if f32 else 2
+    nbytes = e * (n * h * w * (cin + cout) + flops / (2.0 * n * h * w)) + 4.0 * (
+        2 * cin + 2 * cmid + cout + (cout if proj else 0))
+    b_ms, b_by = (bound_ms(3.0 * flops, nbytes, PEAK_TF32_FLOPS) if f32
+                  else bound_ms(flops, nbytes, PEAK_BF16_FLOPS))
+    return {"shape": list(key[:6]), "proj": proj, "raw": raw,
+            "tile": list(bn.choose_tile(*key[:7], dtype)), "max_abs_err": err,
+            "library_err": lib_err, **acc,
+            **times(torch, lambda: bn.fused_bottleneck(x, f), lambda: bn.bottleneck_plain(x, f),
+                    library, quick=quick),
+            **({"bound_f32_ms": bound_ms(flops, nbytes)[0]} if f32 else {}),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
+
+
+def wide_twin_check(torch, np, what, pipe, twin, frames, out, twin_out):
+    """A float32 pipeline against its plain twin: each net against its twin's
+    on the same input (the path's preprocessed frames): conf within
+    WIDE_CONF_TOL, the same cells wherever the twin's top-2 margin exceeds
+    WIDE_MARGIN, at most WIDE_TIES of the image-joints below it; the outputs
+    (whose preprocess differs at the last bit): conf within 1e-4 (the slice
+    phase's rule) and no more differing p38 entries than near-ties.  Raises."""
+    p38, conf = out
+    q38, qconf = twin_out
+    x_u8, flip, reg, _, _ = pipe._register(frames)
+    ties = 0
+    for attr, net in pipe.nets().items():
+        x = pipe.preprocess(x_u8, flip, pipe.input_shape, net.spec.preprocess_dtype,
+                            shift=None if reg is None else reg[:2],
+                            gain=None if reg is None else reg[2])
+        with torch.inference_mode():
+            hk = net(x)[-1].cpu().numpy()
+            hp = twin.nets()[attr](x)[-1].cpu().numpy()
+        (ck, confk, _), (cp, confp, mp) = decode_np(np, hk), decode_np(np, hp)
+        conf_err = float(np.abs(confk - confp).max())
+        decided = mp > WIDE_MARGIN
+        ties += int((~decided).sum())
+        n_diff = int((ck != cp).sum())
+        note = (f"{attr}: conf {conf_err:.2e} (<= {WIDE_CONF_TOL}), cells differ at {n_diff} of "
+                f"{ck.size}, {int((ck != cp)[decided].sum())} where the twin's top-2 margin "
+                f"exceeds {WIDE_MARGIN}; {float((~decided).mean()):.4f} of the image-joints "
+                f"within it (<= {WIDE_TIES})")
+        print(f"{what} vs plain, same input: {note}")
+        if conf_err > WIDE_CONF_TOL or (ck != cp)[decided].any() or (~decided).mean() > WIDE_TIES:
+            raise AssertionError(f"{what} vs plain: {note}")
+    conf_diff = float((conf - qconf).abs().max())
+    n_diff = int((p38 != q38).any(-1).sum())
+    if conf_diff > 1e-4 or n_diff > ties:
+        raise AssertionError(f"{what} vs plain: output conf {conf_diff}, {n_diff} p38 entries "
+                             f"differ (near-ties {ties})")
+    print(f"{what} vs plain on the card: output conf max diff {conf_diff}, {n_diff} p38 entries "
+          f"differ (near-ties {ties})")
+
+
+def wide_phase(torch, np, F, dev, card, calib, order, frames, ref0, record, shape_rows, gen,
+               checks, profile=None):
+    """Phase 13: the converter's default 256-wide checkpoint on the card.
+    -> ({path: launches}, informational lines).
+
+    The seeded torch state dict under the sh8 names (``utils/synthetic``) is
+    converted by ``convert_torch.main`` at its defaults.  (u) the kernel phase
+    of the general instance at every shape the two paths below give it
+    (recorded from their plain twins) and at TOY_SHAPES, float32 and bf16,
+    and of the paths' other kernels at their shapes (the upsample-add at 256
+    channels among them) through ``checks``, phase 4's and phase 12's;
+    (t) ``build_pipeline`` of it with every count set to 0 just before and
+    read just after (WIDE_EXPECTED: the general instance only), against its
+    plain twin (``wide_twin_check``), frames/s and device ms per call; then
+    ``PoseEstimator.infer_images`` on golden frame 0 and ``cli.main
+    --checkpoint`` over the bundled recording's first WIDE_CLI_FRAMES frames,
+    each counted; (v) the same spec at ``compute_dtype="bfloat16"``
+    (WIDE_BF16_EXPECTED; ``bf16_twin_check``); (w) ``train_fly_weights`` at
+    TOY_ARGS in a temporary folder, counted: its evals run the general
+    instance and nothing else of the bottleneck."""
+    import io
+
+    from deepfly3d_torch import cli, train_fly_weights
+    from deepfly3d_torch.io import result_schema
+    from deepfly3d_torch.models import convert_torch
+    from deepfly3d_torch.models.hourglass import HourglassSpec, load_weights
+    from deepfly3d_torch.models.inference import PoseEstimator
+    from deepfly3d_torch.ops import bottleneck as bn
+    from deepfly3d_torch.ops import kernels
+    from deepfly3d_torch.pipeline import build_pipeline, plain_twin
+    from deepfly3d_torch.utils import synthetic
+
+    wrappers = (bn.fused_bottleneck, kernels.upsample2x_add, kernels.decode_heatmaps,
+                kernels.preprocess_resize)
+    counted = tuple(counts_with_bf16(wrappers))
+
+    def counted_run(run):
+        zero_counts(wrappers)
+        torch.cuda.synchronize()
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in counts_with_bf16(wrappers).items() if v}
+
+    launches, lines = {}, []
+    tmp = tempfile.mkdtemp(prefix="df3d_smoke_wide_")
+    try:
+        arrays = synthetic.random_checkpoint(os.path.join(tmp, "seeded.npz"), WIDE_SEED, 2, 256,
+                                             4, 19, (256, 512))
+        tar, ckpt = os.path.join(tmp, "sh8_seeded.tar"), os.path.join(tmp, "sh8_converted.npz")
+        torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in
+                                   synthetic.torch_state_dict(arrays, 2, 4).items()}}, tar)
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            rc = convert_torch.main([tar, ckpt])
+        variables, spec = load_weights(ckpt)
+        want_spec = HourglassSpec(num_stacks=2, features=256, depth=4, num_blocks=1,
+                                  num_classes=19, stem="conv", input_shape=(256, 512),
+                                  proj_from_raw=True)
+        if rc != 0 or spec != want_spec:
+            raise AssertionError(f"convert_torch.main: rc {rc}, spec {spec}")
+        print(f"(t) {said.getvalue().strip()}")
+        pipes = {"converted256": build_pipeline(spec, variables, calib, order, rig="auto",
+                                                device=dev),
+                 "converted256_bf16": build_pipeline(
+                     dataclasses.replace(spec, compute_dtype="bfloat16"), variables, calib, order,
+                     rig="auto", device=dev)}
+        rows = {}
+        for path, pipe in pipes.items():
+            record_shapes(plain_twin(pipe), path, rows, lambda twin: twin(frames))
+
+        # (u) the kernel phase at the general instance's shapes
+        for (kernel, key), row in sorted(rows.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+            if kernel.startswith("fused_bottleneck_general"):
+                dtype = "bfloat16" if kernel.endswith("_bf16") else "float32"
+                f = {k: v.to(dev) for k, v in row["extra"].items()}
+                record(kernel, bottleneck_row(torch, np, F, dev, gen, key, f, dtype,
+                                              quick=block_flops(key) >= GENERAL_QUICK_FLOPS),
+                       row["counts"])
+            else:
+                checks[kernel](key, row["counts"])
+            torch.cuda.empty_cache()
+        for key in TOY_SHAPES:
+            for dtype in ("float32", "bfloat16"):
+                params, stats = seeded_block(np, *key[3:6])
+                if not key[6]:
+                    params.pop("proj")
+                f = bn.add_packed(bn.fold_bottleneck(params, stats, key[7], dtype))
+                record("fused_bottleneck_general" + ("_bf16" if dtype == "bfloat16" else ""),
+                       bottleneck_row(torch, np, F, dev, gen, key,
+                                      {k: v.to(dev) for k, v in f.items()}, dtype), {})
+        print(json.dumps({"wide_kernel_shapes": [
+            r for r in shape_rows if set(r["launches_by_path"]) & set(pipes)
+            or "_general" in r["kernel"]]}))
+
+        # (t) and (v): each path once, counted, against its plain twin
+        for path, pipe in pipes.items():
+            bf16 = path.endswith("_bf16")
+            (pts3d, p38, conf), got = counted_run(lambda: pipe(frames))
+            want = WIDE_BF16_EXPECTED if bf16 else WIDE_EXPECTED
+            recorded = {k: sum(row["counts"][path] for (kernel, _), row in rows.items()
+                               if kernel == k) for k in counted}
+            if got != want or got != {k: v for k, v in recorded.items() if v}:
+                raise AssertionError(f"{path} launches {got}, want {want} (recorded {recorded})")
+            launches[path] = got
+            print(f"({'v' if bf16 else 't'}) {path} launches: {got}")
+            if not (torch.isfinite(pts3d).all() and pts3d.shape == (BATCH_T, 38, 3)
+                    and conf.shape == (p38.shape[0], BATCH_T, 19, 1)):
+                raise AssertionError(f"{path} outputs have the wrong shape or are not finite")
+            twin = plain_twin(pipe)
+            before = counts_with_bf16(wrappers)
+            _, q38, qconf = twin(frames)
+            torch.cuda.synchronize()
+            if counts_with_bf16(wrappers) != before:
+                raise AssertionError(f"the plain {path} pipeline launched a kernel")
+            if bf16:
+                bf16_twin_check(torch, np, dev, f"(v) {path}", pipe, twin, frames,
+                                lambda attr: variables, (p38, conf), (q38, qconf))
+            else:
+                wide_twin_check(torch, np, f"(t) {path}", pipe, twin, frames, (p38, conf),
+                                (q38, qconf))
+            pipe(frames)                                         # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                pipe(frames)
+            torch.cuda.synchronize()
+            fps = 3 * BATCH_T / (time.perf_counter() - t0)
+            if profile is not None:
+                with open(profile, "a") as fh:
+                    fh.write(f"\n==== {path} path, one call at T={BATCH_T}\n")
+            dms = device_ms(torch, lambda: pipe(frames), profile)
+            lines.append(f"informational: {path} {fps:.1f} frames/s (T={BATCH_T}, frames on "
+                         f"the card), device ms per call (torch.profiler) {dms[0]:.3f}; the "
+                         f"kernels that took most (ms) {dms[1]}; on {card}")
+            print(lines[-1])
+            if not bf16:
+                # the same checkpoint through PoseEstimator and cli.main --checkpoint
+                flips0 = np.isin(np.arange(7), np.asarray(order)[4:])
+                est = PoseEstimator(ckpt, device=dev)
+                (pts, pconf, hm), got = counted_run(lambda: est.infer_images(
+                    ref0["frames"], flips0, batch_size=7, return_heatmaps=True))
+                if got != WIDE_EXPECTED or est.rig is not None:
+                    raise AssertionError(f"(t) PoseEstimator launches {got}, want "
+                                         f"{WIDE_EXPECTED}")
+                qpts, qconf0, qhm = plain_twin(est).infer_images(ref0["frames"], flips0,
+                                                                 batch_size=7,
+                                                                 return_heatmaps=True)
+                _, _, margin = decode_np(np, qhm)
+                differ = (np.abs(pts - qpts) > CELL_ATOL).any(-1)
+                conf_diff = float(np.abs(pconf - qconf0).max())
+                if conf_diff > 1e-4 or differ[margin > WIDE_MARGIN].any():
+                    raise AssertionError(f"(t) PoseEstimator vs plain: conf {conf_diff}, "
+                                         f"{int(differ.sum())} cells differ")
+                print(f"(t) PoseEstimator.infer_images on golden frame 0 (7 images): launches "
+                      f"{got}; vs plain: conf max diff {conf_diff}, {int(differ.sum())} cells "
+                      f"differ, none above the {WIDE_MARGIN} margin")
+                rec = os.path.join(tmp, "reference")
+                shutil.copytree(os.path.join(ROOT, "tests", "data", "reference"), rec)
+                out = os.path.join(tmp, "out")
+                args = [rec, "--checkpoint", ckpt, "-n", str(WIDE_CLI_FRAMES), "--output-folder",
+                        out, "--device", str(dev)]
+                printed = io.StringIO()
+                with contextlib.redirect_stdout(printed):
+                    rc, got = counted_run(lambda: cli.main(args))
+                batches = -(-7 * WIDE_CLI_FRAMES // 8)
+                want = {k: v * batches for k, v in WIDE_EXPECTED.items()}
+                saved = result_schema.load_result(result_schema.result_path(out, rec))
+                if rc != 0 or got != want or saved["points2d"].shape != (7, WIDE_CLI_FRAMES, 38, 2) \
+                        or not np.isfinite(saved["points3d"]).all():
+                    raise AssertionError(f"(t) cli.main --checkpoint: rc {rc}, launches {got} "
+                                         f"(want {want})")
+                launches["converted256_cli"] = got
+                print(f"(t) cli.main --checkpoint (the converted file) -n {WIDE_CLI_FRAMES}: "
+                      f"launches {got}, a finite result; "
+                      + printed.getvalue().strip().splitlines()[-1])
+
+        # (w) the README's toy trainer: its evals run the general instance
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc, got = counted_run(lambda: train_fly_weights.main(
+                TOY_ARGS + ["--out", os.path.join(tmp, "tiny.npz"), "--device", str(dev)]))
+        evals = got.get("decode_heatmaps", 0)
+        want = {"fused_bottleneck_general": TOY_BLOCKS * evals, "upsample2x_add": 2 * evals,
+                "decode_heatmaps": evals, "preprocess_resize": evals + 1}
+        if rc not in (0, 1) or evals < 1 or got != want \
+                or not os.path.exists(os.path.join(tmp, "tiny.npz")):
+            raise AssertionError(f"(w) train_fly_weights {' '.join(TOY_ARGS)}: rc {rc}, "
+                                 f"launches {got} (want {want})")
+        launches["train_toy"] = got
+        print(f"(w) python -m deepfly3d_torch.train_fly_weights {' '.join(TOY_ARGS)}: exit {rc} "
+              f"in {time.perf_counter() - t0:.1f} s, launches {got}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return launches, lines
 
 
@@ -2265,49 +2613,9 @@ def main(argv):
             if key in row:
                 agg[key] += total * row[key]
 
-    def oihw(w2d):
-        return w2d.t().contiguous()[:, :, None, None]
-
     def check_bottleneck(key, counts, f):
-        n, h, w, cin, cmid, cout, proj, raw = key
-        x = torch.randn((n, h, w, cin), generator=gen).to(dev)
-        y = bn.fused_bottleneck(x, f)
-        ref = bn.bottleneck_plain(x, f)
-        torch.cuda.synchronize()
-        err = (y - ref).abs().max().item()
-        scale = max(1.0, ref.abs().max().item())
-        model_err = (y - bn.bottleneck_tf32_model(x, f)).abs().max().item()
-        if not max(err, model_err) <= BLOCK_TOL * scale:
-            raise AssertionError(f"bottleneck {key}: max abs err {err} (against its arithmetic "
-                                 f"model {model_err}) > {BLOCK_TOL} x {scale}")
-        lw = {"w1": oihw(f["w1"]), "w3": oihw(f["w3"]),
-              "w2": f["w2"].reshape(3, 3, cmid, cmid).permute(3, 2, 0, 1).contiguous()}
-        if proj:
-            lw["wp"] = oihw(f["wp"])
-
-        def library():
-            xc = x.permute(0, 3, 1, 2)                      # channels_last NCHW view
-            a1 = torch.relu(xc * f["s1"].view(1, -1, 1, 1) + f["t1"].view(1, -1, 1, 1))
-            a2 = torch.relu(F.conv2d(a1, lw["w1"], f["b1"][0]))
-            a3 = torch.relu(F.conv2d(a2, lw["w2"], f["b2"][0], padding=1))
-            z = F.conv2d(a3, lw["w3"], f["b3"][0])
-            return z + (F.conv2d(xc if raw else a1, lw["wp"], f["bp"][0]) if proj else xc)
-
-        lib_err = (library().permute(0, 2, 3, 1) - ref).abs().max().item()
-        flops = 2.0 * n * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
-                                   + (cin * cout if proj else 0))
-        nbytes = 4.0 * (n * h * w * (cin + cout)
-                        + sum(t.numel() for name, t in f.items()
-                              if name not in ("packed", "proj_raw")))
-        b_ms, b_by = bound_ms(3.0 * flops, nbytes, PEAK_TF32_FLOPS)   # 3 MMAs per product
-        record("fused_bottleneck", {
-            "shape": list(key[:6]), "proj": proj, "raw": raw,
-            "tile": list(bn.choose_tile(*key[:7])),
-            "max_abs_err": err, "model_err": model_err, "magnitude": scale,
-            "library_err": lib_err, "bound_f32_ms": bound_ms(flops, nbytes)[0],
-            **times(torch, lambda: bn.fused_bottleneck(x, f),
-                    lambda: bn.bottleneck_plain(x, f), library, quick=n >= FLEET_QUICK_N),
-            "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}, counts)
+        record("fused_bottleneck", bottleneck_row(torch, np, F, dev, gen, key, f, "float32",
+                                                  quick=key[0] >= FLEET_QUICK_N), counts)
 
     def check_merge(key, counts):
         n, h, w, c = key
@@ -2651,7 +2959,7 @@ def main(argv):
 
     # ---- 12. bf16 phase: (p)-(s)
     t0 = time.perf_counter()
-    bf16_launches, bf16_lines = bf16_phase(
+    bf16_launches, bf16_lines, bf16_checks = bf16_phase(
         torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, checks, record,
         shape_rows, gen, argv[argv.index("--profile") + 1] if "--profile" in argv else None)
     launches.update(bf16_launches)
@@ -2662,12 +2970,26 @@ def main(argv):
                       for kernel, row in per_path[path].items()} for path in BF16_PATHS})
           + f"; on {card}")
 
+    # ---- 13. wide phase: (t)-(w), the converter's 256-wide checkpoint
+    t0 = time.perf_counter()
+    wide_launches, wide_lines = wide_phase(
+        torch, np, F, dev, card, calib, order, frames, ref0, record, shape_rows, gen,
+        {**checks, **bf16_checks}, argv[argv.index("--profile") + 1] if "--profile" in argv
+        else None)
+    launches.update(wide_launches)
+    print(f"informational: the wide phase took {time.perf_counter() - t0:.1f} s; per wide path "
+          f"(kernel-phase times of its shapes times their launches): " + json.dumps(
+              {path: {kernel: {key: row[key] for key in ("launches", "ms", "bound_ms",
+                                                         "plain_ms", "library_ms")}
+                      for kernel, row in per_path[path].items()}
+               for path in ("converted256", "converted256_bf16")}) + f"; on {card}")
+
     entries = []
     for name, (src, replaces, also) in SOURCES.items():
         agg = per_kernel[name]
-        if name == "fused_bottleneck":
+        if name in ("fused_bottleneck", "fused_bottleneck_general"):
             _, b_by = bound_ms(3.0 * agg["flops"], agg["bytes"], PEAK_TF32_FLOPS)
-        elif name == "fused_bottleneck_bf16":
+        elif name in ("fused_bottleneck_bf16", "fused_bottleneck_general_bf16"):
             _, b_by = bound_ms(agg["flops"], agg["bytes"], PEAK_BF16_FLOPS)
         else:
             _, b_by = bound_ms(agg["flops"], agg["bytes"])
@@ -2683,11 +3005,12 @@ def main(argv):
                       "library_eager_ms, plain_ms: CUDA events around eager calls",
             **({"bound_f32_ms": agg["bound_f32_ms"], "model_err": agg["model_err"],
                 "arithmetic": "3 TF32 MMAs per product, f32 accumulate"}
-               if name == "fused_bottleneck" else {}),
+               if name in ("fused_bottleneck", "fused_bottleneck_general") else {}),
             **({"arithmetic": "1 bf16 MMA per product, f32 accumulate"}
-               if name == "fused_bottleneck_bf16" else {}),
+               if name in ("fused_bottleneck_bf16", "fused_bottleneck_general_bf16") else {}),
             "per": f"times: one call of each recorded path ({', '.join(EXPECTED)}, ingest, "
-                   f"h36m, fleet, fleet2, converted, {', '.join(BF16_PATHS)}) "
+                   f"h36m, fleet, fleet2, converted, {', '.join(BF16_PATHS)}, converted256, "
+                   f"converted256_bf16; the general instance's rows at TOY_SHAPES on no path) "
                    f"at T={BATCH_T}, the kernel-phase time of every shape times its launches; "
                    f"launches: every counted run ({', '.join(launches)})",
         }

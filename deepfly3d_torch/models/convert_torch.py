@@ -19,8 +19,9 @@ and ``main`` writes it with the port's ``save_weights``, a checkpoint that
 both packages' ``load_weights`` read.  Specs for converted checkpoints set
 ``proj_from_raw=True``: the canonical torch Bottleneck projects the raw
 block input, which the port's folded forward runs in the bottleneck
-kernel's raw-projection instances.  Mismatches raise with the list of
-unmapped keys rather than mis-assigning.
+kernel's raw projection (the converter's default 256-wide output in its
+general instance, ``ops/csrc/bottleneck_general.cu``).  Mismatches raise
+with the list of unmapped keys rather than mis-assigning.
 """
 
 from __future__ import annotations

@@ -33,7 +33,8 @@ float32 with TF32 off (``utils/devices.full_f32``), which is what
 and the field is accepted and otherwise ignored.  ``proj_from_raw`` (the
 skip projection of width-changing blocks reads the raw block input, the
 convention of checkpoints converted from torch) is folded into the blocks
-and runs in the bottleneck kernel's raw-projection instances; the JAX fold
+and runs in the bottleneck kernel's raw projection (at the converter's
+default 256 features, in its general instance); the JAX fold
 ignores it (ROADMAP Queue 3), so the port is held to ``HourglassNet.apply``
 there.
 

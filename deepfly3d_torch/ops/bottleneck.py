@@ -53,6 +53,17 @@ order of ``mma.m16n8k16`` followed by the float32 vectors.  Every width of
 128-wide blocks), so no bf16 instance streams w2.  The plain version computes
 each product as a float32 matmul of bfloat16-valued tensors (a PyTorch bf16
 matmul would round its output before the float32 bias, and JAX does not).
+
+Every other width inside ``ENVELOPE`` (Cin, Cout <= 512, Cmid <= 256: every
+block of a spec with 8 to 512 features, the converter's 256-wide default
+among them) runs ``csrc/bottleneck_general.cu``, float32 (3xTF32) or
+bfloat16, whose widths are runtime arguments: ``kernel_for`` says which
+kernel a block runs and raises past the envelope.  Its packed buffer is the
+general layout (``pack_bottleneck``): every weight in the plain ("mma")
+fragment order with k padded to the MMA's (8 at float32, 16 at bfloat16) and
+columns to 8, zero-filled, then s1, t1, b1, b2, b3 and bp as float32 at the
+padded widths.  No weight is resident: the kernel streams all four from L2,
+and holds a2 and a3 of one output tile in shared memory (``smem_bytes``).
 """
 
 from __future__ import annotations
@@ -81,6 +92,11 @@ MAX_SMEM = 227 * 1024             # bytes one thread block can use
 # Each projecting instance is also built with the raw-input projection.
 INSTANCES = ((96, 48, 96, False), (48, 48, 96, True), (64, 32, 64, False), (32, 32, 64, True),
              (128, 64, 128, False), (64, 64, 128, True))
+# Every other width inside this envelope runs the general instance
+# (csrc/bottleneck_general.cu), whose tiles hold at most GENERAL_TILE_PIXELS
+# pixels (one pass of its 8 warps); past it the wrapper raises on the card.
+ENVELOPE = {"cin": 512, "cmid": 256, "cout": 512}
+GENERAL_TILE_PIXELS = 128
 _TF32_MASK = -8192                # 0xffffe000 as int32: clears 13 mantissa bits
 DTYPES = ("float32", "bfloat16")  # the compute dtypes a folded block comes in
 _WEIGHTS = ("s1", "t1", "w1", "w2", "w3", "wp")    # in the compute dtype; biases stay float32
@@ -273,6 +289,63 @@ def _pack_fragments16(w: np.ndarray, order: str) -> np.ndarray:
     return np.stack([w[r, cols] for r in rows], axis=-1).reshape(-1)
 
 
+def kernel_for(cin: int, cmid: int, cout: int, has_proj: bool) -> str:
+    """Which kernel runs a block on the card: ``"instance"`` (a width of
+    ``INSTANCES``, csrc/bottleneck.cu or bottleneck_bf16.cu) or
+    ``"general"`` (csrc/bottleneck_general.cu); ValueError past ``ENVELOPE``."""
+    if not _general(cin, cmid, cout, has_proj):
+        return "instance"
+    if not (1 <= cin <= ENVELOPE["cin"] and 1 <= cmid <= ENVELOPE["cmid"]
+            and 1 <= cout <= ENVELOPE["cout"]):
+        raise ValueError(f"block Cin={cin}, Cmid={cmid}, Cout={cout} is past the bottleneck "
+                         f"kernel's envelope (Cin <= {ENVELOPE['cin']}, Cmid <= "
+                         f"{ENVELOPE['cmid']}, Cout <= {ENVELOPE['cout']})")
+    return "general"
+
+
+def _general(cin: int, cmid: int, cout: int, has_proj: bool) -> bool:
+    """Whether a block of these widths has the general layout."""
+    return (cin, cmid, cout, has_proj) not in INSTANCES
+
+
+def _k_granule(dtype: str) -> int:
+    """k of one MMA of the general instance: 8 (TF32) or 16 (bf16)."""
+    return 16 if dtype == "bfloat16" else 8
+
+
+def _ceil(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _padded(a: np.ndarray, shape) -> np.ndarray:
+    out = np.zeros(shape, np.float32)
+    out[tuple(slice(0, n) for n in a.shape)] = a
+    return out
+
+
+def _pack_general(f: Dict[str, np.ndarray], dtype: str) -> torch.Tensor:
+    """``pack_bottleneck``'s general layout (module docstring)."""
+    cin, cmid = f["w1"].shape
+    cout = f["w3"].shape[1]
+    k = _k_granule(dtype)
+    cinp, cmidp, coutp = _ceil(cin, k), _ceil(cmid, k), _ceil(cout, 8)
+    frag = _pack_fragments16 if dtype == "bfloat16" else _pack_fragments
+    w2 = _padded(f["w2"], (9, cmidp, cmidp)).reshape(9 * cmidp, cmidp)      # tap-major
+    mats = [(f["w1"], cinp, cmidp), (w2, 9 * cmidp, cmidp), (f["w3"], cmidp, coutp)]
+    vectors = [_padded(f["s1"][0], (cinp,)), _padded(f["t1"][0], (cinp,)),
+               _padded(f["b1"][0], (cmidp,)), _padded(f["b2"][0], (cmidp,)),
+               _padded(f["b3"][0], (coutp,))]
+    if "wp" in f:
+        mats.append((f["wp"], cinp, coutp))
+        vectors.append(_padded(f["bp"][0], (coutp,)))
+    weights = np.concatenate([frag(_padded(w, (kp, n)), "mma") for w, kp, n in mats])
+    v = np.concatenate(vectors).astype(np.float32)
+    if dtype == "float32":
+        return torch.from_numpy(np.concatenate([weights, v]).astype(np.float32))
+    w = torch.from_numpy(weights).to(torch.bfloat16)                  # exact: bf16 values
+    return torch.cat([w.view(torch.uint8), torch.from_numpy(v).view(torch.uint8)])
+
+
 def pack_bottleneck(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The kernel's weight buffer of one block, a flat CPU tensor.
 
@@ -285,11 +358,17 @@ def pack_bottleneck(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
     fragment order of ``_pack_fragments16`` (w1 and wp "lanes", w2 and w3
     "mma"), then s1, t1, b1, b2, b3 and bp as float32 (s1 and t1 hold bf16
     values); bp is kept apart from b3, as the JAX oracle adds it.
+
+    A width outside ``INSTANCES`` gets the general layout (module
+    docstring): float32 values, or bytes at bfloat16, bp apart in both.
     """
     f = {k: v.detach().cpu().float().numpy() for k, v in folded.items()
          if k not in ("packed", "proj_raw")}
-    cmid = f["w1"].shape[1]
-    if folded["w1"].dtype == torch.bfloat16:
+    cin, cmid = f["w1"].shape
+    dtype = "bfloat16" if folded["w1"].dtype == torch.bfloat16 else "float32"
+    if _general(cin, cmid, f["w3"].shape[1], "wp" in f):
+        return _pack_general(f, dtype)
+    if dtype == "bfloat16":
         weights = [_pack_fragments16(f["w1"], "lanes"),
                    _pack_fragments16(f["w2"].reshape(9 * cmid, cmid), "mma"),
                    _pack_fragments16(f["w3"], "mma")]
@@ -319,7 +398,14 @@ def add_packed(folded: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def packed_size(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "float32") -> int:
     """Length of a block's packed weight buffer: float32 values for a
     float32 block, bytes for a bfloat16 block (2-byte weights, 4-byte
-    vectors, bp apart from b3)."""
+    vectors, bp apart from b3); the general layout at its padded widths,
+    with bp apart at float32 too."""
+    if _general(cin, cmid, cout, has_proj):
+        k = _k_granule(dtype)
+        cin, cmid, cout = _ceil(cin, k), _ceil(cmid, k), _ceil(cout, 8)
+        weights = cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout if has_proj else 0)
+        vectors = 2 * cin + 2 * cmid + cout + (cout if has_proj else 0)
+        return 2 * weights + 4 * vectors if dtype == "bfloat16" else weights + vectors
     weights = cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout if has_proj else 0)
     if dtype == "bfloat16":
         return 2 * weights + 4 * (2 * cin + 2 * cmid + cout + (cout if has_proj else 0))
@@ -336,10 +422,11 @@ def _smem(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
 
 
 def streams_w2(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "float32") -> bool:
-    """Whether the kernel streams the 3x3's weights through shared memory one
+    """Whether an instance streams the 3x3's weights through shared memory one
     tap at a time: where all the weights and the smallest tile (one row of
     16 pixels) do not fit, as for the 128-wide networks' float32 blocks.
-    A bfloat16 block never does."""
+    A bfloat16 instance never does (the general instance streams every
+    weight, whatever this says)."""
     if dtype == "bfloat16":
         return False
     return _smem(cin, cmid, cout, 1, TILE_MAX_WIDTH, has_proj, False) > MAX_SMEM
@@ -351,7 +438,16 @@ def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
     w2 and with a ring of two w2 taps where ``streams_w2``) and two buffers of
     a2 on the (th+2) x (tw+2) halo tile at pitch Cmid+4 float32 values, or,
     for a bfloat16 block, the packed bytes and two a2 buffers at pitch Cmid+8
-    bf16 values."""
+    bf16 values.  The general instance: two slots of a ring of B chunks (32 k
+    x 64 columns of fragments), two of an A ring (128 rows x 32 channels at a
+    pitch of 36 float32 / 40 bf16 values), a2 on the halo tile and a3 on the
+    tile at a pitch of Cmid+4 float32 / Cmid+8 bf16 values, Cmid padded to
+    the MMA's k."""
+    if _general(cin, cmid, cout, has_proj):
+        k, e, pad = _k_granule(dtype), (2 if dtype == "bfloat16" else 4), \
+            (8 if dtype == "bfloat16" else 4)
+        rings = 2 * (32 // k) * 8 * 256 + 2 * 128 * (32 + pad) * e
+        return rings + ((th + 2) * (tw + 2) + th * tw) * (_ceil(cmid, k) + pad) * e
     if dtype == "bfloat16":
         return (packed_size(cin, cmid, cout, has_proj, dtype)
                 + 2 * 2 * (th + 2) * (tw + 2) * (cmid + 8))
@@ -371,6 +467,12 @@ _TILE_US = (None, 9.0, 9.7, 9.7, 11.0, 15.7, 16.8, 17.7, 18.6, 22.0, 23.6, 25.2,
 # ... 6x6; m = 12 extrapolated), NVIDIA H100 80GB HBM3 at 700 W.
 _TILE_US_STREAMED = (None, 18.0, 19.5, 20.5, 22.5, 31.0, 32.5, 34.0, 35.5, 47.0, 49.0, 50.5,
                      52.0)
+# The same for the general instance, float32 256->128->256 and 128->128->256
+# (raw projection) blocks: the median over the shapes of more than one wave,
+# ``scripts/sweep_general_tiles.py`` at the converter's 256-wide path (56 x
+# 128x256 ... 8x16), NVIDIA H100 80GB HBM3 at 700 W.  Its bf16 sweep has the
+# same shape (137-211 us) and shares it; up to 8 row tiles, one pass of its warps.
+_TILE_US_GENERAL = (None, 232.3, 255.0, 258.9, 266.1, 273.0, 328.0, 335.2, 344.1)
 
 
 @lru_cache(maxsize=None)
@@ -381,12 +483,17 @@ def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj
     the SMs times the measured time of such a tile (the streamed design's
     own table where w2 streams), among those that fit shared memory.  Large images get 8x16 tiles; small images and batches
     fewer rows, until one wave covers the launch.  The bfloat16 instances
-    reuse the resident float32 table (no sweep of their own yet).  Raises
-    ValueError if no tile fits."""
+    reuse the resident float32 table (no sweep of their own yet); the general
+    instance's tiles hold at most GENERAL_TILE_PIXELS pixels and use its own
+    table, ``_TILE_US_GENERAL``.  Raises ValueError if no tile fits."""
     tw = min(TILE_MAX_WIDTH, w)
-    tile_us = _TILE_US_STREAMED if streams_w2(cin, cmid, cout, has_proj, dtype) else _TILE_US
+    general = _general(cin, cmid, cout, has_proj)
+    if general:
+        tile_us = _TILE_US_GENERAL
+    else:
+        tile_us = _TILE_US_STREAMED if streams_w2(cin, cmid, cout, has_proj, dtype) else _TILE_US
     best = None
-    for th in range(1, min(h, 16 * TILE_WARPS // tw) + 1):
+    for th in range(1, min(h, (len(tile_us) - 1) * 16 // tw) + 1):
         if smem_bytes(cin, cmid, cout, th, tw, has_proj, dtype) > MAX_SMEM:
             break
         waves = -(-n * -(-h // th) * -(-w // tw) // NUM_SMS)
@@ -431,9 +538,12 @@ def _shapes(x: torch.Tensor, folded: Dict[str, torch.Tensor]):
 
 
 @lru_cache(maxsize=None)
-def _kernel(dtype: str):
-    lib = _build.library("bottleneck" if dtype == "float32" else "bottleneck_bf16")
-    fn = lib.df3d_bottleneck if dtype == "float32" else lib.df3d_bottleneck_bf16
+def _kernel(dtype: str, general: bool = False):
+    suffix = "" if dtype == "float32" else "_bf16"
+    if general:
+        fn = getattr(_build.library("bottleneck_general"), "df3d_bottleneck_general" + suffix)
+    else:
+        fn = getattr(_build.library("bottleneck" + suffix), "df3d_bottleneck" + suffix)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -444,12 +554,15 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
     dtype (float32, or bfloat16 for a block folded at bfloat16).
 
     On a CUDA tensor this launches ``csrc/bottleneck.cu`` (float32) or
-    ``csrc/bottleneck_bf16.cu`` (bfloat16) (one launch, every intermediate
-    on chip; ``folded`` must hold the ``"packed"`` buffer of ``add_packed``;
-    the instance with the raw-input projection where ``folded`` has
-    ``"proj_raw"``) or raises; on a CPU tensor it runs ``bottleneck_plain``.
-    ``fused_bottleneck.launches`` counts launches of the float32 instances,
-    ``fused_bottleneck.launches_bf16`` those of the bfloat16 ones.
+    ``csrc/bottleneck_bf16.cu`` (bfloat16) at a width of ``INSTANCES``, and
+    ``csrc/bottleneck_general.cu`` at any other width inside ``ENVELOPE``
+    (one launch, every intermediate on chip; ``folded`` must hold the
+    ``"packed"`` buffer of ``add_packed``; the raw-input projection where
+    ``folded`` has ``"proj_raw"``), or raises, past the envelope too; on a
+    CPU tensor it runs ``bottleneck_plain``.  ``fused_bottleneck.launches``
+    counts launches of the float32 instances, ``.launches_bf16`` those of the
+    bfloat16 ones, ``.launches_general`` and ``.launches_general_bf16`` those
+    of the general instance.
     """
     cin, cmid, cout, dtype = _shapes(x, folded)
     if x.device.type == "cpu":
@@ -466,9 +579,7 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
             raise ValueError(f"{name} must be a contiguous {want} tensor on {x.device}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if (cin, cmid, cout, has_proj) not in INSTANCES:
-        raise ValueError(f"kernel has no {dtype} instantiation for Cin={cin}, Cmid={cmid}, "
-                         f"Cout={cout}, projection={has_proj}; it has {INSTANCES}")
+    general = kernel_for(cin, cmid, cout, has_proj) == "general"
     if packed.numel() != packed_size(cin, cmid, cout, has_proj, dtype):
         raise ValueError(f"folded['packed'] has {packed.numel()} values: not this block's")
     n, h, w, _ = x.shape
@@ -477,18 +588,18 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
         return y
     th, tw = choose_tile(n, h, w, cin, cmid, cout, has_proj, dtype)
     with torch.cuda.device(x.device):     # the library asks cudaGetDevice for the SM count
-        rc = _kernel(dtype)(
+        rc = _kernel(dtype, general)(
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
             int(has_proj), int("proj_raw" in folded), th, tw,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _build.check(rc, f"{dtype} bottleneck kernel")
-    if dtype == "float32":
-        fused_bottleneck.launches += 1
-    else:
-        fused_bottleneck.launches_bf16 += 1
+    _build.check(rc, f"{dtype} {'general ' if general else ''}bottleneck kernel")
+    counter = "launches" + ("_general" if general else "") + ("_bf16" if dtype != "float32" else "")
+    setattr(fused_bottleneck, counter, getattr(fused_bottleneck, counter) + 1)
     return y
 
 
 fused_bottleneck.launches = 0
 fused_bottleneck.launches_bf16 = 0
+fused_bottleneck.launches_general = 0
+fused_bottleneck.launches_general_bf16 = 0

@@ -16,6 +16,10 @@ the same bytes.
   reach ~400) and the heatmaps' peaks at ~2 (the fly checkpoint's: ~0.9),
   with top-2 margins of ~0.005 (the noise floor gives the trunk's full-width
   branch its detail).
+* ``torch_state_dict`` lays such arrays out under the canonical torch
+  stacked-hourglass names that ``models/convert_torch`` maps (the df2d sh8
+  lineage): a seeded stand-in for a torch checkpoint, which the repository
+  does not hold, at the converter's default spec (256 features).
 * ``human_rig`` / ``human_frames``: a human-scale 17-joint skeleton moving
   slightly over T frames, seen by cameras 90 degrees apart around it with
   barrel distortion, drawn as one Gaussian blob per joint over a noise
@@ -115,6 +119,57 @@ def random_checkpoint(path: str, seed: int, num_stacks: int, features: int, dept
     }
     np.savez(path, **arrays, **{k: np.asarray(v) for k, v in meta.items()})
     return arrays
+
+
+def torch_state_dict(arrays: Dict[str, np.ndarray], num_stacks: int,
+                     depth: int) -> Dict[str, np.ndarray]:
+    """``random_checkpoint``'s arrays (one block per level) as a torch state
+    dict of the canonical stacked hourglass, numpy arrays under the names that
+    ``models/convert_torch.convert_state_dict`` maps back: ``conv1`` / ``bn1``,
+    ``layer{1,2,3}.0``, ``hg.{s}.hg.{level}.{slot}.0`` (levels innermost
+    first, slot 3 the innermost block), ``res.{s}.0``, ``fc.{s}.0`` /
+    ``fc.{s}.1``, ``score.{s}``, ``fc_.{s}`` and ``score_.{s}``; kernels OIHW,
+    batch norms as weight, bias, running_mean and running_var."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(flax: str, name: str):
+        sd[f"{name}.weight"] = np.ascontiguousarray(
+            arrays[f"params/{flax}/kernel"].transpose(3, 2, 0, 1))
+        sd[f"{name}.bias"] = arrays[f"params/{flax}/bias"]
+
+    def bn(flax: str, name: str):
+        sd[f"{name}.weight"] = arrays[f"params/{flax}/scale"]
+        sd[f"{name}.bias"] = arrays[f"params/{flax}/bias"]
+        sd[f"{name}.running_mean"] = arrays[f"batch_stats/{flax}/mean"]
+        sd[f"{name}.running_var"] = arrays[f"batch_stats/{flax}/var"]
+
+    def block(flax: str, name: str):
+        for i in (1, 2, 3):
+            bn(f"{flax}/bn{i}", f"{name}.bn{i}")
+            conv(f"{flax}/conv{i}", f"{name}.conv{i}")
+        if f"params/{flax}/proj/kernel" in arrays:
+            conv(f"{flax}/proj", f"{name}.downsample.0")
+
+    conv("stem_conv", "conv1")
+    bn("stem_bn", "bn1")
+    for i, name in enumerate(("stem_res1", "stem_res2", "stem_res3"), start=1):
+        block(name, f"layer{i}.0")
+    for s in range(num_stacks):
+        for level in range(depth):
+            d = level + 1
+            slots = {0: f"hg{s}/skip_d{d}_0", 1: f"hg{s}/down_d{d}_0", 2: f"hg{s}/up_d{d}_0"}
+            if d == 1:
+                slots[3] = f"hg{s}/innermost_0"
+            for slot, flax in slots.items():
+                block(flax, f"hg.{s}.hg.{level}.{slot}.0")
+        block(f"feat_res{s}", f"res.{s}.0")
+        conv(f"feat_conv{s}", f"fc.{s}.0")
+        bn(f"feat_bn{s}", f"fc.{s}.1")
+        conv(f"score{s}", f"score.{s}")
+        if s < num_stacks - 1:
+            conv(f"remap_feat{s}", f"fc_.{s}")
+            conv(f"remap_score{s}", f"score_.{s}")
+    return sd
 
 
 def _rot_y(theta: float) -> np.ndarray:

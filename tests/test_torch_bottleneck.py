@@ -261,8 +261,13 @@ def test_shared_memory_budget_numbers():
     assert port_bn.smem_bytes(96, 48, 96, 12, 16, False) == 226176 <= port_bn.MAX_SMEM
     assert port_bn.smem_bytes(48, 48, 96, 8, 16, True) == 205056
     assert port_bn.smem_bytes(48, 48, 96, 12, 16, True) > port_bn.MAX_SMEM   # 11 rows fit
+    # a width without an instance runs the general kernel, which streams its
+    # weights: the 256-wide block gets its tile; a block whose a2 and a3 of one
+    # row of 16 pixels do not fit raises
+    th, tw = port_bn.choose_tile(1, 8, 16, 256, 128, 256, False)
+    assert port_bn.smem_bytes(256, 128, 256, th, tw, False) <= port_bn.MAX_SMEM
     with pytest.raises(ValueError):
-        port_bn.choose_tile(1, 8, 16, 256, 128, 256, False)       # weights alone too large
+        port_bn.choose_tile(1, 8, 16, 2048, 1024, 2048, False)
     assert (96, 48, 96, False) in port_bn.INSTANCES and (48, 48, 96, True) in port_bn.INSTANCES
 
 

@@ -7,7 +7,9 @@ Tolerances: the bottleneck computes its ~500-term sums as error-compensated
 TF32 products on the tensor cores, in another order than cuDNN/cuBLAS, so
 its error against the plain version and against its own arithmetic model
 (``bottleneck_tf32_model``) is held to 5e-5 of the output's largest
-magnitude; the upsample-add and the decode are exact (NaN and signed zeros
+magnitude; the general instance (any width of the envelope, every weight
+streamed) to the same, and at bf16 to 2 bf16 ulps; a width past the
+envelope raises.  The upsample-add and the decode are exact (NaN and signed zeros
 included).  The preprocess sums
 <= 25 products in another order than cuBLAS: 2e-6 on [0, 1] values when it
 resizes (times the largest gain when the rig registration's gain is folded
@@ -194,14 +196,93 @@ def test_trainable_net_on_card_matches_cpu():
         assert (g_card[n] - g_cpu[n]).abs().max().item() <= 1e-4 * scale, n
 
 
-def test_block_without_an_instance_raises_on_the_card(wide_blocks):
+def _general_block(width, proj, raw=False, dtype="float32"):
+    params, stats = _smoke().seeded_block(np, *width)
+    if not proj:
+        params.pop("proj")
+    return bn.add_packed(bn.fold_bottleneck(params, stats, raw, dtype))
+
+
+def _launches():
+    f = bn.fused_bottleneck
+    return f.launches, f.launches_bf16, f.launches_general, f.launches_general_bf16
+
+
+def test_block_without_an_instance_raises_on_the_card():
+    """Once pinned the fault (a width without an instance raised); now the
+    same 96->64->128 projecting block launches the general instance, held
+    to the resident instances' tolerance."""
     dev = _card()
-    folded = {k: v.to(dev) for k, v in bn.add_packed(wide_blocks["stem_res2"]).items()}
-    narrow = {k: (v[:, :96] if k in ("s1", "t1") else v[:96] if k == "w1" else v)
-              for k, v in folded.items()}
-    with pytest.raises(ValueError, match="Cin=96, Cmid=64, Cout=128"):
-        bn.fused_bottleneck(torch.zeros((1, 4, 4, 96), device=dev), {**narrow, "wp": torch.zeros(
-            (96, 128), device=dev), "bp": torch.zeros((1, 128), device=dev)})
+    folded = {k: v.to(dev) for k, v in _general_block((96, 64, 128), True).items()}
+    assert bn.kernel_for(96, 64, 128, True) == "general"
+    x = torch.randn((2, 13, 21, 96), generator=torch.Generator().manual_seed(4)).to(dev)
+    before = _launches()
+    got = bn.fused_bottleneck(x, folded)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1], before[2] + 1, before[3])
+    want = bn.bottleneck_plain(x, folded)
+    tol = 5e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+    assert (got - bn.bottleneck_tf32_model(x, folded)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cin,cmid,cout,proj,raw,shape", [
+    (256, 128, 256, False, False, (2, 64, 128)),   # the converter's 256-wide blocks
+    (256, 128, 256, False, False, (3, 4, 8)),
+    (128, 128, 256, True, True, (2, 128, 256)),    # its raw projecting stem block
+    (16, 8, 16, False, False, (8, 64, 128)),       # the README trainer's widths
+    (8, 8, 16, True, False, (8, 128, 256)),
+    (20, 10, 20, False, False, (3, 19, 37)),       # no multiple of 8, tiles cut by the edge
+    (13, 7, 11, True, True, (3, 19, 37)),          # odd widths: scalar stores
+    (512, 256, 512, False, False, (2, 9, 17)),     # the envelope's edge
+])
+def test_general_bottleneck_matches_plain(cin, cmid, cout, proj, raw, shape, dtype):
+    """The general instance against its plain version: float32 within 5e-5 of
+    the output's magnitude (and of its 3xTF32 arithmetic model), bf16 within
+    2 bf16 ulps; its shared-memory and packed-buffer figures are the wrapper's."""
+    dev = _card()
+    folded = {k: v.to(dev) for k, v in _general_block((cin, cmid, cout), proj, raw,
+                                                       dtype).items()}
+    x = torch.randn(shape + (cin,), generator=torch.Generator().manual_seed(6))
+    x = x.to(dev).to(getattr(torch, dtype))
+    before = _launches()
+    got = bn.fused_bottleneck(x, folded)
+    torch.cuda.synchronize()
+    bump = (0, 0, 1, 0) if dtype == "float32" else (0, 0, 0, 1)
+    assert _launches() == tuple(b + d for b, d in zip(before, bump))
+    want = bn.bottleneck_plain(x, folded)
+    assert got.dtype == x.dtype and got.shape == shape + (cout,)
+    if dtype == "float32":
+        tol = 5e-5 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol
+        assert (got - bn.bottleneck_tf32_model(x, folded)).abs().max().item() <= tol
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+        assert (got.float() - want.float()).abs().max().item() <= 2 * ulp
+    lib = _build.library("bottleneck_general")
+    lib.df3d_bottleneck_general_smem.argtypes = [ctypes.c_int] * 6
+    lib.df3d_bottleneck_general_packed_bytes.argtypes = [ctypes.c_int] * 5
+    bf16 = int(dtype == "bfloat16")
+    th, tw = bn.choose_tile(*shape, cin, cmid, cout, proj, dtype)
+    assert lib.df3d_bottleneck_general_smem(cin, cmid, cout, th, tw, bf16) == \
+        bn.smem_bytes(cin, cmid, cout, th, tw, proj, dtype)
+    packed = folded["packed"]
+    assert lib.df3d_bottleneck_general_packed_bytes(cin, cmid, cout, int(proj), bf16) == \
+        packed.numel() * packed.element_size()
+
+
+def test_block_past_the_envelope_raises_on_the_card():
+    """A block wider than the general instance's envelope raises on the card
+    (the CPU runs the plain version at any width); nothing falls back."""
+    dev = _card()
+    params, stats = _smoke().seeded_block(np, 8, 320, 8)
+    params.pop("proj")
+    folded = {k: v.to(dev) for k, v in bn.add_packed(bn.fold_bottleneck(params, stats)).items()}
+    before = _launches()
+    with pytest.raises(ValueError, match="envelope"):
+        bn.fused_bottleneck(torch.zeros((1, 4, 4, 8), device=dev), folded)
+    assert _launches() == before
 
 
 @pytest.mark.parametrize("shape", [(56, 4, 8, 96), (7, 32, 64, 96), (2, 3, 5, 6)])
@@ -613,15 +694,24 @@ def test_bf16_bottleneck_kernel_matches_plain(cin, cmid, cout, proj, raw):
 
 
 def test_bf16_block_refusals_on_the_card():
-    """A bf16 tensor of a width without a bf16 instance, or a block folded at
-    float32, raises; nothing falls back to the plain version or float32."""
+    """A bf16 tensor of a width without a bf16 instance launches the general
+    bf16 instance (it raised until the general instance came), within 2 bf16
+    ulps of its plain version; a block folded at float32 raises; nothing falls
+    back to the plain version or float32."""
     dev = _card()
     params, stats = _smoke().seeded_block(np, 256, 128, 256)
     params.pop("proj")
     wide = {k: v.to(dev) for k, v in bn.add_packed(
         bn.fold_bottleneck(params, stats, dtype="bfloat16")).items()}
-    with pytest.raises(ValueError, match="no bfloat16 instantiation for Cin=256"):
-        bn.fused_bottleneck(torch.zeros((1, 4, 4, 256), device=dev, dtype=torch.bfloat16), wide)
+    x = torch.randn((1, 4, 4, 256), generator=torch.Generator().manual_seed(8))
+    x = x.to(dev).to(torch.bfloat16)
+    before = _launches()
+    got = bn.fused_bottleneck(x, wide)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1], before[2], before[3] + 1)
+    want = bn.bottleneck_plain(x, wide).float()
+    ulp = 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+    assert (got.float() - want).abs().max().item() <= 2 * ulp
     f32 = {k: v.to(dev) for k, v in bn.add_packed(
         bn.fold_bottleneck(*_smoke().seeded_block(np, 48, 48, 96))).items()}
     with pytest.raises(ValueError, match="dtype it was folded for"):
