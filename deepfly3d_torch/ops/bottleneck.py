@@ -59,11 +59,16 @@ block of a spec with 8 to 512 features, the converter's 256-wide default
 among them) runs ``csrc/bottleneck_general.cu``, float32 (3xTF32) or
 bfloat16, whose widths are runtime arguments: ``kernel_for`` says which
 kernel a block runs and raises past the envelope.  Its packed buffer is the
-general layout (``pack_bottleneck``): every weight in the plain ("mma")
-fragment order with k padded to the MMA's (8 at float32, 16 at bfloat16) and
-columns to 8, zero-filled, then s1, t1, b1, b2, b3 and bp as float32 at the
-padded widths.  No weight is resident: the kernel streams all four from L2,
-and holds a2 and a3 of one output tile in shared memory (``smem_bytes``).
+general layout (``pack_bottleneck``): every weight with k padded to the
+wgmma's k (8 at float32, 16 at bfloat16) and columns to 64, zero-filled, in
+passes of 128 columns, each pass k step after k step in wgmma's canonical
+K-major layout (``_pack_wgmma``), so that a ring chunk of ``GENERAL_STEPS``
+consecutive k steps is one block that one bulk copy moves; at float32 every
+k step holds the weights' TF32 hi half and then their lo half (``w - hi``,
+exact).  Then s1, t1, b1, b2, b3 and bp as float32 at the padded widths.  No
+weight is resident: the kernel streams all four from L2 through a ring of
+chunks, and holds a2 and a3 of one output tile in shared memory
+(``smem_bytes``).
 """
 
 from __future__ import annotations
@@ -94,9 +99,10 @@ INSTANCES = ((96, 48, 96, False), (48, 48, 96, True), (64, 32, 64, False), (32, 
              (128, 64, 128, False), (64, 64, 128, True))
 # Every other width inside this envelope runs the general instance
 # (csrc/bottleneck_general.cu), whose tiles hold at most GENERAL_TILE_PIXELS
-# pixels (one pass of its 8 warps); past it the wrapper raises on the card.
+# pixels per dtype (one pass of its two consumer warpgroups: one m64 row block
+# each at float32, two at bf16); past it the wrapper raises on the card.
 ENVELOPE = {"cin": 512, "cmid": 256, "cout": 512}
-GENERAL_TILE_PIXELS = 128
+GENERAL_TILE_PIXELS = {"float32": 128, "bfloat16": 256}
 _TF32_MASK = -8192                # 0xffffe000 as int32: clears 13 mantissa bits
 DTYPES = ("float32", "bfloat16")  # the compute dtypes a folded block comes in
 _WEIGHTS = ("s1", "t1", "w1", "w2", "w3", "wp")    # in the compute dtype; biases stay float32
@@ -323,22 +329,69 @@ def _padded(a: np.ndarray, shape) -> np.ndarray:
     return out
 
 
+# The general instance (csrc/bottleneck_general.cu): a pass covers 128
+# columns, padded to 64; a ring chunk holds GENERAL_STEPS k steps (half as many
+# over bf16's passes of 256 rows, on tiles of more than 128 pixels), and the
+# ring GENERAL_STAGES chunks per dtype; mbarriers take the first 128 bytes.
+GENERAL_COLS = 128
+GENERAL_STEPS = 4
+GENERAL_STAGES = {"float32": 4, "bfloat16": 8}
+
+
+def _k_perm(dtype: str) -> np.ndarray:
+    """(2, E): the channel of a k step that element j of core-matrix half kc
+    holds (E = 4 float32 / 8 bf16 values of 16 bytes).  wgmma's A fragment
+    gives lane column t the k slots (t, t+4) at TF32 and (2t, 2t+1, 2t+8,
+    2t+9) at bf16; the order puts them on channels 2t, 2t+1 / 4t ... 4t+3, so
+    that a lane reads its k step as eight contiguous bytes of a pixel."""
+    j = np.arange(8 if dtype == "bfloat16" else 4)
+    if dtype == "bfloat16":
+        return np.stack([4 * (j // 2) + j % 2, 4 * (j // 2) + 2 + j % 2])
+    return np.stack([2 * j, 2 * j + 1])
+
+
+def _pack_wgmma(w: np.ndarray, kp: int, n: int, dtype: str) -> np.ndarray:
+    """(K, N) weight -> flat float32 values of the general layout: zero-padded
+    to (kp, n); per pass of GENERAL_COLS columns, per k step, the core
+    matrices (8 columns x 16 bytes of k, ``_k_perm``'s channels) as
+    [column group][k half][column][element]; at float32 each k step holds
+    that for hi, then for lo = w - hi (so hi + lo == w bit for bit)."""
+    k = _k_granule(dtype)
+    e = k // 2
+    steps = kp // k
+    arr = _padded(w, (kp, n)).reshape(steps, k, n)[:, _k_perm(dtype), :]   # (s, kc, j, n)
+    out = []
+    for n0 in range(0, n, GENERAL_COLS):
+        nc = min(GENERAL_COLS, n - n0)
+        core = arr[..., n0:n0 + nc].reshape(steps, 2, e, nc // 8, 8).transpose(0, 3, 1, 4, 2)
+        core = np.ascontiguousarray(core, np.float32)
+        if dtype == "float32":
+            hi = (core.view(np.int32) & _TF32_MASK).view(np.float32)
+            core = np.stack([hi, core - hi], axis=1)
+        out.append(core.reshape(-1))
+    return np.concatenate(out)
+
+
+def _general_widths(cin: int, cmid: int, cout: int, dtype: str):
+    """(cinp, cmidp, cmidn, coutn): k padded to the wgmma's k, n to 64."""
+    k = _k_granule(dtype)
+    return _ceil(cin, k), _ceil(cmid, k), _ceil(cmid, 64), _ceil(cout, 64)
+
+
 def _pack_general(f: Dict[str, np.ndarray], dtype: str) -> torch.Tensor:
     """``pack_bottleneck``'s general layout (module docstring)."""
     cin, cmid = f["w1"].shape
     cout = f["w3"].shape[1]
-    k = _k_granule(dtype)
-    cinp, cmidp, coutp = _ceil(cin, k), _ceil(cmid, k), _ceil(cout, 8)
-    frag = _pack_fragments16 if dtype == "bfloat16" else _pack_fragments
-    w2 = _padded(f["w2"], (9, cmidp, cmidp)).reshape(9 * cmidp, cmidp)      # tap-major
-    mats = [(f["w1"], cinp, cmidp), (w2, 9 * cmidp, cmidp), (f["w3"], cmidp, coutp)]
+    cinp, cmidp, cmidn, coutn = _general_widths(cin, cmid, cout, dtype)
+    w2 = _padded(f["w2"], (9, cmidp, cmidn)).reshape(9 * cmidp, cmidn)      # tap-major
+    mats = [(f["w1"], cinp, cmidn), (w2, 9 * cmidp, cmidn), (f["w3"], cmidp, coutn)]
     vectors = [_padded(f["s1"][0], (cinp,)), _padded(f["t1"][0], (cinp,)),
-               _padded(f["b1"][0], (cmidp,)), _padded(f["b2"][0], (cmidp,)),
-               _padded(f["b3"][0], (coutp,))]
+               _padded(f["b1"][0], (cmidn,)), _padded(f["b2"][0], (cmidn,)),
+               _padded(f["b3"][0], (coutn,))]
     if "wp" in f:
-        mats.append((f["wp"], cinp, coutp))
-        vectors.append(_padded(f["bp"][0], (coutp,)))
-    weights = np.concatenate([frag(_padded(w, (kp, n)), "mma") for w, kp, n in mats])
+        mats.append((f["wp"], cinp, coutn))
+        vectors.append(_padded(f["bp"][0], (coutn,)))
+    weights = np.concatenate([_pack_wgmma(w, kp, n, dtype) for w, kp, n in mats])
     v = np.concatenate(vectors).astype(np.float32)
     if dtype == "float32":
         return torch.from_numpy(np.concatenate([weights, v]).astype(np.float32))
@@ -399,13 +452,14 @@ def packed_size(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "fl
     """Length of a block's packed weight buffer: float32 values for a
     float32 block, bytes for a bfloat16 block (2-byte weights, 4-byte
     vectors, bp apart from b3); the general layout at its padded widths,
-    with bp apart at float32 too."""
+    with bp apart at float32 too and every float32 weight twice (hi, lo)."""
     if _general(cin, cmid, cout, has_proj):
-        k = _k_granule(dtype)
-        cin, cmid, cout = _ceil(cin, k), _ceil(cmid, k), _ceil(cout, 8)
-        weights = cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout if has_proj else 0)
-        vectors = 2 * cin + 2 * cmid + cout + (cout if has_proj else 0)
-        return 2 * weights + 4 * vectors if dtype == "bfloat16" else weights + vectors
+        cinp, cmidp, cmidn, coutn = _general_widths(cin, cmid, cout, dtype)
+        weights = cinp * cmidn + 9 * cmidp * cmidn + cmidp * coutn + (cinp * coutn if has_proj
+                                                                      else 0)
+        vectors = 2 * cinp + 2 * cmidn + coutn + (coutn if has_proj else 0)
+        # float32: hi and lo values; bf16: 2-byte weights
+        return 2 * weights + (4 * vectors if dtype == "bfloat16" else vectors)
     weights = cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout if has_proj else 0)
     if dtype == "bfloat16":
         return 2 * weights + 4 * (2 * cin + 2 * cmid + cout + (cout if has_proj else 0))
@@ -438,16 +492,22 @@ def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
     w2 and with a ring of two w2 taps where ``streams_w2``) and two buffers of
     a2 on the (th+2) x (tw+2) halo tile at pitch Cmid+4 float32 values, or,
     for a bfloat16 block, the packed bytes and two a2 buffers at pitch Cmid+8
-    bf16 values.  The general instance: two slots of a ring of B chunks (32 k
-    x 64 columns of fragments), two of an A ring (128 rows x 32 channels at a
-    pitch of 36 float32 / 40 bf16 values), a2 on the halo tile and a3 on the
-    tile at a pitch of Cmid+4 float32 / Cmid+8 bf16 values, Cmid padded to
-    the MMA's k."""
+    bf16 values.  The general instance: 128 bytes of mbarriers, a ring of
+    GENERAL_STAGES chunks (GENERAL_STEPS k steps x 128 columns, hi and lo at
+    float32; half the k steps on bf16 tiles of more than 128 pixels), a2 on
+    the halo tile at a pitch of Cmid padded to the wgmma's k
+    and then to 8 (mod 32) words, and a3 on the tile at the same pitch, over
+    a2's bytes where Cmid fits one pass of 128 columns."""
     if _general(cin, cmid, cout, has_proj):
-        k, e, pad = _k_granule(dtype), (2 if dtype == "bfloat16" else 4), \
-            (8 if dtype == "bfloat16" else 4)
-        rings = 2 * (32 // k) * 8 * 256 + 2 * 128 * (32 + pad) * e
-        return rings + ((th + 2) * (tw + 2) + th * tw) * (_ceil(cmid, k) + pad) * e
+        bf16 = dtype == "bfloat16"
+        _, cmidp, cmidn, _ = _general_widths(cin, cmid, cout, dtype)
+        e = 2 if bf16 else 4
+        p2 = cmidp + ((80 - cmidp % 64) % 64 if bf16 else (40 - cmidp % 32) % 32)
+        a2 = _ceil((th + 2) * (tw + 2) * p2 * e, 16)
+        a3 = _ceil(th * tw * p2 * e, 16)
+        steps = GENERAL_STEPS // (2 if bf16 and th * tw > 128 else 1)
+        ring = GENERAL_STAGES[dtype] * steps * (1 if bf16 else 2) * 32 * GENERAL_COLS
+        return 128 + ring + (max(a2, a3) if cmidn <= GENERAL_COLS else a2 + a3)
     if dtype == "bfloat16":
         return (packed_size(cin, cmid, cout, has_proj, dtype)
                 + 2 * 2 * (th + 2) * (tw + 2) * (cmid + 8))
@@ -468,11 +528,14 @@ _TILE_US = (None, 9.0, 9.7, 9.7, 11.0, 15.7, 16.8, 17.7, 18.6, 22.0, 23.6, 25.2,
 _TILE_US_STREAMED = (None, 18.0, 19.5, 20.5, 22.5, 31.0, 32.5, 34.0, 35.5, 47.0, 49.0, 50.5,
                      52.0)
 # The same for the general instance, float32 256->128->256 and 128->128->256
-# (raw projection) blocks: the median over the shapes of more than one wave,
-# ``scripts/sweep_general_tiles.py`` at the converter's 256-wide path (56 x
-# 128x256 ... 8x16), NVIDIA H100 80GB HBM3 at 700 W.  Its bf16 sweep has the
-# same shape (137-211 us) and shares it; up to 8 row tiles, one pass of its warps.
-_TILE_US_GENERAL = (None, 232.3, 255.0, 258.9, 266.1, 273.0, 328.0, 335.2, 344.1)
+# (raw projection) blocks, and apart for bf16: the median over the shapes of
+# more than one wave, ``scripts/sweep_general_tiles.py`` at the converter's
+# 256-wide path (56 x 128x256 ... 8x16), NVIDIA H100 80GB HBM3 at 700 W; up to
+# GENERAL_TILE_PIXELS / 16 row tiles, one pass of its consumer warpgroups.  A
+# wave is one tile per SM of its persistent thread blocks.
+_TILE_US_GENERAL = (None, 49.0, 52.2, 54.2, 55.4, 73.2, 84.1, 85.1, 89.3)
+_TILE_US_GENERAL_BF16 = (None, 26.7, 27.4, 28.9, 29.9, 36.4, 43.8, 44.5, 46.1, 56.5, 56.1, 58.8,
+                         59.6, 74.2, 73.8, 74.8, 81.9)
 
 
 @lru_cache(maxsize=None)
@@ -484,12 +547,13 @@ def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj
     own table where w2 streams), among those that fit shared memory.  Large images get 8x16 tiles; small images and batches
     fewer rows, until one wave covers the launch.  The bfloat16 instances
     reuse the resident float32 table (no sweep of their own yet); the general
-    instance's tiles hold at most GENERAL_TILE_PIXELS pixels and use its own
-    table, ``_TILE_US_GENERAL``.  Raises ValueError if no tile fits."""
+    instance's tiles hold at most GENERAL_TILE_PIXELS[dtype] pixels and use its own
+    tables, ``_TILE_US_GENERAL`` and ``_TILE_US_GENERAL_BF16``.  Raises
+    ValueError if no tile fits."""
     tw = min(TILE_MAX_WIDTH, w)
     general = _general(cin, cmid, cout, has_proj)
     if general:
-        tile_us = _TILE_US_GENERAL
+        tile_us = _TILE_US_GENERAL_BF16 if dtype == "bfloat16" else _TILE_US_GENERAL
     else:
         tile_us = _TILE_US_STREAMED if streams_w2(cin, cmid, cout, has_proj, dtype) else _TILE_US
     best = None

@@ -6,6 +6,7 @@
     python3 scripts/bench_torch_kernels.py --quick               # one launch per shape, no timing
     python3 scripts/bench_torch_kernels.py --match 56x480x960x256x512 --stage-rows 4,8,12
     python3 scripts/bench_torch_kernels.py --match 8x96x96 --tiles   # sweep the tile height
+    python3 scripts/bench_torch_kernels.py --trees OLD . . OLD --match 56x128x256,56x64x128,56x32x64,56x16x32,56x8x16,56x4x8
 
 Needs one CUDA card.  Each tree runs in its own process (each builds its own
 kernels with nvcc): every shape below goes through the tree's
@@ -24,9 +25,13 @@ other budgets of staged input rows, and so other band heights (trees with
 ``kernels.preprocess_plan``).  The h36m network's blocks (128 wide, the
 3x3's weights streamed) run at the shapes of its ingest path, with weights
 from ``utils/synthetic.random_checkpoint`` (seed 0), in the trees that have
-those instances.  Every bottleneck output is hashed (``out_sha``), and after
-the last tree the outputs of each shape are compared across the trees: the
-script fails where they differ (``COMPARE`` line).  ``--tiles`` times every
+those instances.  The converted 256-wide path's blocks (``GENERAL_SHAPES``)
+run the general instance in float32 and bf16 in every tree that has it, held
+to the tree's plain version (float32 5e-5 of the output's magnitude, bf16 2
+bf16 ulps) and timed as device time, with the weight bytes a launch streams
+from L2 (``general_l2_bytes``, by the tree's own layout).  Every output of the six-width instances is hashed (``out_sha``),
+and after the last tree the outputs of each shape are compared across the
+trees: the script fails where they differ (``COMPARE`` line).  ``--tiles`` times every
 tile height that fits, per bottleneck shape (``tile_ms``).  One JSON line per
 tree, prefixed ``RESULT``; the card's name and power limit first.  Comparing
 two versions is only meaningful inside one call, on one card.
@@ -58,6 +63,11 @@ BLOCK_SHAPES = [
 H36M_SHAPES = [(8, 192, 192, "stem_res1"), (8, 96, 96, "stem_res2"), (8, 48, 48, "stem_res2"),
                (8, 24, 24, "stem_res2"), (8, 12, 12, "stem_res2"), (8, 6, 6, "stem_res2")]
 H36M_SPEC = dict(num_stacks=4, features=128, depth=4, num_classes=17, input_shape=(384, 384))
+# (N, H, W, Cin, Cmid, Cout, projection, raw): the converted 256-wide path's
+# blocks, which run the general instance (the raw projecting stem block, then
+# the 256->128->256 blocks from 64x128 down to 4x8), float32 and bf16
+GENERAL_SHAPES = [(56, 128, 256, 128, 128, 256, True, True)] + [
+    (56, h, 2 * h, 256, 128, 256, False, False) for h in (64, 32, 16, 8, 4)]
 DECODE_SHAPES = [(56, 64, 128, 19), (56, 48, 96, 19), (7, 64, 128, 19), (5, 7, 9, 19),
                  (3, 16, 32, 6)]
 # (N, H, W, h, w): the conv and p16 paths, the cascade's student and teacher,
@@ -152,6 +162,96 @@ def preprocess_rows(torch, kernels, image_ops, shape, dev, gen, quick, no_check,
     return row
 
 
+def seeded_block(np, cin, cmid, cout, seed=0):
+    """One Bottleneck's flax-layout collections with weights at a trained
+    net's scale, from a seed (the same arrays in every tree)."""
+    rng = np.random.default_rng(seed)
+
+    def bn(c):
+        return ({"scale": rng.uniform(0.8, 1.2, c).astype(np.float32),
+                 "bias": rng.uniform(-0.1, 0.1, c).astype(np.float32)},
+                {"mean": rng.uniform(-0.1, 0.1, c).astype(np.float32),
+                 "var": rng.uniform(0.5, 1.5, c).astype(np.float32)})
+
+    def conv(k, ci, co):
+        w = rng.standard_normal((k, k, ci, co)).astype(np.float32) / np.sqrt(k * k * ci)
+        return {"kernel": w, "bias": rng.uniform(-0.05, 0.05, co).astype(np.float32)}
+
+    params, stats = {}, {}
+    for name, c in (("bn1", cin), ("bn2", cmid), ("bn3", cmid)):
+        params[name], stats[name] = bn(c)
+    params.update(conv1=conv(1, cin, cmid), conv2=conv(3, cmid, cmid), conv3=conv(1, cmid, cout),
+                  proj=conv(1, cin, cout))
+    return params, stats
+
+
+def general_l2_bytes(key, tile, dtype, design):
+    """Weight bytes one launch of the general instance streams from L2 at
+    ``key`` = (N, H, W, Cin, Cmid, Cout, projection, raw) with output tiles
+    ``tile``: every tile streams each weight once per pass of its stage's rows
+    (stage 1 over the (th+2) x (tw+2) halo, stages 2 and 3 over the tile).
+    ``design`` "wgmma" (the current layout: float32 weights as hi and lo, 8
+    bytes each, bf16 2; passes of 128 rows, 256 at bf16 on tiles of more than
+    128 pixels, 128 in stage 3 of a projecting bf16 block) or "mma" (the
+    design before it: 4 bytes, bf16 2; passes of 128 rows)."""
+    n, h, w, cin, cmid, cout, proj, _ = key
+    th, tw = tile
+    bf16 = dtype == "bfloat16"
+    e = 2 if bf16 else (8 if design == "wgmma" else 4)
+    rows = 256 if design == "wgmma" and bf16 and th * tw > 128 else 128
+    rows3 = 128 if bf16 and proj else rows
+    hp, tp = (th + 2) * (tw + 2), th * tw
+    per_tile = e * (-(-hp // rows) * cin * cmid + -(-tp // rows) * 9 * cmid * cmid
+                    + -(-tp // rows3) * (cmid * cout + (cin * cout if proj else 0)))
+    return n * -(-h // th) * -(-w // tw) * per_tile
+
+
+def general_rows(torch, np, bn, dev, quick, no_check, match, model):
+    """The general instance at GENERAL_SHAPES, float32 and bf16: against the
+    tree's plain version (float32 5e-5 of the output's magnitude, and its
+    TF32 model; bf16 2 bf16 ulps), timed like the other bottleneck rows, with
+    its L2 bytes per launch beside (``general_l2_bytes``)."""
+    rows = []
+    design = "wgmma" if hasattr(bn, "_pack_wgmma") else "mma"     # the tree's layout
+    for key in GENERAL_SHAPES:
+        n, h, w, cin, cmid, cout, proj, raw = key
+        if match is not None and "x".join(map(str, key[:3])) not in match:
+            continue
+        params, stats = seeded_block(np, cin, cmid, cout)
+        if not proj:
+            params.pop("proj")
+        for dtype in ("float32", "bfloat16"):
+            f = {k: v.to(dev) for k, v in bn.add_packed(
+                bn.fold_bottleneck(params, stats, raw, dtype)).items()}
+            seed = torch.Generator().manual_seed(n * 1000003 + h * 1009 + w)
+            x = torch.randn((n, h, w, cin), generator=seed).to(dev).to(getattr(torch, dtype))
+            y = bn.fused_bottleneck(x, f)
+            torch.cuda.synchronize()
+            ref = bn.bottleneck_plain(x, f).float()
+            mag = ref.abs().max().item()
+            tile = list(bn.choose_tile(n, h, w, cin, cmid, cout, proj, dtype))
+            row = {"kernel": "bottleneck_general", "dtype": dtype, "shape": [n, h, w],
+                   "channels": [cin, cmid, cout], "proj": proj, "raw": raw, "tile": tile,
+                   "scale": mag, "err_plain": (y.float() - ref).abs().max().item(),
+                   "l2_bytes": general_l2_bytes(key, tile, dtype, design)}
+            if dtype == "float32":
+                tol = 5e-5 * max(1.0, mag)
+                if model is not None:
+                    row["err_model"] = (y - model(x, f)).abs().max().item()
+            else:
+                tol = 2 * 2.0 ** (np.floor(np.log2(mag)) - 7)
+            if not no_check and not max(row["err_plain"], row.get("err_model", 0.0)) <= tol:
+                raise AssertionError(f"general bottleneck {row} (tolerance {tol})")
+            if not quick:
+                row["device_ms"] = graph_ms(torch, lambda: bn.fused_bottleneck(x, f), iters=5,
+                                            replays=4)
+            rows.append(row)
+            print(row, flush=True)
+            del x, y, ref
+            torch.cuda.empty_cache()
+    return rows
+
+
 def sweep_tiles(bn, x, f, device_ms):
     """{"th x tw": device ms} of every tile height that fits, the wrapper's own
     choice of tile put aside for the sweep."""
@@ -231,6 +331,10 @@ def run_tree(root, quick, no_check=False, match=None, budgets=None, h36m=None, t
         print(row, flush=True)
         del x, y, ref
         torch.cuda.empty_cache()
+    if hasattr(bn, "kernel_for"):                     # a tree with the general instance
+        import numpy as np
+
+        rows += general_rows(torch, np, bn, dev, quick, no_check, match, model)
     for shape in DECODE_SHAPES:
         n, h, w, k = shape
         if not picked(*shape):
@@ -315,7 +419,9 @@ def main():
                         results.append(json.loads(line[len("RESULT "):]))
             if proc.returncode:
                 raise SystemExit(f"tree {tree} failed ({proc.returncode})")
-    # every bottleneck output, shape by shape, across the trees that ran it
+    # every output of the six-width instances, shape by shape, across the trees
+    # that ran it (the general instance is held to its plain version instead:
+    # its bits follow its design's order of sums)
     outputs = {}
     for result in results:
         for row in result["rows"]:

@@ -7,18 +7,19 @@
 For each shape of the converter's default 256-wide network at N=56 (the
 raw projecting stem block at 128x256, the 256->128->256 blocks from 64x128
 down to 8x16) and the README toy trainer's 16->8->16 block, every tile
-height th (tiles of th x 16 pixels, at most ``GENERAL_TILE_PIXELS``) that
+height th (tiles of th x 16 pixels, at most ``GENERAL_TILE_PIXELS`` of the dtype) that
 fits one thread block's shared memory is launched through
 ``ops/bottleneck.fused_bottleneck`` with ``choose_tile`` pinned to it,
 checked against the plain version (float32 within 5e-5 of the output's
 magnitude, bf16 within 2 bf16 ulps), and timed as device time from a
 replayed CUDA graph.  Per row: the launch's ms, its waves of thread blocks
 over the SMs, and ``us_per_tile`` = launch time / waves, the quantity
-``ops/bottleneck._TILE_US_GENERAL`` tabulates per 16-pixel row tiles.  The
-card's name and power limit first; one JSON line per row, prefixed ``ROW``;
-last, ``TABLE``: per row-tile count, the median of ``us_per_tile`` over the
-float32 shapes that launch more than one wave (the table's figure) and over
-the bf16 ones.
+``ops/bottleneck._TILE_US_GENERAL`` (float32) and ``_TILE_US_GENERAL_BF16``
+tabulate per 16-pixel row tiles (a wave: one tile per SM of the kernel's
+persistent thread blocks).  The card's name and power limit first; one JSON
+line per row, prefixed ``ROW``; last, ``TABLE``: per row-tile count, the
+median of ``us_per_tile`` over the float32 shapes that launch more than one
+wave (the first table's figures) and over the bf16 ones (the second's).
 """
 
 from __future__ import annotations
@@ -95,7 +96,7 @@ def main():
                 x = x.to(dev).to(getattr(torch, dtype))
                 ref = bn.bottleneck_plain(x, f).float()
                 tw = min(bn.TILE_MAX_WIDTH, w)
-                for th in range(1, min(h, bn.GENERAL_TILE_PIXELS // tw) + 1):
+                for th in range(1, min(h, bn.GENERAL_TILE_PIXELS[dtype] // tw) + 1):
                     if bn.smem_bytes(cin, cmid, cout, th, tw, proj, dtype) > bn.MAX_SMEM:
                         break
                     bn.choose_tile = lambda *a, th=th, tw=tw: (th, tw)

@@ -233,14 +233,18 @@ def test_block_without_an_instance_raises_on_the_card():
     (128, 128, 256, True, True, (2, 128, 256)),    # its raw projecting stem block
     (16, 8, 16, False, False, (8, 64, 128)),       # the README trainer's widths
     (8, 8, 16, True, False, (8, 128, 256)),
+    (8, 8, 16, True, True, (3, 19, 37)),           # the envelope's narrow corner, raw projection
+    (96, 64, 128, True, False, (2, 13, 21)),
     (20, 10, 20, False, False, (3, 19, 37)),       # no multiple of 8, tiles cut by the edge
     (13, 7, 11, True, True, (3, 19, 37)),          # odd widths: scalar stores
-    (512, 256, 512, False, False, (2, 9, 17)),     # the envelope's edge
+    (512, 256, 512, False, False, (2, 9, 17)),     # the envelope's edge: two passes of stage 2
+    (200, 136, 330, True, False, (2, 11, 23)),     # padded to the wgmma's k and to 64 columns
 ])
 def test_general_bottleneck_matches_plain(cin, cmid, cout, proj, raw, shape, dtype):
     """The general instance against its plain version: float32 within 5e-5 of
     the output's magnitude (and of its 3xTF32 arithmetic model), bf16 within
-    2 bf16 ulps; its shared-memory and packed-buffer figures are the wrapper's."""
+    2 bf16 ulps, at the envelope's corners and on ragged images; its
+    shared-memory and packed-buffer figures are the wrapper's."""
     dev = _card()
     folded = {k: v.to(dev) for k, v in _general_block((cin, cmid, cout), proj, raw,
                                                        dtype).items()}

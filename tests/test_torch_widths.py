@@ -137,60 +137,93 @@ def test_block_matches_jax_bfloat16(cin, cmid, cout, proj, raw):
 # ------------------------------------------------------- (b) general layout
 
 
-def _unpack(buf: np.ndarray, k: int, n: int, bf16: bool) -> np.ndarray:
-    """A (k, n) weight back out of its B fragments in the plain ("mma") order:
-    lane 4g+t holds column 8nt+g of rows 8ks + (t, t+4) at float32, 16ks +
-    (2t, 2t+1, 2t+8, 2t+9) at bfloat16."""
-    step, per = (16, 4) if bf16 else (8, 2)
-    frag = buf.reshape(k // step, n // 8, 32, per)
+def _unpack(buf: np.ndarray, k: int, n: int, dtype: str):
+    """A (k, n) weight back out of the general layout: per pass of 128
+    columns, per k step, the core matrices [column group][k half][column]
+    [element] (elements on the channels of ``_k_perm``), at float32 as hi then
+    lo.  -> (w, hi or None): w = hi + lo at float32."""
+    step = 16 if dtype == "bfloat16" else 8
+    e, halves = step // 2, (1 if dtype == "bfloat16" else 2)
+    perm = port_bn._k_perm(dtype)
     w = np.full((k, n), np.nan, np.float32)
-    for lane in range(32):
-        g, t = lane >> 2, lane & 3
-        rows = (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9) if bf16 else (t, t + 4)
-        for ks in range(k // step):
-            for e, r in enumerate(rows):
-                w[step * ks + r, g::8] = frag[ks, :, lane, e]
-    return w
+    hi = np.full((k, n), np.nan, np.float32) if halves == 2 else None
+    o = 0
+    for n0 in range(0, n, 128):
+        nc = min(128, n - n0)
+        core = buf[o:o + k * nc * halves].reshape(k // step, halves, nc // 8, 2, 8, e)
+        o += k * nc * halves
+        for s in range(k // step):
+            for kc in range(2):
+                for j in range(e):
+                    r = step * s + perm[kc, j]
+                    vals = core[s, :, :, kc, :, j].reshape(halves, nc)
+                    if halves == 2:
+                        hi[r, n0:n0 + nc] = vals[0]
+                        w[r, n0:n0 + nc] = vals[0] + vals[1]
+                    else:
+                        w[r, n0:n0 + nc] = vals[0]
+    assert o == buf.size
+    return w, hi
+
+
+def test_general_k_order_gives_each_lane_contiguous_channels():
+    """Lane column t's k slots of a wgmma A fragment, (t, t+4) at TF32 and (2t,
+    2t+1, 2t+8, 2t+9) at bf16, hold channels 2t, 2t+1 / 4t ... 4t+3 of the k
+    step, each channel once."""
+    for dtype, slots in (("float32", lambda t: [t, t + 4]),
+                         ("bfloat16", lambda t: [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9])):
+        perm = port_bn._k_perm(dtype)
+        e = perm.shape[1]
+        flat = perm.reshape(-1)                  # logical k = kc * e + j
+        assert sorted(flat) == list(range(2 * e))
+        for t in range(4):
+            assert [flat[s] for s in slots(t)] == list(range(len(slots(t)) * t,
+                                                              len(slots(t)) * (t + 1)))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("cin,cmid,cout,proj", [(20, 10, 20, False), (13, 7, 11, True),
-                                                (128, 128, 256, True)])
+                                                (128, 128, 256, True), (200, 136, 330, True)])
 def test_general_layout_holds_every_weight_once(cin, cmid, cout, proj, dtype):
     params, stats, _ = _seeded(cin, cmid, cout, proj)
     f = port_bn.fold_bottleneck(params, stats, dtype=dtype)
     packed = port_bn.add_packed(f)["packed"]
     bf16 = dtype == "bfloat16"
     step = 16 if bf16 else 8
-    cinp, cmidp, coutp = (-(-c // m) * m for c, m in ((cin, step), (cmid, step), (cout, 8)))
+    cinp, cmidp = (-(-c // step) * step for c in (cin, cmid))
+    cmidn, coutn = (-(-c // 64) * 64 for c in (cmid, cout))
     assert packed.numel() == port_bn.packed_size(cin, cmid, cout, proj, dtype)
     assert (packed.numel() * packed.element_size()) % 16 == 0    # copied in 16-byte pieces
+    n_w = cinp * cmidn + 9 * cmidp * cmidn + cmidp * coutn + (cinp * coutn if proj else 0)
     if bf16:
-        n_w = cinp * cmidp + 9 * cmidp * cmidp + cmidp * coutp + (cinp * coutp if proj else 0)
         weights = packed[:2 * n_w].view(torch.bfloat16).float().numpy()
         vectors = packed[2 * n_w:].view(torch.float32).numpy()
-    else:
-        n_w = packed.numel() - 2 * cinp - 2 * cmidp - coutp - (coutp if proj else 0)
-        weights, vectors = packed[:n_w].numpy(), packed[n_w:].numpy()
-    mats = [("w1", cinp, cmidp), ("w2", 9 * cmidp, cmidp), ("w3", cmidp, coutp)]
+    else:                                        # hi and lo of every weight
+        weights, vectors = packed[:2 * n_w].numpy(), packed[2 * n_w:].numpy()
+    mats = [("w1", cinp, cmidn), ("w2", 9 * cmidp, cmidn), ("w3", cmidp, coutn)]
     if proj:
-        mats.append(("wp", cinp, coutp))
+        mats.append(("wp", cinp, coutn))
     o = 0
     for name, k, n in mats:
-        got = _unpack(weights[o:o + k * n], k, n, bf16)
-        o += k * n
+        size = k * n * (1 if bf16 else 2)
+        # every weight starts 16-byte aligned, and so does each k step of a pass
+        assert (o * (2 if bf16 else 4)) % 2048 == 0
+        got, hi = _unpack(weights[o:o + size], k, n, dtype)
+        o += size
         w = f[name].float().numpy()
+        if hi is not None:                   # hi is TF32 and hi + lo == w bit for bit
+            assert not (hi.view(np.int32) & 0x1FFF).any()
         if name == "w2":                 # tap-major: each tap's Cmid rows padded to cmidp
-            got = got.reshape(9, cmidp, cmidp)
+            got = got.reshape(9, cmidp, cmidn)
             np.testing.assert_array_equal(got[:, :cmid, :cmid], w)
         else:
             np.testing.assert_array_equal(got[:w.shape[0], :w.shape[1]], w)
         got[tuple(slice(0, s) for s in w.shape)] = 0.0
         assert not got.any(), f"{name}: padding is not zero"
-    assert o == n_w
+    assert o == weights.size
     o = 0
-    for name, width in (("s1", cinp), ("t1", cinp), ("b1", cmidp), ("b2", cmidp), ("b3", coutp),
-                        ("bp", coutp)):
+    for name, width in (("s1", cinp), ("t1", cinp), ("b1", cmidn), ("b2", cmidn), ("b3", coutn),
+                        ("bp", coutn)):
         if name == "bp" and not proj:
             continue
         v, want = vectors[o:o + width], f[name][0].float().numpy()
@@ -201,18 +234,35 @@ def test_general_layout_holds_every_weight_once(cin, cmid, cout, proj, dtype):
 
 
 def test_general_shared_memory_budget():
-    # the 256-wide block at an 8x16 tile: the two rings, a2 on the 180 halo
-    # pixels and a3 on the 128 tile pixels at a pitch of 132 float32 values
+    # the 256-wide block at an 8x16 tile: 128 bytes of mbarriers, the ring
+    # (float32: 4 chunks of 4 k8 steps x 128 columns, hi and lo; bf16: 8 of 4
+    # k16 steps), a2 on the 180 halo pixels at a pitch of 136 float32 / 144
+    # bf16 values, and a3 on the 128 tile pixels over a2's bytes; bf16 takes
+    # tiles of up to 256 pixels (two m64 row blocks per warpgroup, chunks of 2
+    # k16 steps)
     assert port_bn.smem_bytes(256, 128, 256, 8, 16, False) == \
-        2 * 4 * 8 * 256 + 2 * 128 * 36 * 4 + (180 + 128) * 132 * 4 == 215872
+        128 + 4 * 4 * 2 * 32 * 128 + 180 * 136 * 4 == 229120
     assert port_bn.smem_bytes(256, 128, 256, 8, 16, False, "bfloat16") == \
-        2 * 2 * 8 * 256 + 2 * 128 * 40 * 2 + (180 + 128) * 136 * 2
-    # Cmid = 10 pads to 16 at float32 and bf16; the widest block fits 4x16
-    assert port_bn.smem_bytes(20, 10, 20, 1, 16, False) == 53248 + (54 + 16) * 20 * 4
-    assert port_bn.smem_bytes(512, 256, 512, 4, 16, False) <= port_bn.MAX_SMEM
-    assert port_bn.smem_bytes(512, 256, 512, 5, 16, False) > port_bn.MAX_SMEM
+        128 + 8 * 4 * 32 * 128 + 180 * 144 * 2 == 183040
+    assert port_bn.smem_bytes(256, 128, 256, 16, 16, False, "bfloat16") == \
+        128 + 65536 + 324 * 144 * 2 <= port_bn.MAX_SMEM
+    # Cmid = 10 pads to 16 (pitch 40 float32 values)
+    assert port_bn.smem_bytes(20, 10, 20, 1, 16, False) == 128 + 131072 + 54 * 40 * 4
+    # Cmid = 256 takes two passes of stage 2, so a3 has bytes of its own: the
+    # widest block fits 1x16 at float32 and 4x16 at bf16
+    assert port_bn.smem_bytes(512, 256, 512, 1, 16, False) == \
+        128 + 131072 + (54 + 16) * 264 * 4 <= port_bn.MAX_SMEM
+    assert port_bn.smem_bytes(512, 256, 512, 2, 16, False) > port_bn.MAX_SMEM
+    assert port_bn.smem_bytes(512, 256, 512, 4, 16, False, "bfloat16") <= port_bn.MAX_SMEM
+    assert port_bn.smem_bytes(512, 256, 512, 5, 16, False, "bfloat16") > port_bn.MAX_SMEM
     assert port_bn.choose_tile(56, 64, 128, 256, 128, 256, False) == (8, 16)
-    assert port_bn.choose_tile(56, 64, 128, 512, 256, 512, False) == (4, 16)
+    assert port_bn.choose_tile(56, 64, 128, 512, 256, 512, False) == (1, 16)
+    assert port_bn.choose_tile(56, 64, 128, 512, 256, 512, False, "bfloat16")[0] <= 4
+    # the packed buffer: float32 holds hi and lo of every weight
+    assert port_bn.packed_size(256, 128, 256, False) == \
+        2 * (256 * 128 + 9 * 128 * 128 + 128 * 256) + 2 * 256 + 2 * 128 + 256
+    assert port_bn.packed_size(256, 128, 256, False, "bfloat16") == \
+        2 * (256 * 128 + 9 * 128 * 128 + 128 * 256) + 4 * (2 * 256 + 2 * 128 + 256)
     # the instances keep their own layout, tiles and tables
     assert port_bn.packed_size(96, 48, 96, False) * 4 == 121344
     assert port_bn.kernel_for(96, 48, 96, False) == "instance"
@@ -240,7 +290,7 @@ def test_every_width_of_the_envelope_has_a_tile(dtype):
             for n, h, w in TILE_SHAPES:
                 th, tw = port_bn.choose_tile(n, h, w, *block, dtype)
                 assert 1 <= th <= h and tw == min(w, 16)
-                assert th * tw <= port_bn.GENERAL_TILE_PIXELS
+                assert th * tw <= port_bn.GENERAL_TILE_PIXELS[dtype]
                 assert port_bn.smem_bytes(*block[:3], th, tw, proj, dtype) <= port_bn.MAX_SMEM
 
 
