@@ -45,14 +45,18 @@ memory beside the activations.  The 128-wide blocks' float32 weights alone
 and stream w2 through shared memory one tap at a time (``streams_w2``;
 ``smem_bytes`` and ``choose_tile`` know both layouts).
 
-A bfloat16 block runs ``csrc/bottleneck_bf16.cu`` instead: one bf16 MMA per
-product (bf16 products are exact in float32, so nothing is split), and
-``pack_bottleneck`` gives it a byte buffer of bf16 weights in the fragment
-order of ``mma.m16n8k16`` followed by the float32 vectors.  Every width of
-``INSTANCES`` keeps all its weights resident at bf16 (109-117 KB for the
-128-wide blocks), so no bf16 instance streams w2.  The plain version computes
-each product as a float32 matmul of bfloat16-valued tensors (a PyTorch bf16
-matmul would round its output before the float32 bias, and JAX does not).
+A bfloat16 block runs ``csrc/bottleneck_bf16.cu`` instead: one bf16 wgmma per
+k step of each product (bf16 products are exact in float32, so nothing is
+split), and ``pack_bottleneck`` gives it a byte buffer (the bf16 resident
+layout): s1 and t1 as bf16, the biases as float32, then the four weights as
+bf16 in wgmma's K-major core-matrix order without swizzle (``_pack_core16``).
+Every width of ``INSTANCES`` keeps all its weights resident at bf16 (109-117
+KB for the 128-wide blocks), so no bf16 instance streams w2; beside them a
+thread block holds a ring of x halo tiles and one a2 buffer per consumer
+warpgroup (``smem_bytes``), and ``choose_tile`` reads the instances' own
+table, ``_TILE_US_BF16``.  The plain version computes each product as a
+float32 matmul of bfloat16-valued tensors (a PyTorch bf16 matmul would round
+its output before the float32 bias, and JAX does not).
 
 Every other width inside ``ENVELOPE`` (Cin, Cout <= 512, Cmid <= 256: every
 block of a spec with 8 to 512 features, the converter's 256-wide default
@@ -275,26 +279,6 @@ def _pack_fragments(w: np.ndarray, order: str) -> np.ndarray:
     return np.stack([w[k0, cols], w[k1, cols]], axis=-1).reshape(-1)
 
 
-def _pack_fragments16(w: np.ndarray, order: str) -> np.ndarray:
-    """(K, N) -> flat (K/16, N/8, 32 lanes, 4): the B fragments of
-    mma.m16n8k16 with bf16 operands, lane 4g+t holding column 8*nt+g of the
-    four rows of k step ks that its registers b0 (slots 2t, 2t+1) and b1
-    (slots 2t+8, 2t+9) stand for.  ``"mma"``: rows 16*ks + (2t, 2t+1, 2t+8,
-    2t+9), A read out of a row-major tile or an accumulator fragment reused
-    (the two layouts agree at k16); ``"lanes"``: t*K/4 + 4*ks + (0, 1, 2, 3),
-    A the K/4 neighbouring channels of a pixel that lane column t reads from x."""
-    k, n = w.shape
-    lane = np.arange(32)
-    g, t = lane >> 2, lane & 3
-    step = np.arange(k // 16)[:, None, None]
-    if order == "mma":
-        rows = [16 * step + 2 * t + d for d in (0, 1, 8, 9)]
-    else:
-        rows = [t * (k // 4) + 4 * step + d for d in range(4)]
-    cols = 8 * np.arange(n // 8)[None, :, None] + g[None, None, :]
-    return np.stack([w[r, cols] for r in rows], axis=-1).reshape(-1)
-
-
 def kernel_for(cin: int, cmid: int, cout: int, has_proj: bool) -> str:
     """Which kernel runs a block on the card: ``"instance"`` (a width of
     ``INSTANCES``, csrc/bottleneck.cu or bottleneck_bf16.cu) or
@@ -372,6 +356,22 @@ def _pack_wgmma(w: np.ndarray, kp: int, n: int, dtype: str) -> np.ndarray:
     return np.concatenate(out)
 
 
+def _pack_core16(w: np.ndarray, permute: bool) -> np.ndarray:
+    """(K, N) weight, K a multiple of 16 and N of 8 -> flat values of the bf16
+    resident layout: per k step of 16, wgmma's K-major core matrices without
+    swizzle as [N/8 column groups][2 k halves][8 columns][8 values].  With
+    ``permute`` each k step's channels are in ``_k_perm("bfloat16")``'s order
+    (A read by lanes from a pixel's channels); without, in plain order (A read
+    by wgmma from shared memory, or an accumulator fragment)."""
+    k, n = w.shape
+    if permute:
+        arr = w.reshape(k // 16, 16, n)[:, _k_perm("bfloat16"), :]       # (s, kc, j, n)
+    else:
+        arr = w.reshape(k // 16, 2, 8, n)
+    core = arr.reshape(k // 16, 2, 8, n // 8, 8).transpose(0, 3, 1, 4, 2)
+    return np.ascontiguousarray(core, np.float32).reshape(-1)
+
+
 def _general_widths(cin: int, cmid: int, cout: int, dtype: str):
     """(cinp, cmidp, cmidn, coutn): k padded to the wgmma's k, n to 64."""
     k = _k_granule(dtype)
@@ -407,10 +407,11 @@ def pack_bottleneck(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
     order, then s1, t1, b1, b2 and b3 (+ bp).  Every value is a folded
     float32 weight unchanged; the kernel splits hi/lo as it loads.
 
-    bfloat16 block: bytes (uint8), the four weights as bf16 in the
-    fragment order of ``_pack_fragments16`` (w1 and wp "lanes", w2 and w3
-    "mma"), then s1, t1, b1, b2, b3 and bp as float32 (s1 and t1 hold bf16
-    values); bp is kept apart from b3, as the JAX oracle adds it.
+    bfloat16 block: bytes (uint8), s1 and t1 as bf16, b1, b2, b3 and bp as
+    float32 (bp kept apart from b3, as the JAX oracle adds it), then w1, w2
+    (as (9*Cmid, Cmid), tap-major), w3 and wp as bf16 in the core-matrix
+    order of ``_pack_core16`` (w1 and wp permuted, w2 and w3 plain).  Every
+    section starts 16-byte aligned (the widths are multiples of 16).
 
     A width outside ``INSTANCES`` gets the general layout (module
     docstring): float32 values, or bytes at bfloat16, bp apart in both.
@@ -422,16 +423,16 @@ def pack_bottleneck(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
     if _general(cin, cmid, f["w3"].shape[1], "wp" in f):
         return _pack_general(f, dtype)
     if dtype == "bfloat16":
-        weights = [_pack_fragments16(f["w1"], "lanes"),
-                   _pack_fragments16(f["w2"].reshape(9 * cmid, cmid), "mma"),
-                   _pack_fragments16(f["w3"], "mma")]
-        vectors = [f["s1"][0], f["t1"][0], f["b1"][0], f["b2"][0], f["b3"][0]]
+        weights = [_pack_core16(f["w1"], True), _pack_core16(f["w2"].reshape(9 * cmid, cmid), False),
+                   _pack_core16(f["w3"], False)]
+        biases = [f["b1"][0], f["b2"][0], f["b3"][0]]
         if "wp" in f:
-            weights.insert(3, _pack_fragments16(f["wp"], "lanes"))
-            vectors.append(f["bp"][0])
+            weights.append(_pack_core16(f["wp"], True))
+            biases.append(f["bp"][0])
+        bn1 = torch.from_numpy(np.concatenate([f["s1"][0], f["t1"][0]])).to(torch.bfloat16)
         w = torch.from_numpy(np.concatenate(weights)).to(torch.bfloat16)  # exact: bf16 values
-        v = torch.from_numpy(np.concatenate(vectors).astype(np.float32))
-        return torch.cat([w.view(torch.uint8), v.view(torch.uint8)])
+        b = torch.from_numpy(np.concatenate(biases).astype(np.float32))
+        return torch.cat([bn1.view(torch.uint8), b.view(torch.uint8), w.view(torch.uint8)])
     parts = [_pack_fragments(f["w1"], "lanes"),
              _pack_fragments(f["w2"].reshape(9 * cmid, cmid), "mma"),
              _pack_fragments(f["w3"], "paired")]
@@ -448,6 +449,23 @@ def add_packed(folded: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {**folded, "packed": pack_bottleneck(folded)}
 
 
+def bf16_sections(cin: int, cmid: int, cout: int, has_proj: bool) -> Dict[str, tuple]:
+    """{name: (byte offset, bytes)} of a bf16 resident instance's packed buffer
+    (``pack_bottleneck``; the kernel's ``packed_layout``): s1, t1 (bf16), b1,
+    b2, b3, bp (float32), w1, w2, w3, wp (bf16); bp and wp only where the
+    block projects."""
+    sizes = [("s1", 2 * cin), ("t1", 2 * cin), ("b1", 4 * cmid), ("b2", 4 * cmid),
+             ("b3", 4 * cout), ("bp", 4 * cout if has_proj else 0), ("w1", 2 * cin * cmid),
+             ("w2", 2 * 9 * cmid * cmid), ("w3", 2 * cmid * cout),
+             ("wp", 2 * cin * cout if has_proj else 0)]
+    out, at = {}, 0
+    for name, nbytes in sizes:
+        if nbytes:
+            out[name] = (at, nbytes)
+        at += nbytes
+    return out
+
+
 def packed_size(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "float32") -> int:
     """Length of a block's packed weight buffer: float32 values for a
     float32 block, bytes for a bfloat16 block (2-byte weights, 4-byte
@@ -462,7 +480,7 @@ def packed_size(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "fl
         return 2 * weights + (4 * vectors if dtype == "bfloat16" else vectors)
     weights = cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout if has_proj else 0)
     if dtype == "bfloat16":
-        return 2 * weights + 4 * (2 * cin + 2 * cmid + cout + (cout if has_proj else 0))
+        return sum(n for _, n in bf16_sections(cin, cmid, cout, has_proj).values())
     return weights + 2 * cin + 2 * cmid + cout
 
 
@@ -486,13 +504,59 @@ def streams_w2(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "flo
     return _smem(cin, cmid, cout, 1, TILE_MAX_WIDTH, has_proj, False) > MAX_SMEM
 
 
+# The bf16 resident instances (csrc/bottleneck_bf16.cu): a ring of at most
+# BF16_STAGES x halo tiles per thread block; the 3x3's output rows lie on the
+# halo's row pitch, th * (tw + 2) of them to a whole m64 row block, at most
+# three blocks (two at Cmid = 64); the halo has at most BF16_HALO_PIXELS pixels
+# (four m64 row blocks of the first stage).
+BF16_STAGES = 4
+BF16_HALO_PIXELS = 256
+
+
+def _bf16_blocks(th: int, tw: int):
+    """(m64 row blocks of stage 1 over the halo, of the 3x3 and the output) of
+    a th x tw tile of a bf16 resident instance."""
+    return -(-(th + 2) * (tw + 2) // 64), -(-th * (tw + 2) // 64)
+
+
+def bf16_tile_fits(th: int, tw: int, cin: int, cmid: int, cout: int, has_proj: bool) -> bool:
+    """Whether the bf16 resident instance launches a th x tw tile: its 3x3 has
+    at most three m64 row blocks (two at Cmid = 64), its halo at most
+    BF16_HALO_PIXELS pixels, and its thread block fits shared memory with two
+    ring slots (the kernel's refusals)."""
+    return (_bf16_blocks(th, tw)[1] <= (2 if cmid > 48 else 3)
+            and (th + 2) * (tw + 2) <= BF16_HALO_PIXELS
+            and smem_bytes(cin, cmid, cout, th, tw, has_proj, "bfloat16") <= MAX_SMEM)
+
+
+def _bf16_layout(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool):
+    """(shared memory bytes, ring slots) of a bf16 resident instance's thread
+    block (the kernel's ``smem_layout``): 128 bytes of mbarriers, the packed
+    buffer, as many x halo slots ((th+2) x (tw+2) x Cin bf16 each) as fit up to
+    BF16_STAGES but at least two, and one a2 buffer per consumer warpgroup: Cmid
+    bf16 of each row from the halo's first to the 3x3's last tap (its rows,
+    th x (tw+2) to 64, + 2 (tw+2) + 2), to 8 rows, and at least room for stage
+    3's staging of y (64 rows of one column pass of Cout, or of Cout/2 past 96,
+    16 bytes apart); each section 128-byte aligned."""
+    hw = tw + 2
+    hp = (th + 2) * hw
+    m2 = 64 * _bf16_blocks(th, tw)[1]
+    r2 = _ceil(max(hp, m2 + 2 * hw + 2), 8)
+    ring = _ceil(128 + packed_size(cin, cmid, cout, has_proj, "bfloat16"), 128)
+    slot = _ceil(hp * cin * 2, 128)
+    n3 = cout // 2 if cout > 96 else cout             # stage 3's column pass
+    fixed = ring + 2 * _ceil(max(r2 * cmid * 2, 64 * (2 * n3 + 16)), 128)
+    stages = min(BF16_STAGES, max(2, (MAX_SMEM - fixed) // slot))
+    return fixed + stages * slot, stages
+
+
 def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
                dtype: str = "float32") -> int:
     """Dynamic shared memory of one thread block: the packed weights (without
     w2 and with a ring of two w2 taps where ``streams_w2``) and two buffers of
     a2 on the (th+2) x (tw+2) halo tile at pitch Cmid+4 float32 values, or,
-    for a bfloat16 block, the packed bytes and two a2 buffers at pitch Cmid+8
-    bf16 values.  The general instance: 128 bytes of mbarriers, a ring of
+    for a bfloat16 block, ``_bf16_layout``'s: 128 bytes of mbarriers, the
+    packed bytes, a ring of x halo tiles and two a2 buffers.  The general instance: 128 bytes of mbarriers, a ring of
     GENERAL_STAGES chunks (GENERAL_STEPS k steps x 128 columns, hi and lo at
     float32; half the k steps on bf16 tiles of more than 128 pixels), a2 on
     the halo tile at a pitch of Cmid padded to the wgmma's k
@@ -509,8 +573,7 @@ def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
         ring = GENERAL_STAGES[dtype] * steps * (1 if bf16 else 2) * 32 * GENERAL_COLS
         return 128 + ring + (max(a2, a3) if cmidn <= GENERAL_COLS else a2 + a3)
     if dtype == "bfloat16":
-        return (packed_size(cin, cmid, cout, has_proj, dtype)
-                + 2 * 2 * (th + 2) * (tw + 2) * (cmid + 8))
+        return _bf16_layout(cin, cmid, cout, th, tw, has_proj)[0]
     return _smem(cin, cmid, cout, th, tw, has_proj, streams_w2(cin, cmid, cout, has_proj))
 
 
@@ -534,6 +597,15 @@ _TILE_US_STREAMED = (None, 18.0, 19.5, 20.5, 22.5, 31.0, 32.5, 34.0, 35.5, 47.0,
 # GENERAL_TILE_PIXELS / 16 row tiles, one pass of its consumer warpgroups.  A
 # wave is one tile per SM of its persistent thread blocks.
 _TILE_US_GENERAL = (None, 49.0, 52.2, 54.2, 55.4, 73.2, 84.1, 85.1, 89.3)
+# The bf16 resident instances: microseconds of one consumer warpgroup's tile
+# with nb2 m64 row blocks in the 3x3 and the output and nb1 in stage 1
+# (``_bf16_blocks``; index [nb2][nb1 - nb2]: the halo has 2 (tw + 2) <= 36
+# pixels more than the 3x3's rows, so nb1 is nb2 or nb2 + 1), two such tiles at
+# a time per SM (one per consumer warpgroup): the median of launch time over
+# rounds of two tiles per SM over the 96->48->96 and 48->48->96 shapes of more
+# than one round, ``scripts/bench_torch_kernels.py --tiles`` at the bf16 paths'
+# shapes (its BF16_TILE_TABLE line), NVIDIA H100 80GB HBM3 at 700 W.
+_TILE_US_BF16 = (None, (4.31, 5.13), (6.96, 7.58), (9.96, 10.37))
 _TILE_US_GENERAL_BF16 = (None, 26.7, 27.4, 28.9, 29.9, 36.4, 43.8, 44.5, 46.1, 56.5, 56.1, 58.8,
                          59.6, 74.2, 73.8, 74.8, 81.9)
 
@@ -546,12 +618,14 @@ def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj
     the SMs times the measured time of such a tile (the streamed design's
     own table where w2 streams), among those that fit shared memory.  Large images get 8x16 tiles; small images and batches
     fewer rows, until one wave covers the launch.  The bfloat16 instances
-    reuse the resident float32 table (no sweep of their own yet); the general
+    have their own rules and table (``_choose_tile_bf16``); the general
     instance's tiles hold at most GENERAL_TILE_PIXELS[dtype] pixels and use its own
     tables, ``_TILE_US_GENERAL`` and ``_TILE_US_GENERAL_BF16``.  Raises
     ValueError if no tile fits."""
     tw = min(TILE_MAX_WIDTH, w)
     general = _general(cin, cmid, cout, has_proj)
+    if not general and dtype == "bfloat16":
+        return _choose_tile_bf16(n, h, w, cin, cmid, cout, has_proj)
     if general:
         tile_us = _TILE_US_GENERAL_BF16 if dtype == "bfloat16" else _TILE_US_GENERAL
     else:
@@ -562,6 +636,29 @@ def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj
             break
         waves = -(-n * -(-h // th) * -(-w // tw) // NUM_SMS)
         cost = waves * tile_us[-(-th * tw // 16)]
+        if best is None or cost < best[0]:
+            best = (cost, th)
+    if best is None:
+        raise ValueError(f"block too wide for one thread block's shared memory "
+                         f"(Cin={cin}, Cmid={cmid}, Cout={cout})")
+    return best[1], tw
+
+
+def _choose_tile_bf16(n: int, h: int, w: int, cin: int, cmid: int, cout: int,
+                      has_proj: bool):
+    """``choose_tile`` for a bf16 resident instance: among the tiles that
+    ``bf16_tile_fits``, the one whose launch should take least time; a thread
+    block runs its tiles two at a time (one per consumer warpgroup), so a
+    launch takes ceil(ceil(tiles / NUM_SMS) / 2) times ``_TILE_US_BF16`` of its
+    tile."""
+    tw = min(TILE_MAX_WIDTH, w)
+    best = None
+    for th in range(1, h + 1):
+        if not bf16_tile_fits(th, tw, cin, cmid, cout, has_proj):
+            break
+        nb1, nb2 = _bf16_blocks(th, tw)
+        per_sm = -(-n * -(-h // th) * -(-w // tw) // NUM_SMS)
+        cost = -(-per_sm // 2) * _TILE_US_BF16[nb2][nb1 - nb2]
         if best is None or cost < best[0]:
             best = (cost, th)
     if best is None:

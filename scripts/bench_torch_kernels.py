@@ -7,6 +7,7 @@
     python3 scripts/bench_torch_kernels.py --match 56x480x960x256x512 --stage-rows 4,8,12
     python3 scripts/bench_torch_kernels.py --match 8x96x96 --tiles   # sweep the tile height
     python3 scripts/bench_torch_kernels.py --trees OLD . . OLD --match 56x128x256,56x64x128,56x32x64,56x16x32,56x8x16,56x4x8
+    python3 scripts/bench_torch_kernels.py --match 56x64x128,56x32x64 --tiles   # the bf16 tile table
 
 Needs one CUDA card.  Each tree runs in its own process (each builds its own
 kernels with nvcc): every shape below goes through the tree's
@@ -29,7 +30,10 @@ those instances.  The converted 256-wide path's blocks (``GENERAL_SHAPES``)
 run the general instance in float32 and bf16 in every tree that has it, held
 to the tree's plain version (float32 5e-5 of the output's magnitude, bf16 2
 bf16 ulps) and timed as device time, with the weight bytes a launch streams
-from L2 (``general_l2_bytes``, by the tree's own layout).  Every output of the six-width instances is hashed (``out_sha``),
+from L2 (``general_l2_bytes``, by the tree's own layout).  The bf16 resident instance
+runs at ``BF16_SHAPES`` (``bf16_rows``: 2 bf16 ulps of its plain version,
+device time, bound, cuDNN bf16), and its sum over one ``conv_bf16`` forward
+is printed per tree (``FORWARD`` line).  Every output of the six-width instances is hashed (``out_sha``),
 and after the last tree the outputs of each shape are compared across the
 trees: the script fails where they differ (``COMPARE`` line).  ``--tiles`` times every
 tile height that fits, per bottleneck shape (``tile_ms``).  One JSON line per
@@ -68,6 +72,21 @@ H36M_SPEC = dict(num_stacks=4, features=128, depth=4, num_classes=17, input_shap
 # the 256->128->256 blocks from 64x128 down to 4x8), float32 and bf16
 GENERAL_SHAPES = [(56, 128, 256, 128, 128, 256, True, True)] + [
     (56, h, 2 * h, 256, 128, 256, False, False) for h in (64, 32, 16, 8, 4)]
+# (N, H, W, Cin, Cmid, Cout, projection): the bf16 resident instance at the bf16
+# paths' shapes (conv_bf16 and p16_bf16: the projecting stem block at 128x256,
+# the 96->48->96 blocks from 64x128 down to 2x4; cascade_bf16: the student's
+# levels 48x96 ... 3x6 and the teacher's 7 images) and at the h36m network's
+# 128-wide blocks at its batch of 8 (on no bf16 path yet)
+BF16_SHAPES = ([(n, 128, 256, 48, 48, 96, True) for n in (56, 7)]
+               + [(56, h, 2 * h, 96, 48, 96, False) for h in (64, 48, 32, 24, 16, 12, 8, 6, 4, 3, 2)]
+               + [(7, h, 2 * h, 96, 48, 96, False) for h in (64, 32, 16, 8, 4)]
+               + [(8, 192, 192, 64, 64, 128, True)]
+               + [(8, h, h, 128, 64, 128, False) for h in (96, 48, 24, 12, 6)])
+# launches of each shape per conv_bf16 forward: 31 blocks, the stem block and
+# six at each of the five levels 64x128 ... 4x8
+CONV_BF16_LAUNCHES = {(56, 128, 256): 1, (56, 64, 128): 6, (56, 32, 64): 6, (56, 16, 32): 6,
+                      (56, 8, 16): 6, (56, 4, 8): 6}
+PEAK_BF16_FLOPS = 989e12        # bf16 dense, one H100 SXM
 DECODE_SHAPES = [(56, 64, 128, 19), (56, 48, 96, 19), (7, 64, 128, 19), (5, 7, 9, 19),
                  (3, 16, 32, 6)]
 # (N, H, W, h, w): the conv and p16 paths, the cascade's student and teacher,
@@ -252,22 +271,98 @@ def general_rows(torch, np, bn, dev, quick, no_check, match, model):
     return rows
 
 
-def sweep_tiles(bn, x, f, device_ms):
+def sweep_tiles(bn, x, f, device_ms, dtype="float32"):
     """{"th x tw": device ms} of every tile height that fits, the wrapper's own
-    choice of tile put aside for the sweep."""
+    choice of tile put aside for the sweep (at bf16, the tree's limits of its
+    bf16 instance where it has them)."""
     n, h, w, cin = x.shape
     cmid, cout, proj = f["w1"].shape[1], f["w3"].shape[1], "wp" in f
     chosen, tw = bn.choose_tile, min(bn.TILE_MAX_WIDTH, w)
+    resident16 = dtype == "bfloat16" and hasattr(bn, "bf16_tile_fits")
     out = {}
     try:
-        for th in range(1, min(h, 16 * bn.TILE_WARPS // tw) + 1):
-            if bn.smem_bytes(cin, cmid, cout, th, tw, proj) > bn.MAX_SMEM:
+        for th in range(1, h + 1):
+            if resident16:
+                if not bn.bf16_tile_fits(th, tw, cin, cmid, cout, proj):
+                    break
+            elif (bn.smem_bytes(cin, cmid, cout, th, tw, proj, dtype) > bn.MAX_SMEM
+                  or th * tw > 16 * bn.TILE_WARPS):
                 break
             bn.choose_tile = lambda *args, th=th: (th, tw)
             out[f"{th}x{tw}"] = device_ms(lambda: bn.fused_bottleneck(x, f))
     finally:
         bn.choose_tile = chosen
     return out
+
+
+def bf16_rows(torch, np, F, bn, dev, quick, no_check, match, tiles):
+    """The bf16 resident instance at BF16_SHAPES (seeded weights at a trained
+    net's scale): held to the tree's plain version within 2 bf16 ulps of the
+    output's largest magnitude, timed as device time, beside its byte bound
+    (x and y at 2 bytes, the weights once; 989 TFLOP/s) and cuDNN in native
+    bf16 (``F.conv2d``, channels-last, the same chain as chip_smoke.py's
+    library call).  ``tiles``: every tile height that fits (``tile_ms``) and
+    ``tile_us``, the launch's time over its rounds of two tiles per SM (the
+    quantity ``ops/bottleneck._TILE_US_BF16`` tabulates)."""
+    rows = []
+    for key in BF16_SHAPES:
+        n, h, w, cin, cmid, cout, proj = key
+        if match is not None and "x".join(map(str, key[:3])) not in match:
+            continue
+        if (cin, cmid, cout, proj) not in getattr(bn, "INSTANCES", ()):
+            continue
+        params, stats = seeded_block(np, cin, cmid, cout)
+        if not proj:
+            params.pop("proj")
+        f = {k: v.to(dev) for k, v in bn.add_packed(
+            bn.fold_bottleneck(params, stats, False, "bfloat16")).items()}
+        seed = torch.Generator().manual_seed(n * 1000003 + h * 1009 + w)
+        x = torch.randn((n, h, w, cin), generator=seed).to(dev).to(torch.bfloat16)
+        y = bn.fused_bottleneck(x, f)
+        torch.cuda.synchronize()
+        ref = bn.bottleneck_plain(x, f).float()
+        mag = ref.abs().max().item()
+        ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+        flops = 2.0 * n * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
+                                   + (cin * cout if proj else 0))
+        nbytes = 2 * (n * h * w * (cin + cout) + flops / (2.0 * n * h * w)) + 4.0 * (
+            2 * cin + 2 * cmid + cout + (cout if proj else 0))
+        th, tw = bn.choose_tile(n, h, w, cin, cmid, cout, proj, "bfloat16")
+        row = {"kernel": "bottleneck_bf16", "shape": [n, h, w], "channels": [cin, cmid, cout],
+               "proj": proj, "tile": [th, tw], "scale": mag,
+               "err_ulps": (y.float() - ref).abs().max().item() / ulp,
+               "share_differing": (y.float() != ref).float().mean().item(),
+               "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3}
+        if not no_check and not row["err_ulps"] <= 2:
+            raise AssertionError(f"bf16 bottleneck {row}")
+        if not quick:
+            lw = {k: f[k].t().contiguous()[:, :, None, None] for k in ("w1", "w3", "wp") if k in f}
+            lw["w2"] = f["w2"].reshape(3, 3, cmid, cmid).permute(3, 2, 0, 1).contiguous()
+            lb = {k: f[k][0].to(x.dtype) for k in ("b1", "b2", "b3", "bp") if k in f}
+
+            def library():
+                xc = x.permute(0, 3, 1, 2)                  # channels_last NCHW view
+                a1 = torch.relu(xc * f["s1"].view(1, -1, 1, 1) + f["t1"].view(1, -1, 1, 1))
+                a2 = torch.relu(F.conv2d(a1, lw["w1"], lb["b1"]))
+                a3 = torch.relu(F.conv2d(a2, lw["w2"], lb["b2"], padding=1))
+                z = F.conv2d(a3, lw["w3"], lb["b3"])
+                return z + (F.conv2d(a1, lw["wp"], lb["bp"]) if proj else xc)
+
+            row["device_ms"] = graph_ms(torch, lambda: bn.fused_bottleneck(x, f))
+            row["library_ms"] = graph_ms(torch, library)
+            if tiles:
+                row["tile_ms"] = sweep_tiles(bn, x, f, lambda fn: graph_ms(torch, fn), "bfloat16")
+                row["tile_us"], row["tile_rounds"] = {}, {}
+                for tile, ms in row["tile_ms"].items():
+                    t_h, t_w = map(int, tile.split("x"))
+                    per_sm = -(-n * -(-h // t_h) * -(-w // t_w) // bn.NUM_SMS)
+                    row["tile_rounds"][tile] = -(-per_sm // 2)
+                    row["tile_us"][tile] = 1e3 * ms / row["tile_rounds"][tile]
+        rows.append(row)
+        print(row, flush=True)
+        del x, y, ref
+        torch.cuda.empty_cache()
+    return rows
 
 
 def run_tree(root, quick, no_check=False, match=None, budgets=None, h36m=None, tiles=False):
@@ -331,10 +426,12 @@ def run_tree(root, quick, no_check=False, match=None, budgets=None, h36m=None, t
         print(row, flush=True)
         del x, y, ref
         torch.cuda.empty_cache()
-    if hasattr(bn, "kernel_for"):                     # a tree with the general instance
-        import numpy as np
+    import numpy as np
+    import torch.nn.functional as F
 
+    if hasattr(bn, "kernel_for"):                     # a tree with the general instance
         rows += general_rows(torch, np, bn, dev, quick, no_check, match, model)
+    rows += bf16_rows(torch, np, F, bn, dev, quick, no_check, match, tiles)
     for shape in DECODE_SHAPES:
         n, h, w, k = shape
         if not picked(*shape):
@@ -429,6 +526,34 @@ def main():
                 key = f"{row['block']}@{'x'.join(map(str, row['shape']))}"
                 outputs.setdefault(key, {})[result["tree"]] = row["out_sha"]
     differ = {k: v for k, v in outputs.items() if len(set(v.values())) > 1}
+    # the bf16 resident instance per conv_bf16 forward, tree by tree
+    forward = []
+    for result in results:
+        got = {tuple(r["shape"]): r for r in result["rows"] if r["kernel"] == "bottleneck_bf16"}
+        if all(k in got and "device_ms" in got[k] for k in CONV_BF16_LAUNCHES):
+            forward.append({"tree": result["tree"], **{
+                key: sum(got[k][key] * c for k, c in CONV_BF16_LAUNCHES.items())
+                for key in ("device_ms", "bound_ms", "library_ms")}})
+    if forward:
+        print("FORWARD " + json.dumps(forward), flush=True)
+    # with --tiles: the bf16 resident instance's table, per (nb1, nb2) m64 row
+    # blocks of stage 1 and of the 3x3 (ops/bottleneck._bf16_blocks), the median
+    # of tile_us over the 96->48->96 and 48->48->96 shapes of more than one
+    # round of two tiles per SM, tree by tree
+    for result in results:
+        per = {}
+        for r in result["rows"]:
+            if r["kernel"] != "bottleneck_bf16" or r["channels"][1] != 48:
+                continue
+            for tile, us in r.get("tile_us", {}).items():
+                t_h, t_w = map(int, tile.split("x"))
+                if r["tile_rounds"][tile] > 1:
+                    key = f"{-(-(t_h + 2) * (t_w + 2) // 64)},{-(-t_h * (t_w + 2) // 64)}"
+                    per.setdefault(key, []).append(us)
+        if per:
+            table = {k: sorted(v)[len(v) // 2] for k, v in sorted(per.items())}
+            print("BF16_TILE_TABLE " + json.dumps({"tree": result["tree"], "us": table}),
+                  flush=True)
     print("COMPARE " + json.dumps({"shapes": len(outputs), "trees": args.trees,
                                    "equal": sorted(set(outputs) - set(differ)),
                                    "differ": differ}), flush=True)

@@ -181,39 +181,104 @@ def test_block_matches_jax(cin, cmid, cout, proj, raw):
 
 
 def test_packed_bf16_buffer_layout():
-    """The bf16 weight buffer: bf16 weights in the m16n8k16 B-fragment order,
-    then the float32 vectors; bp kept apart from b3."""
+    """The bf16 weight buffer: s1 and t1 as bf16 and the biases as float32
+    first, bp kept apart from b3, then the weights as bf16 in wgmma's K-major
+    core-matrix order (per k step of 16: column groups of 8, k halves, 8
+    columns, 8 values), w1's channels permuted so that lane column t's k slots
+    (2t, 2t+1, 2t+8, 2t+9) are channels 4t ... 4t+3, w2 and w3 in plain order."""
     params, stats, _ = _seeded_block(48, 48, 96, True, seed=1)
     f = port_bn.fold_bottleneck(params, stats, dtype="bfloat16")
     packed = port_bn.pack_bottleneck(f)
     assert packed.dtype == torch.uint8
     assert packed.numel() == port_bn.packed_size(48, 48, 96, True, "bfloat16")
-    n_w = 48 * 48 + 9 * 48 * 48 + 48 * 96 + 48 * 96
-    w = packed[:2 * n_w].view(torch.bfloat16).float().numpy()
-    v = packed[2 * n_w:].view(torch.float32).numpy()
-    # w1 "lanes": lane 4g+t of k step ks, column tile nt holds w1[t*12 + 4ks + e, 8nt + g]
+    sec = port_bn.bf16_sections(48, 48, 96, True)
+
+    def part(name, dtype):
+        at, nbytes = sec[name]
+        return packed[at:at + nbytes].view(dtype).float().numpy()
+
+    np.testing.assert_array_equal(part("s1", torch.bfloat16), f["s1"][0].float().numpy())
+    np.testing.assert_array_equal(part("t1", torch.bfloat16), f["t1"][0].float().numpy())
+    np.testing.assert_array_equal(part("b3", torch.float32), f["b3"][0].numpy())
+    np.testing.assert_array_equal(part("bp", torch.float32), f["bp"][0].numpy())
+    # w1: value j of column c of k half kc of column group cg of k step ks holds
+    # k slot 8kc + j, which lane column t = j // 2 reads as channel 4t + j % 2 + 2kc
     w1 = f["w1"].float().numpy()
-    frag = w[:48 * 48].reshape(3, 6, 32, 4)
-    for ks, nt, lane, e in ((0, 0, 0, 0), (2, 5, 31, 3), (1, 3, 14, 2)):
-        g, t = lane >> 2, lane & 3
-        assert frag[ks, nt, lane, e] == w1[t * 12 + 4 * ks + e, 8 * nt + g]
-    # w3 "mma": slots 2t, 2t+1, 2t+8, 2t+9 of k step ks
+    core = part("w1", torch.bfloat16).reshape(3, 6, 2, 8, 8)
+    for ks, cg, kc, c, j in ((0, 0, 0, 0, 0), (2, 5, 1, 7, 7), (1, 3, 0, 2, 5), (1, 2, 1, 6, 2)):
+        assert core[ks, cg, kc, c, j] == w1[16 * ks + 4 * (j // 2) + j % 2 + 2 * kc, 8 * cg + c]
+    # w3: plain order, k slot 8kc + j is row 16ks + 8kc + j
     w3 = f["w3"].float().numpy()
-    off = 48 * 48 + 9 * 48 * 48
-    frag = w[off:off + 48 * 96].reshape(3, 12, 32, 4)
-    for ks, nt, lane, e in ((0, 0, 0, 0), (2, 11, 31, 3), (1, 7, 9, 1)):
-        g, t = lane >> 2, lane & 3
-        assert frag[ks, nt, lane, e] == w3[16 * ks + 2 * t + (0, 1, 8, 9)[e], 8 * nt + g]
-    np.testing.assert_array_equal(v[-192:-96], f["b3"][0].numpy())
-    np.testing.assert_array_equal(v[-96:], f["bp"][0].numpy())
-    np.testing.assert_array_equal(v[:48], f["s1"][0].float().numpy())
+    core = part("w3", torch.bfloat16).reshape(3, 12, 2, 8, 8)
+    for ks, cg, kc, c, j in ((0, 0, 0, 0, 0), (2, 11, 1, 7, 7), (1, 7, 0, 1, 3)):
+        assert core[ks, cg, kc, c, j] == w3[16 * ks + 8 * kc + j, 8 * cg + c]
+    # shared memory: 128 bytes of mbarriers, the packed bytes (to 128), four x
+    # halo slots of 10 x 18 pixels x 48 channels and two a2 buffers of 48
+    # channels x 232 rows (the 3x3's 192 rows on the halo pitch 18, + 2 x 18 + 2,
+    # to 8)
     assert port_bn.smem_bytes(48, 48, 96, 8, 16, True, "bfloat16") == \
-        packed.numel() + 2 * 2 * 10 * 18 * 56
-    # every width fits resident at bf16, and the 128-wide ones at the 8x16 tile
+        -(-(128 + packed.numel()) // 128) * 128 + 4 * 10 * 18 * 48 * 2 + 2 * 232 * 48 * 2
+    # every width fits resident at bf16, with at least two slots at the 4x16 tile
     for cin, cmid, cout, proj in port_bn.INSTANCES:
         assert not port_bn.streams_w2(cin, cmid, cout, proj, "bfloat16")
-        assert port_bn.smem_bytes(cin, cmid, cout, 8, 16, proj, "bfloat16") <= port_bn.MAX_SMEM
-        assert port_bn.choose_tile(56, 64, 128, cin, cmid, cout, proj, "bfloat16") == (8, 16)
+        assert port_bn.smem_bytes(cin, cmid, cout, 4, 16, proj, "bfloat16") <= port_bn.MAX_SMEM
+    assert port_bn.choose_tile(56, 64, 128, 96, 48, 96, False, "bfloat16") == (10, 16)
+
+
+# (N, H, W) of the three bf16 paths (conv_bf16 and p16_bf16 at 56 images and
+# the cascade's teacher at 7: 128x256 ... 2x4; the cascade's student: 48x96
+# ... 3x6) and of the h36m network at its batch of 8
+BF16_PATH_SHAPES = ([(n, h, 2 * h) for n in (56, 7) for h in (128, 64, 32, 16, 8, 4, 2)]
+                    + [(56, h, 2 * h) for h in (48, 24, 12, 6, 3)]
+                    + [(8, h, h) for h in (192, 96, 48, 24, 12, 6)])
+
+
+@pytest.mark.parametrize("cin,cmid,cout,proj", port_bn.INSTANCES)
+def test_bf16_packed_sections_and_tiles(cin, cmid, cout, proj):
+    """Every bf16 instance width: the packed buffer unpacks to each folded
+    weight and vector exactly once (its sections tile the buffer), every
+    section starts 16-byte aligned (the kernel bulk-copies them), and every
+    tile that ``choose_tile`` gives at the bf16 paths' shapes fits: the
+    kernel's pixel and halo limits, and shared memory with two ring slots."""
+    params, stats, _ = _seeded_block(cin, cmid, cout, proj, seed=cin + cmid)
+    f = port_bn.fold_bottleneck(params, stats, dtype="bfloat16")
+    packed = port_bn.pack_bottleneck(f)
+    sec = port_bn.bf16_sections(cin, cmid, cout, proj)
+    assert sum(n for _, n in sec.values()) == packed.numel()
+    at = 0
+    for name, (off, nbytes) in sec.items():
+        assert off == at and off % 16 == 0, name
+        at += nbytes
+
+    def unpack(name, k, n, permuted):
+        off, nbytes = sec[name]
+        core = packed[off:off + nbytes].view(torch.bfloat16).float().numpy()
+        core = core.reshape(k // 16, n // 8, 2, 8, 8)                 # (ks, cg, kc, c, j)
+        w = np.full((k, n), np.nan, np.float32)
+        ks, cg, kc, c, j = np.meshgrid(*map(np.arange, core.shape), indexing="ij")
+        row = 16 * ks + (4 * (j // 2) + j % 2 + 2 * kc if permuted else 8 * kc + j)
+        assert np.isnan(w[row, 8 * cg + c]).all()                      # each weight once
+        w[row, 8 * cg + c] = core
+        return w
+
+    want = {k: v.float().numpy() for k, v in f.items()}
+    np.testing.assert_array_equal(unpack("w1", cin, cmid, True), want["w1"])
+    np.testing.assert_array_equal(unpack("w2", 9 * cmid, cmid, False),
+                                  want["w2"].reshape(9 * cmid, cmid))
+    np.testing.assert_array_equal(unpack("w3", cmid, cout, False), want["w3"])
+    if proj:
+        np.testing.assert_array_equal(unpack("wp", cin, cout, True), want["wp"])
+    for name in ("s1", "t1", "b1", "b2", "b3") + (("bp",) if proj else ()):
+        off, nbytes = sec[name]
+        dtype = torch.bfloat16 if name in ("s1", "t1") else torch.float32
+        np.testing.assert_array_equal(packed[off:off + nbytes].view(dtype).float().numpy(),
+                                      want[name][0], err_msg=name)
+    for n, h, w in BF16_PATH_SHAPES:
+        th, tw = port_bn.choose_tile(n, h, w, cin, cmid, cout, proj, "bfloat16")
+        assert 1 <= th <= h and tw == min(w, port_bn.TILE_MAX_WIDTH)
+        assert port_bn.bf16_tile_fits(th, tw, cin, cmid, cout, proj)
+        assert port_bn.smem_bytes(cin, cmid, cout, th, tw, proj, "bfloat16") <= port_bn.MAX_SMEM
+        assert port_bn._bf16_layout(cin, cmid, cout, th, tw, proj)[1] >= 2
 
 
 def test_block_dtype_mismatch_raises():

@@ -669,11 +669,22 @@ def _smoke():
     return chip_smoke
 
 
-def _bf16_block(width, proj, raw=False):
+def _bf16_block(width, proj, raw=False, positive_b1=False):
     params, stats = _smoke().seeded_block(np, *width)
+    if positive_b1:              # a2's zero padding differs from relu(b1) at the edges
+        params["conv1"]["bias"] = np.abs(params["conv1"]["bias"]) + 0.3
     if not proj:
         params.pop("proj")
     return bn.add_packed(bn.fold_bottleneck(params, stats, raw, "bfloat16"))
+
+
+# (N, H, W, positive b1) of the bf16 instance's card test: tiles that the image
+# edge cuts (19x37); one tile that the image cuts on all four sides (5x7); the
+# launch-floor shapes (56x2x4, 7x4x8); more tiles than 132 SMs x 4 ring slots,
+# so that every slot's phase wraps (56x32x64); a folded b1 with positive
+# entries, where a2's zero padding is not relu(b1)
+BF16_CARD_SHAPES = [(3, 19, 37, False), (2, 5, 7, True), (56, 2, 4, False), (7, 4, 8, True),
+                    (56, 32, 64, True)]
 
 
 @pytest.mark.parametrize("cin,cmid,cout,proj,raw", [
@@ -681,20 +692,28 @@ def _bf16_block(width, proj, raw=False):
 def test_bf16_bottleneck_kernel_matches_plain(cin, cmid, cout, proj, raw):
     """The bf16 instance within 2 bf16 ulps of the output's largest magnitude
     (its k16 sums against float32 sums in another order; chip_smoke.py's
-    tolerance), at a shape whose tiles the image edge cuts."""
+    tolerance) at every shape of BF16_CARD_SHAPES, one launch each; the
+    wrapper's shared-memory figure is the kernel's own."""
     dev = _card()
-    folded = {k: v.to(dev) for k, v in _bf16_block((cin, cmid, cout), proj, raw).items()}
-    x = torch.randn((3, 19, 37, cin), generator=torch.Generator().manual_seed(2))
-    x = x.to(dev).to(torch.bfloat16)
-    before = (bn.fused_bottleneck.launches, bn.fused_bottleneck.launches_bf16)
-    got = bn.fused_bottleneck(x, folded)
-    torch.cuda.synchronize()
-    assert (bn.fused_bottleneck.launches, bn.fused_bottleneck.launches_bf16) == \
-        (before[0], before[1] + 1)
-    assert got.dtype == torch.bfloat16
-    want = bn.bottleneck_plain(x, folded).float()
-    ulp = 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
-    assert (got.float() - want).abs().max().item() <= 2 * ulp
+    smem = _build.library("bottleneck_bf16").df3d_bottleneck_bf16_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 6, ctypes.c_size_t
+    for n, h, w, positive_b1 in BF16_CARD_SHAPES:
+        folded = {k: v.to(dev) for k, v in
+                  _bf16_block((cin, cmid, cout), proj, raw, positive_b1).items()}
+        x = torch.randn((n, h, w, cin), generator=torch.Generator().manual_seed(2))
+        x = x.to(dev).to(torch.bfloat16)
+        before = (bn.fused_bottleneck.launches, bn.fused_bottleneck.launches_bf16)
+        got = bn.fused_bottleneck(x, folded)
+        torch.cuda.synchronize()
+        assert (bn.fused_bottleneck.launches, bn.fused_bottleneck.launches_bf16) == \
+            (before[0], before[1] + 1)
+        assert got.dtype == torch.bfloat16
+        want = bn.bottleneck_plain(x, folded).float()
+        ulp = 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+        assert (got.float() - want).abs().max().item() <= 2 * ulp, (n, h, w, positive_b1)
+        th, tw = bn.choose_tile(n, h, w, cin, cmid, cout, proj, "bfloat16")
+        assert smem(cin, cmid, cout, th, tw, int(proj)) == \
+            bn.smem_bytes(cin, cmid, cout, th, tw, proj, "bfloat16")
 
 
 def test_bf16_block_refusals_on_the_card():
