@@ -72,8 +72,9 @@ result line):
    bottleneck, 8 upsample-add and 1 decode launch per batch); the StageTimer
    reports and the host decode time;
 8. h36m phase: the 4-camera human profile's 4-stack 128-wide network
-   (weights from a seed, ``utils/synthetic``; the bottleneck kernel's
-   streamed-w2 instances) over 8 seeded frames of 4 cameras of 1000x1000:
+   (weights from a seed, ``utils/synthetic``; the bottleneck's 128-wide
+   instances, ``csrc/bottleneck_128.cu``, counted as
+   ``fused_bottleneck_128``) over 8 seeded frames of 4 cameras of 1000x1000:
    (e) the estimator's chunk loop at batch 8 (1 preprocess, 59 bottleneck,
    16 upsample-add and 1 decode launch per batch) against the JAX package's
    results (``deepfly3d_torch/data/h36m_t4.npz``: conf within 2e-5, the same
@@ -233,8 +234,8 @@ HEATMAP_HW = (64, 128)
 # (python tests/test_torch_h36m.py --write)
 H36M_REF = os.path.join("deepfly3d_torch", "data", "h36m_t4.npz")
 H36M_BATCH = 8
-H36M_PER_BATCH = {"fused_bottleneck": 59, "upsample2x_add": 16, "decode_heatmaps": 1,
-                  "preprocess_resize": 1}
+H36M_PER_BATCH = {"fused_bottleneck": 0, "fused_bottleneck_128": 59, "upsample2x_add": 16,
+                  "decode_heatmaps": 1, "preprocess_resize": 1}
 H36M_CONF_TOL = 2e-5
 H36M_TIES = 0.05        # at most this share of image-joints within 10x the conf tolerance of a tie
 VIDEO_FRAMES = 4        # frames of the video phase (scripts/make_video_goldens.py)
@@ -297,6 +298,11 @@ SOURCES = {
                          "deepfly3d_tpu/ops/pallas/bottleneck.py:433",
                          ["deepfly3d_tpu/ops/pallas/bottleneck.py:359",
                           "deepfly3d_tpu/ops/pallas/bottleneck.py:486"]),
+    # the float32 128-wide instances of the h36m path (phase 8)
+    "fused_bottleneck_128": ("deepfly3d_torch/ops/csrc/bottleneck_128.cu",
+                             "deepfly3d_tpu/ops/pallas/bottleneck.py:433",
+                             ["deepfly3d_tpu/ops/pallas/bottleneck.py:359",
+                              "deepfly3d_tpu/ops/pallas/bottleneck.py:486"]),
     "upsample2x_add": ("deepfly3d_torch/ops/csrc/upsample_add.cu",
                        "deepfly3d_tpu/ops/pallas/kernels.py:49", []),
     "decode_heatmaps": ("deepfly3d_torch/ops/csrc/decode.cu",
@@ -484,8 +490,13 @@ def record_shapes(twin, path, rows, run):
     def block(x, folded):
         key = tuple(x.shape) + (folded["w1"].shape[1], folded["w3"].shape[1], "wp" in folded,
                                 "proj_raw" in folded)
-        general = bn.kernel_for(*key[3:7]) == "general"
-        note("fused_bottleneck_general" if general else "fused_bottleneck", key, folded, x.dtype)
+        if bn.kernel_for(*key[3:7]) == "general":
+            kernel = "fused_bottleneck_general"
+        elif bn.streams_w2(*key[3:7], str(x.dtype).replace("torch.", "")):
+            kernel = "fused_bottleneck_128"
+        else:
+            kernel = "fused_bottleneck"
+        note(kernel, key, folded, x.dtype)
         return bn.bottleneck_plain(x, folded)
 
     def merge(inner, skip):
@@ -557,11 +568,9 @@ def ingest_phase(torch, np, est, frames0, order, counters, rows, card):
     batches = -(-len(frames) // INGEST_BATCH)
     want = {"fused_bottleneck": 31 * batches, "upsample2x_add": 8 * batches,
             "decode_heatmaps": batches, "preprocess_resize": batches}
-    recorded = collections.Counter()
-    for (kernel, _), row in rows.items():
-        recorded[kernel] += row["counts"]["ingest"]
-    if got != want or got != dict(recorded):
-        raise AssertionError(f"ingest launches {got}, want {want} (recorded {dict(recorded)})")
+    recorded = recorded_launches(rows, "ingest")
+    if got != want or nonzero(got) != recorded:
+        raise AssertionError(f"ingest launches {got}, want {want} (recorded {recorded})")
     print(f"ingest launches for {batches} batches of {INGEST_BATCH}: {got} "
           f"(per batch 1 / 31 / 8 / 1)")
     found = [(reg[c][0] - clean[c][0], reg[c][1] - clean[c][1]) for c in range(C)]
@@ -612,15 +621,30 @@ def ingest_phase(torch, np, est, frames0, order, counters, rows, card):
     return got
 
 
+def recorded_launches(rows, path):
+    """{kernel: launches} that ``record_shapes`` counted on ``path``, the
+    kernels it gave no shape there left out."""
+    out = collections.Counter()
+    for (kernel, _), row in rows.items():
+        out[kernel] += row["counts"][path]
+    return {k: v for k, v in out.items() if v}
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
 def count_launches(torch, counters, run):
     """Every launch count set to 0 just before ``run()`` and read just after:
-    -> (run's result, {kernel: launches})."""
-    for c in counters:
-        c.launches = 0
+    -> (run's result, {kernel: launches}): each wrapper's ``launches``, and its
+    other counters (``COUNTERS``) where they counted a launch."""
+    zero_counts(counters)
     torch.cuda.synchronize()
     out = run()
     torch.cuda.synchronize()
-    return out, {c.__name__: c.launches for c in counters}
+    got = {c.__name__: c.launches for c in counters}
+    got.update({k: v for k, v in counts_with_bf16(counters).items() if v and k not in got})
+    return out, got
 
 
 def check_launches(name, got, batches):
@@ -967,22 +991,20 @@ def h36m_phase(torch, np, dev, est, ref, frames, counters, rows, card):
     (pts, conf), got = count_launches(torch, counters,
                                       lambda: est.infer_chunks(chunk, H36M_BATCH))
     want = {k: v * batches for k, v in H36M_PER_BATCH.items()}
-    recorded = collections.Counter()
-    for (kernel, _), row in rows.items():
-        recorded[kernel] += row["counts"]["h36m"]
-    if got != want or got != dict(recorded):
-        raise AssertionError(f"(e) h36m launches {got}, want {want} (recorded {dict(recorded)})")
+    recorded = recorded_launches(rows, "h36m")
+    if got != want or nonzero(got) != recorded:
+        raise AssertionError(f"(e) h36m launches {got}, want {want} (recorded {recorded})")
     print(f"(e) h36m ingest launches for {batches} batches of {H36M_BATCH}: {got} (per batch "
-          f"{' / '.join(str(H36M_PER_BATCH[k]) for k in ('preprocess_resize', 'fused_bottleneck', 'upsample2x_add', 'decode_heatmaps'))}"
+          f"{' / '.join(str(H36M_PER_BATCH[k]) for k in ('preprocess_resize', 'fused_bottleneck_128', 'upsample2x_add', 'decode_heatmaps'))}"
           f" preprocess / bottleneck / upsample-add / decode)")
     if not (pts.shape == (C * T, 17, 2) and conf.shape == (C * T, 17, 1)
             and np.isfinite(conf).all()):
         raise AssertionError(f"(e) h36m outputs {pts.shape}, {conf.shape}")
     hold_to_reference(np, "(e) h36m ingest on the card", pts, conf, ref)
     twin = plain_twin(est)
-    before = [c.launches for c in counters]
+    before = counts_with_bf16(counters)
     q_pts, q_conf = twin.infer_chunks(chunk, H36M_BATCH)
-    if [c.launches for c in counters] != before:
+    if counts_with_bf16(counters) != before:
         raise AssertionError("the plain h36m estimator launched a kernel")
     hold_to_reference(np, "(e) h36m plain twin on the card", q_pts, q_conf, ref)
 
@@ -1322,12 +1344,10 @@ def fleet_phase(torch, np, dev, card, counters, rows):
             h_res, got = run(f"(h) {fleet_mesh.size}-entry mesh", fleet_mesh)
             peak = torch.cuda.max_memory_allocated(dev)
             want = {k: v * fleet_mesh.size for k, v in PER_FORWARD.items()}
-            recorded = collections.Counter()
-            for (kernel, _), row in rows.items():
-                recorded[kernel] += row["counts"][key]
-            if got != want or got != dict(recorded):
+            recorded = recorded_launches(rows, key)
+            if got != want or nonzero(got) != recorded:
                 raise AssertionError(f"(h) {fleet_mesh.size}-entry mesh launches {got}, want "
-                                     f"{want} (recorded {dict(recorded)})")
+                                     f"{want} (recorded {recorded})")
             launches[key] = got
             d2 = max(float(np.abs(h.points2d - g.points2d).max()) for h, g in zip(h_res, g_res[:2]))
             dc = max(float(np.abs(h.conf - g.conf).max()) for h, g in zip(h_res, g_res[:2]))
@@ -1759,8 +1779,8 @@ PEAK_BF16_FLOPS = 989e12
 
 # a wrapper's launch counters and the kernel name each counts under (the
 # bottleneck's general instance since phase 13)
-COUNTERS = {"launches": "", "launches_bf16": "_bf16", "launches_general": "_general",
-            "launches_general_bf16": "_general_bf16"}
+COUNTERS = {"launches": "", "launches_128": "_128", "launches_bf16": "_bf16",
+            "launches_general": "_general", "launches_general_bf16": "_general_bf16"}
 
 
 def counts_with_bf16(wrappers):
@@ -2030,7 +2050,7 @@ def bf16_phase(torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, 
         torch.cuda.empty_cache()
     # the h36m network's 128-wide blocks at its batch of 8, seeded; on no bf16 path
     h36m_blocks = sorted({key for (kernel, key), row in rows.items()
-                          if kernel == "fused_bottleneck" and row["counts"]["h36m"]
+                          if kernel == "fused_bottleneck_128" and row["counts"]["h36m"]
                           and 128 in (key[3], key[5]) and not key[7]})
     for key in h36m_blocks:
         params, stats = seeded_block(np, key[3], key[4], key[5])
@@ -2614,8 +2634,9 @@ def main(argv):
                 agg[key] += total * row[key]
 
     def check_bottleneck(key, counts, f):
-        record("fused_bottleneck", bottleneck_row(torch, np, F, dev, gen, key, f, "float32",
-                                                  quick=key[0] >= FLEET_QUICK_N), counts)
+        name = "fused_bottleneck_128" if bn.streams_w2(*key[3:7]) else "fused_bottleneck"
+        record(name, bottleneck_row(torch, np, F, dev, gen, key, f, "float32",
+                                    quick=key[0] >= FLEET_QUICK_N), counts)
 
     def check_merge(key, counts):
         n, h, w, c = key
@@ -2729,10 +2750,11 @@ def main(argv):
                "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
         record("preprocess_resize", row, counts)
 
-    checks = {"fused_bottleneck": check_bottleneck, "upsample2x_add": check_merge,
+    checks = {"fused_bottleneck": check_bottleneck, "fused_bottleneck_128": check_bottleneck,
+              "upsample2x_add": check_merge,
               "decode_heatmaps": check_decode, "preprocess_resize": check_preprocess}
     for (kernel, key), row in sorted(rows.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
-        if kernel == "fused_bottleneck":
+        if kernel in ("fused_bottleneck", "fused_bottleneck_128"):
             check_bottleneck(key, row["counts"], row["extra"])
         else:
             checks[kernel](key, row["counts"])
@@ -2779,12 +2801,10 @@ def main(argv):
         pts3d, p38, conf = pipe(frames)
         torch.cuda.synchronize()
         got = {c.__name__: c.launches for c in counters}
-        recorded = collections.Counter()
-        for (kernel, _), row in rows.items():
-            recorded[kernel] += row["counts"][path]
-        if got != EXPECTED[path] or got != dict(recorded):
+        recorded = recorded_launches(rows, path)
+        if got != EXPECTED[path] or nonzero(got) != recorded:
             raise AssertionError(f"{path} path launches {got}, want {EXPECTED[path]} "
-                                 f"(recorded {dict(recorded)})")
+                                 f"(recorded {recorded})")
         launches[path] = got
         print(f"slice {path} launches: {got}")
         if not (torch.isfinite(pts3d).all() and pts3d.shape == (BATCH_T, 38, 3)
@@ -2987,7 +3007,7 @@ def main(argv):
     entries = []
     for name, (src, replaces, also) in SOURCES.items():
         agg = per_kernel[name]
-        if name in ("fused_bottleneck", "fused_bottleneck_general"):
+        if name in ("fused_bottleneck", "fused_bottleneck_128", "fused_bottleneck_general"):
             _, b_by = bound_ms(3.0 * agg["flops"], agg["bytes"], PEAK_TF32_FLOPS)
         elif name in ("fused_bottleneck_bf16", "fused_bottleneck_general_bf16"):
             _, b_by = bound_ms(agg["flops"], agg["bytes"], PEAK_BF16_FLOPS)
@@ -3005,7 +3025,8 @@ def main(argv):
                       "library_eager_ms, plain_ms: CUDA events around eager calls",
             **({"bound_f32_ms": agg["bound_f32_ms"], "model_err": agg["model_err"],
                 "arithmetic": "3 TF32 MMAs per product, f32 accumulate"}
-               if name in ("fused_bottleneck", "fused_bottleneck_general") else {}),
+               if name in ("fused_bottleneck", "fused_bottleneck_128", "fused_bottleneck_general")
+               else {}),
             **({"arithmetic": "1 bf16 MMA per product, f32 accumulate"}
                if name in ("fused_bottleneck_bf16", "fused_bottleneck_general_bf16") else {}),
             "per": f"times: one call of each recorded path ({', '.join(EXPECTED)}, ingest, "

@@ -24,8 +24,8 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
 )
-SOURCES = ("bottleneck", "bottleneck_bf16", "bottleneck_general", "upsample_add", "decode",
-           "preprocess")
+SOURCES = ("bottleneck", "bottleneck_128", "bottleneck_bf16", "bottleneck_general",
+           "upsample_add", "decode", "preprocess")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

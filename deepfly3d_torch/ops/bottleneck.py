@@ -26,8 +26,7 @@ bfloat16 (round to nearest even) exactly where ``bottleneck_xla`` casts:
 ``fold_bottleneck`` builds the folded arrays exactly as the JAX package
 does (float64 fold, float32 result); ``bottleneck_plain`` is the plain
 PyTorch version (the counterpart of ``bottleneck_xla``); ``fused_bottleneck``
-runs ``csrc/bottleneck.cu`` on a CUDA tensor and the plain version on a CPU
-tensor.
+runs the kernels on a CUDA tensor and the plain version on a CPU tensor.
 
 The kernel computes its four products on the tensor cores as
 error-compensated TF32: each float32 operand is split into ``hi`` (its low
@@ -40,10 +39,21 @@ fragments, once per block on the host, and ``choose_tile`` picks a thread
 block's output tile for an image size and batch.  The kernel splits each weight
 fragment into hi and lo in registers with the same mask, because hi and lo
 of all weights together (238 KB) do not fit one thread block's shared
-memory beside the activations.  The 128-wide blocks' float32 weights alone
-(215-231 KB) do not fit either: their instances keep w1, w3 and wp resident
-and stream w2 through shared memory one tap at a time (``streams_w2``;
-``smem_bytes`` and ``choose_tile`` know both layouts).
+memory beside the activations.
+
+The 128-wide networks' float32 blocks (128->64->128 and the projecting
+64->64->128, ``streams_w2``: their weights alone, 215-231 KB, do not fit one
+thread block's shared memory) run ``csrc/bottleneck_128.cu`` instead, on
+wgmma: ``pack_bottleneck`` gives it the 128-wide layout (``sections_128``):
+s1, t1, b1, b2 and b3 (+ bp) as float32, then w1, w3, w2 (as (9*Cmid, Cmid),
+tap-major) and wp, every weight in passes of 64 columns, each k step of 8
+holding the weights' TF32 hi half and then their lo half (``w - hi``, exact)
+in wgmma's K-major core-matrix order without swizzle (``_pack_tf32``); w1 and
+wp in the "quad" k order (a lane reads 16 bytes of a pixel for two k steps),
+w2 and w3 in the "pair" order.  The vectors, w1 and a projecting block's w3
+stay resident in shared memory; w2, the identity block's w3 and wp stream
+through a ring of 16 KB chunks (``smem_bytes``), and
+``choose_tile`` reads the kernel's own table, ``_TILE_US_128``.
 
 A bfloat16 block runs ``csrc/bottleneck_bf16.cu`` instead: one bf16 wgmma per
 k step of each product (bf16 products are exact in float32, so nothing is
@@ -95,10 +105,12 @@ TILE_WARPS = 12
 TILE_MAX_WIDTH = 16
 NUM_SMS = 132                     # H100 SXM
 MAX_SMEM = 227 * 1024             # bytes one thread block can use
-# (Cin, Cmid, Cout, projects) the kernel is instantiated for: the 96- and
-# 64-wide fly networks' blocks (every weight resident in shared memory), and
-# the 128-wide h36m network's (the 3x3's weights streamed, ``streams_w2``).
-# Each projecting instance is also built with the raw-input projection.
+# (Cin, Cmid, Cout, projects) the kernels are instantiated for: the 96- and
+# 64-wide fly networks' blocks (csrc/bottleneck.cu at float32, every weight
+# resident in shared memory), and the 128-wide h36m network's (at float32
+# csrc/bottleneck_128.cu, the 3x3's weights streamed, ``streams_w2``); every
+# width at bf16 in csrc/bottleneck_bf16.cu.  Each projecting instance is also
+# built with the raw-input projection.
 INSTANCES = ((96, 48, 96, False), (48, 48, 96, True), (64, 32, 64, False), (32, 32, 64, True),
              (128, 64, 128, False), (64, 64, 128, True))
 # Every other width inside this envelope runs the general instance
@@ -372,6 +384,70 @@ def _pack_core16(w: np.ndarray, permute: bool) -> np.ndarray:
     return np.ascontiguousarray(core, np.float32).reshape(-1)
 
 
+# The 128-wide float32 instances (csrc/bottleneck_128.cu): weights in passes of
+# WIDE_COLS columns, k steps of 8 (hi, then lo: 4 KB each), a ring of
+# WIDE_CHUNK-byte chunks (4 k steps), 3 to WIDE_STAGES slots; tiles of at most
+# WIDE_TILE_PIXELS pixels (two m64 row blocks in the 3x3) and
+# WIDE_HALO_PIXELS halo pixels (three in stage 1).
+WIDE_COLS = 64
+WIDE_CHUNK = 16384
+WIDE_STAGES = (3, 6)
+WIDE_TILE_PIXELS = 128
+WIDE_HALO_PIXELS = 192
+
+
+def _pack_tf32(w: np.ndarray, order: str) -> np.ndarray:
+    """(K, N) float32 weight, K a multiple of 16 and N of 64 -> flat float32
+    values of the 128-wide layout: per pass of WIDE_COLS columns, per k step of
+    8, the hi values and then the lo values (``w - hi``, so hi + lo == w bit
+    for bit), each as wgmma's K-major core matrices without swizzle,
+    [N/8 column groups][2 k halves][8 columns][4 values].  Element j of k half
+    kc of step s is channel 8s + 2j + kc (``"pair"``: A an accumulator
+    fragment, or read 8 bytes a lane) or 16 (s // 2) + 4j + 2 (s % 2) + kc
+    (``"quad"``: a lane reads 16 bytes of a pixel for steps 2J and 2J+1)."""
+    k, n = w.shape
+    s = np.arange(k // 8)[:, None, None]
+    kc = np.arange(2)[None, :, None]
+    j = np.arange(4)[None, None, :]
+    ch = 8 * s + 2 * j + kc if order == "pair" else 16 * (s // 2) + 4 * j + 2 * (s % 2) + kc
+    arr = np.asarray(w, np.float32)[ch]                                  # (s, kc, j, n)
+    out = []
+    for n0 in range(0, n, WIDE_COLS):
+        core = arr[..., n0:n0 + WIDE_COLS].reshape(k // 8, 2, 4, WIDE_COLS // 8, 8)
+        core = np.ascontiguousarray(core.transpose(0, 3, 1, 4, 2))         # (s, grp, kc, col, j)
+        hi = (core.view(np.int32) & _TF32_MASK).view(np.float32)
+        out.append(np.stack([hi, core - hi], axis=1).reshape(-1))
+    return np.concatenate(out)
+
+
+def sections_128(cin: int, has_proj: bool) -> Dict[str, tuple]:
+    """{name: (byte offset, bytes)} of a 128-wide float32 instance's packed
+    buffer (``pack_bottleneck``; the kernel's ``packed_layout``): s1, t1, b1,
+    b2, b3 (+ bp), then w1, w3 (the resident part), w2 and wp (streamed), the
+    weights as hi and lo (8 bytes a weight); wp only where the block projects."""
+    sizes = [("s1", 4 * cin), ("t1", 4 * cin), ("b1", 4 * 64), ("b2", 4 * 64), ("b3", 4 * 128),
+             ("w1", 8 * cin * 64), ("w3", 8 * 64 * 128), ("w2", 8 * 9 * 64 * 64),
+             ("wp", 8 * cin * 128 if has_proj else 0)]
+    out, at = {}, 0
+    for name, nbytes in sizes:
+        if nbytes:
+            out[name] = (at, nbytes)
+        at += nbytes
+    return out
+
+
+def _pack_128(f: Dict[str, np.ndarray]) -> torch.Tensor:
+    """``pack_bottleneck``'s 128-wide layout (``sections_128``)."""
+    cmid = f["w1"].shape[1]
+    b3 = f["b3"][0] + f["bp"][0] if "wp" in f else f["b3"][0]
+    parts = [f["s1"][0], f["t1"][0], f["b1"][0], f["b2"][0], b3,
+             _pack_tf32(f["w1"], "quad"), _pack_tf32(f["w3"], "pair"),
+             _pack_tf32(f["w2"].reshape(9 * cmid, cmid), "pair")]
+    if "wp" in f:
+        parts.append(_pack_tf32(f["wp"], "quad"))
+    return torch.from_numpy(np.concatenate(parts).astype(np.float32))
+
+
 def _general_widths(cin: int, cmid: int, cout: int, dtype: str):
     """(cinp, cmidp, cmidn, coutn): k padded to the wgmma's k, n to 64."""
     k = _k_granule(dtype)
@@ -414,7 +490,9 @@ def pack_bottleneck(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
     section starts 16-byte aligned (the widths are multiples of 16).
 
     A width outside ``INSTANCES`` gets the general layout (module
-    docstring): float32 values, or bytes at bfloat16, bp apart in both.
+    docstring): float32 values, or bytes at bfloat16, bp apart in both; a
+    float32 block of the 128-wide instances (``streams_w2``) the 128-wide
+    layout (``sections_128``: float32 values, bp folded into b3).
     """
     f = {k: v.detach().cpu().float().numpy() for k, v in folded.items()
          if k not in ("packed", "proj_raw")}
@@ -422,6 +500,8 @@ def pack_bottleneck(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
     dtype = "bfloat16" if folded["w1"].dtype == torch.bfloat16 else "float32"
     if _general(cin, cmid, f["w3"].shape[1], "wp" in f):
         return _pack_general(f, dtype)
+    if streams_w2(cin, cmid, f["w3"].shape[1], "wp" in f, dtype):
+        return _pack_128(f)
     if dtype == "bfloat16":
         weights = [_pack_core16(f["w1"], True), _pack_core16(f["w2"].reshape(9 * cmid, cmid), False),
                    _pack_core16(f["w3"], False)]
@@ -470,7 +550,8 @@ def packed_size(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "fl
     """Length of a block's packed weight buffer: float32 values for a
     float32 block, bytes for a bfloat16 block (2-byte weights, 4-byte
     vectors, bp apart from b3); the general layout at its padded widths,
-    with bp apart at float32 too and every float32 weight twice (hi, lo)."""
+    with bp apart at float32 too and every float32 weight twice (hi, lo);
+    the 128-wide layout with every weight twice (hi, lo)."""
     if _general(cin, cmid, cout, has_proj):
         cinp, cmidp, cmidn, coutn = _general_widths(cin, cmid, cout, dtype)
         weights = cinp * cmidn + 9 * cmidp * cmidn + cmidp * coutn + (cinp * coutn if has_proj
@@ -478,30 +559,57 @@ def packed_size(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "fl
         vectors = 2 * cinp + 2 * cmidn + coutn + (coutn if has_proj else 0)
         # float32: hi and lo values; bf16: 2-byte weights
         return 2 * weights + (4 * vectors if dtype == "bfloat16" else vectors)
-    weights = cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout if has_proj else 0)
     if dtype == "bfloat16":
         return sum(n for _, n in bf16_sections(cin, cmid, cout, has_proj).values())
-    return weights + 2 * cin + 2 * cmid + cout
+    if streams_w2(cin, cmid, cout, has_proj):
+        return sum(n for _, n in sections_128(cin, has_proj).values()) // 4
+    return _resident_values(cin, cmid, cout, has_proj)
 
 
-def _smem(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
-          stream: bool) -> int:
-    hp = (th + 2) * (tw + 2)
-    weights = packed_size(cin, cmid, cout, has_proj)
-    if stream:
-        weights += (2 - 9) * cmid * cmid           # a ring of two w2 taps instead of nine
-    return 4 * (weights + 2 * hp * (cmid + 4))
+def _resident_values(cin: int, cmid: int, cout: int, has_proj: bool) -> int:
+    """float32 values of a block's weights and vectors, each once (the
+    resident instances' packed buffer)."""
+    return (cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout if has_proj else 0)
+            + 2 * cin + 2 * cmid + cout)
+
+
+def _smem(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool) -> int:
+    """The resident float32 instances: the packed weights and two a2 halo
+    tiles at pitch Cmid + 4."""
+    return 4 * (_resident_values(cin, cmid, cout, has_proj) + 2 * (th + 2) * (tw + 2) * (cmid + 4))
 
 
 def streams_w2(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "float32") -> bool:
-    """Whether an instance streams the 3x3's weights through shared memory one
-    tap at a time: where all the weights and the smallest tile (one row of
-    16 pixels) do not fit, as for the 128-wide networks' float32 blocks.
-    A bfloat16 instance never does (the general instance streams every
-    weight, whatever this says)."""
-    if dtype == "bfloat16":
+    """Whether a float32 instance's weights and the smallest tile (one row of
+    16 pixels) do not fit one thread block's shared memory, as for the
+    128-wide networks' blocks: those run ``csrc/bottleneck_128.cu``, which
+    keeps w1 resident and streams the 3x3's weights (and w3 or wp).  A
+    bfloat16 instance never does (the general instance streams every weight,
+    whatever this says)."""
+    if dtype == "bfloat16" or (cin, cmid, cout, has_proj) not in INSTANCES:
         return False
-    return _smem(cin, cmid, cout, 1, TILE_MAX_WIDTH, has_proj, False) > MAX_SMEM
+    return _smem(cin, cmid, cout, 1, TILE_MAX_WIDTH, has_proj) > MAX_SMEM
+
+
+def _layout_128(cin: int, th: int, tw: int, has_proj: bool):
+    """(shared memory bytes, ring slots) of a 128-wide float32 instance's thread
+    block (the kernel's ``make_layout``): 128 bytes of mbarriers, the resident
+    vectors and w1 (and w3 of a projecting block; the identity block streams
+    it), as many ring slots of WIDE_CHUNK bytes as fit up to WIDE_STAGES[1]
+    (counted as at least WIDE_STAGES[0]), and a2 on the (th+2) x (tw+2) halo
+    tile, 64 float32 values a pixel, to 128 bytes."""
+    ring = 128 + sections_128(cin, has_proj)["w2" if has_proj else "w3"][0]
+    a2 = _ceil((th + 2) * (tw + 2) * 64 * 4, 128)
+    stages = min(WIDE_STAGES[1], max(WIDE_STAGES[0], (MAX_SMEM - ring - a2) // WIDE_CHUNK))
+    return ring + stages * WIDE_CHUNK + a2, stages
+
+
+def tile_fits_128(th: int, tw: int, cin: int, has_proj: bool) -> bool:
+    """Whether the 128-wide float32 instance launches a th x tw tile (the
+    kernel's refusals): at most WIDE_TILE_PIXELS pixels, WIDE_HALO_PIXELS halo
+    pixels, and three ring slots within one thread block's shared memory."""
+    return (th * tw <= WIDE_TILE_PIXELS and (th + 2) * (tw + 2) <= WIDE_HALO_PIXELS
+            and _layout_128(cin, th, tw, has_proj)[0] <= MAX_SMEM)
 
 
 # The bf16 resident instances (csrc/bottleneck_bf16.cu): a ring of at most
@@ -552,10 +660,10 @@ def _bf16_layout(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: boo
 
 def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
                dtype: str = "float32") -> int:
-    """Dynamic shared memory of one thread block: the packed weights (without
-    w2 and with a ring of two w2 taps where ``streams_w2``) and two buffers of
-    a2 on the (th+2) x (tw+2) halo tile at pitch Cmid+4 float32 values, or,
-    for a bfloat16 block, ``_bf16_layout``'s: 128 bytes of mbarriers, the
+    """Dynamic shared memory of one thread block: the packed weights and two
+    buffers of a2 on the (th+2) x (tw+2) halo tile at pitch Cmid+4 float32
+    values; for a float32 block that ``streams_w2``, ``_layout_128``'s; for a
+    bfloat16 block, ``_bf16_layout``'s: 128 bytes of mbarriers, the
     packed bytes, a ring of x halo tiles and two a2 buffers.  The general instance: 128 bytes of mbarriers, a ring of
     GENERAL_STAGES chunks (GENERAL_STEPS k steps x 128 columns, hi and lo at
     float32; half the k steps on bf16 tiles of more than 128 pixels), a2 on
@@ -574,7 +682,9 @@ def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
         return 128 + ring + (max(a2, a3) if cmidn <= GENERAL_COLS else a2 + a3)
     if dtype == "bfloat16":
         return _bf16_layout(cin, cmid, cout, th, tw, has_proj)[0]
-    return _smem(cin, cmid, cout, th, tw, has_proj, streams_w2(cin, cmid, cout, has_proj))
+    if streams_w2(cin, cmid, cout, has_proj):
+        return _layout_128(cin, th, tw, has_proj)[0]
+    return _smem(cin, cmid, cout, th, tw, has_proj)
 
 
 # Microseconds one thread block took for a tile of m 16-pixel MMA row tiles
@@ -584,12 +694,12 @@ def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
 # between).  The steps at m = 5 and m = 9 are a second and a third warp on an
 # SM's four schedulers.
 _TILE_US = (None, 9.0, 9.7, 9.7, 11.0, 15.7, 16.8, 17.7, 18.6, 22.0, 23.6, 25.2, 26.1)
-# The same for the streamed-w2 design, 128->64->128 and 64->64->128 (+proj)
-# blocks: device time of the launch over its waves, tile sweep with
-# ``scripts/bench_torch_kernels.py --tiles`` at the h36m shapes (8 x 192x192
-# ... 6x6; m = 12 extrapolated), NVIDIA H100 80GB HBM3 at 700 W.
-_TILE_US_STREAMED = (None, 18.0, 19.5, 20.5, 22.5, 31.0, 32.5, 34.0, 35.5, 47.0, 49.0, 50.5,
-                     52.0)
+# The same for the 128-wide float32 instances (csrc/bottleneck_128.cu),
+# 128->64->128 and 64->64->128 (+proj) blocks, tiles of m 16-pixel row tiles up
+# to WIDE_TILE_PIXELS: device time of a launch over its rounds of one tile per
+# SM, ``scripts/bench_torch_kernels.py --tiles`` at the h36m shapes (its
+# WIDE_TILE_TABLE line), NVIDIA H100 80GB HBM3 at 700 W.
+_TILE_US_128 = (None, 10.18, 11.20, 11.65, 12.39, 16.01, 19.19, 19.59, 20.12)
 # The same for the general instance, float32 256->128->256 and 128->128->256
 # (raw projection) blocks, and apart for bf16: the median over the shapes of
 # more than one wave, ``scripts/sweep_general_tiles.py`` at the converter's
@@ -615,10 +725,11 @@ def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj
                 dtype: str = "float32"):
     """Output tile (rows, cols) of one thread block for an (n, h, w) batch:
     the one whose launch should take least time, waves of thread blocks over
-    the SMs times the measured time of such a tile (the streamed design's
-    own table where w2 streams), among those that fit shared memory.  Large images get 8x16 tiles; small images and batches
+    the SMs times the measured time of such a tile, among those that fit
+    shared memory.  Large images get 8x16 tiles; small images and batches
     fewer rows, until one wave covers the launch.  The bfloat16 instances
-    have their own rules and table (``_choose_tile_bf16``); the general
+    have their own rules and table (``_choose_tile_bf16``), and so have the
+    128-wide float32 ones (``_choose_tile_128``); the general
     instance's tiles hold at most GENERAL_TILE_PIXELS[dtype] pixels and use its own
     tables, ``_TILE_US_GENERAL`` and ``_TILE_US_GENERAL_BF16``.  Raises
     ValueError if no tile fits."""
@@ -626,10 +737,12 @@ def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj
     general = _general(cin, cmid, cout, has_proj)
     if not general and dtype == "bfloat16":
         return _choose_tile_bf16(n, h, w, cin, cmid, cout, has_proj)
+    if streams_w2(cin, cmid, cout, has_proj, dtype):
+        return _choose_tile_128(n, h, w, cin, has_proj)
     if general:
         tile_us = _TILE_US_GENERAL_BF16 if dtype == "bfloat16" else _TILE_US_GENERAL
     else:
-        tile_us = _TILE_US_STREAMED if streams_w2(cin, cmid, cout, has_proj, dtype) else _TILE_US
+        tile_us = _TILE_US
     best = None
     for th in range(1, min(h, (len(tile_us) - 1) * 16 // tw) + 1):
         if smem_bytes(cin, cmid, cout, th, tw, has_proj, dtype) > MAX_SMEM:
@@ -641,6 +754,22 @@ def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj
     if best is None:
         raise ValueError(f"block too wide for one thread block's shared memory "
                          f"(Cin={cin}, Cmid={cmid}, Cout={cout})")
+    return best[1], tw
+
+
+def _choose_tile_128(n: int, h: int, w: int, cin: int, has_proj: bool):
+    """``choose_tile`` for a 128-wide float32 instance: among the tiles that
+    ``tile_fits_128``, the one whose launch should take least time, its rounds
+    of one tile per SM times ``_TILE_US_128`` of its tile."""
+    tw = min(TILE_MAX_WIDTH, w)
+    best = None
+    for th in range(1, h + 1):
+        if not tile_fits_128(th, tw, cin, has_proj):
+            break
+        rounds = -(-n * -(-h // th) * -(-w // tw) // NUM_SMS)
+        cost = rounds * _TILE_US_128[-(-th * tw // 16)]
+        if best is None or cost < best[0]:
+            best = (cost, th)
     return best[1], tw
 
 
@@ -699,12 +828,9 @@ def _shapes(x: torch.Tensor, folded: Dict[str, torch.Tensor]):
 
 
 @lru_cache(maxsize=None)
-def _kernel(dtype: str, general: bool = False):
-    suffix = "" if dtype == "float32" else "_bf16"
-    if general:
-        fn = getattr(_build.library("bottleneck_general"), "df3d_bottleneck_general" + suffix)
-    else:
-        fn = getattr(_build.library("bottleneck" + suffix), "df3d_bottleneck" + suffix)
+def _kernel(source: str, name: str):
+    """The C entry point ``name`` of ``csrc/<source>.cu``."""
+    fn = getattr(_build.library(source), name)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -714,16 +840,18 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
     """One folded bottleneck block, (N, H, W, Cin) -> (N, H, W, Cout) in x's
     dtype (float32, or bfloat16 for a block folded at bfloat16).
 
-    On a CUDA tensor this launches ``csrc/bottleneck.cu`` (float32) or
-    ``csrc/bottleneck_bf16.cu`` (bfloat16) at a width of ``INSTANCES``, and
+    On a CUDA tensor this launches ``csrc/bottleneck.cu`` (float32),
+    ``csrc/bottleneck_128.cu`` (float32, the 128-wide blocks: ``streams_w2``)
+    or ``csrc/bottleneck_bf16.cu`` (bfloat16) at a width of ``INSTANCES``, and
     ``csrc/bottleneck_general.cu`` at any other width inside ``ENVELOPE``
     (one launch, every intermediate on chip; ``folded`` must hold the
     ``"packed"`` buffer of ``add_packed``; the raw-input projection where
     ``folded`` has ``"proj_raw"``), or raises, past the envelope too; on a
     CPU tensor it runs ``bottleneck_plain``.  ``fused_bottleneck.launches``
-    counts launches of the float32 instances, ``.launches_bf16`` those of the
-    bfloat16 ones, ``.launches_general`` and ``.launches_general_bf16`` those
-    of the general instance.
+    counts launches of the float32 instances of ``csrc/bottleneck.cu``,
+    ``.launches_128`` those of ``csrc/bottleneck_128.cu``, ``.launches_bf16``
+    those of the bfloat16 ones, ``.launches_general`` and
+    ``.launches_general_bf16`` those of the general instance.
     """
     cin, cmid, cout, dtype = _shapes(x, folded)
     if x.device.type == "cpu":
@@ -741,6 +869,7 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     general = kernel_for(cin, cmid, cout, has_proj) == "general"
+    wide = streams_w2(cin, cmid, cout, has_proj, dtype)
     if packed.numel() != packed_size(cin, cmid, cout, has_proj, dtype):
         raise ValueError(f"folded['packed'] has {packed.numel()} values: not this block's")
     n, h, w, _ = x.shape
@@ -748,19 +877,28 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
     if y.numel() == 0:
         return y
     th, tw = choose_tile(n, h, w, cin, cmid, cout, has_proj, dtype)
+    suffix = "_bf16" if dtype != "float32" else ""
+    if general:       # (source, its entry point, the launch counter's suffix)
+        source, entry, counter = "bottleneck_general", "df3d_bottleneck_general" + suffix, \
+            "_general" + suffix
+    elif wide:
+        source, entry, counter = "bottleneck_128", "df3d_bottleneck_128", "_128"
+    else:
+        source, entry, counter = "bottleneck" + suffix, "df3d_bottleneck" + suffix, suffix
     with torch.cuda.device(x.device):     # the library asks cudaGetDevice for the SM count
-        rc = _kernel(dtype, general)(
+        rc = _kernel(source, entry)(
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
             int(has_proj), int("proj_raw" in folded), th, tw,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _build.check(rc, f"{dtype} {'general ' if general else ''}bottleneck kernel")
-    counter = "launches" + ("_general" if general else "") + ("_bf16" if dtype != "float32" else "")
+    _build.check(rc, f"{dtype} bottleneck kernel ({source}.cu)")
+    counter = "launches" + counter
     setattr(fused_bottleneck, counter, getattr(fused_bottleneck, counter) + 1)
     return y
 
 
 fused_bottleneck.launches = 0
+fused_bottleneck.launches_128 = 0
 fused_bottleneck.launches_bf16 = 0
 fused_bottleneck.launches_general = 0
 fused_bottleneck.launches_general_bf16 = 0

@@ -8,6 +8,8 @@
     python3 scripts/bench_torch_kernels.py --match 8x96x96 --tiles   # sweep the tile height
     python3 scripts/bench_torch_kernels.py --trees OLD . . OLD --match 56x128x256,56x64x128,56x32x64,56x16x32,56x8x16,56x4x8
     python3 scripts/bench_torch_kernels.py --match 56x64x128,56x32x64 --tiles   # the bf16 tile table
+    python3 scripts/bench_torch_kernels.py --trees OLD . . OLD --match 8x192x192,8x96x96,8x48x48,8x24x24,8x12x12,8x6x6
+    python3 scripts/bench_torch_kernels.py --match 8x192x192,8x96x96,8x48x48 --tiles   # the 128-wide table
 
 Needs one CUDA card.  Each tree runs in its own process (each builds its own
 kernels with nvcc): every shape below goes through the tree's
@@ -26,16 +28,25 @@ other budgets of staged input rows, and so other band heights (trees with
 ``kernels.preprocess_plan``).  The h36m network's blocks (128 wide, the
 3x3's weights streamed) run at the shapes of its ingest path, with weights
 from ``utils/synthetic.random_checkpoint`` (seed 0), in the trees that have
-those instances.  The converted 256-wide path's blocks (``GENERAL_SHAPES``)
+those instances, and the stem block also as the raw-input projection: held
+to the tree's plain version and to its TF32 arithmetic model (5e-5 of the
+output's magnitude; their bits follow the design's order of sums), with the
+bound (three TF32 MMAs per product at 495 TFLOP/s), cuDNN (``F.conv2d``,
+TF32 off) and, as a yardstick, the general instance
+(``csrc/bottleneck_general.cu``) on the same block packed in its own layout
+and launched through its C entry point at the tile its table picks
+(``general_ms``); the ``H36M_BATCH`` line sums them over the 59 launches of
+one h36m batch of 8, tree by tree.  The converted 256-wide path's blocks (``GENERAL_SHAPES``)
 run the general instance in float32 and bf16 in every tree that has it, held
 to the tree's plain version (float32 5e-5 of the output's magnitude, bf16 2
 bf16 ulps) and timed as device time, with the weight bytes a launch streams
 from L2 (``general_l2_bytes``, by the tree's own layout).  The bf16 resident instance
 runs at ``BF16_SHAPES`` (``bf16_rows``: 2 bf16 ulps of its plain version,
 device time, bound, cuDNN bf16), and its sum over one ``conv_bf16`` forward
-is printed per tree (``FORWARD`` line).  Every output of the six-width instances is hashed (``out_sha``),
-and after the last tree the outputs of each shape are compared across the
-trees: the script fails where they differ (``COMPARE`` line).  ``--tiles`` times every
+is printed per tree (``FORWARD`` line).  Every output of the fly widths' float32
+instances is hashed (``out_sha``), and after the last tree the outputs of
+each shape are compared across the trees: the script fails where they differ
+(``COMPARE`` line).  ``--tiles`` times every
 tile height that fits, per bottleneck shape (``tile_ms``).  One JSON line per
 tree, prefixed ``RESULT``; the card's name and power limit first.  Comparing
 two versions is only meaningful inside one call, on one card.
@@ -67,6 +78,12 @@ BLOCK_SHAPES = [
 H36M_SHAPES = [(8, 192, 192, "stem_res1"), (8, 96, 96, "stem_res2"), (8, 48, 48, "stem_res2"),
                (8, 24, 24, "stem_res2"), (8, 12, 12, "stem_res2"), (8, 6, 6, "stem_res2")]
 H36M_SPEC = dict(num_stacks=4, features=128, depth=4, num_classes=17, input_shape=(384, 384))
+# launches of each h36m shape per batch of 8 (the stem block once, then the
+# 128->64->128 blocks of the four stacks by level): 59
+H36M_LAUNCHES = {(8, 192, 192): 1, (8, 96, 96): 10, (8, 48, 48): 12, (8, 24, 24): 12,
+                 (8, 12, 12): 12, (8, 6, 6): 12}
+PEAK_TF32_FLOPS = 495e12        # TF32 dense, one H100 SXM
+NUM_SMS = 132                   # H100 SXM
 # (N, H, W, Cin, Cmid, Cout, projection, raw): the converted 256-wide path's
 # blocks, which run the general instance (the raw projecting stem block, then
 # the 256->128->256 blocks from 64x128 down to 4x8), float32 and bf16
@@ -271,6 +288,66 @@ def general_rows(torch, np, bn, dev, quick, no_check, match, model):
     return rows
 
 
+def block_library(torch, F, x, f, raw=False):
+    """One cuDNN chain (``F.conv2d``, channels-last) that computes the folded
+    block, as chip_smoke.py's library call."""
+    cmid = f["w1"].shape[1]
+    lw = {k: f[k].t().contiguous()[:, :, None, None] for k in ("w1", "w3", "wp") if k in f}
+    lw["w2"] = f["w2"].reshape(3, 3, cmid, cmid).permute(3, 2, 0, 1).contiguous()
+    lb = {k: f[k][0].to(x.dtype) for k in ("b1", "b2", "b3", "bp") if k in f}
+
+    def library():
+        xc = x.permute(0, 3, 1, 2)                      # channels_last NCHW view
+        a1 = torch.relu(xc * f["s1"].view(1, -1, 1, 1) + f["t1"].view(1, -1, 1, 1))
+        a2 = torch.relu(F.conv2d(a1, lw["w1"], lb["b1"]))
+        a3 = torch.relu(F.conv2d(a2, lw["w2"], lb["b2"], padding=1))
+        z = F.conv2d(a3, lw["w3"], lb["b3"])
+        return z + (F.conv2d(xc if raw else a1, lw["wp"], lb["bp"]) if "wp" in f else xc)
+
+    return library
+
+
+def general_yardstick(torch, bn, _build, x, f, raw):
+    """The general instance on this block: its own packed layout, its tile by
+    its table's rule, launched through its C entry point -> (call, tile)."""
+    import ctypes
+
+    import numpy as np
+
+    n, h, w, cin = x.shape
+    cmid, cout, proj = f["w1"].shape[1], f["w3"].shape[1], "wp" in f
+    packed = bn._pack_general({k: v.detach().cpu().float().numpy() for k, v in f.items()
+                               if k not in ("packed", "proj_raw")}, "float32").to(x.device)
+    lib = _build.library("bottleneck_general")
+    smem = lib.df3d_bottleneck_general_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 6, ctypes.c_int
+    fn = lib.df3d_bottleneck_general
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    tw, best = min(bn.TILE_MAX_WIDTH, w), None
+    for th in range(1, h + 1):
+        if th * tw > bn.GENERAL_TILE_PIXELS["float32"] or smem(cin, cmid, cout, th, tw, 0) > bn.MAX_SMEM:
+            break
+        cost = -(-n * -(-h // th) * -(-w // tw) // bn.NUM_SMS) * bn._TILE_US_GENERAL[-(-th * tw // 16)]
+        if best is None or cost < best[0]:
+            best = (cost, th)
+    th = best[1]
+    y = torch.empty((n, h, w, cout), device=x.device)
+
+    def call():
+        rc = fn(x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout, int(proj),
+                int(raw), th, tw, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"general instance: CUDA error {rc}")
+        return y
+
+    ref = bn.bottleneck_plain(x, f)
+    err = (call() - ref).abs().max().item()
+    if not err <= 5e-5 * max(1.0, ref.abs().max().item()):
+        raise AssertionError(f"general yardstick {tuple(x.shape)}: err {err}")
+    return call, [th, tw]
+
+
 def sweep_tiles(bn, x, f, device_ms, dtype="float32"):
     """{"th x tw": device ms} of every tile height that fits, the wrapper's own
     choice of tile put aside for the sweep (at bf16, the tree's limits of its
@@ -279,11 +356,16 @@ def sweep_tiles(bn, x, f, device_ms, dtype="float32"):
     cmid, cout, proj = f["w1"].shape[1], f["w3"].shape[1], "wp" in f
     chosen, tw = bn.choose_tile, min(bn.TILE_MAX_WIDTH, w)
     resident16 = dtype == "bfloat16" and hasattr(bn, "bf16_tile_fits")
+    wide = (dtype == "float32" and hasattr(bn, "tile_fits_128")
+            and bn.streams_w2(cin, cmid, cout, proj))
     out = {}
     try:
         for th in range(1, h + 1):
             if resident16:
                 if not bn.bf16_tile_fits(th, tw, cin, cmid, cout, proj):
+                    break
+            elif wide:
+                if not bn.tile_fits_128(th, tw, cin, proj):
                     break
             elif (bn.smem_bytes(cin, cmid, cout, th, tw, proj, dtype) > bn.MAX_SMEM
                   or th * tw > 16 * bn.TILE_WARPS):
@@ -394,41 +476,59 @@ def run_tree(root, quick, no_check=False, match=None, budgets=None, h36m=None, t
     rows = []
     picked = lambda *shape: match is None or "x".join(map(str, shape)) in match
     instances = getattr(bn, "INSTANCES", ())
-    shapes = [(s, blocks) for s in BLOCK_SHAPES] + [(s, wide) for s in H36M_SHAPES]
-    for (n, h, w, name), net in shapes:
+    import numpy as np
+    import torch.nn.functional as F
+
+    shapes = ([(s, blocks, False) for s in BLOCK_SHAPES] + [(s, wide, False) for s in H36M_SHAPES]
+              + [(s, wide, True) for s in H36M_SHAPES if s[3] == "stem_res1"])
+    for (n, h, w, name), net, raw in shapes:
         if not picked(n, h, w) or name not in net:
             continue
         folded = net[name]
         cin, cmid, cout = folded["w1"].shape[0], folded["w1"].shape[1], folded["w3"].shape[1]
         if net is wide and (cin, cmid, cout, "wp" in folded) not in instances:
             continue                                  # a tree without the 128-wide instances
+        if raw:
+            folded = {**{k: v for k, v in folded.items() if k != "packed"},
+                      "proj_raw": torch.ones((), dtype=torch.bool)}
         f = {k: v.to(dev) for k, v in pack(folded).items()}
         seed = torch.Generator().manual_seed(n * 1000003 + h * 1009 + w)   # per shape
         x = torch.randn((n, h, w, cin), generator=seed).to(dev)
         y = bn.fused_bottleneck(x, f)
         torch.cuda.synchronize()
         ref = bn.bottleneck_plain(x, f)
-        row = {"kernel": "bottleneck", "shape": [n, h, w], "block": name,
+        row = {"kernel": "bottleneck", "shape": [n, h, w], "block": name + ("/raw" if raw else ""),
                "channels": [cin, cmid, cout], "proj": "wp" in folded,
-               "out_sha": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16],
                "scale": ref.abs().max().item(), "err_plain": (y - ref).abs().max().item()}
+        if net is blocks:           # the fly network's instances keep their bits across trees
+            row["out_sha"] = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
         if model is not None:
             row["err_model"] = (y - model(x, f)).abs().max().item()
-        if not no_check and not row["err_plain"] <= 5e-5 * max(1.0, row["scale"]):
+        tol = 5e-5 * max(1.0, row["scale"])
+        if not no_check and not (row["err_plain"] <= tol
+                                 and (net is blocks or row.get("err_model", 0.0) <= tol)):
             raise AssertionError(f"bottleneck {row}")
+        if net is wide:
+            row["tile"] = list(bn.choose_tile(n, h, w, cin, cmid, cout, "wp" in folded))
+            flops = 2.0 * n * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
+                                       + (cin * cout if "wp" in folded else 0))
+            nbytes = 4.0 * (n * h * w * (cin + cout) + flops / (2.0 * n * h * w))
+            row["bound_ms"] = max(3.0 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES) * 1e3
         if not quick:
             row["ms"] = cuda_ms(torch, lambda: bn.fused_bottleneck(x, f), iters)
             row["device_ms"] = graph_ms(torch, lambda: bn.fused_bottleneck(x, f))
             row["plain_ms"] = cuda_ms(torch, lambda: bn.bottleneck_plain(x, f), iters)
+            if net is wide:
+                row["library_ms"] = graph_ms(torch, block_library(torch, F, x, f, raw))
+                if hasattr(bn, "_pack_general"):
+                    call, row["general_tile"] = general_yardstick(torch, bn, _build, x, f, raw)
+                    row["general_ms"] = graph_ms(torch, call)
             if tiles:
                 row["tile_ms"] = sweep_tiles(bn, x, f, lambda fn: graph_ms(torch, fn))
         rows.append(row)
         print(row, flush=True)
         del x, y, ref
         torch.cuda.empty_cache()
-    import numpy as np
-    import torch.nn.functional as F
-
     if hasattr(bn, "kernel_for"):                     # a tree with the general instance
         rows += general_rows(torch, np, bn, dev, quick, no_check, match, model)
     rows += bf16_rows(torch, np, F, bn, dev, quick, no_check, match, tiles)
@@ -536,6 +636,36 @@ def main():
                 for key in ("device_ms", "bound_ms", "library_ms")}})
     if forward:
         print("FORWARD " + json.dumps(forward), flush=True)
+    # the 128-wide float32 blocks per h36m batch of 8 (59 launches), tree by tree
+    batch = []
+    for result in results:
+        got = {tuple(r["shape"]): r for r in result["rows"]
+               if r["kernel"] == "bottleneck" and r["block"] in ("stem_res1", "stem_res2")}
+        if all(k in got and "device_ms" in got[k] for k in H36M_LAUNCHES):
+            batch.append({"tree": result["tree"], **{
+                key: sum(got[k][key] * c for k, c in H36M_LAUNCHES.items())
+                for key in ("device_ms", "bound_ms", "library_ms", "general_ms")
+                if all(key in got[k] for k in H36M_LAUNCHES)}})
+    if batch:
+        print("H36M_BATCH " + json.dumps(batch), flush=True)
+    # with --tiles: the 128-wide instances' table, per m 16-pixel row tiles of
+    # the tile, the median of the launch's time over its rounds of one tile per
+    # SM over the shapes of more than one round, tree by tree
+    for result in results:
+        per = {}
+        for r in result["rows"]:
+            if r["kernel"] != "bottleneck" or r["channels"][1] != 64:
+                continue
+            n, h, w = r["shape"]
+            for tile, ms in r.get("tile_ms", {}).items():
+                t_h, t_w = map(int, tile.split("x"))
+                rounds = -(-n * -(-h // t_h) * -(-w // t_w) // NUM_SMS)
+                if rounds > 1:
+                    per.setdefault(-(-t_h * t_w // 16), []).append(1e3 * ms / rounds)
+        if per:
+            table = {k: sorted(v)[len(v) // 2] for k, v in sorted(per.items())}
+            print("WIDE_TILE_TABLE " + json.dumps({"tree": result["tree"], "us": table}),
+                  flush=True)
     # with --tiles: the bf16 resident instance's table, per (nb1, nb2) m64 row
     # blocks of stage 1 and of the 3x3 (ops/bottleneck._bf16_blocks), the median
     # of tile_us over the 96->48->96 and 48->48->96 shapes of more than one

@@ -273,18 +273,29 @@ def test_shared_memory_budget_numbers():
 
 def test_streamed_w2_budget_numbers():
     # the 128-wide blocks: every weight resident does not fit even one row of
-    # 16 pixels, so w2 streams through a ring of two 16 KB taps
+    # 16 pixels, so they run csrc/bottleneck_128.cu: the vectors, w1 (and a
+    # projecting block's w3) resident as hi and lo, a ring of 3-6 chunks of 16
+    # KB for w2 and w3 or wp, and one a2 halo tile at 64 values a pixel
     for block in ((128, 64, 128, False), (64, 64, 128, True)):
         assert block in port_bn.INSTANCES and port_bn.streams_w2(*block)
-        assert port_bn.packed_size(*block) * 4 + 2 * 3 * 18 * 68 * 4 > port_bn.MAX_SMEM
+        assert not port_bn.streams_w2(*block, "bfloat16")
+        assert port_bn._resident_values(*block) * 4 + 2 * 3 * 18 * 68 * 4 > port_bn.MAX_SMEM
     assert not any(port_bn.streams_w2(*b) for b in port_bn.INSTANCES[:4])
-    assert port_bn.smem_bytes(128, 64, 128, 8, 16, False) == 4 * (16896 + 8192) + 97920 \
-        == 198272
-    assert port_bn.smem_bytes(64, 64, 128, 8, 16, True) == 214144
-    assert port_bn.smem_bytes(128, 64, 128, 11, 16, False) <= port_bn.MAX_SMEM
-    assert port_bn.smem_bytes(128, 64, 128, 12, 16, False) > port_bn.MAX_SMEM
-    assert port_bn.smem_bytes(64, 64, 128, 9, 16, True) <= port_bn.MAX_SMEM
-    assert port_bn.smem_bytes(64, 64, 128, 10, 16, True) > port_bn.MAX_SMEM
+    assert port_bn.packed_size(128, 64, 128, False) * 4 == 2048 + 8 * (8192 + 8192 + 36864) \
+        == 428032
+    assert port_bn.packed_size(64, 64, 128, True) * 4 == 1536 + 8 * (4096 + 8192 + 36864 + 8192)
+    # 8x16: 128 bytes of barriers, 67,584 resident (99,840 with w3), 6 slots
+    # (5), 180 halo pixels
+    assert port_bn.smem_bytes(128, 64, 128, 8, 16, False) == 128 + 67584 + 6 * 16384 + 180 * 256 \
+        == 212096
+    assert port_bn.smem_bytes(64, 64, 128, 8, 16, True) == 128 + 99840 + 5 * 16384 + 180 * 256 \
+        == 227968 <= port_bn.MAX_SMEM
+    assert port_bn._layout_128(128, 1, 1, False) == (128 + 67584 + 6 * 16384 + 9 * 256, 6)
+    assert port_bn._layout_128(64, 2, 16, True)[1] == port_bn.WIDE_STAGES[1]
+    assert port_bn.tile_fits_128(8, 16, 128, False) and port_bn.tile_fits_128(8, 16, 64, True)
+    assert not port_bn.tile_fits_128(9, 16, 128, False)          # 144 pixels: three row blocks
+    assert port_bn.tile_fits_128(10, 12, 64, True)               # 12 x 14 halo: 168 <= 192
+    assert not port_bn.tile_fits_128(1, 64, 64, True)            # 3 x 66 halo pixels > 192
 
 
 H36M_SHAPES = [(8, 192, 192), (8, 96, 96), (8, 48, 48), (8, 24, 24), (8, 12, 12), (8, 6, 6),
@@ -295,8 +306,64 @@ H36M_SHAPES = [(8, 192, 192), (8, 96, 96), (8, 48, 48), (8, 24, 24), (8, 12, 12)
 @pytest.mark.parametrize("cin,proj", [(128, False), (64, True)])
 def test_tile_chooser_at_the_h36m_shapes(n, h, w, cin, proj):
     th, tw = port_bn.choose_tile(n, h, w, cin, 64, 128, proj)
-    assert 1 <= th <= h and tw == min(w, 16) and th * tw <= 192
+    assert 1 <= th <= h and tw == min(w, 16) and th * tw <= port_bn.WIDE_TILE_PIXELS
+    assert (th + 2) * (tw + 2) <= port_bn.WIDE_HALO_PIXELS
+    assert port_bn.tile_fits_128(th, tw, cin, proj)
     assert port_bn.smem_bytes(cin, 64, 128, th, tw, proj) <= port_bn.MAX_SMEM
     blocks = n * -(-h // th) * -(-w // tw)
     if n * h * w >= 16 * port_bn.NUM_SMS and w >= 8:
         assert blocks >= 0.8 * port_bn.NUM_SMS                    # the card is filled
+
+
+def _unpack_tf32(flat, k, n, order):
+    """``_pack_tf32``'s layout back to (K, N) hi and lo, and the count of
+    slots that hold each (k, n)."""
+    steps = k // 8
+    arr = flat.reshape(n // 64, steps, 2, 8, 2, 8, 4)      # pass, step, hi/lo, grp, kc, col, j
+    p, s, part, grp, kc, col, j = np.meshgrid(*(np.arange(d) for d in arr.shape), indexing="ij")
+    ch = 8 * s + 2 * j + kc if order == "pair" else 16 * (s // 2) + 4 * j + 2 * (s % 2) + kc
+    cols = 64 * p + 8 * grp + col
+    hi, lo = np.zeros((k, n), np.float32), np.zeros((k, n), np.float32)
+    count = np.zeros((k, n), np.int64)
+    hi[ch[:, :, 0], cols[:, :, 0]] = arr[:, :, 0]
+    lo[ch[:, :, 1], cols[:, :, 1]] = arr[:, :, 1]
+    np.add.at(count, (ch[:, :, 0], cols[:, :, 0]), 1)
+    return hi, lo, count
+
+
+@pytest.mark.parametrize("cin,proj,raw", [(128, False, False), (64, True, False), (64, True, True)])
+def test_wide_packed_layout(cin, proj, raw):
+    """The 128-wide float32 layout, unpacked section by section: every
+    weight once, hi + lo == w bit for bit, hi a TF32 number (low 13 bits
+    clear), every section 16-byte aligned, b3 + bp folded; and every tile
+    the chooser gives at the h36m shapes fits one thread block."""
+    params, stats = _block_params(np.random.default_rng(cin + raw), cin, 128)   # Cmid 64
+    assert ("proj" in params) == proj
+    folded = port_bn.fold_bottleneck(params, stats, proj_from_raw=raw)
+    assert port_bn.streams_w2(cin, 64, 128, proj)
+    packed = port_bn.pack_bottleneck(folded).numpy()
+    assert packed.dtype == np.float32 and packed.size == port_bn.packed_size(cin, 64, 128, proj)
+    sections = port_bn.sections_128(cin, proj)
+    assert sum(b for _, b in sections.values()) == 4 * packed.size
+    assert all(at % 16 == 0 and b % 16 == 0 for at, b in sections.values())
+    f = {k: v.numpy() for k, v in folded.items() if k != "proj_raw"}
+    want = {"s1": f["s1"][0], "t1": f["t1"][0], "b1": f["b1"][0], "b2": f["b2"][0],
+            "b3": f["b3"][0] + f["bp"][0] if proj else f["b3"][0]}
+    for name, v in want.items():
+        at, nbytes = sections[name]
+        np.testing.assert_array_equal(packed[at // 4:(at + nbytes) // 4], v)
+    mats = {"w1": (f["w1"], "quad"), "w3": (f["w3"], "pair"),
+            "w2": (f["w2"].reshape(9 * 64, 64), "pair")}
+    if proj:
+        mats["wp"] = (f["wp"], "quad")
+    assert sorted(mats) == sorted(k for k in sections if k.startswith("w"))
+    for name, (w, order) in mats.items():
+        at, nbytes = sections[name]
+        hi, lo, count = _unpack_tf32(packed[at // 4:(at + nbytes) // 4], *w.shape, order)
+        assert (count == 1).all(), name
+        assert ((hi.view(np.int32) & 0x1FFF) == 0).all(), name
+        np.testing.assert_array_equal(hi + lo, w, err_msg=name)
+        np.testing.assert_array_equal(lo, w - hi, err_msg=name)
+    for n, h, w in H36M_SHAPES:
+        th, tw = port_bn.choose_tile(n, h, w, cin, 64, 128, proj)
+        assert port_bn.smem_bytes(cin, 64, 128, th, tw, proj) <= port_bn.MAX_SMEM

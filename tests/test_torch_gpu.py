@@ -106,46 +106,61 @@ def wide_blocks(tmp_path_factory):
     return fold_hourglass(*load_weights(path))["blocks"]
 
 
-@pytest.mark.parametrize("name,shape", [
-    ("stem_res1", (8, 192, 192, 64)),     # the projecting stem block of the h36m path
-    ("stem_res1", (3, 19, 37, 64)),       # tiles cut by the image edge
-    ("stem_res2", (8, 96, 96, 128)),
-    ("stem_res2", (8, 12, 12, 128)),
-    ("hg0/innermost_0", (8, 6, 6, 128)),
-    ("hg0/innermost_0", (5, 13, 21, 128)),
-    ("feat_res0", (1, 1, 1, 128)),        # one tile: no next tile's tap 0 to fetch
+@pytest.mark.parametrize("name,shape,b1_positive", [
+    ("stem_res1", (8, 192, 192, 64), False),     # the projecting stem block of the h36m path
+    ("stem_res1", (3, 19, 37, 64), False),       # tiles cut by the image edge
+    ("stem_res2", (8, 96, 96, 128), False),
+    ("stem_res2", (8, 12, 12, 128), False),
+    ("hg0/innermost_0", (8, 6, 6, 128), False),
+    ("hg0/innermost_0", (5, 13, 21, 128), False),
+    ("feat_res0", (1, 1, 1, 128), False),        # the 1x1 image: one tile, every tap but one padding
+    ("stem_res2", (16, 96, 96, 128), False),     # more tiles than SMs x ring slots: phases wrap
+    ("stem_res1", (6, 48, 48, 64), False),
+    ("stem_res2", (4, 19, 37, 128), True),       # b1 > 0: the 3x3's zero padding is a2's
+    ("stem_res1", (2, 24, 24, 64), True),
 ])
-def test_streamed_bottleneck_matches_plain(wide_blocks, name, shape):
-    """The 128-wide instances stream w2 through shared memory one tap at a
-    time; held to the resident instances' tolerance, and their shared-memory
-    figure is the wrapper's."""
+def test_streamed_bottleneck_matches_plain(wide_blocks, name, shape, b1_positive):
+    """The 128-wide instances (csrc/bottleneck_128.cu: w1 and w3 resident, w2
+    and wp streamed through an mbarrier ring, wgmma 3xTF32); held to the
+    resident instances' tolerance, counted under ``launches_128``, and their
+    shared-memory figure is the wrapper's."""
     dev = _card()
-    folded = {k: v.to(dev) for k, v in bn.add_packed(wide_blocks[name]).items()}
+    block = wide_blocks[name]
+    if b1_positive:     # a positive b1 makes relu(b1) != 0: padding with it would show
+        block = {**{k: v for k, v in block.items() if k != "packed"},
+                 "b1": block["b1"].abs() + 0.5}
+    folded = {k: v.to(dev) for k, v in bn.add_packed(block).items()}
     cin, cmid, cout, proj = shape[3], folded["w1"].shape[1], folded["w3"].shape[1], \
         "wp" in folded
     assert bn.streams_w2(cin, cmid, cout, proj)
     g = torch.Generator().manual_seed(5)
     x = torch.randn(shape, generator=g).to(dev)
-    before = bn.fused_bottleneck.launches
+    before = (bn.fused_bottleneck.launches, bn.fused_bottleneck.launches_128)
     got = bn.fused_bottleneck(x, folded)
     torch.cuda.synchronize()
-    assert bn.fused_bottleneck.launches == before + 1
+    assert (bn.fused_bottleneck.launches, bn.fused_bottleneck.launches_128) == \
+        (before[0], before[1] + 1)
     want = bn.bottleneck_plain(x, folded)
     tol = 5e-5 * max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= tol
     assert (got - bn.bottleneck_tf32_model(x, folded)).abs().max().item() <= tol
     n, h, w, _ = shape
-    args = (cin, cmid, cout, *bn.choose_tile(n, h, w, cin, cmid, cout, proj), int(proj))
-    smem = _build.library("bottleneck").df3d_bottleneck_smem
-    smem.argtypes, smem.restype = [ctypes.c_int] * 6, ctypes.c_size_t
-    assert smem(*args) == bn.smem_bytes(*args[:5], proj)
+    th, tw = bn.choose_tile(n, h, w, cin, cmid, cout, proj)
+    if n == 16:
+        tiles = n * -(-h // th) * -(-w // tw)
+        assert tiles > bn.NUM_SMS * bn._layout_128(cin, th, tw, proj)[1]
+    smem = _build.library("bottleneck_128").df3d_bottleneck_128_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 6, ctypes.c_int
+    assert smem(cin, cmid, cout, th, tw, int(proj)) == bn.smem_bytes(cin, cmid, cout, th, tw, proj)
 
 
 @pytest.mark.parametrize("width,shape", [
     ("fly", (8, 128, 256, 48)),           # a converted fly checkpoint's stem_res1
     ("fly", (3, 19, 37, 48)),             # tiles cut by the image edge
-    ("h36m", (8, 192, 192, 64)),          # the streamed instance
+    ("h36m", (8, 192, 192, 64)),          # the 128-wide instance
     ("h36m", (3, 19, 37, 64)),
+    ("h36m", (16, 96, 96, 64)),           # more tiles than SMs x ring slots
+    ("h36m", (1, 1, 1, 64)),              # the 1x1 image
 ])
 def test_raw_projection_matches_plain(blocks, wide_blocks, width, shape):
     """The raw-input projection (checkpoints converted from torch): the
