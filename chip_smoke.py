@@ -2030,7 +2030,9 @@ def bf16_phase(torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, 
                        + 4 * (h + w))
         b_ms, b_by = bound_ms(flops, nbytes)
         record("preprocess_resize_bf16", {
-            "shape": list(key), "taps": [kh, kw], "max_abs_err": float(np.abs(got - want).max()),
+            "shape": list(key), "taps": [kh, kw],
+            "instance": kernels.preprocess_instance_for(x, out),
+            "max_abs_err": float(np.abs(got - want).max()),
             "share_differing": float((got != want).mean()),
             "library_err": (library().float() - ref.float()).abs().max().item(),
             **times(torch, kernel, plain, library),
@@ -2741,8 +2743,7 @@ def main(argv):
                        + 4 * (h + w))
         b_ms, b_by = bound_ms(flops, nbytes)
         row = {"shape": list(key), "mode": "identity" if identity else "resize",
-               "taps": [kh, kw], "plan": list(kernels.preprocess_plan(
-                   h_in, w_in, c, h, w, kernels.PREPROCESS_STAGE_ROWS)),
+               "taps": [kh, kw], "instance": kernels.preprocess_instance_for(x, out),
                "max_abs_err": err, "tolerance": tol, "library_err": lib_err,
                **times(torch, kernel, lambda: plain(**reg), library, quick=n >= FLEET_QUICK_N),
                "unfused_ms": graph_ms(torch, unfused, **({"iters": 3, "replays": 2}
@@ -2774,8 +2775,12 @@ def main(argv):
     print(json.dumps({"kernel_shapes": shape_rows}))
     print(json.dumps({"per_path": per_path}))
     h36m_batches = -(-h36m_frames.shape[0] * h36m_frames.shape[1] // H36M_BATCH)
+    h36m_pre = [r for r in shape_rows if r["kernel"] == "preprocess_resize"
+                and r["launches_by_path"].get("h36m")]
     print(f"informational: the h36m path per batch of {H36M_BATCH} images (kernel-phase times "
           f"of its shapes times their launches, over {h36m_batches} batches), on {card}: "
+          f"preprocess {per_path['h36m']['preprocess_resize']['ms'] / h36m_batches:.4f} ms per "
+          f"batch ({', '.join(sorted({r['instance'] for r in h36m_pre}))}); "
           + json.dumps({kernel: {key: row[key] / h36m_batches for key in
                                  ("launches", "ms", "bound_ms", "plain_ms", "library_ms")}
                         for kernel, row in per_path["h36m"].items()}))

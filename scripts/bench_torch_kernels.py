@@ -5,6 +5,8 @@
     python3 scripts/bench_torch_kernels.py --trees OLD . . OLD   # two checkouts, in turns
     python3 scripts/bench_torch_kernels.py --quick               # one launch per shape, no timing
     python3 scripts/bench_torch_kernels.py --match 56x480x960x256x512 --stage-rows 4,8,12
+    python3 scripts/bench_torch_kernels.py --trees OLD . . OLD --match 56x480x960x256x512,56x480x960x192x384,7x480x960x256x512,8x1000x1000x384x384
+    python3 scripts/bench_torch_kernels.py --match 8x1000x1000x384x384 --ring-rows 6,10,14
     python3 scripts/bench_torch_kernels.py --match 8x96x96 --tiles   # sweep the tile height
     python3 scripts/bench_torch_kernels.py --trees OLD . . OLD --match 56x128x256,56x64x128,56x32x64,56x16x32,56x8x16,56x4x8
     python3 scripts/bench_torch_kernels.py --match 56x64x128,56x32x64 --tiles   # the bf16 tile table
@@ -23,9 +25,16 @@ no gain); where the tree's wrapper takes the rig registration's ``shift``
 and ``gain``, those are timed as well (``fused_device_ms``), beside the
 composition they replace (``unfused_device_ms``: ``apply_shift_tc``'s
 gathers, the kernel, the gain multiply), and the fused result must equal
-that composition bit for bit.  ``--stage-rows`` times the preprocess at
-other budgets of staged input rows, and so other band heights (trees with
-``kernels.preprocess_plan``).  The h36m network's blocks (128 wide, the
+that composition bit for bit; where it takes ``dtype``, the bf16-output
+instance is held to one ulp of its plain version and timed bare and fused
+(``bf16_device_ms``, ``bf16_fused_device_ms``, ``bf16_bound_ms``).  Each
+preprocess shape's inputs come from a generator seeded by the shape, and
+the row names the instance the tree runs (``instance``, trees with
+``kernels.preprocess_instance_for``).
+``--stage-rows`` times the preprocess at other budgets of staged input rows
+of the band design, and so other band heights (trees with
+``kernels.preprocess_plan``); ``--ring-rows`` at other ring depths of the
+run design (trees with ``kernels.PREPROCESS_RING_ROWS``).  The h36m network's blocks (128 wide, the
 3x3's weights streamed) run at the shapes of its ingest path, with weights
 from ``utils/synthetic.random_checkpoint`` (seed 0), in the trees that have
 those instances, and the stem block also as the raw-input projection: held
@@ -44,9 +53,10 @@ from L2 (``general_l2_bytes``, by the tree's own layout).  The bf16 resident ins
 runs at ``BF16_SHAPES`` (``bf16_rows``: 2 bf16 ulps of its plain version,
 device time, bound, cuDNN bf16), and its sum over one ``conv_bf16`` forward
 is printed per tree (``FORWARD`` line).  Every output of the fly widths' float32
-instances is hashed (``out_sha``), and after the last tree the outputs of
-each shape are compared across the trees: the script fails where they differ
-(``COMPARE`` line).  ``--tiles`` times every
+instances, and every preprocess output (float32 and bf16, each bare and with
+the registration), is hashed (``out_sha``), and after the last tree the
+outputs of each shape are compared across the trees: the script fails where
+they differ (``COMPARE`` line).  ``--tiles`` times every
 tile height that fits, per bottleneck shape (``tile_ms``).  One JSON line per
 tree, prefixed ``RESULT``; the card's name and power limit first.  Comparing
 two versions is only meaningful inside one call, on one card.
@@ -107,9 +117,10 @@ PEAK_BF16_FLOPS = 989e12        # bf16 dense, one H100 SXM
 DECODE_SHAPES = [(56, 64, 128, 19), (56, 48, 96, 19), (7, 64, 128, 19), (5, 7, 9, 19),
                  (3, 16, 32, 6)]
 # (N, H, W, h, w): the conv and p16 paths, the cascade's student and teacher,
-# identity mode (the TPU kernel's function; on no path) and rows of 150 bytes
+# identity mode (the TPU kernel's function; on no path), rows of 150 bytes and
+# the h36m path's batch of 8 frames of 1000x1000
 PREPROCESS_SHAPES = [(56, 480, 960, 256, 512), (56, 480, 960, 192, 384), (7, 480, 960, 256, 512),
-                     (56, 480, 960, 480, 960), (3, 37, 50, 13, 29)]
+                     (56, 480, 960, 480, 960), (3, 37, 50, 13, 29), (8, 1000, 1000, 384, 384)]
 PEAK_BYTES = 3.35e12            # HBM3 of one H100 SXM
 
 
@@ -151,19 +162,37 @@ def graph_ms(torch, fn, iters=20, replays=5):
     return start.elapsed_time(end) / (iters * replays)
 
 
-def preprocess_rows(torch, kernels, image_ops, shape, dev, gen, quick, no_check, budget):
-    """Check and time one preprocess shape; -> the result row."""
+def _sha(t):
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    import torch
+
+    return hashlib.sha256(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def preprocess_rows(torch, kernels, image_ops, shape, dev, quick, no_check, budget, ring):
+    """Check and time one preprocess shape; -> the result row.  The inputs
+    come from a generator seeded by the shape, so every tree gets the same
+    frames and registration; each output's hash (float32 and, where the tree
+    has it, bf16, each bare and with the registration) goes into ``out_sha``."""
     n, h_in, w_in, h, w = shape
+    gen = torch.Generator().manual_seed(n * 1000003 + h_in * 1009 + w_in * 31 + h * 7 + w)
     x = torch.randint(0, 256, (n, h_in, w_in, 3), generator=gen, dtype=torch.uint8).to(dev)
     flip = (torch.arange(n) % 3 == 1).to(dev)
     iters = 1 if quick else 20
     identity = (h, w) == (h_in, w_in)
+    params = inspect.signature(kernels.preprocess_resize).parameters
     row = {"kernel": "preprocess", "shape": list(shape),
-           "bound_ms": (x.numel() + 4 * n * h * w * 3) / PEAK_BYTES * 1e3}
+           "bound_ms": (x.numel() + 4 * n * h * w * 3) / PEAK_BYTES * 1e3, "out_sha": {}}
     if budget:
         row["plan"] = list(kernels.preprocess_plan(h_in, w_in, 3, h, w, budget))
+    if ring is not None or hasattr(kernels, "preprocess_run_plan"):
+        row["run_plan"] = list(kernels.preprocess_run_plan(n, h_in, w_in, 3, h, w, ring))
     out = kernels.preprocess_resize(x, flip, (h, w))
     torch.cuda.synchronize()
+    if hasattr(kernels, "preprocess_instance_for"):     # the same for both dtypes
+        row["instance"] = kernels.preprocess_instance_for(x, out)
+    row["out_sha"]["f32"] = _sha(out)
     if identity:
         row["err_plain"] = (out - kernels.preprocess_u8_plain(x, flip)).abs().max().item()
     else:
@@ -174,27 +203,48 @@ def preprocess_rows(torch, kernels, image_ops, shape, dev, gen, quick, no_check,
     if not quick:
         row["ms"] = cuda_ms(torch, lambda: kernels.preprocess_resize(x, flip, (h, w)), iters)
         row["device_ms"] = graph_ms(torch, lambda: kernels.preprocess_resize(x, flip, (h, w)))
-    if "shift" in inspect.signature(kernels.preprocess_resize).parameters:
-        from deepfly3d_torch.ops import canonicalize
+    if "shift" not in params:
+        return row
+    from deepfly3d_torch.ops import canonicalize
 
-        dy = torch.randint(-8, 9, (n,), generator=gen, dtype=torch.int32).to(dev)
-        dx = torch.randint(-8, 9, (n,), generator=gen, dtype=torch.int32).to(dev)
-        gain = (0.9 + 0.2 * torch.rand(n, generator=gen)).to(dev)
-        gain[::4] = 1.0
+    dy = torch.randint(-8, 9, (n,), generator=gen, dtype=torch.int32).to(dev)
+    dx = torch.randint(-8, 9, (n,), generator=gen, dtype=torch.int32).to(dev)
+    gain = (0.9 + 0.2 * torch.rand(n, generator=gen)).to(dev)
+    gain[::4] = 1.0
 
-        def fused():
-            return kernels.preprocess_resize(x, flip, (h, w), shift=(dy, dx), gain=gain)
+    def fused(dtype="float32"):
+        kw = {"dtype": dtype} if dtype != "float32" else {}
+        return kernels.preprocess_resize(x, flip, (h, w), shift=(dy, dx), gain=gain, **kw)
 
-        def unfused():
-            rolled = canonicalize.apply_shift_tc(x[None], dy, dx)[0]
-            return kernels.preprocess_resize(rolled, flip, (h, w)) * gain[:, None, None, None]
+    def unfused():
+        rolled = canonicalize.apply_shift_tc(x[None], dy, dx)[0]
+        return kernels.preprocess_resize(rolled, flip, (h, w)) * gain[:, None, None, None]
 
-        row["fused_equal"] = torch.equal(fused(), unfused())
-        if not no_check and not row["fused_equal"]:
-            raise AssertionError(f"preprocess {row}: fused != unfused composition")
-        if not quick:
-            row["fused_device_ms"] = graph_ms(torch, fused)
-            row["unfused_device_ms"] = graph_ms(torch, unfused)
+    got = fused()
+    row["out_sha"]["f32+reg"] = _sha(got)
+    row["fused_equal"] = torch.equal(got, unfused())
+    if not no_check and not row["fused_equal"]:
+        raise AssertionError(f"preprocess {row}: fused != unfused composition")
+    if not quick:
+        row["fused_device_ms"] = graph_ms(torch, fused)
+        row["unfused_device_ms"] = graph_ms(torch, unfused)
+    if "dtype" not in params:
+        return row
+    # the bf16-output instance: within one ulp of its plain version, bare and
+    # with the registration
+    row["bf16_bound_ms"] = (x.numel() + 2 * n * h * w * 3) / PEAK_BYTES * 1e3
+    for label, reg in (("bf16", {}), ("bf16+reg", {"shift": (dy, dx), "gain": gain})):
+        got = kernels.preprocess_resize(x, flip, (h, w), dtype="bfloat16", **reg)
+        want = image_ops.preprocess_frames_plain(x, flip, (h, w), "bfloat16", **reg).float()
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+        row[f"{label}_ulps"] = ((got.float() - want).abs() / ulp).max().item()
+        if not no_check and not row[f"{label}_ulps"] <= 1.0:
+            raise AssertionError(f"preprocess {row}: {label} more than one ulp off")
+        row["out_sha"][label] = _sha(got)
+    if not quick:
+        row["bf16_device_ms"] = graph_ms(
+            torch, lambda: kernels.preprocess_resize(x, flip, (h, w), dtype="bfloat16"))
+        row["bf16_fused_device_ms"] = graph_ms(torch, lambda: fused("bfloat16"))
     return row
 
 
@@ -447,7 +497,8 @@ def bf16_rows(torch, np, F, bn, dev, quick, no_check, match, tiles):
     return rows
 
 
-def run_tree(root, quick, no_check=False, match=None, budgets=None, h36m=None, tiles=False):
+def run_tree(root, quick, no_check=False, match=None, budgets=None, h36m=None, tiles=False,
+             rings=None):
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -560,16 +611,27 @@ def run_tree(root, quick, no_check=False, match=None, budgets=None, h36m=None, t
         rows.append(row)
         print(row, flush=True)
     default = getattr(kernels, "PREPROCESS_STAGE_ROWS", None)
+    default_ring = getattr(kernels, "PREPROCESS_RING_ROWS", None)
+    has_ring = hasattr(kernels, "PREPROCESS_RING_ROWS")
     for shape in PREPROCESS_SHAPES:
         if not picked(*shape):
             continue
-        for budget in (budgets if budgets and default else [default]):
+        plans = [(default, default_ring)]
+        plans += [(b, default_ring) for b in (budgets or []) if default and b != default]
+        plans += [(default, r) for r in (rings or []) if has_ring]
+        for budget, ring in plans:
             kernels.PREPROCESS_STAGE_ROWS = budget
-            rows.append(preprocess_rows(torch, kernels, image_ops, shape, dev, gen, quick,
-                                        no_check, budget))
+            if has_ring:
+                kernels.PREPROCESS_RING_ROWS = ring
+            rows.append(preprocess_rows(torch, kernels, image_ops, shape, dev, quick,
+                                        no_check, budget, ring))
+            if (budget, ring) != plans[0]:
+                rows[-1].pop("out_sha")       # the comparison across trees takes the default
             print(rows[-1], flush=True)
             torch.cuda.empty_cache()
         kernels.PREPROCESS_STAGE_ROWS = default
+        if has_ring:
+            kernels.PREPROCESS_RING_ROWS = default_ring
     print("RESULT " + json.dumps({"tree": root, "rows": rows}), flush=True)
 
 
@@ -584,6 +646,8 @@ def main():
                                     "default all")
     ap.add_argument("--stage-rows", help="comma-separated budgets of staged input rows per "
                                          "preprocess band to time")
+    ap.add_argument("--ring-rows", help="comma-separated ring depths (input rows) of the "
+                                        "preprocess's run design to time")
     ap.add_argument("--tiles", action="store_true",
                     help="time every tile height that fits, per bottleneck shape")
     ap.add_argument("--one", help=argparse.SUPPRESS)
@@ -593,7 +657,8 @@ def main():
         return run_tree(args.one, args.quick, args.no_check,
                         args.match.split(",") if args.match else None,
                         [int(r) for r in args.stage_rows.split(",")] if args.stage_rows else None,
-                        args.h36m, args.tiles)
+                        args.h36m, args.tiles,
+                        [int(r) for r in args.ring_rows.split(",")] if args.ring_rows else None)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip(), flush=True)
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -608,6 +673,7 @@ def main():
             cmd += (["--quick"] if args.quick else []) + (["--no-check"] if args.no_check else [])
             cmd += ["--match", args.match] if args.match else []
             cmd += ["--stage-rows", args.stage_rows] if args.stage_rows else []
+            cmd += ["--ring-rows", args.ring_rows] if args.ring_rows else []
             cmd += ["--tiles"] if args.tiles else []
             with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
                 for line in proc.stdout:
@@ -622,9 +688,12 @@ def main():
     outputs = {}
     for result in results:
         for row in result["rows"]:
-            if "out_sha" in row:
-                key = f"{row['block']}@{'x'.join(map(str, row['shape']))}"
-                outputs.setdefault(key, {})[result["tree"]] = row["out_sha"]
+            where = "x".join(map(str, row["shape"]))
+            if row["kernel"] == "preprocess":       # float32 and bf16, bare and registered
+                for label, sha in row.get("out_sha", {}).items():
+                    outputs.setdefault(f"preprocess/{label}@{where}", {})[result["tree"]] = sha
+            elif "out_sha" in row:
+                outputs.setdefault(f"{row['block']}@{where}", {})[result["tree"]] = row["out_sha"]
     differ = {k: v for k, v in outputs.items() if len(set(v.values())) > 1}
     # the bf16 resident instance per conv_bf16 forward, tree by tree
     forward = []
@@ -688,7 +757,7 @@ def main():
                                    "equal": sorted(set(outputs) - set(differ)),
                                    "differ": differ}), flush=True)
     if differ and not args.no_check:
-        raise SystemExit(f"bottleneck outputs differ across trees at {sorted(differ)}")
+        raise SystemExit(f"outputs differ across trees at {sorted(differ)}")
 
 
 if __name__ == "__main__":

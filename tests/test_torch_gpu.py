@@ -450,6 +450,7 @@ PREPROCESS_SHAPES = [
     (5, (480, 960), (192, 384)),
     (3, (37, 50), (13, 29)),        # rows of 150 bytes: the instance with runtime taps
     (4, (480, 960), (480, 960)),    # identity: the TPU kernel exactly
+    (8, (1000, 1000), (384, 384)),  # the h36m path: the run design's 6-tap instance
 ]
 
 
@@ -491,9 +492,11 @@ def test_preprocess_kernel_matches_plain(n, in_hw, out_hw):
 
 @pytest.mark.parametrize("n,in_hw,out_hw", PREPROCESS_SHAPES)
 def test_preprocess_kernel_layout_and_instance(n, in_hw, out_hw):
-    """The wrapper's shared-memory figure is the kernel's; path shapes run an
-    instance with compile-time taps, other shapes and unaligned frames the
-    one with runtime taps, with the same result."""
+    """The wrapper's shared-memory figures are the kernel's, in both designs;
+    path shapes (the h36m path's 1000 -> 384 too) and identity mode run the
+    run design's instance of their taps, the one the wrapper's mirror names;
+    other shapes and unaligned frames the one with runtime taps, with the
+    same result."""
     dev = _card()
     lib = _build.library("preprocess")
     rows, stage_rows, smem = kernels.preprocess_plan(*in_hw, 3, *out_hw,
@@ -503,18 +506,83 @@ def test_preprocess_kernel_layout_and_instance(n, in_hw, out_hw):
     lib.df3d_preprocess_smem.argtypes = [ctypes.c_int] * 8
     lib.df3d_preprocess_smem.restype = ctypes.c_size_t
     assert lib.df3d_preprocess_smem(in_hw[1], 3, *out_hw, kh, kw, rows, stage_rows) == smem
+    run = kernels.preprocess_run_plan(n, *in_hw, 3, *out_hw)
+    lib.df3d_preprocess_run_smem.argtypes = [ctypes.c_int] * 6
+    lib.df3d_preprocess_run_smem.restype = ctypes.c_size_t
+    assert lib.df3d_preprocess_run_smem(in_hw[1], 3, out_hw[1], kw, run.ring_rows,
+                                        run.hslots) == run.smem
     g = torch.Generator().manual_seed(5)
     x = torch.randint(0, 256, (n,) + in_hw + (3,), generator=g, dtype=torch.uint8).to(dev)
     flip = (torch.arange(n) % 2 == 0).to(dev)
     out = kernels.preprocess_resize(x, flip, out_hw)
     instance = lib.df3d_preprocess_instance
-    instance.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-    want = 0 if in_hw == (37, 50) else kh * 16 + kw
-    assert instance(3, in_hw[1], out_hw[1], kh, kw, x.data_ptr(), out.data_ptr()) == want
+    instance.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    steps = kernels.preprocess_steps(in_hw[0], out_hw[0]) is not None
+    got = instance(3, in_hw[1], out_hw[1], kh, kw, int(steps), x.data_ptr(), out.data_ptr())
+    assert got == kernels.preprocess_instance(3, in_hw[1], out_hw[1], kh, kw, steps,
+                                              x.data_ptr(), out.data_ptr())
+    assert got == (0 if in_hw == (37, 50) else 256 + kh * 16 + kw)
     shifted = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)[1:].view(x.shape)
     shifted.copy_(x)                                   # one byte off 16-byte alignment
-    assert instance(3, in_hw[1], out_hw[1], kh, kw, shifted.data_ptr(), out.data_ptr()) == 0
+    assert instance(3, in_hw[1], out_hw[1], kh, kw, int(steps), shifted.data_ptr(),
+                    out.data_ptr()) == 0
     assert torch.equal(kernels.preprocess_resize(shifted, flip, out_hw), out)
+
+
+@pytest.mark.parametrize("n,in_hw,out_hw", [(8, (1000, 1000), (384, 384)),
+                                            (7, (480, 960), (256, 512))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_preprocess_run_ring_phases_wrap(n, in_hw, out_hw, dtype, monkeypatch):
+    """A ring that holds only the input rows of one output row (6 slots at
+    1000 -> 384, 4 at 480 -> 256): every run is many times longer, so the
+    ring's phases wrap again and again; the same bits as the planned ring,
+    and the plain version's tolerance (float32 2e-6, bf16 one ulp)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(11)
+    x = torch.randint(0, 256, (n,) + in_hw + (3,), generator=g, dtype=torch.uint8).to(dev)
+    flip = (torch.arange(n) % 3 == 1).to(dev)
+    dy, dx, gain = _registration(n, dev, seed=n + 1)
+    call = lambda: kernels.preprocess_resize(x, flip, out_hw, shift=(dy, dx), gain=gain,
+                                             dtype=dtype)
+    planned = call()
+    kh = image_ops.resize_taps(in_hw[0], out_hw[0])[1].shape[1]
+    monkeypatch.setattr(kernels, "PREPROCESS_RING_ROWS", kh)
+    run = kernels.preprocess_run_plan(n, *in_hw, 3, *out_hw, kh)
+    starts = image_ops.resize_taps(in_hw[0], out_hw[0])[0]
+    fewest = min(sum(int(starts[ob - 1]) + kh - int(starts[oa]) for _, oa, ob in runs)
+                 for runs in kernels.preprocess_runs(n, out_hw[0], run.grid))
+    assert run.ring_rows == kh and fewest > 2 * kh     # every block's rows wrap the ring
+    shallow = call()
+    torch.cuda.synchronize()
+    assert torch.equal(shallow, planned)
+    want = image_ops.preprocess_frames_plain(x, flip, out_hw, dtype, shift=(dy, dx),
+                                             gain=gain).float()
+    if dtype == "float32":
+        assert (shallow - want).abs().max().item() <= 2e-6 * max(1.0, gain.max().item())
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+        assert bool(((shallow.float() - want).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_preprocess_frames_eight_bytes_off_alignment(dtype):
+    """A 1000x1000 batch whose frames start 8 bytes off 16-byte alignment (its
+    3000-byte rows then start 8 and 0 bytes off in turn) still runs the run
+    design, copying each row's 16-byte cover: the same bits as the same
+    frames aligned."""
+    dev = _card()
+    g = torch.Generator().manual_seed(13)
+    n = 8
+    base = torch.randint(0, 256, (n * 1000 * 1000 * 3 + 8,), generator=g, dtype=torch.uint8)
+    frames = base.to(dev)[8:].view(n, 1000, 1000, 3)
+    assert frames.data_ptr() % 16 == 8
+    aligned = frames.clone()
+    flip = (torch.arange(n) % 2 == 1).to(dev)
+    dy, dx, gain = _registration(n, dev, seed=17)
+    reg = dict(shift=(dy, dx), gain=gain, dtype=dtype)
+    got = kernels.preprocess_resize(frames, flip, (384, 384), **reg)
+    assert kernels.preprocess_instance_for(frames, got) == "run 6x6"
+    assert torch.equal(got, kernels.preprocess_resize(aligned, flip, (384, 384), **reg))
 
 
 def test_preprocess_rejects_registration_on_the_cpu():

@@ -22,7 +22,7 @@ from deepfly3d_tpu.ops.pallas import kernels as jax_kernels
 from deepfly3d_torch.ops import image as port_image
 
 
-@pytest.mark.parametrize("n_in,n_out", [(480, 256), (960, 512), (37, 13), (101, 64)])
+@pytest.mark.parametrize("n_in,n_out", [(480, 256), (960, 512), (37, 13), (101, 64), (1000, 384)])
 def test_resize_matrix_matches_jax(n_in, n_out):
     want = jax_image._resize_matrix(n_in, n_out)
     got = port_image._resize_matrix(n_in, n_out)
@@ -45,7 +45,7 @@ def test_preprocess_frames_matches_jax(flip):
 
 
 @pytest.mark.parametrize("n_in,n_out", [(480, 256), (960, 512), (480, 192), (960, 384),
-                                        (480, 480), (37, 13), (101, 64)])
+                                        (480, 480), (37, 13), (101, 64), (1000, 384)])
 @pytest.mark.parametrize("scale", [1.0, 1.0 / 255.0])
 def test_resize_taps_rebuild_matrix(n_in, n_out, scale):
     starts, weights = port_image.resize_taps(n_in, n_out, scale)

@@ -230,3 +230,131 @@ def test_preprocess_plan(in_hw, out_hw, rows, stage_rows):
 def test_preprocess_plan_rejects_rows_beyond_shared_memory():
     with pytest.raises(ValueError):
         port_kernels.preprocess_plan(480, 960, 3, 8, 16, port_kernels.PREPROCESS_STAGE_ROWS)
+
+
+# the run design's shapes: the h36m path, the fly paths at their batches,
+# identity mode and the rows of 150 bytes that the design does not take
+RUN_SHAPES = [(8, (1000, 1000), (384, 384)), (56, (480, 960), (256, 512)),
+              (56, (480, 960), (192, 384)), (7, (480, 960), (256, 512)),
+              (4, (480, 960), (480, 960)), (3, (37, 50), (13, 29))]
+
+
+def _run_schedule(n, h_in, h_out, grid, bf16):
+    """The H pass of ``csrc/preprocess.cu``'s run design, walked as its kernel
+    walks it: per block, the producer's rows and, per run, the consumers'
+    rows with the weights they add to each output row of the run.
+    -> ({(image, output row): [(input row, weight), ...]}, [(produced, consumed)])."""
+    starts, weights = port_kernels._taps(h_in, h_out, 1.0 / 255.0, bf16)
+    kh = weights.shape[1]
+    ends, steps = port_kernels.preprocess_steps(h_in, h_out, bf16)
+    fed, streams = {}, []
+    for runs in port_kernels.preprocess_runs(n, h_out, grid):
+        produced, consumed = [], []
+        for img, oa, ob in runs:
+            produced += range(starts[oa], ends[ob] + 1)
+
+            def consume(v, w, first):
+                consumed.append(v)
+                for j in range(3):
+                    if first + j < ob:
+                        fed.setdefault((img, first + j), []).append((v, float(w[j])))
+
+            lo, e_prev = starts[oa], ends[oa]
+            for v in range(lo, e_prev + 1):                    # the run's first rows
+                consume(v, [weights[oa + j, v - starts[oa + j]]
+                            if oa + j < h_out and 0 <= v - starts[oa + j] < kh else 0.0
+                            for j in range(3)], oa)
+            e_cur = ends[oa + 1]
+            for o in range(oa, ob):                            # the steps
+                for r in range(3):
+                    v = e_prev + 1 + r
+                    if v > e_cur:
+                        break
+                    if v >= lo:
+                        consume(v, steps[o, r, :3], o)
+                e_prev, e_cur = e_cur, ends[min(o + 2, h_out)]
+        streams.append((produced, consumed))
+    return fed, streams
+
+
+@pytest.mark.parametrize("n,in_hw,out_hw", RUN_SHAPES)
+@pytest.mark.parametrize("sms", [132, 5])
+def test_preprocess_run_plan_covers_every_row(n, in_hw, out_hw, sms):
+    """The run design's plan: every output row of every image in exactly one
+    run of one block, a block's runs contiguous and each of one image; a ring
+    that holds the input rows of a whole output row; shared memory within
+    227 KB and as the kernel's layout counts it."""
+    plan = port_kernels.preprocess_run_plan(n, *in_hw, 3, *out_hw, None, sms)
+    assert plan.grid == min(plan.per_sm * sms, n * out_hw[0])
+    rows = [(img, o) for runs in port_kernels.preprocess_runs(n, out_hw[0], plan.grid)
+            for img, oa, ob in runs for o in range(oa, ob)]
+    assert rows == [(img, o) for img in range(n) for o in range(out_hw[0])]
+    kh = port_image.resize_taps(in_hw[0], out_hw[0])[1].shape[1]
+    kw = port_image.resize_taps(in_hw[1], out_hw[1])[1].shape[1]
+    assert plan.ring_rows >= kh and plan.hslots >= 1
+    r4 = lambda v: -(-v // 4) * 4
+    slot = -(-(max(in_hw[1] * 3, 3072) + 12) // 16) * 16
+    want = (16 * (plan.ring_rows + plan.hslots) + 4 * r4(out_hw[1] * kw) + 4 * r4(out_hw[1])
+            + 4 * plan.hslots * (in_hw[1] * 3 + r4(3 * (kw - 1))) + plan.ring_rows * slot)
+    assert plan.smem == want == port_kernels.preprocess_run_smem(
+        in_hw[1], 3, out_hw[1], kw, plan.ring_rows, plan.hslots) <= 227 * 1024
+    assert plan.per_sm == (2 if 2 * (plan.smem + 1024) <= 228 * 1024 else 1)
+    if in_hw == (1000, 1000):
+        assert plan.smem == 80800 and plan.per_sm == 2
+
+
+@pytest.mark.parametrize("h_in,h_out", [(1000, 384), (480, 256), (480, 192), (480, 480),
+                                        (37, 13), (50, 29)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_preprocess_run_schedule_feeds_every_tap_in_order(h_in, h_out, bf16):
+    """Walked as the kernel walks it (two images, blocks whose shares cross
+    image boundaries), the H pass streams each run's input rows once, in the
+    order the producer copies them, and adds to every output row exactly its
+    taps in increasing k (and otherwise only zero weights, which add +0 to a
+    sum that is >= +0): the sums are the band design's, bit for bit."""
+    starts, weights = port_kernels._taps(h_in, h_out, 1.0 / 255.0, bf16)
+    for grid in (1, 7, 2 * h_out - 1):
+        fed, streams = _run_schedule(2, h_in, h_out, grid, bf16)
+        for produced, consumed in streams:
+            assert consumed == produced
+        for img in range(2):
+            for o in range(h_out):
+                got = [(v, w) for v, w in fed[(img, o)] if w != 0.0]
+                want = [(int(starts[o]) + k, float(weights[o, k]))
+                        for k in range(weights.shape[1]) if weights[o, k] != 0.0]
+                assert got == want, (grid, img, o)
+                assert all(w >= 0.0 for _, w in fed[(img, o)])
+
+
+def test_preprocess_steps_only_where_three_rows_suffice():
+    """A downscale whose steps add more than three input rows (1000 -> 192:
+    up to 6) has no step table, and so runs the band design."""
+    assert port_kernels.preprocess_steps(1000, 192) is None
+    ends, steps = port_kernels.preprocess_steps(1000, 384)
+    assert ends.shape == (385,) and steps.shape == (384, 3, 4) and np.diff(ends).max() == 3
+    assert port_kernels.preprocess_instance(3, 1000, 192, 11, 11, False, 0, 0) == 0
+
+
+@pytest.mark.parametrize("in_hw,out_hw,src_off,want", [
+    ((1000, 1000), (384, 384), 0, 256 + 6 * 17),            # the h36m path: 6 taps
+    ((1000, 1000), (384, 384), 8, 256 + 6 * 17),            # rows 8 bytes off 16
+    ((1000, 1000), (384, 384), 1, 0),                       # one byte off: runtime taps
+    ((480, 960), (256, 512), 0, 256 + 4 * 17),              # the fly paths
+    ((480, 960), (192, 384), 0, 256 + 5 * 17),
+    ((480, 960), (480, 960), 0, 256 + 17),                  # identity
+    ((1080, 1920), (256, 512), 0, 0),                       # 9 taps: the band design
+    ((720, 1280), (384, 640), 0, 0),                        # rows past 3072 bytes
+    ((720, 1280), (384, 683), 0, 0),                        # w_out % 4 != 0
+    ((37, 50), (13, 29), 0, 0)])                            # rows of 150 bytes
+def test_preprocess_instance_by_shape(in_hw, out_hw, src_off, want):
+    """``kernels.preprocess_instance``, the mirror of the kernel's
+    ``instance()``: which design and taps a call runs, the same for both
+    output dtypes."""
+    kh = port_image.resize_taps(in_hw[0], out_hw[0])[1].shape[1]
+    kw = port_image.resize_taps(in_hw[1], out_hw[1])[1].shape[1]
+    for bf16 in (False, True):
+        steps = port_kernels.preprocess_steps(in_hw[0], out_hw[0], bf16) is not None
+        assert port_kernels.preprocess_instance(3, in_hw[1], out_hw[1], kh, kw, steps,
+                                                4096 + src_off, 8192) == want
+    assert port_kernels.preprocess_instance_name(want) == (f"run {kh}x{kw}" if want
+                                                           else "runtime taps")
