@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference paths, its CLI, its fleet path, its trainer and the converted 256-wide checkpoint on one CUDA card.
+"""Drive the PyTorch port's inference paths, its CLI, its fleet path, its trainer (float32 and bf16), the converted 256-wide checkpoint, the benchmark harness and the score-head calibration on one CUDA card.
 
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --profile FILE   # also a torch.profiler table per path and of
@@ -168,7 +168,36 @@ result line):
    ``cli.main --checkpoint`` over the bundled recording's first frames, each
    counted; (v) the same spec at ``compute_dtype="bfloat16"`` under phase
    12's rule (``bf16_twin_check``); (w) ``train_fly_weights`` at the README's
-   toy size in a temporary folder: its evals run the general instance.
+   toy size in a temporary folder: its evals run the general instance;
+14. bf16 training phase (log lines ``(w) bf16``): (l)'s 5 frozen-statistics
+   steps at ``compute_dtype="bfloat16"`` against the JAX package's bf16
+   trajectory (``deepfly3d_torch/data/train_fly_bf16_k5.npz``: each step's
+   losses within ``BF16_K5_FRAC`` of JAX's bf16-vs-float32 gap, parameters
+   within 2 lr per step); one BN-training Adam step at batch 24, float32 and
+   bf16, device time and peak memory (informational); ``train_fly_weights
+   --resume --dtype bfloat16 --steps 100 --batch-size 24`` in a temporary
+   folder, every count set to 0 just before (its evals run the unfolded bf16
+   network between the preprocess and decode kernels: 3 preprocess and 2
+   decode launches, no block), steps/s and peak memory beside phase 11's
+   (m); the data-parallel bf16 step on 1 and 2 entries of this card against
+   the one-device step (losses within ``BF16_DP_FRAC`` of its
+   bf16-vs-float32 gap);
+15. harness phase (``deepfly3d_torch/bench.py``, log lines ``(x)``):
+   ``verify_contract`` on the conv pipeline over the 15 golden frames (it
+   must pass; counted: 31 / 8 / 1 / 1), ``load_probe_frames`` with all six
+   probes, each probe's frames' digest and its ``verify_contract`` errors
+   against the JAX package's committed report
+   (``deepfly3d_torch/data/bench_probes_conv.json``: points within 1e-6, conf
+   within 2e-5), each counted; ``measure_fps`` and ``pipeline_mfu`` of conv,
+   p16 and cascade at T=8 (counted) and ``bench_bundle_adjust``
+   (informational);
+16. calibration phase (``deepfly3d_torch/calibrate_score_head.py``, log line
+   ``(y)``): the conv checkpoint at bf16 with its 1x1 head embedded as 3x3:
+   ``extract_features`` of the 105 golden images (1 preprocess launch, the
+   unfolded bf16 network), ``compute_gram``, one ``make_device_check`` (held
+   to the forward's own heatmaps), ``fit_scores`` cut to ``CAL_JOINTS``, and
+   the deployed ``verify_contract`` through ``build_pipeline`` (the bf16
+   instances: 31 / 8 / 1 / 1), with the time of each part (informational).
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 """
@@ -178,6 +207,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import pickle
@@ -1711,15 +1741,16 @@ def train_phase(torch, np, dev, card, counters, converted):
     return launches, lines
 
 
-def train_step_call(torch, np, dev):
+def train_step_call(torch, np, dev, spec=None):
     """``--profile``'s training path: one BN-training Adam step of the conv
     checkpoint at TRAIN_BATCH on seeded inputs (the script's loss weights),
-    warmed up once.  -> the call."""
+    warmed up once, at its own spec or at ``spec``.  -> the call."""
     from deepfly3d_torch.config import WEIGHTS_DIR
     from deepfly3d_torch.models import hourglass as hg
     from deepfly3d_torch.models import train as train_mod
 
-    variables, spec = hg.load_weights(os.path.join(WEIGHTS_DIR, CONV))
+    variables, own = hg.load_weights(os.path.join(WEIGHTS_DIR, CONV))
+    spec = spec or own
     net = hg.trainable(variables, spec, dev)
     tx = train_mod.adam(1e-4)
     opt_state = tx(net.parameters())
@@ -2505,6 +2536,362 @@ def wide_phase(torch, np, F, dev, card, calib, order, frames, ref0, record, shap
     return launches, lines
 
 
+# phases 14-16: the last three modules.  14, bf16 training: the committed
+# JAX bf16 trajectory of (l)'s 5 steps (PYTHONPATH=. python
+# tests/test_torch_train_bf16.py --write), each step's [loss, mse, peak_err]
+# within BF16_K5_FRAC of JAX's own bf16-vs-float32 gap of that step (plus
+# 1e-6 of its size), every parameter within 2 lr per step of JAX's; the
+# script at bf16 (--steps as (m) cuts the recipe's 16,000); the
+# data-parallel bf16 step on this card against the one-device step, losses
+# within BF16_DP_FRAC of the one-device step's bf16-vs-float32 gap.  Two
+# bf16 implementations of one graph lie about as far apart as bf16 from
+# float32 (cuDNN's sums against XLA's round other elements, as the bf16
+# serving path's rule allows for): the first step, at the checkpoint's weights, measured
+# 1.25x on the card (NVIDIA H100 80GB HBM3, 700 W), the later ones <= 0.91x.
+BF16_TRAIN_REF = os.path.join("deepfly3d_torch", "data", "train_fly_bf16_k5.npz")
+BF16_K5_FRAC = 2.0
+BF16_DP_FRAC = 2.0
+BF16_SCRIPT_ARGS = ["--resume", "--dtype", "bfloat16", "--steps", "100", "--batch-size",
+                    str(TRAIN_BATCH)]
+# 15, the harness (deepfly3d_torch/bench.py): the JAX
+# package's contract and probe errors on the conv checkpoint (python
+# tests/test_torch_bench.py --write), held to PERF.md §2's parity rule
+PROBES_REF = os.path.join("deepfly3d_torch", "data", "bench_probes_conv.json")
+PROBE_PTS_TOL, PROBE_CONF_TOL = 1e-6, 2e-5
+PROBE_NAMES = ("reencode", "jpeg_q90", "shift-2px", "shift+2px", "gain0.95", "gain1.05")
+HARNESS_T = 8
+# 16, the calibration (deepfly3d_torch/calibrate_score_head.py) of the conv
+# checkpoint at bf16: every device part at full width, the host fit cut to
+# these joints of the last score head (fit_scores' own input: the columns of
+# those joints; ~140 s of host time per joint on the card's machine)
+CAL_JOINTS = (0,)
+
+
+def bf16_train_phase(torch, np, dev, card, counters, f32_lines):
+    """Phase 14 on the card.  -> ({path: launches}, informational lines)."""
+    import io
+
+    from deepfly3d_torch import train_fly_weights
+    from deepfly3d_torch.config import WEIGHTS_DIR
+    from deepfly3d_torch.models import hourglass as hg
+    from deepfly3d_torch.models import train as train_mod
+    from deepfly3d_torch.ops import image as image_ops
+    from deepfly3d_torch.parallel import mesh as mesh_mod
+    from deepfly3d_torch.parallel import pipeline as par
+
+    launches, lines = {}, []
+    variables, spec = hg.load_weights(os.path.join(WEIGHTS_DIR, CONV))
+    bf16 = dataclasses.replace(spec, compute_dtype="bfloat16")
+
+    # the 5-step trajectory against JAX's bf16 one
+    with np.load(os.path.join(ROOT, BF16_TRAIN_REF)) as z:
+        ref = {k: z[k] for k in z.files}
+    frames, flips, targets, cells, peaks = k5_batch(np)
+    x = image_ops.preprocess_frames(torch.from_numpy(frames).to(dev),
+                                    torch.from_numpy(flips).to(dev), (256, 512))
+    net = hg.trainable(variables, bf16, device=dev)
+    tx = train_mod.adam(K5_LR)
+    opt_state = tx(net.parameters())
+    epoch = train_mod.make_train_epoch(bf16, tx, 100.0, 1, len(frames), freeze_bn=True)
+    rng = torch.Generator(device=dev).manual_seed(0)
+    losses = np.asarray([epoch(net, opt_state, rng, x, torch.from_numpy(targets).to(dev),
+                               torch.from_numpy(cells).long().to(dev),
+                               torch.from_numpy(peaks).to(dev)) for _ in range(5)])
+    out = hg.module_variables(net)
+    want, other = ref["bfloat16/losses"], ref["float32/losses"]
+    gap = np.abs(want - other)
+    ratio = np.abs(losses - want) / np.maximum(gap, 1e-30)
+    bad = [f"losses {losses.tolist()} against JAX bf16 {want.tolist()} (float32 "
+           f"{other.tolist()})"] if not (np.abs(losses - want)
+                                         <= BF16_K5_FRAC * gap + 1e-6 * np.abs(want)).all() else []
+    leaf_diff = {}
+    for k in K5_LEAVES:
+        d = float(np.abs(_leaf(np, out, k) - ref[f"bfloat16/{k}"]).max())
+        leaf_diff[k] = d
+        if d > 2 * K5_LR * 5 + 1e-6:
+            bad.append(f"{k}: {d} beyond 2 lr per step")
+    if bad:
+        raise AssertionError(f"(w) bf16 5-step trajectory off JAX's: {bad}")
+    print(f"(w) bf16: 5 frozen-statistics steps of the conv checkpoint at bf16 on "
+          f"{len(K5_CAMERAS)} golden images: losses {losses[:, 0].tolist()} against JAX bf16 "
+          f"{want[:, 0].tolist()} (float32 {other[:, 0].tolist()}); |port - JAX bf16| / "
+          f"|JAX bf16 - JAX float32| per step and term, largest {float(ratio.max()):.3f} "
+          f"(<= {BF16_K5_FRAC}); parameters max diff {max(leaf_diff.values()):.3g} "
+          f"(<= 2 lr per step)")
+    del net, opt_state
+
+    # device time and peak memory of one Adam step at the script's batch,
+    # float32 and bf16 in turns
+    step_ms, step_top, step_wall, step_mem = {}, {}, {}, {}
+    for name, s in (("float32", spec), ("bfloat16", bf16)):
+        call = train_step_call(torch, np, dev, s)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        call()
+        torch.cuda.synchronize()
+        step_mem[name] = torch.cuda.max_memory_allocated(dev) / 2**30
+        timed = [device_ms(torch, call) for _ in range(2)]
+        step_ms[name], step_top[name] = [t[0] for t in timed], timed[0][1]
+        step_wall[name] = cuda_ms(torch, call, iters=10, warmup=1)
+        del call
+    lines.append(f"(w) one BN-training Adam step at batch {TRAIN_BATCH}, device time "
+                 f"(torch.profiler, two turns): float32 {step_ms['float32']} ms, bf16 "
+                 f"{step_ms['bfloat16']} ms; per step over 10 eager steps (CUDA events, the "
+                 f"host's launches included): float32 {step_wall['float32']:.2f} ms, bf16 "
+                 f"{step_wall['bfloat16']:.2f} ms; peak memory float32 "
+                 f"{step_mem['float32']:.2f} GiB, bf16 {step_mem['bfloat16']:.2f} GiB; the "
+                 f"kernels that took most (ms) {json.dumps(step_top)}")
+    print("informational: " + lines[-1] + f", on {card}")
+
+    # the training script at bf16, resumed from the conv checkpoint in a
+    # temporary folder; its evals run the unfolded bf16 network between the
+    # preprocess and decode kernels
+    tmp = tempfile.mkdtemp(prefix="df3d_smoke_train_bf16_")
+    try:
+        path = os.path.join(tmp, CONV)
+        shutil.copy(os.path.join(WEIGHTS_DIR, CONV), path)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc, got = count_launches(torch, counters, lambda: train_fly_weights.main(
+                BF16_SCRIPT_ARGS + ["--out", path]))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        text = buf.getvalue()
+        print("\n".join("  train_fly_weights: " + line for line in text.splitlines()
+                        if not line.startswith("{'step'")))
+        # the inputs and two evals (step 100 and the final one) through the
+        # preprocess kernel, each eval's heatmaps through the decode kernel
+        want_l = {"fused_bottleneck": 0, "upsample2x_add": 0, "decode_heatmaps": 2,
+                  "preprocess_resize": 3}
+        if got != want_l or rc not in (0, 1) or not os.path.exists(path):
+            raise AssertionError(f"(w) train_fly_weights --dtype bfloat16: rc {rc}, launches "
+                                 f"{got} (want {want_l})")
+        launches["train_script_bf16"] = got
+        seconds = float(text.split("training took ")[1].split("s")[0])
+        final = text.split("final (after BN recalibration): ")[1].splitlines()[0]
+        steps = int(BF16_SCRIPT_ARGS[BF16_SCRIPT_ARGS.index("--steps") + 1])
+        hg.load_weights(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines.append(f"(w) python -m deepfly3d_torch.train_fly_weights {' '.join(BF16_SCRIPT_ARGS)}: "
+                 f"exit {rc}, {steps / seconds:.2f} steps/s, "
+                 f"{steps * TRAIN_BATCH / seconds:.1f} images/s ({seconds:.1f} s of training "
+                 f"with one eval, {wall:.1f} s in all), peak memory {peak / 2**30:.2f} GiB, "
+                 f"golden {final}; launches {got}; beside float32: "
+                 + "; ".join(f32_lines))
+    print("informational: " + lines[-1] + f", on {card}")
+
+    # the data-parallel bf16 step on this card (1 and 2 entries) against the
+    # one-device step, Adam eps 10 as (n)
+    rs = np.random.default_rng(0)
+    xs = rs.uniform(size=(SHARDED_BATCH, 256, 512, 3)).astype(np.float32)
+    ts = rs.uniform(size=(SHARDED_BATCH, 64, 128, 19)).astype(np.float32)
+    init = hg.init_params(spec, (256, 512), torch.Generator(device=dev).manual_seed(0), dev)
+
+    def sharded(s, entries):
+        init_fn, step_fn = par.make_sharded_train_step(s, mesh_mod.data_mesh(
+            devices=[dev] * entries))
+        params, stats, opt = init_fn(0, (256, 512))
+        with torch.no_grad():
+            _copy_tree(params, init["params"])
+            _copy_tree(stats, init["batch_stats"])
+        for group in opt.param_groups:
+            group["eps"] = 10.0
+        out_l = []
+        for _ in range(2):
+            params, stats, opt, loss = step_fn(params, stats, opt, xs, ts)
+            out_l.append(loss.item())
+        return out_l, params
+
+    def one_device(s):
+        n = hg.trainable(init, s, dev)
+        opt = train_mod.adam(1e-3, eps=10.0)(n.parameters())
+        xd, td = torch.from_numpy(xs).to(dev), torch.from_numpy(ts).to(dev)
+        out_l = []
+        for _ in range(2):
+            loss = ((n(xd, train=True) - td[None]) ** 2).mean()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            out_l.append(loss.item())
+        return out_l, hg.module_variables(n)["params"]
+
+    t0 = time.perf_counter()
+    base_losses, base_params = one_device(bf16)
+    f32_losses = one_device(spec)[0]
+    gap_l = np.abs(np.asarray(base_losses) - np.asarray(f32_losses))
+    diffs = {}
+    for name, entries in (("1 entry", 1), ("2 entries on one card", 2)):
+        losses_n, params_n = sharded(bf16, entries)
+        a = {k: v.detach().cpu().numpy() for k, v in _flat(params_n).items()}
+        b = _flat(base_params)
+        d = max(float(np.abs(a[k] - b[k]).max()) for k in b)
+        err = np.abs(np.asarray(losses_n) - np.asarray(base_losses))
+        diffs[name] = (float((err / np.maximum(gap_l, 1e-30)).max()), d)
+        if (err > BF16_DP_FRAC * gap_l + 1e-6 * np.abs(base_losses)).any() or d > 2 * 1e-3 * 2:
+            raise AssertionError(f"(w) bf16 {name}: losses {losses_n} against the one-device "
+                                 f"step's {base_losses} (float32 {f32_losses}), parameters {d}")
+    print(f"(w) bf16 make_sharded_train_step at full width, batch {SHARDED_BATCH}, 2 steps: "
+          f"one-device losses {base_losses} (float32 {f32_losses}); against it (losses as a "
+          f"share of the bf16-vs-float32 gap, <= {BF16_DP_FRAC}; parameters abs): "
+          f"{json.dumps(diffs)}; {time.perf_counter() - t0:.1f} s")
+    return launches, lines
+
+
+def harness_phase(torch, np, dev, card, counters, paths):
+    """Phase 15 on the card: ``paths`` are the conv, p16 and cascade
+    pipelines (rig on).  -> ({path: launches}, informational lines)."""
+    from deepfly3d_torch import bench
+
+    launches, lines = {}, []
+    with open(os.path.join(ROOT, PROBES_REF)) as fh:
+        ref = json.load(fh)
+    frames, golden = bench.load_golden_frames()
+    conv = paths["conv"]
+    (pts_err, conf_err, ok), got = count_launches(
+        torch, counters, lambda: bench.verify_contract(conv, frames, golden))
+    if got != EXPECTED["conv"]:
+        raise AssertionError(f"(x) verify_contract launches {got}, want {EXPECTED['conv']}")
+    launches["harness_contract"] = got
+    jref = ref["golden"]
+    if not (ok and abs(pts_err - jref["pts_err"]) <= PROBE_PTS_TOL
+            and abs(conf_err - jref["conf_err"]) <= PROBE_CONF_TOL):
+        raise AssertionError(f"(x) verify_contract, conv: pts_err {pts_err}, conf_err "
+                             f"{conf_err}, pass {ok}; JAX {jref}")
+    print(f"(x) bench.verify_contract, conv checkpoint, 15 frames x 7 cameras, rig on: pts_err "
+          f"{pts_err} conf_err {conf_err} PASS (JAX: {jref['pts_err']}, {jref['conf_err']}); "
+          f"launches {got}")
+
+    t0 = time.perf_counter()
+    probes = bench.load_probe_frames()
+    t_load = time.perf_counter() - t0
+    if tuple(probes) != PROBE_NAMES:
+        raise AssertionError(f"(x) probes {list(probes)}, want all six {PROBE_NAMES}")
+    rows, bad = {}, []
+    for name, (pf, pts_tol, conf_tol) in probes.items():
+        want = ref["probes"][name]
+        digest = hashlib.sha256(np.ascontiguousarray(pf).tobytes()).hexdigest()
+        (p_err, c_err, _), got = count_launches(
+            torch, counters, lambda pf=pf: bench.verify_contract(conv, pf, golden))
+        launches[f"harness_probe_{name}"] = got
+        rows[name] = {"pts_err": p_err, "conf_err": c_err, "jax_pts_err": want["pts_err"],
+                      "jax_conf_err": want["conf_err"], "frames_as_jax": digest == want["sha256"]}
+        if (digest != want["sha256"] or abs(p_err - want["pts_err"]) > PROBE_PTS_TOL
+                or abs(c_err - want["conf_err"]) > PROBE_CONF_TOL or got != EXPECTED["conv"]
+                or (pts_tol, conf_tol) != (want["pts_tol"], want["conf_tol"])):
+            bad.append(name)
+    report, all_pass = bench.verify_probes(conv, probes, golden)
+    print(f"(x) bench.load_probe_frames: all six probes ({t_load:.1f} s); each through "
+          f"verify_contract against JAX's committed report (points within {PROBE_PTS_TOL}, "
+          f"conf within {PROBE_CONF_TOL}): {json.dumps(rows)}; verify_probes "
+          f"{'PASS' if all_pass else 'FAIL'}: {json.dumps(report)}")
+    if bad:
+        raise AssertionError(f"(x) probes off JAX's committed report: {bad}")
+
+    # frames/s and the FLOP share, informational
+    fps_rows = {}
+    for path in ("conv", "p16", "cascade"):
+        pipe = paths[path]
+        (fps, x, iters, dt), got = count_launches(
+            torch, counters, lambda pipe=pipe: bench.measure_fps(pipe, HARNESS_T))
+        calls = iters + 1
+        want_l = {k: v * calls for k, v in EXPECTED[path].items()}
+        if got != want_l:
+            raise AssertionError(f"(x) measure_fps {path}: launches {got}, want {want_l}")
+        launches[f"harness_fps_{path}"] = got
+        mfu = bench.pipeline_mfu(pipe, x, iters, dt)
+        fps_rows[path] = {"frames_per_s": fps, "iters": iters, "seconds": dt, **mfu}
+        del x
+    t0 = time.perf_counter()
+    ba = bench.bench_bundle_adjust()
+    lines.append(f"(x) bench.measure_fps at T={HARNESS_T} and pipeline_mfu: "
+                 f"{json.dumps(fps_rows)}; bench_bundle_adjust (median, IQR ms, host): "
+                 f"{json.dumps(ba)} ({time.perf_counter() - t0:.1f} s)")
+    print("informational: " + lines[-1] + f", on {card}")
+    return launches, lines
+
+
+def calibration_phase(torch, np, dev, card, counters):
+    """Phase 16 on the card.  -> ({path: launches}, informational lines)."""
+    from deepfly3d_torch import bench
+    from deepfly3d_torch import calibrate_score_head as cal
+    from deepfly3d_torch.config import WEIGHTS_DIR, fly_config
+    from deepfly3d_torch.models import hourglass as hg
+    from deepfly3d_torch.ops import geometry
+    from deepfly3d_torch.pipeline import build_pipeline
+
+    launches, lines, secs = {}, [], {}
+    variables, spec0 = hg.load_weights(os.path.join(WEIGHTS_DIR, CONV))
+    spec0 = dataclasses.replace(spec0, compute_dtype="bfloat16", hp_scope="score",
+                                preprocess_dtype="float32")
+    variables, spec = cal.embed_score_3x3(variables, spec0)
+    shape = tuple(spec.input_shape or (256, 512))
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    (feat, heat, golden, sets), got = count_launches(torch, counters, lambda: timed(
+        "extract_features_s", lambda: cal.extract_features(variables, spec, shape, device=dev)))
+    want_l = {"fused_bottleneck": 0, "upsample2x_add": 0, "decode_heatmaps": 0,
+              "preprocess_resize": 1}
+    if got != want_l or tuple(feat.shape) != (105, 64, 128, spec.features) \
+            or not torch.isfinite(feat).all() or not np.isfinite(heat).all():
+        raise AssertionError(f"(y) extract_features: launches {got} (want {want_l}), feat "
+                             f"{tuple(feat.shape)}")
+    launches["calibrate_extract"] = got
+    gram = timed("compute_gram_s", lambda: cal.compute_gram(feat))
+    check = cal.make_device_check(feat, spec.head_upsample)
+    S_ = spec.num_stacks
+    kernel = np.asarray(variables["params"][f"score{S_ - 1}"]["kernel"], np.float64)
+    bias = np.asarray(variables["params"][f"score{S_ - 1}"]["bias"], np.float64)
+    h0 = timed("device_check_s", lambda: check(kernel[..., :1], bias[:1]))
+    # the check reproduces the forward's last score conv on the captured features
+    flat = heat.reshape(105, -1, heat.shape[-1])
+    check_err = float(np.abs(h0.reshape(105, -1) - flat[..., 0]).max())
+    if not np.isfinite(gram).all() or check_err > 1e-3 * float(np.abs(flat[..., 0]).max()):
+        raise AssertionError(f"(y) compute_gram finite {np.isfinite(gram).all()}, device check "
+                             f"vs the forward's heatmaps {check_err}")
+    targets = np.asarray(golden["heatmap_confidence"], np.float64).reshape(105, -1)
+    gcells = cal.golden_cells(golden, heat.shape[1], heat.shape[2])
+    cols = list(CAL_JOINTS)
+    w, b, linf = timed("fit_scores_s", lambda: cal.fit_scores(
+        check, feat.cpu().numpy(), gram, kernel[..., cols], bias[cols], targets[:, cols],
+        gcells[:, cols], spec.head_upsample))
+    kernel[..., cols], bias[cols] = w, b
+    params = dict(variables["params"])
+    params[f"score{S_ - 1}"] = dict(params[f"score{S_ - 1}"], kernel=kernel.astype(np.float32),
+                                    bias=bias.astype(np.float32))
+    cfg = fly_config()
+    with open(cfg.calib_prior_path, "rb") as fh:
+        calib = geometry.calib_to_arrays(pickle.load(fh), cfg.num_cameras, dtype=np.float32)
+    pipe = build_pipeline(spec, dict(variables, params=params), calib,
+                          golden["camera_ordering"], shape, device=dev)
+    frames = torch.from_numpy(np.stack(sets[0].reshape(7, 15, 480, 960, 3), 1).copy()).to(dev)
+    (pts_err, conf_err, ok), got = count_launches(torch, counters, lambda: timed(
+        "deployed_contract_s", lambda: bench.verify_contract(pipe, frames, golden)))
+    want_l = BF16_EXPECTED["conv_bf16"]
+    if {k: v for k, v in got.items() if v} != want_l:
+        raise AssertionError(f"(y) the deployed check's launches {got}, want {want_l}")
+    launches["calibrate_deploy"] = got
+    lines.append(f"(y) calibrate_score_head on {CONV} at bf16 (hp_scope score, 3x3 head): "
+                 f"extract_features of 105 golden images, compute_gram "
+                 f"({gram.shape[0]}x{gram.shape[1]}), one device check, fit_scores cut to "
+                 f"joints {cols} of {heat.shape[-1]} (cached-feature L_inf {linf:.6f}), the "
+                 f"deployed verify_contract: pts_err {pts_err} conf_err {conf_err} "
+                 f"({'PASS' if ok else 'fail'}: the other joints keep the uncalibrated head); "
+                 f"seconds {json.dumps(secs)}; launches {launches}")
+    print("informational: " + lines[-1] + f", on {card}")
+    return launches, lines
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -3008,6 +3395,24 @@ def main(argv):
                                                          "plain_ms", "library_ms")}
                       for kernel, row in per_path[path].items()}
                for path in ("converted256", "converted256_bf16")}) + f"; on {card}")
+
+    # ---- 14. bf16 training phase (w)
+    t0 = time.perf_counter()
+    bt_launches, _ = bf16_train_phase(torch, np, dev, card, counters, train_lines)
+    launches.update(bt_launches)
+    print(f"informational: the bf16 training phase took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15. harness phase (x): deepfly3d_torch/bench.py
+    t0 = time.perf_counter()
+    h_launches, _ = harness_phase(torch, np, dev, card, counters, paths)
+    launches.update(h_launches)
+    print(f"informational: the harness phase took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 16. calibration phase (y): deepfly3d_torch/calibrate_score_head.py
+    t0 = time.perf_counter()
+    c_launches, _ = calibration_phase(torch, np, dev, card, counters)
+    launches.update(c_launches)
+    print(f"informational: the calibration phase took {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (src, replaces, also) in SOURCES.items():

@@ -9,7 +9,8 @@ Counterpart of ``deepfly3d_tpu/models/hourglass.py`` without flax:
   arrays (the *variables*: ``{"params", "batch_stats"}``, convolution
   kernels HWIO) that the JAX reader returns.
 * ``HourglassNet``: the unfolded network with training-mode batch norm,
-  for training (``models/train.py``).  Its modules carry the flax names, so
+  for training (``models/train.py``), in float32 or, as flax computes it,
+  bfloat16.  Its modules carry the flax names, so
   ``load_variables`` / ``module_variables`` carry a variables tree into its
   parameters and buffers and back (kernels HWIO <-> OIHW).  It runs plain
   PyTorch (cuDNN convolutions on a card), as the flax graph runs XLA: the
@@ -147,13 +148,14 @@ BN_EPS = 1e-5                   # flax.linen.BatchNorm default
 _KERNEL_TRUNC = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
 
 
+TRAIN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def check_trainable(spec: HourglassSpec) -> None:
-    """Raise for a spec the trainable network does not compute."""
-    if spec.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={spec.compute_dtype!r}: the trainable network computes in "
-            "float32 only (the serving forward, models/fused_inference.py, takes bfloat16); "
-            "bfloat16 training is ROADMAP.md Queue 1 item 3")
+    """Raise ValueError for a spec the trainable network does not compute."""
+    if spec.compute_dtype not in TRAIN_DTYPES:
+        raise ValueError(f"compute_dtype={spec.compute_dtype!r}: the trainable network "
+                         f"computes in one of {tuple(TRAIN_DTYPES)}")
     if spec.stem not in ("conv", "patchify", "patch8", "patch16"):
         raise ValueError(f"unknown stem {spec.stem!r}")
     if spec.score_ksize < 1 or spec.score_ksize % 2 == 0:
@@ -162,7 +164,12 @@ def check_trainable(spec: HourglassSpec) -> None:
 
 class Conv(nn.Module):
     """k x k convolution with bias on NCHW tensors (flax ``nn.Conv``,
-    symmetric zero padding)."""
+    symmetric zero padding).
+
+    On a bfloat16 input it computes as flax's ``nn.Conv(dtype=bfloat16)``:
+    the weight and bias rounded to bfloat16, the convolution's result
+    rounded to bfloat16, then the bias added and the sum rounded again.
+    """
 
     def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1, padding: int = 0):
         super().__init__()
@@ -171,6 +178,9 @@ class Conv(nn.Module):
         self.stride, self.padding = stride, padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding)
+            return y + self.bias.to(x.dtype)[:, None, None]
         return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
 
 
@@ -184,6 +194,11 @@ class BatchNorm(nn.Module):
     ``ra = m * ra + (1 - m) * batch``.  ``sync`` (``parallel/pipeline``)
     supplies (E[x], E[x^2]) over every replica's batch; only the replica
     that ``sync.writes`` moves the running statistics.
+
+    A bfloat16 input is taken to float32 for the statistics and the
+    normalisation, against the float32 parameters and statistics, and only
+    the output is rounded to bfloat16 (flax at ``dtype=bfloat16`` with its
+    float32 reductions).
     """
 
     def __init__(self, c: int, momentum: float):
@@ -195,6 +210,7 @@ class BatchNorm(nn.Module):
         self.momentum = momentum
 
     def forward(self, x: torch.Tensor, train: bool, sync=None) -> torch.Tensor:
+        dtype, x = x.dtype, x.float()
         if train:
             if sync is None:
                 mean, mean_sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
@@ -209,7 +225,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + BN_EPS) * self.scale
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(dtype)
 
 
 class Bottleneck(nn.Module):
@@ -277,15 +294,24 @@ _PATCH_CONV = {"patch16": (16, 8, 4), "patch8": (8, 4, 2)}   # kernel, stride, p
 
 
 class HourglassNet(nn.Module):
-    """The trainable stacked hourglass (flax ``HourglassNet``), float32.
+    """The trainable stacked hourglass (flax ``HourglassNet``).
 
-    ``forward(x, train=False, sync=None)`` maps NHWC (N, H, W, 3) to
+    ``forward(x, train=False, sync=None)`` maps NHWC (N, H, W, 3) to float32
     (num_stacks, N, H/4, W/4, K), the flax contract; inside, activations are
     NCHW views of channels-last memory, which cuDNN takes as they are.
     ``train=True`` normalises with batch statistics and moves the running
     statistics in place (the flax ``mutable=["batch_stats"]`` update).
-    ``hp_scope`` is accepted and ignored: every product runs in float32.
-    Raises for a compute dtype other than float32 (bf16 training: ROADMAP Queue 1 item 3).
+    ``capture=True`` also returns the last stack's ``feat_bn`` output, before
+    its ReLU and in the trunk's dtype (what flax's ``capture_intermediates``
+    records for that module).
+
+    ``compute_dtype="bfloat16"`` runs flax's bfloat16 graph with flax's
+    roundings: the input rounded to bfloat16, every trunk convolution and
+    batch norm as ``Conv`` and ``BatchNorm`` compute a bfloat16 input, the
+    residual adds, merges and re-injection sums in bfloat16, and the score
+    convolutions in float32 on a float32 copy of their input; parameters and
+    statistics stay float32.  ``hp_scope`` is accepted and ignored: every
+    float32 product runs in float32.  Raises ValueError for another dtype.
     """
 
     def __init__(self, spec: HourglassSpec):
@@ -333,25 +359,28 @@ class HourglassNet(nn.Module):
         y = self.stem_res2(y, train, sync)
         return self.stem_res3(y, train, sync)
 
-    def forward(self, x: torch.Tensor, train: bool = False, sync=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, sync=None, capture: bool = False):
         from deepfly3d_torch.models.fused_inference import depth_to_space
 
         spec = self.spec
+        dt = TRAIN_DTYPES[spec.compute_dtype]
         u = spec.head_upsample
-        y = self._stem(x.float(), train, sync)
+        y = self._stem(x.to(dt), train, sync)
         outputs = []
         for i in range(spec.num_stacks):
             hg = getattr(self, f"hg{i}")(y, train, sync)
             f = getattr(self, f"feat_res{i}")(hg, train, sync)
-            f = torch.relu(getattr(self, f"feat_bn{i}")(getattr(self, f"feat_conv{i}")(f),
-                                                         train, sync))
-            raw = getattr(self, f"score{i}")(f)
+            bn_out = getattr(self, f"feat_bn{i}")(getattr(self, f"feat_conv{i}")(f), train, sync)
+            f = torch.relu(bn_out)
+            raw = getattr(self, f"score{i}")(f.float())
             score = raw.permute(0, 2, 3, 1)
             outputs.append(depth_to_space(score, u) if u > 1 else score)
             if i < spec.num_stacks - 1:
                 # re-inject features and the pre-shuffle predictions
-                y = y + getattr(self, f"remap_feat{i}")(f) + getattr(self, f"remap_score{i}")(raw)
-        return torch.stack(outputs)
+                y = y + getattr(self, f"remap_feat{i}")(f) \
+                    + getattr(self, f"remap_score{i}")(raw.to(dt))
+        heatmaps = torch.stack(outputs)
+        return (heatmaps, bn_out) if capture else heatmaps
 
 
 # ------------------------------------------------------- weight carry-over

@@ -79,7 +79,9 @@ class _Member:
         self.calls = 0
 
     def moments(self, x: torch.Tensor):
-        """(E[x], E[x^2]) per channel of an NCHW tensor over every entry's shard."""
+        """(E[x], E[x^2]) per channel of an NCHW tensor over every entry's shard,
+        reduced in ``x``'s dtype: float32, as ``BatchNorm`` hands it over in
+        a bf16 network too."""
         posts = self.group.posts.setdefault(self.calls, [None] * self.group.n)
         self.calls += 1
         sums = torch.stack([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))])
@@ -112,6 +114,8 @@ def make_sharded_train_step(spec: HourglassSpec, mesh: mesh_mod.Mesh,
     backward over the summed loss gives the gradients of ``params``, summed
     over the entries; one Adam step updates ``params`` and ``batch_stats``
     in place (the same objects are returned).  Entries may repeat a device.
+    A ``compute_dtype="bfloat16"`` spec trains flax's bf16 graph
+    (``HourglassNet``); its statistics, parameters and loss stay float32.
     """
     check_trainable(spec)
     full_f32()

@@ -14,8 +14,13 @@ backward are plain PyTorch (cuDNN), as JAX's are XLA.  Every eval folds the
 current weights and runs the port's serving path on the card: the
 preprocess, bottleneck, upsample-add and decode kernels (the bottleneck's
 general instance at a width outside ``ops/bottleneck.INSTANCES``, any width
-of its envelope).  ``--device cpu`` runs every kernel's plain version.  ``--dtype bfloat16`` raises (ROADMAP Queue 1
-item 3).  The default ``--out`` is the shipped ``weights/hourglass_fly.npz``.
+of its envelope).  ``--dtype bfloat16`` trains and evaluates at bf16, as the
+JAX script does: the trainable network computes flax's bf16 graph, and every
+eval runs the unfolded bf16 network in eval mode between the preprocess and
+decode kernels (JAX's ``infer_batch(fused=False)``), so ``keep_best`` picks
+by the bf16 forward the weights were trained through.  ``--device cpu``
+runs every kernel's plain version.  The default ``--out`` is the shipped
+``weights/hourglass_fly.npz``.
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ def parse_args(argv=None):
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--input", default="256x512", help="network input HxW; heatmaps are input/4")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
-                    help="trunk compute dtype; only float32 is ported (ROADMAP Queue 1 item 3)")
+                    help="trunk compute dtype during training and eval")
     ap.add_argument("--batch-size", type=int, default=24)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--sigma", type=float, default=1.25)
@@ -90,9 +95,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.dtype != "float32":
-        raise NotImplementedError("--dtype bfloat16: the port trains in float32 only; a "
-                                  "bfloat16 compute dtype is ROADMAP.md Queue 1 item 3")
     dev = resolve_device(args.device)
     full_f32()
 
@@ -112,13 +114,14 @@ def main(argv=None) -> int:
     print("input:", input_shape, "heatmaps:", hm_shape, flush=True)
 
     if resumed:
-        spec = seed_spec
+        spec = dataclasses.replace(seed_spec, compute_dtype=args.dtype)
         print(f"resuming from {args.out} (features={spec.features}, dtype={args.dtype})",
               flush=True)
     else:
         spec = HourglassSpec(num_stacks=args.stacks, features=args.features, depth=args.depth,
                              stem=args.stem, num_classes=19, input_shape=input_shape,
-                             head_upsample=2 if args.stem == "patch16" else 1)
+                             head_upsample=2 if args.stem == "patch16" else 1,
+                             compute_dtype=args.dtype)
 
     with open(GOLDEN, "rb") as f:
         golden = pickle.load(f)
@@ -137,9 +140,14 @@ def main(argv=None) -> int:
         return image_ops.preprocess_frames(torch.from_numpy(u8).to(dev), flips_d, input_shape)
 
     def infer(variables, u8, spec_=None):
-        """The serving path on ``u8``: -> (pts (C, T, 19, 2), conf (C, T, 19, 1))."""
+        """The serving path on ``u8``: -> (pts (C, T, 19, 2), conf (C, T, 19, 1)).
+        A float32 spec runs the folded forward; a bf16 one the unfolded
+        network in eval mode, the graph it trains (JAX's ``fused=False``)."""
         spec_ = spec_ or spec
-        net = FoldedHourglass(fold_hourglass(variables, spec_), spec_).to(dev)
+        if spec_.compute_dtype == "float32":
+            net = FoldedHourglass(fold_hourglass(variables, spec_), spec_).to(dev)
+        else:
+            net = trainable(variables, spec_, dev)
         pts, conf = infer_batch(net, torch.from_numpy(u8).to(dev), flips_d, input_shape)
         return (pts.cpu().numpy().reshape(NUM_CAMERAS, T, 19, 2),
                 conf.cpu().numpy().reshape(NUM_CAMERAS, T, 19, 1))
@@ -189,7 +197,8 @@ def main(argv=None) -> int:
             pool_imgs.append(preprocess(raw_v))
             pool_coords.append(c_v)
             # position-only supervision: the peak targets are the seed's own
-            peaks_list.append(infer(seed_vars, raw_v)[1].astype(np.float32).reshape(peaks.shape))
+            seed_conf = infer(seed_vars, raw_v, seed_spec)[1]
+            peaks_list.append(seed_conf.astype(np.float32).reshape(peaks.shape))
         n_rep = len(pool_imgs)
         images = torch.cat(pool_imgs)
         peaks = np.concatenate(peaks_list)

@@ -404,8 +404,11 @@ def test_other_dtype_names_raise():
     frames = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
     with pytest.raises(ValueError, match="preprocess dtype"):
         port_image.preprocess_frames(frames, torch.zeros(1, dtype=torch.bool), (4, 4), "float16")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 3"):
-        port_hg.HourglassNet(dataclasses.replace(spec, compute_dtype="bfloat16"))
+    # the trainable network takes bfloat16 (tests/test_torch_train_bf16.py), not float16
+    assert port_hg.HourglassNet(dataclasses.replace(spec, compute_dtype="bfloat16")).spec \
+        .compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="float16"):
+        port_hg.HourglassNet(dataclasses.replace(spec, compute_dtype="float16"))
 
 
 # ------------------------------------------------------ golden frame 0

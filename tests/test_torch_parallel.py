@@ -126,14 +126,22 @@ def test_data_mesh_raises_without_a_card(monkeypatch):
 
 
 def test_sharded_train_step_raises_naming_the_training_item():
-    """The train step exists (tests/test_torch_train_parallel.py); a compute
-    dtype it does not train in raises, naming the ROADMAP item that adds it."""
-    spec = dataclasses.replace(port_hg.HourglassSpec(**SPEC_KW), compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 3"):
+    """The train step trains float32 (tests/test_torch_train_parallel.py) and
+    bfloat16 (tests/test_torch_train_bf16.py): one bf16 step on two entries
+    here; a compute dtype it does not train in raises, naming the dtype."""
+    spec = dataclasses.replace(port_hg.HourglassSpec(**SPEC_KW), compute_dtype="float16")
+    with pytest.raises(ValueError, match="float16"):
         pipeline.make_sharded_train_step(spec, mesh.data_mesh(devices=CPU8))
-    init_fn, step_fn = pipeline.make_sharded_train_step(port_hg.HourglassSpec(**SPEC_KW),
-                                                        mesh.data_mesh(devices=CPU8))
-    assert callable(init_fn) and callable(step_fn)
+    bf16 = dataclasses.replace(port_hg.HourglassSpec(**SPEC_KW), compute_dtype="bfloat16")
+    init_fn, step_fn = pipeline.make_sharded_train_step(bf16, mesh.data_mesh(devices=CPU8[:2]))
+    params, stats, opt = init_fn(0, INPUT)
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(2,) + INPUT + (3,)).astype(np.float32)
+    t = rng.uniform(size=(2, INPUT[0] // 4, INPUT[1] // 4, 19)).astype(np.float32)
+    before = params["stem_conv"]["kernel"].detach().clone()
+    params, stats, opt, loss = step_fn(params, stats, opt, x, t)
+    assert np.isfinite(loss.item()) and params["stem_conv"]["kernel"].dtype == torch.float32
+    assert not torch.equal(before, params["stem_conv"]["kernel"])
 
 
 # ------------------------------------------------------------- inference

@@ -148,8 +148,8 @@ def test_carry_over_round_trip_and_refusals():
     del variables["params"]["score0"]
     with pytest.raises(ValueError, match="score0"):
         port_hg.trainable(variables, spec, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 3"):
-        port_hg.HourglassNet(dataclasses.replace(spec, compute_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="float16"):
+        port_hg.HourglassNet(dataclasses.replace(spec, compute_dtype="float16"))
 
 
 def test_init_params_draws_flax_distributions():

@@ -3,9 +3,9 @@
 At a tiny width and 64x128 over the bundled recording, the eval through
 the serving path with every kernel's plain version: a fresh network with
 shift and gain augmentation, then resumed with frozen statistics and the
-envelope pool, then distilled; each run writes a checkpoint that both
-packages read, and parity fails at this size (exit 1).  The refusal: a
-bfloat16 compute dtype (ROADMAP Queue 1 item 3).  No width check is left: on
+envelope pool, then distilled, then a fresh network at bfloat16 (its evals
+through the unfolded bf16 network); each run writes a checkpoint that both
+packages read, and parity fails at this size (exit 1).  No width check is left: on
 a card the evals run every block of the toy width in the bottleneck kernel's
 general instance.
 """
@@ -45,8 +45,11 @@ def test_train_fly_weights_script_on_the_cpu(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "augment-envelope pool: 945 images" in text and "distilling from" in text
     assert "PARITY: FAIL" in text and not os.path.exists(out + ".PARITY")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 3"):
-        script.main(base + ["--dtype", "bfloat16"])
+    bf16_out = str(tmp_path / "tiny_bf16.npz")
+    assert script.main(["--input", "64x128", "--device", "cpu", "--out", bf16_out,
+                        "--batch-size", "8", "--steps", "2", "--features", "16", "--stacks", "1",
+                        "--depth", "2", "--dtype", "bfloat16"]) == 1
+    assert jax_hg.load_weights(bf16_out)[1].features == 16
     # --features 16 gets past the width check, which is gone: every block of
     # the toy spec has a kernel on the card (the general instance)
     assert not hasattr(script, "check_kernel_widths")
