@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference paths, its CLI, its fleet path, its trainer (float32 and bf16), the converted 256-wide checkpoint, the benchmark harness and the score-head calibration on one CUDA card.
+"""Drive the PyTorch port's inference paths, its CLI, its fleet path, its trainer (float32 and bf16), the converted 256-wide checkpoint, the benchmark harness, the score-head calibration and the correction GUI on one CUDA card.
 
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --profile FILE   # also a torch.profiler table per path and of
@@ -197,7 +197,14 @@ result line):
    unfolded bf16 network), ``compute_gram``, one ``make_device_check`` (held
    to the forward's own heatmaps), ``fit_scores`` cut to ``CAL_JOINTS``, and
    the deployed ``verify_contract`` through ``build_pipeline`` (the bf16
-   instances: 31 / 8 / 1 / 1), with the time of each part (informational).
+   instances: 31 / 8 / 1 / 1), with the time of each part (informational);
+17. GUI phase (``deepfly3d_torch/gui.py``, log lines ``(z)``): whether PyQt5
+   imports here, then the real ``DeepflyGUI`` under the headless Qt stand-in
+   of ``tests/torch_qt_standin.py``, set up with ``device="cuda"`` on a copy
+   of the bundled recording, frames 0-1, seeded as (c): Pose, Correction, a
+   drag on camera 1's view, Save (the pickle resumes in ``Core``), then the
+   Auto-correct click, counted (the same launches as (c)) and held to (c)'s
+   ``Core.solve_pictorial`` points2d within 1e-6, with its seconds.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 """
@@ -717,8 +724,8 @@ def core_phase(np, torch, device, card, probe, counters, batch_size=8):
       points within 1e-3 of JAX's;
     * the StageTimer reports and the pose2d stage's parts.
 
-    Raises where no JPEG decoder loads.  -> {path: {kernel: launches}} of the
-    three network runs (cli, cli_options, pictorial)."""
+    Raises where no JPEG decoder loads.  -> ({path: {kernel: launches}} of the
+    three network runs (cli, cli_options, pictorial), (c)'s corrected points2d)."""
     import contextlib
     import io
     import logging
@@ -887,6 +894,7 @@ def core_phase(np, torch, device, card, probe, counters, batch_size=8):
               f"differ from JAX's by more than 1e-3 in 3D")
         print(f"informational: solve_pictorial stage time (StageTimer) on {card}: "
               f"{json.dumps(timer.metrics())}")
+        pictorial_p2 = np.array(core.points2d)
 
         # the pose2d stage's parts, one by one, as infer_folder runs them
         split = {}
@@ -914,7 +922,7 @@ def core_phase(np, torch, device, card, probe, counters, batch_size=8):
         print(f"informational: the pose2d stage's parts in seconds ({decoder} decode, 16 "
               f"threads; inference = pinned staging, copies and device for 105 images at batch "
               f"{batch_size}): {json.dumps(split)}; on {card}")
-        return launches
+        return launches, pictorial_p2
     finally:
         logger.getLogger().removeHandler(keep)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2892,6 +2900,111 @@ def calibration_phase(torch, np, dev, card, counters):
     return launches, lines
 
 
+GUI_VIEW_WH = (480, 240)   # (z) each camera view's widget size: half the 960x480 frame
+GUI_SAME_ATOL = 1e-6       # (z) the click against (c): the same kernels on the same inputs
+
+
+def gui_phase(torch, np, dev, card, counters, pictorial_launches, pictorial_p2):
+    """Phase 17 on the card, log lines ``(z)``: ``deepfly3d_torch/gui.py``'s
+    ``DeepflyGUI`` under the headless Qt stand-in of
+    ``tests/torch_qt_standin.py`` (PyQt5 is not needed), set up with
+    ``device="cuda"`` on a copy of the bundled recording, frames 0-1, seeded
+    with golden 2D and calibration as (c) seeds ``Core.solve_pictorial``.
+    A scripted session: Pose, Correction, a drag on camera 1's view, Save
+    (the pickle must resume in the port's ``Core``), Auto-correct (counted:
+    (c)'s launches; its points2d within ``GUI_SAME_ATOL`` of (c)'s).
+    -> ({"gui": launches}, informational lines)."""
+    import importlib.util
+
+    from deepfly3d_torch.core import Core
+    from deepfly3d_torch.io import result_schema
+
+    try:
+        import PyQt5.QtWidgets  # noqa: F401
+        pyqt = "imports"
+    except ImportError as exc:
+        pyqt = f"does not import ({exc})"
+    print(f"(z) PyQt5 on this machine: {pyqt}; the session runs the real DeepflyGUI under "
+          f"the headless stand-in tests/torch_qt_standin.py")
+    sspec = importlib.util.spec_from_file_location(
+        "_df3d_qt_standin", os.path.join(ROOT, "tests", "torch_qt_standin.py"))
+    standin = importlib.util.module_from_spec(sspec)
+    sspec.loader.exec_module(standin)
+    golden_dir = os.path.join(ROOT, "tests", "data", "reference_df3d")
+    with open(os.path.join(golden_dir, "df3d_result_2d.pkl"), "rb") as fh:
+        golden_2d = pickle.load(fh)
+    with open(os.path.join(golden_dir, "df3d_result_3d.pkl"), "rb") as fh:
+        golden_3d = pickle.load(fh)
+    qt = standin.make()
+    tmp = tempfile.mkdtemp(prefix="df3d_smoke_gui_")
+    try:
+        with standin.installed(qt):
+            gui = standin.load_gui(os.path.join(ROOT, "deepfly3d_torch", "gui.py"),
+                                   "_df3d_gui_under_standin")
+            # a path whose camera ordering Core knows (0-6, (c)'s order)
+            rec = os.path.join(tmp, "sample", "test")
+            shutil.copytree(os.path.join(ROOT, "tests", "data", "reference"), rec)
+            window = gui.DeepflyGUI()
+            window.setup(rec, 2, device=dev.type)
+            window.core.points2d = np.array(golden_2d["points2d"][:, :2])
+            window.core.conf = np.array(golden_2d["heatmap_confidence"][:, :2])
+            window.core.calib = result_schema.extract_calib(golden_3d)
+            for iv in window.image_views:
+                iv.resize(*GUI_VIEW_WH)
+            QEvent = qt.modules["PyQt5.QtCore"].QEvent
+
+            standin.button(window, "Pose").click()
+            standin.button(window, "Correction").click()
+            if [b.isChecked() for b in (window.button_image_mode, window.button_pose_mode,
+                                        window.button_correction_mode)] != [False, False, True]:
+                raise AssertionError("(z) the Correction button is not the one checked")
+            view = window.image_views[1]
+            x, y = window.core.corrected_points2d(1, 0)[2]
+            sx, sy = GUI_VIEW_WH[0] / 960.0, GUI_VIEW_WH[1] / 480.0
+            took = [standin.send_event(view, standin.MouseEvent(kind, px, py)) for kind, px, py in (
+                (QEvent.MouseButtonPress, x * sx, y * sy),
+                (QEvent.MouseMove, x * sx + 60.0, y * sy + 30.0),
+                (QEvent.MouseButtonRelease, 0.0, 0.0))]
+            dragged = window.core.db.read(1, 0)
+            if took != [True, True, True] or dragged is None:
+                raise AssertionError(f"(z) the drag on camera 1: filter took {took}, "
+                                     f"correction stored {dragged is not None}")
+            standin.button(window, "Save").click()
+            resumed = Core(rec, None, 2, None, device=dev)
+            if not (np.array_equal(resumed.points2d, window.core.points2d)
+                    and resumed.has_calibration
+                    and np.array_equal(resumed.db.read(1, 0), dragged)):
+                raise AssertionError("(z) the saved session does not resume in the port's Core")
+
+            t0 = time.perf_counter()
+            _, got = count_launches(torch, counters,
+                                    lambda: standin.button(window, "Auto-correct").click())
+            click_s = time.perf_counter() - t0
+            if got != pictorial_launches or not all(got.get(k) for k in EXPECTED["conv"]):
+                raise AssertionError(f"(z) Auto-correct launches {got}, want (c)'s "
+                                     f"{pictorial_launches}")
+            p2 = window.core.points2d
+            diff = float(np.abs(p2 - pictorial_p2).max())
+            if not (p2.shape == pictorial_p2.shape and np.isfinite(p2).all()
+                    and diff <= GUI_SAME_ATOL):
+                raise AssertionError(f"(z) Auto-correct points2d vs (c)'s solve_pictorial: "
+                                     f"max diff {diff} (<= {GUI_SAME_ATOL})")
+            shown = [(iv.pixmap().image.width(), iv.pixmap().image.height())
+                     for iv in window.image_views]
+            if shown != [(960, 480)] * 6 or qt.warnings:
+                raise AssertionError(f"(z) after Auto-correct: views {shown}, warnings "
+                                     f"{[t for _, _, t in qt.warnings]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = (f"(z) the df3d GUI on {card}: Pose, Correction, a drag on camera 1 (stored, saved, "
+            f"resumed in Core), then the Auto-correct click on frames 0-1: {click_s:.3f} s "
+            f"(estimator build, the network on 14 images, the MAP on the host), launches "
+            f"{got} (= (c)'s); corrected points2d vs (c)'s Core.solve_pictorial: max diff "
+            f"{diff} ({'bit-equal' if diff == 0.0 else 'not bit-equal'}; <= {GUI_SAME_ATOL})")
+    print(line)
+    return {"gui": got}, [line]
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -3335,7 +3448,8 @@ def main(argv):
                   f"(band 0.002)")
 
     # ---- 7. core phase: the recording entry point with every option
-    launches.update(core_phase(np, torch, dev, card, probe, counters))
+    core_launches, pictorial_p2 = core_phase(np, torch, dev, card, probe, counters)
+    launches.update(core_launches)
 
     # ---- 8. h36m phase: (e) the ingest loop, (f) the CLI with --profile h36m
     try:
@@ -3413,6 +3527,13 @@ def main(argv):
     c_launches, _ = calibration_phase(torch, np, dev, card, counters)
     launches.update(c_launches)
     print(f"informational: the calibration phase took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 17. GUI phase (z): deepfly3d_torch/gui.py, driven through its Auto-correct button
+    t0 = time.perf_counter()
+    g_launches, _ = gui_phase(torch, np, dev, card, counters, launches["pictorial"],
+                              pictorial_p2)
+    launches.update(g_launches)
+    print(f"informational: the GUI phase took {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (src, replaces, also) in SOURCES.items():

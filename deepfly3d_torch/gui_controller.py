@@ -5,7 +5,8 @@ driving the port's ``Core``: navigation clamping, mode gating,
 mouse-to-pixel mapping, the click-drag correction flow and the error-jump
 messages (the interaction flow of reference df3d/gui.py:269-322, 437-463),
 testable headlessly.  The pose views render through ``Core.plot_2d``.  The
-GUI shell itself (``gui.py``) is not ported: it waits on PyQt5.
+PyQt5 shell around it is ``deepfly3d_torch/gui.py``, which only builds
+widgets, forwards events and blits the frames this controller renders.
 """
 
 from __future__ import annotations

@@ -208,7 +208,7 @@ def test_port_core_imports_no_jax():
             "deepfly3d_torch.ops.bundle_adjust, deepfly3d_torch.ops.procrustes, "
             "deepfly3d_torch.ops.filters, deepfly3d_torch.utils.profiling, "
             "deepfly3d_torch.logger, deepfly3d_torch.skeletons, deepfly3d_torch.compat, "
-            "deepfly3d_torch.gui_controller, deepfly3d_torch.ops.pictorial, "
+            "deepfly3d_torch.gui_controller, deepfly3d_torch.gui, deepfly3d_torch.ops.pictorial, "
             "deepfly3d_torch.models.decode, deepfly3d_torch.viz.video, "
             "deepfly3d_torch.viz.plot2d, deepfly3d_torch.viz.plot3d, "
             "deepfly3d_torch.viz.raster3d, deepfly3d_torch.skeletons.h36m, "

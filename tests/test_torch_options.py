@@ -379,13 +379,15 @@ def _queue1_items():
 
 def test_not_ported_messages_name_current_roadmap_items(working_images, golden_2d, tmp_path):
     """Nothing the JAX package does raises as not ported any more: ROADMAP.md
-    Queue 1 keeps only the blocked GUI.  The video flags, ``plot_2d``, the
-    h36m profile, the ``eigh`` triangulation, training and bf16 training are
-    ported: bf16 trains through each of the three entry points (one step),
-    and a compute dtype the trainable network does not know (float16) is
-    refused, naming it."""
-    items = _queue1_items()
-    assert list(items) == [6] and "gui.py" in items[6] and "blocked" in items[6]
+    Queue 1 holds no open item, and the last module, the correction GUI, is
+    ``deepfly3d_torch.gui``.  The video flags, ``plot_2d``, the h36m profile,
+    the ``eigh`` triangulation, training and bf16 training are ported: bf16
+    trains through each of the three entry points (one step), and a compute
+    dtype the trainable network does not know (float16) is refused, naming
+    it."""
+    assert _queue1_items() == {}
+    from deepfly3d_torch import gui
+    assert callable(gui.main) and callable(gui.parse_cli_args)
     assert not hasattr(cli, "_NOT_PORTED")
     assert _seeded(working_images, golden_2d).plot_2d(0, 0).shape == (480, 960, 3)
     from deepfly3d_torch.config import h36m_config
