@@ -32,6 +32,7 @@ from deepfly3d_torch.models.fused_inference import FoldedHourglass, fold_hourgla
 from deepfly3d_torch.models.hourglass import HourglassSpec
 from deepfly3d_torch.ops import geometry
 from deepfly3d_torch.pipeline import Pipeline, device_setup
+from deepfly3d_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,20 +96,22 @@ class CascadePipeline(Pipeline):
 
     @torch.inference_mode()
     def __call__(self, frames_u8: Union[np.ndarray, torch.Tensor]):
-        x_u8, flip, reg, shift, T = self._register(frames_u8)
-        N = x_u8.shape[0]
-        pts_s, conf_s = self._points(self.net, x_u8, flip, reg, self.input_shape)
-        score = loo_suspicion(self._assemble(pts_s, T), self.R, self.tvec, self.intr,
-                              self.image_hw[::-1])
-        n_repair = max(int(math.ceil(self.cfg.repair_frac * N)), 1)
-        idx = top_r(score.T.reshape(N), n_repair)          # image-major (t, c)
-        reg_t = None if reg is None else tuple(t[idx] for t in reg)
-        pts_t, _ = self._points(self.teacher, x_u8[idx], flip[idx], reg_t, self.teacher_shape)
-        pts = pts_s.clone()
-        pts[idx] = pts_t
-        self.last_repaired = idx
-        pts3d, p38 = self._finish(self._assemble(pts, T), shift)
-        return pts3d, p38, self._conf(conf_s, T)
+        with span("call"):
+            x_u8, flip, reg, shift, T = self._register(frames_u8)
+            N = x_u8.shape[0]
+            pts_s, conf_s = self._points(self.net, x_u8, flip, reg, self.input_shape)
+            score = loo_suspicion(self._assemble(pts_s, T), self.R, self.tvec, self.intr,
+                                  self.image_hw[::-1])
+            n_repair = max(int(math.ceil(self.cfg.repair_frac * N)), 1)
+            idx = top_r(score.T.reshape(N), n_repair)          # image-major (t, c)
+            reg_t = None if reg is None else tuple(t[idx] for t in reg)
+            pts_t, _ = self._points(self.teacher, x_u8[idx], flip[idx], reg_t,
+                                    self.teacher_shape)
+            pts = pts_s.clone()
+            pts[idx] = pts_t
+            self.last_repaired = idx
+            pts3d, p38 = self._finish(self._assemble(pts, T), shift)
+            return pts3d, p38, self._conf(conf_s, T)
 
 
 def build_cascade_pipeline(student_vars, student_spec: HourglassSpec, teacher_vars,

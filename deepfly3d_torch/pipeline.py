@@ -16,6 +16,11 @@ Counterpart of ``bench.py::build_pipeline``:
 Every shipped checkpoint runs here, at its own input shape.  Everything
 runs in float32 with TF32 off.  ``models/cascade.py`` builds the student +
 parity-repair configuration on the same stages.
+
+Under a ``torch.profiler`` session each call is a ``df3d.call`` span and
+each stage a span inside it (``utils.profiling.span``): ``register.copy``,
+``register.estimate``, ``preprocess``, ``net``, ``decode``, ``assemble``
+(twice: the points and the confidences) and ``triangulate``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from deepfly3d_torch.ops import image as image_ops
 from deepfly3d_torch.ops.bottleneck import bottleneck_plain
 from deepfly3d_torch.ops.kernels import decode_heatmaps_plain, upsample2x_add_plain
 from deepfly3d_torch.utils.devices import full_f32, resolve_device
+from deepfly3d_torch.utils.profiling import span
 
 
 def assemble38(pts19: torch.Tensor, order: Sequence[int], left_cams: torch.Tensor,
@@ -90,7 +96,8 @@ class Pipeline:
         preprocess rolls them as it reads them, and multiplies by the gain as
         it writes.
         """
-        frames = torch.as_tensor(frames_u8).to(self.device)
+        with span("register.copy"):
+            frames = torch.as_tensor(frames_u8).to(self.device)
         if frames.dtype != torch.uint8 or frames.dim() != 5:
             raise ValueError("frames must be (T, C, H, W, 3) uint8")
         T, C, H, W, _ = frames.shape
@@ -98,37 +105,46 @@ class Pipeline:
             raise ValueError(f"frames {tuple(frames.shape)} do not match the rig "
                              f"({self.num_cameras} cameras of {self.image_hw})")
         reg = shift = None
-        if self.rig is not None:
-            dy, dx, gain = canonicalize.estimate_tc(frames, self.rig)
-            shift = (dy, dx)
-            reg = (dy.repeat(T), dx.repeat(T), canonicalize.gain_correction(gain).repeat(T))
-        return frames.reshape(T * C, H, W, 3).contiguous(), self.flip.repeat(T), reg, shift, T
+        with span("register.estimate"):
+            if self.rig is not None:
+                dy, dx, gain = canonicalize.estimate_tc(frames, self.rig)
+                shift = (dy, dx)
+                reg = (dy.repeat(T), dx.repeat(T), canonicalize.gain_correction(gain).repeat(T))
+            flip = self.flip.repeat(T)
+        return frames.reshape(T * C, H, W, 3).contiguous(), flip, reg, shift, T
 
     def _points(self, net: FoldedHourglass, x_u8, flip, reg, input_shape):
         """preprocess (with the registration) -> forward -> decode:
         (N, K, 2) points, (N, K, 1) conf."""
         img_shift, corr = (None, None) if reg is None else (reg[:2], reg[2])
-        x = self.preprocess(x_u8, flip, input_shape, net.spec.preprocess_dtype,
-                            shift=img_shift, gain=corr)
-        return self.decode(net(x)[-1])
+        with span("preprocess"):
+            x = self.preprocess(x_u8, flip, input_shape, net.spec.preprocess_dtype,
+                                shift=img_shift, gain=corr)
+        with span("net"):
+            heatmaps = net(x)[-1]
+        with span("decode"):
+            return self.decode(heatmaps)
 
     def _assemble(self, pts: torch.Tensor, T: int) -> torch.Tensor:
         K = pts.shape[1]
         pts19 = pts.reshape(T, self.num_cameras, K, 2).permute(1, 0, 2, 3)
-        return assemble38(pts19, self.order, self.left, self.right, K)
+        with span("assemble"):
+            return assemble38(pts19, self.order, self.left, self.right, K)
 
     def _finish(self, p38, shift):
         """Triangulate the canonical points; 2D points go out in the provided frame."""
         H, W = self.image_hw
-        pts3d = geometry.triangulate(p38, self.R, self.tvec, self.intr, (W, H),
-                                     method="normal")
-        if shift is not None:
-            p38 = canonicalize.adjust_points38(p38, shift[0], shift[1], (H, W))
+        with span("triangulate"):
+            pts3d = geometry.triangulate(p38, self.R, self.tvec, self.intr, (W, H),
+                                         method="normal")
+            if shift is not None:
+                p38 = canonicalize.adjust_points38(p38, shift[0], shift[1], (H, W))
         return pts3d, p38
 
     def _conf(self, conf: torch.Tensor, T: int) -> torch.Tensor:
         K = conf.shape[1]
-        return conf.reshape(T, self.num_cameras, K, 1).permute(1, 0, 2, 3).contiguous()
+        with span("assemble"):
+            return conf.reshape(T, self.num_cameras, K, 1).permute(1, 0, 2, 3).contiguous()
 
     def nets(self) -> dict:
         """The folded hourglasses this pipeline runs, by attribute name."""
@@ -136,10 +152,11 @@ class Pipeline:
 
     @torch.inference_mode()
     def __call__(self, frames_u8: Union[np.ndarray, torch.Tensor]):
-        x_u8, flip, reg, shift, T = self._register(frames_u8)
-        pts, conf = self._points(self.net, x_u8, flip, reg, self.input_shape)
-        pts3d, p38 = self._finish(self._assemble(pts, T), shift)
-        return pts3d, p38, self._conf(conf, T)
+        with span("call"):
+            x_u8, flip, reg, shift, T = self._register(frames_u8)
+            pts, conf = self._points(self.net, x_u8, flip, reg, self.input_shape)
+            pts3d, p38 = self._finish(self._assemble(pts, T), shift)
+            return pts3d, p38, self._conf(conf, T)
 
 
 def plain_twin(pipe: Pipeline) -> Pipeline:

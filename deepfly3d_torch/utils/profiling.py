@@ -1,4 +1,5 @@
-"""Per-stage wall-clock timing (``StageTimer``) and device traces (``trace_to``).
+"""Per-stage wall-clock timing (``StageTimer``), the program's stage spans
+(``span``) and device traces (``trace_to``).
 
 Counterpart of ``deepfly3d_tpu/utils/profiling.py``: the host clock per
 named stage, with derived frames per second.  Work queued on a card is
@@ -6,6 +7,13 @@ asynchronous, so a timer given a CUDA ``device`` synchronizes it at the end
 of every stage: a stage's time then includes the device work it queued.
 ``trace_to`` writes a ``torch.profiler`` trace where the JAX package writes
 a ``jax.profiler`` one.
+
+``span`` names a stage of the pipeline (``df3d.<name>``) in whatever
+``torch.profiler`` session is recording, ``trace_to``'s or any other: the
+span's host interval lands in the session's trace beside the device's
+kernels and copies, on the profiler's one clock, and the launches inside it
+carry their correlation ids.  With no session recording it costs one read
+of the profiler's flag.
 """
 
 from __future__ import annotations
@@ -14,6 +22,22 @@ import contextlib
 import json
 import time
 from typing import Dict, Optional
+
+import torch
+
+SPAN_PREFIX = "df3d."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The stage ``df3d.<name>`` as a ``torch.profiler.record_function`` range
+    while a profiler records; otherwise one shared no-op context (no range,
+    no allocation, no synchronisation, no launch).  The profiler keeps the
+    span's name, start and end; its parent and its call are the spans around
+    it on its thread."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 class StageTimer:
@@ -65,10 +89,10 @@ class StageTimer:
 def trace_to(logdir: str):
     """Capture a ``torch.profiler`` trace of the enclosed region into
     ``logdir`` as a Chrome trace (``trace_<pid>_<ns>.json``): CPU activity,
-    and CUDA activity where a card is present."""
+    and CUDA activity where a card is present.  The pipeline's ``df3d.*``
+    stage spans (``span``) are in it, each above the kernels it launched."""
     import os
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(logdir, exist_ok=True)
