@@ -278,7 +278,8 @@ class FoldedHourglass(nn.Module):
         self.register_buffer("stem_w", stem_w.contiguous())
         self.register_buffer("stem_b", folded["stem_b"].contiguous())
         # ModuleDict keys may not hold '.', block names hold '/' only; each
-        # block carries its weights once more in the kernel's fragment order
+        # block carries its weights once more in the kernel's packed layout
+        # (every float32 weight as its TF32 hi and lo halves)
         self.blocks = nn.ModuleDict(
             {name: _Tensors(add_packed(t)) for name, t in folded["blocks"].items()}
         )

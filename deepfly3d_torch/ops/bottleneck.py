@@ -28,31 +28,37 @@ does (float64 fold, float32 result); ``bottleneck_plain`` is the plain
 PyTorch version (the counterpart of ``bottleneck_xla``); ``fused_bottleneck``
 runs the kernels on a CUDA tensor and the plain version on a CPU tensor.
 
-The kernel computes its four products on the tensor cores as
+The float32 kernels compute their four products on the tensor cores as
 error-compensated TF32: each float32 operand is split into ``hi`` (its low
 13 mantissa bits cleared, a TF32 number) and ``lo = tf32(x - hi)``, and a
 product is ``a_lo @ w_hi + a_hi @ w_lo + a_hi @ w_hi`` summed in float32.
 ``split_tf32`` is that split, ``bottleneck_tf32_model`` the block in this
-arithmetic in plain PyTorch (for tests; no path runs it), and
-``pack_bottleneck`` lays the folded weights out in the order of the MMA
-fragments, once per block on the host, and ``choose_tile`` picks a thread
-block's output tile for an image size and batch.  The kernel splits each weight
-fragment into hi and lo in registers with the same mask, because hi and lo
-of all weights together (238 KB) do not fit one thread block's shared
-memory beside the activations.
+arithmetic in plain PyTorch (for tests; no path runs it), ``pack_bottleneck``
+lays the folded weights out once per block on the host, and ``choose_tile``
+picks a thread block's output tile for an image size and batch.
+
+The fly networks' float32 blocks (96->48->96, the projecting 48->48->96, and
+64->32->64, 32->32->64 at 64 features) run ``csrc/bottleneck.cu`` on wgmma.
+Bound: operations, three TF32 products per multiply, 1.59x the bytes bound
+of a 96->48->96 block (PERF.md holds its measured time beside that floor).
+w1, w3 and wp stay resident in shared memory as hi and lo, and the 3x3's w2
+(162 KB as hi and lo at Cmid 48) streams from L2 through a ring of one tap
+per chunk.  ``pack_bottleneck`` gives it the fly layout (``sections_fly``):
+s1, t1, b1, b2 and b3 (+ bp) as float32, then w1, w3 and wp (the resident
+part) and w2 (as (9*Cmid, Cmid), tap-major), every weight in one pass over
+its columns, each k step of 8 holding the weights' TF32 hi half and then
+their lo half (``w - hi``, exact) in wgmma's K-major core-matrix order
+without swizzle (``_pack_tf32``); w1 and wp in the "quad" k order (a lane
+reads 16 bytes of a pixel for two k steps), w2 and w3 in the "pair" order.
+``smem_bytes`` mirrors the kernel's shared memory, and ``choose_tile`` reads
+its table, ``_TILE_US``.
 
 The 128-wide networks' float32 blocks (128->64->128 and the projecting
-64->64->128, ``streams_w2``: their weights alone, 215-231 KB, do not fit one
-thread block's shared memory) run ``csrc/bottleneck_128.cu`` instead, on
-wgmma: ``pack_bottleneck`` gives it the 128-wide layout (``sections_128``):
-s1, t1, b1, b2 and b3 (+ bp) as float32, then w1, w3, w2 (as (9*Cmid, Cmid),
-tap-major) and wp, every weight in passes of 64 columns, each k step of 8
-holding the weights' TF32 hi half and then their lo half (``w - hi``, exact)
-in wgmma's K-major core-matrix order without swizzle (``_pack_tf32``); w1 and
-wp in the "quad" k order (a lane reads 16 bytes of a pixel for two k steps),
-w2 and w3 in the "pair" order.  The vectors, w1 and a projecting block's w3
-stay resident in shared memory; w2, the identity block's w3 and wp stream
-through a ring of 16 KB chunks (``smem_bytes``), and
+64->64->128, ``streams_w2``) run ``csrc/bottleneck_128.cu``, the same design
+in passes of 64 columns: ``pack_bottleneck`` gives it the 128-wide layout
+(``sections_128``): the vectors, then w1, w3, w2 and wp.  The vectors, w1 and
+a projecting block's w3 stay resident in shared memory; w2, the identity
+block's w3 and wp stream through a ring of 16 KB chunks (``smem_bytes``), and
 ``choose_tile`` reads the kernel's own table, ``_TILE_US_128``.
 
 A bfloat16 block runs ``csrc/bottleneck_bf16.cu`` instead: one bf16 wgmma per
@@ -99,18 +105,15 @@ from deepfly3d_torch.ops import _build
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm default
 
-# one thread block's output tile holds at most 12 warps x 16 pixels, at most
-# 16 wide
-TILE_WARPS = 12
+# one thread block's output tile is at most 16 pixels wide
 TILE_MAX_WIDTH = 16
 NUM_SMS = 132                     # H100 SXM
 MAX_SMEM = 227 * 1024             # bytes one thread block can use
 # (Cin, Cmid, Cout, projects) the kernels are instantiated for: the 96- and
-# 64-wide fly networks' blocks (csrc/bottleneck.cu at float32, every weight
-# resident in shared memory), and the 128-wide h36m network's (at float32
-# csrc/bottleneck_128.cu, the 3x3's weights streamed, ``streams_w2``); every
-# width at bf16 in csrc/bottleneck_bf16.cu.  Each projecting instance is also
-# built with the raw-input projection.
+# 64-wide fly networks' blocks (csrc/bottleneck.cu at float32), and the
+# 128-wide h36m network's (csrc/bottleneck_128.cu at float32, ``streams_w2``);
+# every width at bf16 in csrc/bottleneck_bf16.cu.  Each projecting instance is
+# also built with the raw-input projection.
 INSTANCES = ((96, 48, 96, False), (48, 48, 96, True), (64, 32, 64, False), (32, 32, 64, True),
              (128, 64, 128, False), (64, 64, 128, True))
 # Every other width inside this envelope runs the general instance
@@ -272,25 +275,6 @@ def bottleneck_tf32_model(x: torch.Tensor, folded: Dict[str, torch.Tensor],
     return (z3 + res).contiguous()
 
 
-def _pack_fragments(w: np.ndarray, order: str) -> np.ndarray:
-    """(K, N) -> flat (K/8, N/8, 32 lanes, 2): the B fragments of
-    mma.m16n8k8, lane 4g+t holding column 8*nt+g of two rows of k step ks.
-    The rows say which k the A fragment's slots t and t+4 stand for, which
-    is free as long as A agrees: ``"mma"``: rows 8*ks + (t, t+4), A read out
-    of a row-major tile; ``"paired"``: 8*ks + (2t, 2t+1), A an accumulator
-    fragment reused; ``"lanes"``: t*K/4 + (2*ks, 2*ks+1), A the K/4
-    neighbouring channels of a pixel that lane column t reads from x."""
-    k, n = w.shape
-    lane = np.arange(32)
-    g, t = lane >> 2, lane & 3
-    step = np.arange(k // 8)[:, None, None]
-    k0, k1 = {"mma": (8 * step + t, 8 * step + t + 4),
-              "paired": (8 * step + 2 * t, 8 * step + 2 * t + 1),
-              "lanes": (t * (k // 4) + 2 * step, t * (k // 4) + 2 * step + 1)}[order]
-    cols = 8 * np.arange(n // 8)[None, :, None] + g[None, None, :]
-    return np.stack([w[k0, cols], w[k1, cols]], axis=-1).reshape(-1)
-
-
 def kernel_for(cin: int, cmid: int, cout: int, has_proj: bool) -> str:
     """Which kernel runs a block on the card: ``"instance"`` (a width of
     ``INSTANCES``, csrc/bottleneck.cu or bottleneck_bf16.cu) or
@@ -384,25 +368,30 @@ def _pack_core16(w: np.ndarray, permute: bool) -> np.ndarray:
     return np.ascontiguousarray(core, np.float32).reshape(-1)
 
 
-# The 128-wide float32 instances (csrc/bottleneck_128.cu): weights in passes of
-# WIDE_COLS columns, k steps of 8 (hi, then lo: 4 KB each), a ring of
-# WIDE_CHUNK-byte chunks (4 k steps), 3 to WIDE_STAGES slots; tiles of at most
-# WIDE_TILE_PIXELS pixels (two m64 row blocks in the 3x3) and
-# WIDE_HALO_PIXELS halo pixels (three in stage 1).
+# The float32 instances on wgmma, the fly widths (csrc/bottleneck.cu) and the
+# 128-wide (csrc/bottleneck_128.cu): k steps of 8, each holding hi and then lo;
+# tiles of at most RING_TILE_PIXELS pixels (two m64 row blocks in the 3x3) and
+# RING_HALO_PIXELS halo pixels (three in stage 1).  The fly instances keep each
+# weight in one pass over its columns, stream w2 through a ring of one tap per
+# chunk, FLY_STAGES slots at least and at most, behind FLY_BAR_BYTES of
+# mbarriers; the 128-wide instances keep passes of WIDE_COLS columns and a ring
+# of WIDE_CHUNK-byte chunks (4 k steps), WIDE_STAGES slots.
+RING_TILE_PIXELS = 128
+RING_HALO_PIXELS = 192
+FLY_STAGES = (2, 3)
+FLY_BAR_BYTES = 128
 WIDE_COLS = 64
 WIDE_CHUNK = 16384
 WIDE_STAGES = (3, 6)
-WIDE_TILE_PIXELS = 128
-WIDE_HALO_PIXELS = 192
 
 
-def _pack_tf32(w: np.ndarray, order: str) -> np.ndarray:
-    """(K, N) float32 weight, K a multiple of 16 and N of 64 -> flat float32
-    values of the 128-wide layout: per pass of WIDE_COLS columns, per k step of
-    8, the hi values and then the lo values (``w - hi``, so hi + lo == w bit
-    for bit), each as wgmma's K-major core matrices without swizzle,
-    [N/8 column groups][2 k halves][8 columns][4 values].  Element j of k half
-    kc of step s is channel 8s + 2j + kc (``"pair"``: A an accumulator
+def _pack_tf32(w: np.ndarray, order: str, cols: int = WIDE_COLS) -> np.ndarray:
+    """(K, N) float32 weight, K a multiple of 16 and N of ``cols`` -> flat
+    float32 values of the wgmma layouts: per pass of ``cols`` columns, per k
+    step of 8, the hi values and then the lo values (``w - hi``, so hi + lo ==
+    w bit for bit), each as wgmma's K-major core matrices without swizzle,
+    [cols/8 column groups][2 k halves][8 columns][4 values].  Element j of k
+    half kc of step s is channel 8s + 2j + kc (``"pair"``: A an accumulator
     fragment, or read 8 bytes a lane) or 16 (s // 2) + 4j + 2 (s % 2) + kc
     (``"quad"``: a lane reads 16 bytes of a pixel for steps 2J and 2J+1)."""
     k, n = w.shape
@@ -412,12 +401,45 @@ def _pack_tf32(w: np.ndarray, order: str) -> np.ndarray:
     ch = 8 * s + 2 * j + kc if order == "pair" else 16 * (s // 2) + 4 * j + 2 * (s % 2) + kc
     arr = np.asarray(w, np.float32)[ch]                                  # (s, kc, j, n)
     out = []
-    for n0 in range(0, n, WIDE_COLS):
-        core = arr[..., n0:n0 + WIDE_COLS].reshape(k // 8, 2, 4, WIDE_COLS // 8, 8)
+    for n0 in range(0, n, cols):
+        core = arr[..., n0:n0 + cols].reshape(k // 8, 2, 4, cols // 8, 8)
         core = np.ascontiguousarray(core.transpose(0, 3, 1, 4, 2))         # (s, grp, kc, col, j)
         hi = (core.view(np.int32) & _TF32_MASK).view(np.float32)
         out.append(np.stack([hi, core - hi], axis=1).reshape(-1))
     return np.concatenate(out)
+
+
+def _sections(sizes) -> Dict[str, tuple]:
+    """[(name, bytes)] laid end to end -> {name: (byte offset, bytes)}, the
+    empty ones left out."""
+    out, at = {}, 0
+    for name, nbytes in sizes:
+        if nbytes:
+            out[name] = (at, nbytes)
+        at += nbytes
+    return out
+
+
+def sections_fly(cin: int, cmid: int, cout: int, has_proj: bool) -> Dict[str, tuple]:
+    """{name: (byte offset, bytes)} of a fly float32 instance's packed buffer
+    (``pack_bottleneck``; the kernel's ``packed_layout``): s1, t1, b1, b2, b3
+    (+ bp), then w1, w3, wp (the resident part) and w2 (streamed), the
+    weights as hi and lo (8 bytes a weight); wp only where the block projects."""
+    return _sections([("s1", 4 * cin), ("t1", 4 * cin), ("b1", 4 * cmid), ("b2", 4 * cmid),
+                      ("b3", 4 * cout), ("w1", 8 * cin * cmid), ("w3", 8 * cmid * cout),
+                      ("wp", 8 * cin * cout if has_proj else 0), ("w2", 8 * 9 * cmid * cmid)])
+
+
+def _pack_fly(f: Dict[str, np.ndarray]) -> torch.Tensor:
+    """``pack_bottleneck``'s fly layout (``sections_fly``)."""
+    cmid, cout = f["w1"].shape[1], f["w3"].shape[1]
+    b3 = f["b3"][0] + f["bp"][0] if "wp" in f else f["b3"][0]
+    parts = [f["s1"][0], f["t1"][0], f["b1"][0], f["b2"][0], b3,
+             _pack_tf32(f["w1"], "quad", cmid), _pack_tf32(f["w3"], "pair", cout)]
+    if "wp" in f:
+        parts.append(_pack_tf32(f["wp"], "quad", cout))
+    parts.append(_pack_tf32(f["w2"].reshape(9 * cmid, cmid), "pair", cmid))
+    return torch.from_numpy(np.concatenate(parts).astype(np.float32))
 
 
 def sections_128(cin: int, has_proj: bool) -> Dict[str, tuple]:
@@ -425,15 +447,9 @@ def sections_128(cin: int, has_proj: bool) -> Dict[str, tuple]:
     buffer (``pack_bottleneck``; the kernel's ``packed_layout``): s1, t1, b1,
     b2, b3 (+ bp), then w1, w3 (the resident part), w2 and wp (streamed), the
     weights as hi and lo (8 bytes a weight); wp only where the block projects."""
-    sizes = [("s1", 4 * cin), ("t1", 4 * cin), ("b1", 4 * 64), ("b2", 4 * 64), ("b3", 4 * 128),
-             ("w1", 8 * cin * 64), ("w3", 8 * 64 * 128), ("w2", 8 * 9 * 64 * 64),
-             ("wp", 8 * cin * 128 if has_proj else 0)]
-    out, at = {}, 0
-    for name, nbytes in sizes:
-        if nbytes:
-            out[name] = (at, nbytes)
-        at += nbytes
-    return out
+    return _sections([("s1", 4 * cin), ("t1", 4 * cin), ("b1", 4 * 64), ("b2", 4 * 64),
+                      ("b3", 4 * 128), ("w1", 8 * cin * 64), ("w3", 8 * 64 * 128),
+                      ("w2", 8 * 9 * 64 * 64), ("wp", 8 * cin * 128 if has_proj else 0)])
 
 
 def _pack_128(f: Dict[str, np.ndarray]) -> torch.Tensor:
@@ -478,10 +494,11 @@ def _pack_general(f: Dict[str, np.ndarray], dtype: str) -> torch.Tensor:
 def pack_bottleneck(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The kernel's weight buffer of one block, a flat CPU tensor.
 
-    float32 block: float32 values, w1 ("lanes" k order), w2 (as (9*Cmid,
-    Cmid), tap-major, "mma"), w3 ("paired") and wp ("lanes") in fragment
-    order, then s1, t1, b1, b2 and b3 (+ bp).  Every value is a folded
-    float32 weight unchanged; the kernel splits hi/lo as it loads.
+    float32 block: float32 values, the fly layout (``sections_fly``): s1,
+    t1, b1, b2 and b3 (+ bp), then w1, w3, wp and w2 (as (9*Cmid, Cmid),
+    tap-major), each weight as hi and lo in wgmma's core-matrix order
+    (``_pack_tf32``); a block of the 128-wide instances (``streams_w2``) the
+    128-wide layout (``sections_128``).
 
     bfloat16 block: bytes (uint8), s1 and t1 as bf16, b1, b2, b3 and bp as
     float32 (bp kept apart from b3, as the JAX oracle adds it), then w1, w2
@@ -490,9 +507,7 @@ def pack_bottleneck(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
     section starts 16-byte aligned (the widths are multiples of 16).
 
     A width outside ``INSTANCES`` gets the general layout (module
-    docstring): float32 values, or bytes at bfloat16, bp apart in both; a
-    float32 block of the 128-wide instances (``streams_w2``) the 128-wide
-    layout (``sections_128``: float32 values, bp folded into b3).
+    docstring): float32 values, or bytes at bfloat16, bp apart in both.
     """
     f = {k: v.detach().cpu().float().numpy() for k, v in folded.items()
          if k not in ("packed", "proj_raw")}
@@ -513,15 +528,7 @@ def pack_bottleneck(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
         w = torch.from_numpy(np.concatenate(weights)).to(torch.bfloat16)  # exact: bf16 values
         b = torch.from_numpy(np.concatenate(biases).astype(np.float32))
         return torch.cat([bn1.view(torch.uint8), b.view(torch.uint8), w.view(torch.uint8)])
-    parts = [_pack_fragments(f["w1"], "lanes"),
-             _pack_fragments(f["w2"].reshape(9 * cmid, cmid), "mma"),
-             _pack_fragments(f["w3"], "paired")]
-    b3 = f["b3"][0]
-    if "wp" in f:
-        parts.append(_pack_fragments(f["wp"], "lanes"))
-        b3 = b3 + f["bp"][0]
-    parts += [f["s1"][0], f["t1"][0], f["b1"][0], f["b2"][0], b3]
-    return torch.from_numpy(np.concatenate(parts).astype(np.float32))
+    return _pack_fly(f)
 
 
 def add_packed(folded: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -534,16 +541,10 @@ def bf16_sections(cin: int, cmid: int, cout: int, has_proj: bool) -> Dict[str, t
     (``pack_bottleneck``; the kernel's ``packed_layout``): s1, t1 (bf16), b1,
     b2, b3, bp (float32), w1, w2, w3, wp (bf16); bp and wp only where the
     block projects."""
-    sizes = [("s1", 2 * cin), ("t1", 2 * cin), ("b1", 4 * cmid), ("b2", 4 * cmid),
-             ("b3", 4 * cout), ("bp", 4 * cout if has_proj else 0), ("w1", 2 * cin * cmid),
-             ("w2", 2 * 9 * cmid * cmid), ("w3", 2 * cmid * cout),
-             ("wp", 2 * cin * cout if has_proj else 0)]
-    out, at = {}, 0
-    for name, nbytes in sizes:
-        if nbytes:
-            out[name] = (at, nbytes)
-        at += nbytes
-    return out
+    return _sections([("s1", 2 * cin), ("t1", 2 * cin), ("b1", 4 * cmid), ("b2", 4 * cmid),
+                      ("b3", 4 * cout), ("bp", 4 * cout if has_proj else 0),
+                      ("w1", 2 * cin * cmid), ("w2", 2 * 9 * cmid * cmid),
+                      ("w3", 2 * cmid * cout), ("wp", 2 * cin * cout if has_proj else 0)])
 
 
 def packed_size(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "float32") -> int:
@@ -551,7 +552,7 @@ def packed_size(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "fl
     float32 block, bytes for a bfloat16 block (2-byte weights, 4-byte
     vectors, bp apart from b3); the general layout at its padded widths,
     with bp apart at float32 too and every float32 weight twice (hi, lo);
-    the 128-wide layout with every weight twice (hi, lo)."""
+    the fly and 128-wide layouts with every weight twice (hi, lo)."""
     if _general(cin, cmid, cout, has_proj):
         cinp, cmidp, cmidn, coutn = _general_widths(cin, cmid, cout, dtype)
         weights = cinp * cmidn + 9 * cmidp * cmidn + cmidp * coutn + (cinp * coutn if has_proj
@@ -561,34 +562,22 @@ def packed_size(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "fl
         return 2 * weights + (4 * vectors if dtype == "bfloat16" else vectors)
     if dtype == "bfloat16":
         return sum(n for _, n in bf16_sections(cin, cmid, cout, has_proj).values())
-    if streams_w2(cin, cmid, cout, has_proj):
-        return sum(n for _, n in sections_128(cin, has_proj).values()) // 4
-    return _resident_values(cin, cmid, cout, has_proj)
-
-
-def _resident_values(cin: int, cmid: int, cout: int, has_proj: bool) -> int:
-    """float32 values of a block's weights and vectors, each once (the
-    resident instances' packed buffer)."""
-    return (cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout if has_proj else 0)
-            + 2 * cin + 2 * cmid + cout)
-
-
-def _smem(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool) -> int:
-    """The resident float32 instances: the packed weights and two a2 halo
-    tiles at pitch Cmid + 4."""
-    return 4 * (_resident_values(cin, cmid, cout, has_proj) + 2 * (th + 2) * (tw + 2) * (cmid + 4))
+    sections = sections_128(cin, has_proj) if streams_w2(cin, cmid, cout, has_proj) \
+        else sections_fly(cin, cmid, cout, has_proj)
+    return sum(n for _, n in sections.values()) // 4
 
 
 def streams_w2(cin: int, cmid: int, cout: int, has_proj: bool, dtype: str = "float32") -> bool:
-    """Whether a float32 instance's weights and the smallest tile (one row of
-    16 pixels) do not fit one thread block's shared memory, as for the
-    128-wide networks' blocks: those run ``csrc/bottleneck_128.cu``, which
-    keeps w1 resident and streams the 3x3's weights (and w3 or wp).  A
-    bfloat16 instance never does (the general instance streams every weight,
-    whatever this says)."""
+    """Whether a float32 block is one of the 128-wide instances (Cmid 64):
+    with w1 and w3 (and wp) resident as hi and lo, the fly design's whole-tap
+    ring (32 KB a slot) no longer fits beside an 8x16 tile's a2, so they run
+    ``csrc/bottleneck_128.cu``, which keeps w1 resident and streams w2 in
+    chunks of half a tap (and w3 or wp); the fly instances run
+    ``csrc/bottleneck.cu``.  A bfloat16 instance never does (the general
+    instance streams every weight, whatever this says)."""
     if dtype == "bfloat16" or (cin, cmid, cout, has_proj) not in INSTANCES:
         return False
-    return _smem(cin, cmid, cout, 1, TILE_MAX_WIDTH, has_proj) > MAX_SMEM
+    return cmid == 64
 
 
 def _layout_128(cin: int, th: int, tw: int, has_proj: bool):
@@ -606,10 +595,32 @@ def _layout_128(cin: int, th: int, tw: int, has_proj: bool):
 
 def tile_fits_128(th: int, tw: int, cin: int, has_proj: bool) -> bool:
     """Whether the 128-wide float32 instance launches a th x tw tile (the
-    kernel's refusals): at most WIDE_TILE_PIXELS pixels, WIDE_HALO_PIXELS halo
+    kernel's refusals): at most RING_TILE_PIXELS pixels, RING_HALO_PIXELS halo
     pixels, and three ring slots within one thread block's shared memory."""
-    return (th * tw <= WIDE_TILE_PIXELS and (th + 2) * (tw + 2) <= WIDE_HALO_PIXELS
+    return (th * tw <= RING_TILE_PIXELS and (th + 2) * (tw + 2) <= RING_HALO_PIXELS
             and _layout_128(cin, th, tw, has_proj)[0] <= MAX_SMEM)
+
+
+def _layout_fly(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool):
+    """(shared memory bytes, ring slots) of a fly float32 instance's thread
+    block (the kernel's ``make_layout``): FLY_BAR_BYTES of mbarriers, the
+    resident part of ``sections_fly`` (the vectors, w1, w3, wp) to 128 bytes,
+    as many ring slots of one tap of w2 (Cmid x Cmid as hi and lo) as fit up
+    to FLY_STAGES[1] (counted as at least FLY_STAGES[0]), and a2 on the
+    (th+2) x (tw+2) halo tile, Cmid float32 values a pixel, to 128 bytes."""
+    ring = FLY_BAR_BYTES + _ceil(sections_fly(cin, cmid, cout, has_proj)["w2"][0], 128)
+    a2 = _ceil((th + 2) * (tw + 2) * cmid * 4, 128)
+    chunk = 8 * cmid * cmid
+    stages = min(FLY_STAGES[1], max(FLY_STAGES[0], (MAX_SMEM - ring - a2) // chunk))
+    return ring + stages * chunk + a2, stages
+
+
+def tile_fits_fly(th: int, tw: int, cin: int, cmid: int, cout: int, has_proj: bool) -> bool:
+    """Whether the fly float32 instance launches a th x tw tile (the kernel's
+    refusals): at most RING_TILE_PIXELS pixels, RING_HALO_PIXELS halo pixels,
+    and two ring slots within one thread block's shared memory."""
+    return (th * tw <= RING_TILE_PIXELS and (th + 2) * (tw + 2) <= RING_HALO_PIXELS
+            and _layout_fly(cin, cmid, cout, th, tw, has_proj)[0] <= MAX_SMEM)
 
 
 # The bf16 resident instances (csrc/bottleneck_bf16.cu): a ring of at most
@@ -660,11 +671,11 @@ def _bf16_layout(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: boo
 
 def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
                dtype: str = "float32") -> int:
-    """Dynamic shared memory of one thread block: the packed weights and two
-    buffers of a2 on the (th+2) x (tw+2) halo tile at pitch Cmid+4 float32
-    values; for a float32 block that ``streams_w2``, ``_layout_128``'s; for a
-    bfloat16 block, ``_bf16_layout``'s: 128 bytes of mbarriers, the
-    packed bytes, a ring of x halo tiles and two a2 buffers.  The general instance: 128 bytes of mbarriers, a ring of
+    """Dynamic shared memory of one thread block: for a float32 block of the
+    fly instances ``_layout_fly``'s, of the 128-wide ones (``streams_w2``)
+    ``_layout_128``'s; for a bfloat16 block, ``_bf16_layout``'s: 128 bytes of
+    mbarriers, the packed bytes, a ring of x halo tiles and two a2 buffers.
+    The general instance: 128 bytes of mbarriers, a ring of
     GENERAL_STAGES chunks (GENERAL_STEPS k steps x 128 columns, hi and lo at
     float32; half the k steps on bf16 tiles of more than 128 pixels), a2 on
     the halo tile at a pitch of Cmid padded to the wgmma's k
@@ -684,21 +695,19 @@ def smem_bytes(cin: int, cmid: int, cout: int, th: int, tw: int, has_proj: bool,
         return _bf16_layout(cin, cmid, cout, th, tw, has_proj)[0]
     if streams_w2(cin, cmid, cout, has_proj):
         return _layout_128(cin, th, tw, has_proj)[0]
-    return _smem(cin, cmid, cout, th, tw, has_proj)
+    return _layout_fly(cin, cmid, cout, th, tw, has_proj)[0]
 
 
-# Microseconds one thread block took for a tile of m 16-pixel MMA row tiles
-# (index m; one warp each in the 3x3), 96->48->96 block, launches of many
-# waves: NVIDIA H100 80GB HBM3 at 700 W, tile sweep with
-# ``scripts/bench_torch_kernels.py`` at 56 x 64x128 (m = 1, 2, 7, 9 filled in
-# between).  The steps at m = 5 and m = 9 are a second and a third warp on an
-# SM's four schedulers.
-_TILE_US = (None, 9.0, 9.7, 9.7, 11.0, 15.7, 16.8, 17.7, 18.6, 22.0, 23.6, 25.2, 26.1)
+# Microseconds of one tile of m 16-pixel row tiles (index m, up to
+# RING_TILE_PIXELS / 16) of the fly float32 instances (csrc/bottleneck.cu),
+# 96->48->96 and 48->48->96 (+proj) blocks: device time of a launch over its
+# rounds of one tile per SM, the median over the fly shapes of more than one
+# round, ``scripts/bench_torch_kernels.py --tiles`` (its FLY_TILE_TABLE line),
+# NVIDIA H100 80GB HBM3 at 700 W.
+_TILE_US = (None, 6.53, 7.18, 7.45, 7.86, 10.63, 12.38, 13.07, 14.38)
 # The same for the 128-wide float32 instances (csrc/bottleneck_128.cu),
-# 128->64->128 and 64->64->128 (+proj) blocks, tiles of m 16-pixel row tiles up
-# to WIDE_TILE_PIXELS: device time of a launch over its rounds of one tile per
-# SM, ``scripts/bench_torch_kernels.py --tiles`` at the h36m shapes (its
-# WIDE_TILE_TABLE line), NVIDIA H100 80GB HBM3 at 700 W.
+# 128->64->128 and 64->64->128 (+proj) blocks, at the h36m shapes (its
+# WIDE_TILE_TABLE line).
 _TILE_US_128 = (None, 10.18, 11.20, 11.65, 12.39, 16.01, 19.19, 19.59, 20.12)
 # The same for the general instance, float32 256->128->256 and 128->128->256
 # (raw projection) blocks, and apart for bf16: the median over the shapes of
@@ -728,48 +737,35 @@ def choose_tile(n: int, h: int, w: int, cin: int, cmid: int, cout: int, has_proj
     the SMs times the measured time of such a tile, among those that fit
     shared memory.  Large images get 8x16 tiles; small images and batches
     fewer rows, until one wave covers the launch.  The bfloat16 instances
-    have their own rules and table (``_choose_tile_bf16``), and so have the
-    128-wide float32 ones (``_choose_tile_128``); the general
-    instance's tiles hold at most GENERAL_TILE_PIXELS[dtype] pixels and use its own
+    have their own rules and table (``_choose_tile_bf16``); the float32
+    instances take the tiles that ``tile_fits_fly`` or ``tile_fits_128`` and
+    their tables, ``_TILE_US`` and ``_TILE_US_128``; the general instance's
+    tiles hold at most GENERAL_TILE_PIXELS[dtype] pixels and use its own
     tables, ``_TILE_US_GENERAL`` and ``_TILE_US_GENERAL_BF16``.  Raises
     ValueError if no tile fits."""
     tw = min(TILE_MAX_WIDTH, w)
-    general = _general(cin, cmid, cout, has_proj)
-    if not general and dtype == "bfloat16":
-        return _choose_tile_bf16(n, h, w, cin, cmid, cout, has_proj)
-    if streams_w2(cin, cmid, cout, has_proj, dtype):
-        return _choose_tile_128(n, h, w, cin, has_proj)
-    if general:
-        tile_us = _TILE_US_GENERAL_BF16 if dtype == "bfloat16" else _TILE_US_GENERAL
+    if not _general(cin, cmid, cout, has_proj):
+        if dtype == "bfloat16":
+            return _choose_tile_bf16(n, h, w, cin, cmid, cout, has_proj)
+        if streams_w2(cin, cmid, cout, has_proj):
+            fits, tile_us = lambda th: tile_fits_128(th, tw, cin, has_proj), _TILE_US_128
+        else:
+            fits, tile_us = lambda th: tile_fits_fly(th, tw, cin, cmid, cout, has_proj), _TILE_US
     else:
-        tile_us = _TILE_US
+        tile_us = _TILE_US_GENERAL_BF16 if dtype == "bfloat16" else _TILE_US_GENERAL
+        fits = lambda th: (th * tw <= (len(tile_us) - 1) * 16
+                           and smem_bytes(cin, cmid, cout, th, tw, has_proj, dtype) <= MAX_SMEM)
     best = None
-    for th in range(1, min(h, (len(tile_us) - 1) * 16 // tw) + 1):
-        if smem_bytes(cin, cmid, cout, th, tw, has_proj, dtype) > MAX_SMEM:
+    for th in range(1, h + 1):
+        if not fits(th):
             break
-        waves = -(-n * -(-h // th) * -(-w // tw) // NUM_SMS)
-        cost = waves * tile_us[-(-th * tw // 16)]
+        rounds = -(-n * -(-h // th) * -(-w // tw) // NUM_SMS)
+        cost = rounds * tile_us[-(-th * tw // 16)]
         if best is None or cost < best[0]:
             best = (cost, th)
     if best is None:
         raise ValueError(f"block too wide for one thread block's shared memory "
                          f"(Cin={cin}, Cmid={cmid}, Cout={cout})")
-    return best[1], tw
-
-
-def _choose_tile_128(n: int, h: int, w: int, cin: int, has_proj: bool):
-    """``choose_tile`` for a 128-wide float32 instance: among the tiles that
-    ``tile_fits_128``, the one whose launch should take least time, its rounds
-    of one tile per SM times ``_TILE_US_128`` of its tile."""
-    tw = min(TILE_MAX_WIDTH, w)
-    best = None
-    for th in range(1, h + 1):
-        if not tile_fits_128(th, tw, cin, has_proj):
-            break
-        rounds = -(-n * -(-h // th) * -(-w // tw) // NUM_SMS)
-        cost = rounds * _TILE_US_128[-(-th * tw // 16)]
-        if best is None or cost < best[0]:
-            best = (cost, th)
     return best[1], tw
 
 
@@ -840,8 +836,8 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
     """One folded bottleneck block, (N, H, W, Cin) -> (N, H, W, Cout) in x's
     dtype (float32, or bfloat16 for a block folded at bfloat16).
 
-    On a CUDA tensor this launches ``csrc/bottleneck.cu`` (float32),
-    ``csrc/bottleneck_128.cu`` (float32, the 128-wide blocks: ``streams_w2``)
+    On a CUDA tensor this launches ``csrc/bottleneck.cu`` (float32, the fly
+    widths), ``csrc/bottleneck_128.cu`` (float32, the 128-wide blocks: ``streams_w2``)
     or ``csrc/bottleneck_bf16.cu`` (bfloat16) at a width of ``INSTANCES``, and
     ``csrc/bottleneck_general.cu`` at any other width inside ``ENVELOPE``
     (one launch, every intermediate on chip; ``folded`` must hold the

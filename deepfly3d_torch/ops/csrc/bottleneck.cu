@@ -1,5 +1,8 @@
-// Folded pre-activation bottleneck block, one launch per block, on the H100's
-// tensor cores as error-compensated TF32 ("3xTF32"), float32 in and out.
+// Folded pre-activation bottleneck block of the 96- and 64-wide fly networks,
+// float32 in and out, one launch per block, on the H100's tensor cores as
+// error-compensated TF32 ("3xTF32"): the blocks 96->48->96 and 64->32->64
+// (identity skip) and 48->48->96 and 32->32->64 (projection of a1, or of x
+// itself with RAW), every float32 block of the fly checkpoints.
 //
 // Replaces deepfly3d_tpu/ops/pallas/bottleneck.py::fused_bottleneck, all four
 // TPU tilings of one contract (_block_kernel, _block_kernel_v2,
@@ -12,507 +15,816 @@
 //
 // The last form is the raw-input projection of checkpoints converted from the
 // torch stacked-hourglass lineage (HourglassSpec.proj_from_raw): the skip of a
-// width-changing block projects x itself, not relu(bn1(x)).  RAW, a compile-time
-// flag of the projecting instances, makes the projection's A fragments x
-// instead of a1; everything else is the same kernel.
+// width-changing block projects x itself, not relu(bn1(x)).  The zero padding
+// of the 3x3 applies to a2: a halo pixel outside the image has a2 = 0, not
+// relu(b1) (the fault of the TPU v3/v4 kernels).
 //
-// x, y are NHWC float32.  The weights arrive in one buffer, `packed`, that the
-// host builds once per block (ops/bottleneck.py::pack_bottleneck): w1, w2 (as a
-// (9*Cmid, Cmid) matrix, tap-major), w3 and wp in MMA fragment order, then s1,
-// t1, b1, b2 and b3 (+ bp).
+// Arithmetic.  Every product a @ w is three TF32 products, a_lo*w_hi and
+// a_hi*w_lo into one float32 accumulator and a_hi*w_hi into another that
+// starts at the bias, the two added once after the last k step, where hi = v
+// with its low 13 mantissa bits cleared and lo = v - hi.  The host stores every
+// weight as hi and lo (ops/bottleneck.py::pack_bottleneck); each lane splits
+// its A fragment once per k step.  The dropped a_lo*w_lo term and the cut of lo
+// are ~2^-20 relative, the size of float32 rounding in a reordered sum.  bn1 on
+// x, the ReLUs and the skip are float32 on the CUDA cores.
 //
 // Bound: operations.  A 96->48->96 block does ~60 kFLOP per pixel against 768
-// bytes of x and y; three TF32 MMAs per product against 495 TFLOP/s is the
-// floor of this arithmetic.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
-// (scripts/bench_torch_kernels.py): 0.52 ms for 56 images of 64x128 against
-// a floor of 0.17 ms, about 60% of the rate mma.sync itself reaches.
+// bytes of x and y: one TF32 pass at 495 TFLOP/s would be bound by the bytes,
+// but three TF32 products per multiply put the floor at 1.59x the bytes bound.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (scripts/bench_torch_kernels.py,
+// in turns with the mma.sync design this one replaced): 0.365 ms for 56 images
+// of 64x128 against a floor of 0.167 ms (46%; mma.sync 0.526 ms, 32%), the
+// projecting 48->48->96 block 1.247 ms for 56 x 128x256 against 0.718 (58%;
+// 1.94 ms), the 31 blocks of one conv forward at N=56 4.34 ms against 2.05
+// (6.30 ms).  A clock64 profile of one 8x16 tile of the 96-wide block puts 40%
+// of its time in the 3x3, which runs at ~75% of the tensor pipe's TF32 rate,
+// and 55-60% in stages 1 and 3, which hold a third of its products: their
+// loads of x from L2, stage 1's split last block and the epilogues, during
+// which the two consumers, in step, leave the tensor pipe idle.
 //
-// Arithmetic.  Every product a @ w runs as three
-// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 with float32
-// accumulators: a_lo*w_hi and a_hi*w_lo into one accumulator, a_hi*w_hi into
-// another, the two added once after the last k step (small terms first), where
-// hi = x with its low 13 mantissa bits cleared (a TF32 number) and lo = x - hi
-// (exact in float32; the tensor core reads its upper 19 bits).  The dropped
-// a_lo*w_lo term and the cut of lo are ~2^-20 relative, the size of float32
-// rounding in a reordered sum.  Biases, ReLUs, the bn-relu on x and the identity
-// skip are float32 on the CUDA cores.  mma.sync was taken over wgmma because
-// each thread loads its own fragment elements from any shared-memory address,
-// which is what the 3x3's halo-tile taps need (a tap is an offset of whole
-// pixel rows), and because the split of lo/hi happens in registers, which
-// wgmma's shared-memory operands would not allow without storing both halves.
-//
-// Data movement.  Persistent thread blocks (one per SM, 12 warps) loop over
-// output tiles.  The whole packed weight buffer (120-130 KB as float32) is
-// copied to shared memory once per thread block with cp.async and stays there
-// for every tile; hi and lo of a weight fragment are split in registers when it
-// is loaded (two ALU operations per element), because hi + lo of all weights
-// (238 KB) would not fit beside the activations.  The fragment order makes a
-// warp's B-fragment load one conflict-free 8-byte load per lane.  Per tile
-// (th x tw <= 192 pixels, one 16-pixel MMA row tile per warp):
-//   1. + 2. a2 = relu(relu(x*s1 + t1) @ w1 + b1) on the tile and a one-pixel
-//      halo, zero outside the image (the 3x3's zero padding), to shared memory
-//      (pitch Cmid+4 words: the MMA A fragment's rows g, g+8 and columns t,
-//      t+4 then hit 32 distinct banks), in units of 16 pixels x Cmid/2 columns
-//      so that the warps share it evenly.  x never passes through shared
-//      memory: the k order of this product is free, so w1 is packed such that
-//      lane column t stands for the Cin/4 neighbouring channels t*Cin/4 ..., and
-//      a lane reads exactly those of its two pixels from global memory, 16
-//      bytes at a time, and applies bn-relu in registers;
-//   3. the 3x3 as an implicit GEMM with K = 9 taps x Cmid out of the a2 halo
-//      tile; warp m owns the 16 pixels 16m..16m+15 of the tile and all Cmid
-//      output channels, so
-//   4. relu(acc + b2) stays in registers: the accumulator fragment (columns 2t,
-//      2t+1) is used directly as the A fragment of a3 @ w3, with w3 packed in
-//      the matching k order (slot t <-> channel 8j+2t, slot t+4 <-> 8j+2t+1).
-//      The projection a1 @ wp accumulates into the same registers (its A
-//      fragments come from x as in stage 2); the identity skip re-reads x (an
-//      L2 hit).  Pairs of lanes exchange half their fragment so that y leaves
-//      in 16-byte stores.
-// a2 has two buffers, used by alternate tiles, so a tile needs one barrier
-// (after stage 2): warps that finish a tile early fill the other buffer for the
-// next tile while slower warps are still in this tile's 3x3, and the stages of
-// neighbouring tiles overlap.  The wrapper picks the tile per image size and
-// batch (ops/bottleneck.py::choose_tile): fewer rows at small images and
-// batches, so that a launch has a thread block for every SM.
-//
-// The blocks whose weights do not fit (128->64->128 and the projecting
-// 64->64->128 of the 128-wide networks: 215-231 KB of weights against 227 KB
-// of shared memory) run csrc/bottleneck_128.cu.
+// Design (Hopper: wgmma, bulk copies into an mbarrier ring, warp
+// specialisation), the design of csrc/bottleneck_128.cu fitted to these widths.
+// Persistent thread blocks of three warpgroups walk over th x tw output tiles
+// of at most 128 pixels.  Every weight lies in shared memory as hi and lo:
+// w1, w3 and a projection's wp stay resident (73.5 KB for 96->48->96, 91 KB
+// for the projecting 48->48->96, 33-41 KB at 64 wide) beside one a2 halo
+// tile, and the 3x3's w2 (162 KB at Cmid 48, 72 KB at Cmid 32; an L2 hit after
+// the first tiles) streams through a ring of one tap per chunk (18 KB / 8 KB)
+// and three slots.
+// Warpgroup 0 is the producer: one thread copies the resident part once per
+// thread block (vectors and w1, then w3 and wp, each on its own mbarrier) and
+// then streams, tile after tile, w2's 9 taps, one contiguous cp.async.bulk per
+// chunk, with a full and an empty mbarrier per slot; it runs ahead across
+// tiles and asks L2 for the next tile's halo rows of x.  Warpgroups 1 and 2 are
+// the consumers; per tile:
+//   1. a2 on the (th+2) x (tw+2) halo tile: the halo's m64 row blocks dealt
+//      out between the two consumers (an odd last block split in two halves of
+//      Cmid/2 columns), A = a1 of the block's pixels, read by each lane from x
+//      in L2 (16 bytes of each pixel per pair of k steps, all of them before
+//      the first product), B = w1 resident; the epilogue writes relu(acc), 0
+//      outside the image, to a2 in shared memory;
+//   2. the 3x3 as an implicit GEMM, K = 9 taps x Cmid (a tap is an offset of
+//      whole halo rows): consumer c owns the tile's m64 row block c (a consumer
+//      without one skips stages 2 and 3: the ring's empty barriers count only
+//      the consumers that have rows), A loaded by each lane from its rows of
+//      a2, B = w2 from the ring, one tap per issue group;
+//   3. a3 = relu(acc) stays in registers: an accumulator's columns 8i + 2t,
+//      8i + 2t + 1 are the lane's A fragment of k step i of the next product
+//      (w3 packed in that k order).  y = a3 @ w3 (+ the projection into the same
+//      accumulators, A = a1 or x of the output pixels) in one pass over Cout,
+//      B resident, plus the identity skip's x (loaded while the last products
+//      run), 8-byte stores of whole 32-byte sectors.
+// Every product is wgmma m64nNk8 TF32 (N = Cmid in stages 1 and 2, Cmid / 2
+// for a split block, Cout in stage 3) with A from registers and B from shared
+// memory in wgmma's K-major core-matrix layout without swizzle.  Products are
+// issued in groups (two to six k steps, three wgmma each) with two sets of A
+// registers: while a group runs, the next group's A is loaded and split, and a
+// ring slot is released as soon as its group has completed (wgmma.wait_group
+// 1), so the consumers meet no block-wide barrier per tap; the two consumer
+// warpgroups meet at a named barrier twice a tile (a2 complete; a2 read by the
+// 3x3 of both).  Accumulators are read only after the wait for every product in
+// flight, and the warp role comes from a broadcast lane (ptxas serialises
+// every wgmma otherwise: C7514, C7520).  setmaxnreg gives the consumers 240
+// registers and the producer 24.  a2 lies at a pitch of Cmid values with its
+// 8-byte units XOR-swizzled by the row, so that the 8-byte loads and stores of
+// a half warp (4 rows x 4 lanes) hit distinct banks without padding.
+// Shared memory: 128 bytes of mbarriers, the resident part (to 128 bytes), the
+// ring, a2 (halo pixels x Cmid x 4 bytes): 161 KB for 96->48->96 at an 8x16
+// tile, 179 KB for the projecting block.  ops/bottleneck.py mirrors it
+// (smem_bytes) and picks the tile (choose_tile, its table for this kernel).
+// A wait on an mbarrier that lasts seconds (a fault, never a schedule) traps
+// rather than hangs.
 
 #include <cuda_runtime.h>
+#include <climits>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 384;
-constexpr int kWarps = kThreads / 32;
-constexpr uint32_t kHiMask = 0xffffe000u;   // keeps sign, exponent, 10 mantissa bits
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kThreads = 128 * (1 + kConsumers);   // and the producer warpgroup
 constexpr int kMaxDevices = 64;
-constexpr size_t kMaxSmem = 227 * 1024;      // dynamic shared memory of one thread block
+constexpr int kMaxSmem = 227 * 1024;               // dynamic shared memory of one thread block
+constexpr int kTaps = 9;                           // w2's chunks, one tap each
+// ring slots: at least 2; at most 3, which measured 2-3% faster than 4-6 at the
+// 96-wide trunk's shapes (fewer bulk copies in flight beside the loads of x)
+constexpr int kMinStages = 2, kMaxStages = 3;
+constexpr int kBarBytes = 128;                     // the mbarriers, ahead of the resident weights
+constexpr int kGroup3 = 2;                         // k steps of an issue group of stage 3
+constexpr int kMaxTilePixels = 128;                // two m64 row blocks in stages 2 and 3
+constexpr int kMaxHaloPixels = 192;                // three m64 row blocks in stage 1
+constexpr uint32_t kHiMask = 0xffffe000u;          // keeps sign, exponent, 10 mantissa bits
+constexpr long long kWatchdogCycles = 4000000000LL;
 
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(v) & kHiMask;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Bytes of one k step of 8 over n columns: its hi values, then its lo values.
+__host__ __device__ constexpr int step_bytes(int n) { return 64 * n; }
 
-// The B fragments of NT neighbouring 8-column tiles of one k step, as loaded
-// (`w` points at the first tile's 64 packed words), and the A fragment from two
-// shared-memory rows (already offset by the lane's column t).  Loading a step's
-// fragments one step ahead of its MMAs hides the shared-memory latency, which
-// two warps per scheduler would not.
-template <int NT>
-struct BFrag { float2 b[NT]; };
-struct AFrag { float a[4]; };
+// Bytes of one ring chunk: a tap of w2, Cmid / 8 k steps.
+__host__ __device__ constexpr int chunk_bytes(int cmid) { return cmid / 8 * step_bytes(cmid); }
 
-template <int NT>
-__device__ __forceinline__ void load_b(BFrag<NT>& f, const float* __restrict__ w, int lane) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i)
-    f.b[i] = *reinterpret_cast<const float2*>(w + i * 64 + lane * 2);
-}
-
-__device__ __forceinline__ void load_a(AFrag& f, const float* r0, const float* r1) {
-  f.a[0] = r0[0];
-  f.a[1] = r1[0];
-  f.a[2] = r0[4];
-  f.a[3] = r1[4];
-}
-
-// acc[i] += a_hi @ w_hi and small[i] += a_lo @ w_hi + a_hi @ w_lo for the NT
-// tiles.  The two small terms have accumulators of their own: they are summed
-// among themselves (nothing of them is lost against the large sum until the one
-// addition at the end, see add_small), and the 2 * NT accumulators make
-// independent MMA chains, so that consecutive MMAs never wait for each other.
-template <int NT>
-__device__ __forceinline__ void mma_step(float (&acc)[NT][4], float (&small)[NT][4],
-                                         const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                         const BFrag<NT>& f) {
-  uint32_t bh[NT][2], bl[NT][2];
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    split(f.b[i].x, bh[i][0], bl[i][0]);
-    split(f.b[i].y, bh[i][1], bl[i][1]);
-  }
-#pragma unroll
-  for (int i = 0; i < NT; ++i) mma_tf32(small[i], al, bh[i][0], bh[i][1]);
-#pragma unroll
-  for (int i = 0; i < NT; ++i) mma_tf32(acc[i], ah, bh[i][0], bh[i][1]);
-#pragma unroll
-  for (int i = 0; i < NT; ++i) mma_tf32(small[i], ah, bl[i][0], bl[i][1]);
-}
-
-template <int NT>
-__device__ __forceinline__ void mma_step(float (&acc)[NT][4], float (&small)[NT][4],
-                                         const AFrag& a, const BFrag<NT>& f) {
-  uint32_t ah[4], al[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(a.a[i], ah[i], al[i]);
-  mma_step<NT>(acc, small, ah, al, f);
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&small)[NT][4]) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i) small[i][0] = small[i][1] = small[i][2] = small[i][3] = 0.f;
-}
-
-// the sum of the small terms joins the large sum (which started at the bias)
-template <int NT>
-__device__ __forceinline__ void add_small(float (&acc)[NT][4], const float (&small)[NT][4]) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] += small[i][e];
-  }
-}
-
-// accumulators start at the bias of their columns (2t, 2t+1 of each tile)
-template <int NT>
-__device__ __forceinline__ void init_bias(float (&acc)[NT][4], const float* bias, int t) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    const float2 b = *reinterpret_cast<const float2*>(bias + i * 8 + 2 * t);
-    acc[i][0] = acc[i][2] = b.x;
-    acc[i][1] = acc[i][3] = b.y;
-  }
-}
-
-__device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(gmem_src));
-}
-
-// Offsets (in floats) into the packed buffer; ops/bottleneck.py mirrors them.
-template <int CIN, int CMID, int COUT, bool PROJ>
+// Byte offsets into the packed buffer; ops/bottleneck.py::sections_fly mirrors
+// them.  The resident part (vectors, w1, w3, wp) comes first, in the order of
+// its two copies to shared memory; w2 follows, tap after tap.
 struct Packed {
-  static constexpr int w1 = 0;
-  static constexpr int w2 = w1 + CIN * CMID;
-  static constexpr int w3 = w2 + 9 * CMID * CMID;
-  static constexpr int wp = w3 + CMID * COUT;
-  static constexpr int s1 = wp + (PROJ ? CIN * COUT : 0);
-  static constexpr int t1 = s1 + CIN;
-  static constexpr int b1 = t1 + CIN;
-  static constexpr int b2 = b1 + CMID;
-  static constexpr int b3 = b2 + CMID;      // b3 + bp when the block projects
-  static constexpr int total = b3 + COUT;
+  int s1, t1, b1, b2, b3, w1, w3, wp, w2, total;
 };
 
-// Bytes of dynamic shared memory: the packed weights and two a2 halo tiles.
-constexpr size_t smem_size(int cin, int cmid, int cout, bool proj, int th, int tw) {
-  const size_t packed = (size_t)cin * cmid + 9 * (size_t)cmid * cmid + (size_t)cmid * cout +
-                        (proj ? (size_t)cin * cout : 0) + 2 * cin + 2 * cmid + cout;
-  return (packed + 2 * (size_t)(th + 2) * (tw + 2) * (cmid + 4)) * sizeof(float);
+__host__ __device__ constexpr Packed packed_layout(int cin, int cmid, int cout, bool proj) {
+  Packed p{};
+  p.s1 = 0;
+  p.t1 = 4 * cin;
+  p.b1 = 8 * cin;
+  p.b2 = p.b1 + 4 * cmid;
+  p.b3 = p.b2 + 4 * cmid;                           // b3 + bp where the block projects
+  p.w1 = p.b3 + 4 * cout;
+  p.w3 = p.w1 + cin / 8 * step_bytes(cmid);
+  p.wp = p.w3 + cmid / 8 * step_bytes(cout);
+  p.w2 = p.wp + (proj ? cin / 8 * step_bytes(cout) : 0);   // the end of the resident part
+  p.total = p.w2 + kTaps * chunk_bytes(cmid);
+  return p;
+}
+
+// The tile, its m64 row blocks, and the shared memory of one thread block:
+// the mbarriers, the resident part, the ring (as many chunks as fit, up to
+// kMaxStages; smem counts at least kMinStages) and a2.
+struct Layout {
+  int th, tw, hw, hp, tp, nb1, nb2;       // halo width / pixels, tile pixels, row blocks
+  int tiles_x, tiles_y, tiles;            // tiles: of the whole batch
+  int ring, stages, a2, smem;             // byte offsets and sizes
+};
+
+__host__ __device__ constexpr Layout make_layout(int cin, int cmid, int cout, bool proj, int th,
+                                                 int tw) {
+  Layout L{};
+  L.th = th;
+  L.tw = tw;
+  L.hw = tw + 2;
+  L.hp = (th + 2) * L.hw;
+  L.tp = th * tw;
+  L.nb1 = (L.hp + 63) / 64;
+  L.nb2 = (L.tp + 63) / 64;
+  L.ring = kBarBytes + round_up(packed_layout(cin, cmid, cout, proj).w2, 128);
+  const int a2 = round_up(L.hp * cmid * 4, 128);
+  const int fit = (kMaxSmem - L.ring - a2) / chunk_bytes(cmid);
+  L.stages = fit > kMaxStages ? kMaxStages : (fit < kMinStages ? kMinStages : fit);
+  L.a2 = L.ring + L.stages * chunk_bytes(cmid);
+  L.smem = L.a2 + a2;
+  return L;
+}
+
+// ---------------------------------------------------------------- PTX pieces
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity)) {
+    if (clock64() - t0 > kWatchdogCycles) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// a hint to bring `bytes` (16-byte granules) of device memory into L2
+__device__ __forceinline__ void prefetch_l2(const void* src, int bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" :: "l"(src), "r"(bytes) : "memory");
+}
+
+// the two consumer warpgroups' named barrier
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(128 * kConsumers) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void set_max_regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void set_max_regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// wgmma's shared-memory descriptor of a K-major operand without swizzle: core
+// matrices of 8 rows x 16 bytes, 128 bytes apart along k (LBO) and 256 bytes
+// apart along n (SBO)
+__device__ __forceinline__ uint64_t desc_of(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups of this warpgroup's products are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+#define DF3D_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define DF3D_F8(d, i) DF3D_F4(d, i), DF3D_F4(d, i + 4)
+
+// d (64 x N, f32) += a (64 x 8 TF32, registers) @ b (8 x N, shared memory)
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : DF3D_F8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<24>(float (&d)[12], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+      : DF3D_F8(d, 0), DF3D_F4(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : DF3D_F8(d, 0), DF3D_F8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<48>(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : DF3D_F8(d, 0), DF3D_F8(d, 8), DF3D_F8(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : DF3D_F8(d, 0), DF3D_F8(d, 8), DF3D_F8(d, 16), DF3D_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : DF3D_F8(d, 0), DF3D_F8(d, 8), DF3D_F8(d, 16), DF3D_F8(d, 24), DF3D_F8(d, 32), DF3D_F8(d, 40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef DF3D_F8
+#undef DF3D_F4
+
+// ---------------------------------------------------------------- the stages
+
+// hi and lo of four values (the A fragment of one k step: rows g, g+8 at k
+// slot t, then rows g, g+8 at slot t + 4)
+__device__ __forceinline__ void split4(float v0, float v1, float v2, float v3, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const float v[4] = {v0, v1, v2, v3};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = __float_as_uint(v[i]) & kHiMask;
+    lo[i] = __float_as_uint(v[i] - __uint_as_float(hi[i]));
+  }
+}
+
+// relu(v * s + sh) of a lane's four channels, or v itself without bn
+__device__ __forceinline__ float4 bn_relu4(float4 v, float4 s, float4 sh, bool bn) {
+  if (!bn) return v;
+  return make_float4(fmaxf(fmaf(v.x, s.x, sh.x), 0.f), fmaxf(fmaf(v.y, s.y, sh.y), 0.f),
+                     fmaxf(fmaf(v.z, s.z, sh.z), 0.f), fmaxf(fmaf(v.w, s.w, sh.w), 0.f));
+}
+
+// The A fragments of k steps 2J and 2J+1 of a product over Cin (w1, wp: their
+// k order gives lane column t channels 16J + 4t ... 4t + 3 of the pair): p0, p1
+// those channels of rows g and g + 8.
+__device__ __forceinline__ void quad_frags(float4 p0, float4 p1, uint32_t (&h0)[4],
+                                           uint32_t (&l0)[4], uint32_t (&h1)[4],
+                                           uint32_t (&l1)[4]) {
+  split4(p0.x, p1.x, p0.y, p1.y, h0, l0);
+  split4(p0.z, p1.z, p0.w, p1.w, h1, l1);
+}
+
+// The products of one issue group of S k steps over a weight W columns wide
+// (N of them from the descriptor's column on): B of k step kk at b + kk *
+// step_bytes(W) (hi, and lo 32 W bytes further).  Small terms first, as the
+// arithmetic model sums them.
+template <int N, int W, int S>
+__device__ __forceinline__ void group_mma(float (&acc)[N / 2], float (&acc2)[N / 2],
+                                          const uint32_t (&ah)[S][4], const uint32_t (&al)[S][4],
+                                          uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < S; ++kk) {
+    const uint64_t bh = b + ((kk * step_bytes(W)) >> 4), bl = bh + ((32 * W) >> 4);
+    wgmma<N>(acc2, al[kk], bh);
+    wgmma<N>(acc, ah[kk], bh);
+    wgmma<N>(acc2, ah[kk], bl);
+  }
+}
+
+// accumulators over N columns from col0 start at the bias of their columns
+// (8i + 2t, + 1 of each 8-column group), their small-term twins at 0
+template <int N>
+__device__ __forceinline__ void init_bias(float (&acc)[N / 2], float (&acc2)[N / 2],
+                                          const float* bias, int t) {
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * i + 2 * t);
+    acc[4 * i] = acc[4 * i + 2] = b.x;
+    acc[4 * i + 1] = acc[4 * i + 3] = b.y;
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc2[i] = 0.f;
+}
+
+// float index of channel pair u (8-byte unit) of halo row r of a2, the units
+// XOR-swizzled so that four neighbouring rows' units 4k ... 4k+3 fill 32 banks
+template <int CMID>
+__device__ __forceinline__ int a2_at(int r, int u) {
+  static_assert(CMID % 32 == 0 || CMID % 32 == 16, "a2 pitch");
+  const int swz = CMID % 32 == 0 ? (r & 3) << 2 : ((r >> 1) & 1) << 2;
+  return r * CMID + 2 * (u ^ swz);
+}
+
+// The ring's slot and phase, the same sequence in the producer and the consumers.
+struct Ring {
+  int slot, phase;
+  __device__ __forceinline__ void next(int stages) {
+    if (++slot == stages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// What one consumer thread's stages share: its tile and its place.
+struct Ctx {
+  const float* xn;                          // this image of x and of y
+  float* yn;
+  const float* vec;                         // s1, t1, b1, b2, b3 in shared memory
+  float* a2;
+  uint32_t w1, w3, wp, ring, full, empty;   // shared-memory addresses
+  int H, W, y0, x0;
+  int wg, wq, lane, g, t;                   // consumer warpgroup, warp in it, lane's row / column
+};
+
+// lane 0 of each warp, once its warpgroup's products of the slot have completed
+__device__ __forceinline__ void release(const Ctx& c, int slot) {
+  __syncwarp();
+  if (c.lane == 0) mbar_arrive(c.empty + 8 * slot);
+}
+
+// Stage 1 for m64 row block b of the halo and N columns from col0: a2 =
+// relu(a1 @ w1 + b1), 0 outside the image.
+template <int CIN, int CMID, int N>
+__device__ __forceinline__ void stage1_block(const Ctx& c, const Layout& L, int b, int col0) {
+  constexpr Packed P = packed_layout(CIN, CMID, 0, false);   // the vectors up to b2
+  constexpr int NQ = CIN / 16;              // channel quads of x a lane reads per pixel
+  constexpr int QG = NQ % 3 == 0 ? 3 : 2;   // quads of an issue group (2 QG k steps)
+  static_assert(NQ % QG == 0, "Cin in whole issue groups");
+  const float* s1v = c.vec + P.s1 / 4 + 4 * c.t;
+  const float* t1v = c.vec + P.t1 / 4 + 4 * c.t;
+  int row[2];
+  bool inside[2];
+  float4 raw[NQ][2];                        // the lane's channel quads of its two rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = 64 * b + 16 * c.wq + c.g + 8 * h;
+    const int q = min(row[h], L.hp - 1);
+    const int py = q / L.hw;
+    const int gy = c.y0 - 1 + py, gx = c.x0 - 1 + q - py * L.hw;
+    inside[h] = row[h] < L.hp && gy >= 0 && gy < c.H && gx >= 0 && gx < c.W;
+    // a pixel outside reads pixel (0, 0): unused
+    const float* src = c.xn + (inside[h] ? (size_t)gy * c.W + gx : 0) * CIN + 4 * c.t;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) raw[j][h] = __ldg(reinterpret_cast<const float4*>(src + 16 * j));
+  }
+  float acc[N / 2], acc2[N / 2];
+  init_bias<N>(acc, acc2, c.vec + P.b1 / 4 + col0, c.t);
+  uint32_t ah[2][2 * QG][4], al[2][2 * QG][4];
+#pragma unroll
+  for (int gi = 0; gi < NQ / QG; ++gi) {
+    const int bf = gi & 1;
+#pragma unroll
+    for (int j = 0; j < QG; ++j) {
+      const int J = QG * gi + j;
+      const float4 s = *reinterpret_cast<const float4*>(s1v + 16 * J);
+      const float4 sh = *reinterpret_cast<const float4*>(t1v + 16 * J);
+      quad_frags(bn_relu4(raw[J][0], s, sh, true), bn_relu4(raw[J][1], s, sh, true),
+                 ah[bf][2 * j], al[bf][2 * j], ah[bf][2 * j + 1], al[bf][2 * j + 1]);
+    }
+    wg_fence();
+    group_mma<N, CMID, 2 * QG>(acc, acc2, ah[bf], al[bf],
+                               desc_of(c.w1 + gi * 2 * QG * step_bytes(CMID) + col0 * 32));
+    wg_commit();
+    wg_wait<1>();
+  }
+  wg_wait<0>();
+  // the epilogue: relu(acc + small terms), 0 outside the image
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const int col = col0 + 8 * i + 2 * c.t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 4 * i + 2 * h;
+      const float2 v = inside[h] ? make_float2(fmaxf(acc[j] + acc2[j], 0.f),
+                                               fmaxf(acc[j + 1] + acc2[j + 1], 0.f))
+                                 : make_float2(0.f, 0.f);
+      if (row[h] < L.hp) *reinterpret_cast<float2*>(c.a2 + a2_at<CMID>(row[h], col >> 1)) = v;
+    }
+  }
+}
+
+// Stage 1 of the whole halo: the m64 row blocks dealt out in turn, an odd
+// last block split into two halves of Cmid / 2 columns.
+template <int CIN, int CMID>
+__device__ __forceinline__ void stage1(const Ctx& c, const Layout& L) {
+  const int odd = L.nb1 & 1;
+  for (int b = c.wg; b < L.nb1 - odd; b += kConsumers) stage1_block<CIN, CMID, CMID>(c, L, b, 0);
+  if (odd) stage1_block<CIN, CMID, CMID / 2>(c, L, L.nb1 - 1, CMID / 2 * c.wg);
+}
+
+// Stage 2, the 3x3 over row block c.wg of the tile: -> a3 = relu(z2 + b2) as
+// this lane's accumulator elements (rows g, g + 8; columns 8i + 2t, + 1).
+template <int CIN, int CMID>
+__device__ __forceinline__ void stage2(const Ctx& c, const Layout& L, Ring& r,
+                                       float (&a3)[CMID / 2]) {
+  constexpr int S = CMID / 8;               // k steps of a tap
+  constexpr int kChunk = chunk_bytes(CMID);
+  int base[2];                              // halo row of tap (0, 0) of the lane's two pixels
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = min(64 * c.wg + 16 * c.wq + c.g + 8 * h, L.tp - 1);
+    const int qy = q / L.tw;
+    base[h] = qy * L.hw + q - qy * L.tw;
+  }
+  float acc[CMID / 2], acc2[CMID / 2];
+  init_bias<CMID>(acc, acc2, c.vec + packed_layout(CIN, CMID, 0, false).b2 / 4, c.t);
+  uint32_t ah[2][S][4], al[2][S][4];
+  auto load = [&](int tap, uint32_t (&hi)[S][4], uint32_t (&lo)[S][4]) {
+    const int off = (tap / 3) * L.hw + tap % 3;
+    const int r0 = base[0] + off, r1 = base[1] + off;
+#pragma unroll
+    for (int kk = 0; kk < S; ++kk) {
+      const int u = 4 * kk + c.t;
+      const float2 v0 = *reinterpret_cast<const float2*>(c.a2 + a2_at<CMID>(r0, u));
+      const float2 v1 = *reinterpret_cast<const float2*>(c.a2 + a2_at<CMID>(r1, u));
+      split4(v0.x, v1.x, v0.y, v1.y, hi[kk], lo[kk]);
+    }
+  };
+  load(0, ah[0], al[0]);
+  int held[2];                              // the ring slot of each set's group in flight
+#pragma unroll
+  for (int tap = 0; tap < kTaps; ++tap) {
+    const int bf = tap & 1;
+    mbar_wait(c.full + 8 * r.slot, r.phase);
+    wg_fence();
+    group_mma<CMID, CMID, S>(acc, acc2, ah[bf], al[bf], desc_of(c.ring + r.slot * kChunk));
+    wg_commit();
+    held[bf] = r.slot;
+    r.next(L.stages);
+    wg_wait<1>();                           // tap - 1's products have completed
+    if (tap > 0) release(c, held[bf ^ 1]);
+    if (tap + 1 < kTaps) load(tap + 1, ah[bf ^ 1], al[bf ^ 1]);
+  }
+  wg_wait<0>();
+  release(c, held[(kTaps - 1) & 1]);
+#pragma unroll
+  for (int j = 0; j < CMID / 2; ++j) a3[j] = fmaxf(acc[j] + acc2[j], 0.f);
+}
+
+// Stage 3 over the same rows: y = a3 @ w3 (+ a1 or x @ wp) + b3 (+ the skip),
+// one pass over Cout.
+template <int CIN, int CMID, int COUT, bool PROJ, bool RAW>
+__device__ __forceinline__ void stage3(const Ctx& c, const Layout& L, const float (&a3)[CMID / 2]) {
+  constexpr Packed P = packed_layout(CIN, CMID, COUT, PROJ);
+  constexpr int NQ = CIN / 16;              // channel quads of x a lane reads per pixel
+  constexpr int S3 = CMID / 8;              // k steps of w3; wp's follow
+  constexpr int NG = (S3 + (PROJ ? CIN / 8 : 0)) / kGroup3;   // issue groups
+  static_assert(S3 % kGroup3 == 0 && kGroup3 == 2, "a group is a3's or one quad of x");
+  const float* s1v = c.vec + P.s1 / 4 + 4 * c.t;
+  const float* t1v = c.vec + P.t1 / 4 + 4 * c.t;
+  bool valid[2];
+  const float* xp[2];                       // x at the lane's two pixels (clamped into the image)
+  size_t pix[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = 64 * c.wg + 16 * c.wq + c.g + 8 * h;
+    const int qc = min(q, L.tp - 1);
+    const int qy = qc / L.tw;
+    const int gy = c.y0 + qy, gx = c.x0 + qc - qy * L.tw;
+    valid[h] = q < L.tp && gy < c.H && gx < c.W;
+    pix[h] = (size_t)min(gy, c.H - 1) * c.W + min(gx, c.W - 1);
+    xp[h] = c.xn + pix[h] * CIN;
+  }
+  float4 praw[PROJ ? NQ : 1][2];            // the projection's A: x's quads at the two pixels
+  if constexpr (PROJ) {
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        praw[j][h] = __ldg(reinterpret_cast<const float4*>(xp[h] + 16 * j + 4 * c.t));
+    }
+  }
+  // the A fragments of issue group gi into (hi, lo)
+  auto build = [&](int gi, uint32_t (&hi)[kGroup3][4], uint32_t (&lo)[kGroup3][4]) {
+    if (gi < S3 / kGroup3) {                // a3: k step i holds columns 8i + 2t, + 1
+#pragma unroll
+      for (int kk = 0; kk < kGroup3; ++kk) {
+        const int i = kGroup3 * gi + kk;
+        split4(a3[4 * i], a3[4 * i + 2], a3[4 * i + 1], a3[4 * i + 3], hi[kk], lo[kk]);
+      }
+    } else if constexpr (PROJ) {            // quad J of x: k steps 2J, 2J + 1 of wp
+      const int J = gi - S3 / kGroup3;
+      const float4 s = *reinterpret_cast<const float4*>(s1v + 16 * J);
+      const float4 sh = *reinterpret_cast<const float4*>(t1v + 16 * J);
+      quad_frags(bn_relu4(praw[J][0], s, sh, !RAW), bn_relu4(praw[J][1], s, sh, !RAW), hi[0],
+                 lo[0], hi[1], lo[1]);
+    }
+  };
+  float acc[COUT / 2], acc2[COUT / 2];
+  init_bias<COUT>(acc, acc2, c.vec + P.b3 / 4, c.t);
+  uint32_t ah[2][kGroup3][4], al[2][kGroup3][4];
+  float2 skip[PROJ ? 1 : COUT / 8][2];      // the identity skip's x at this lane's outputs
+  build(0, ah[0], al[0]);
+#pragma unroll
+  for (int gi = 0; gi < NG; ++gi) {
+    const int bf = gi & 1;
+    const int s0 = kGroup3 * gi;
+    const uint32_t b = s0 < S3 ? c.w3 + s0 * step_bytes(COUT) : c.wp + (s0 - S3) * step_bytes(COUT);
+    wg_fence();
+    group_mma<COUT, COUT, kGroup3>(acc, acc2, ah[bf], al[bf], desc_of(b));
+    wg_commit();
+    if constexpr (!PROJ) {
+      if (gi == NG - 1) {                   // while the last products run
+#pragma unroll
+        for (int i = 0; i < COUT / 8; ++i) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            skip[i][h] = __ldg(reinterpret_cast<const float2*>(xp[h] + 8 * i + 2 * c.t));
+        }
+      }
+    }
+    wg_wait<1>();
+    if (gi + 1 < NG) build(gi + 1, ah[bf ^ 1], al[bf ^ 1]);
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int i = 0; i < COUT / 8; ++i) {
+    const int col = 8 * i + 2 * c.t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 4 * i + 2 * h;
+      float v0 = acc[j] + acc2[j], v1 = acc[j + 1] + acc2[j + 1];
+      if constexpr (!PROJ) {
+        v0 += skip[i][h].x;
+        v1 += skip[i][h].y;
+      }
+      if (valid[h]) *reinterpret_cast<float2*>(c.yn + pix[h] * COUT + col) = make_float2(v0, v1);
+    }
+  }
+}
+
+// The producer's hint for one tile: its halo rows of x into L2 (each row's
+// pixels are contiguous).
+template <int CIN>
+__device__ __forceinline__ void prefetch_halo(const Layout& L, const float* x, int H, int W,
+                                              int tile) {
+  const int per_image = L.tiles_x * L.tiles_y;
+  const int n = tile / per_image, rest = tile - n * per_image;
+  const int y0 = (rest / L.tiles_x) * L.th, x0 = (rest % L.tiles_x) * L.tw;
+  const int gx0 = max(x0 - 1, 0), gx1 = min(x0 + L.tw + 1, W);
+  for (int gy = max(y0 - 1, 0); gy < min(y0 + L.th + 1, H); ++gy)
+    prefetch_l2(x + ((size_t)(n * H + gy) * W + gx0) * CIN, (gx1 - gx0) * CIN * 4);
 }
 
 template <int CIN, int CMID, int COUT, bool PROJ, bool RAW>
 __global__ void __launch_bounds__(kThreads, 1)
-bottleneck_kernel(const float* __restrict__ x, const float* __restrict__ packed,
-                  float* __restrict__ y, int H, int W, int th, int tw,
-                  int tiles_x, int tiles_y, int num_tiles) {
-  using P = Packed<CIN, CMID, COUT, PROJ>;          // the packed buffer, and its copy in shared memory
-  constexpr int P2 = CMID + 4;                     // a2 row pitch, = 4 (mod 8) words
-  constexpr int KS1 = CIN / 8, NT2 = CMID / 8, NT4 = COUT / 8;
-  constexpr int NH2 = NT2 / 2;                     // column tiles per stage-2 unit
-  constexpr int NG = (NT4 % 6 == 0) ? 6 : 4;       // column tiles per stage-4 pass
-  constexpr int CL = CIN / 4;                      // x channels of one lane column t
-  static_assert(CIN % 16 == 0 && CMID % 16 == 0 && NT4 % NG == 0, "channel counts");
+bottleneck_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+                  float* __restrict__ y, int H, int W, const Layout L) {
+  constexpr Packed P = packed_layout(CIN, CMID, COUT, PROJ);
+  constexpr int kChunk = chunk_bytes(CMID);
+  static_assert(CIN % 16 == 0 && CMID % 16 == 0 && COUT % 8 == 0, "channel counts");
   static_assert(PROJ || CIN == COUT, "identity skip needs Cin == Cout");
   static_assert(PROJ || !RAW, "the raw-input flag is one of the projection");
-  static_assert(P::total % 4 == 0, "packed buffer is copied in 16-byte pieces");
-
-  extern __shared__ __align__(16) float smem[];
-  const int hw = tw + 2, hp = (th + 2) * hw, tp = th * tw;
-  float* a2buf = smem + P::total;         // two buffers of hp x P2
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int tiles_per_image = tiles_x * tiles_y;
-
-  // the weights -> shared memory, once for every tile of this thread block
-  for (int i = tid * 4; i < P::total; i += kThreads * 4) cp_async16(smem + i, packed + i);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  static_assert(8 * (2 * kMaxStages + 2) <= kBarBytes, "the mbarriers fit their bytes");
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t full = saddr(smem), empty = full + 8 * kMaxStages;
+  const uint32_t wbar = empty + 8 * kMaxStages;    // the resident part's two copies
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L.stages; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 4 * L.nb2);         // one arrival per warp that has rows
+    }
+    mbar_init(wbar, 1);
+    mbar_init(wbar + 8, 1);
+    mbar_init_fence();
+  }
   __syncthreads();
-
-  const int nmt_h = (hp + 15) >> 4;       // 16-pixel row tiles of the halo tile
-  const int nmt_t = (tp + 15) >> 4;       // ... of the output tile
-
-  // this lane's bn1 scale and shift pairs, and x channels: k slot (ks, t) of a
-  // product with K = CIN is channel t*CL + 2ks, slot (ks, t+4) the next one
-  const float* s1 = smem + P::s1 + t * CL;
-  const float* t1 = smem + P::t1 + t * CL;
-
-  // a1 = relu(x*s1 + t1) of two pixels (rows g, g+8 of an MMA tile) as the A
-  // fragment of k step ks, out of the lane's CL channels of each pixel
-  auto a1_frag = [&](AFrag& f, const float (&xa)[CL], const float (&xb)[CL], int ks) {
-    const float2 s = *reinterpret_cast<const float2*>(s1 + 2 * ks);
-    const float2 b = *reinterpret_cast<const float2*>(t1 + 2 * ks);
-    f.a[0] = fmaxf(fmaf(xa[2 * ks], s.x, b.x), 0.f);
-    f.a[1] = fmaxf(fmaf(xb[2 * ks], s.x, b.x), 0.f);
-    f.a[2] = fmaxf(fmaf(xa[2 * ks + 1], s.y, b.y), 0.f);
-    f.a[3] = fmaxf(fmaf(xb[2 * ks + 1], s.y, b.y), 0.f);
-  };
-  // x itself as the same fragment (the raw-input projection)
-  auto x_frag = [&](AFrag& f, const float (&xa)[CL], const float (&xb)[CL], int ks) {
-    f.a[0] = xa[2 * ks];
-    f.a[1] = xb[2 * ks];
-    f.a[2] = xa[2 * ks + 1];
-    f.a[3] = xb[2 * ks + 1];
-  };
-  auto load_x = [&](float (&xr)[CL], const float* src) {
-#pragma unroll
-    for (int j = 0; j < CL / 4; ++j)
-      *reinterpret_cast<float4*>(&xr[4 * j]) = __ldg(reinterpret_cast<const float4*>(src) + j);
-  };
-
-  int buf = 0;
-  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x, buf ^= 1) {
-    const int n = tile / tiles_per_image, rest = tile - n * tiles_per_image;
-    const int y0 = (rest / tiles_x) * th, x0 = (rest % tiles_x) * tw;
-    const float* xn = x + (size_t)n * H * W * CIN;
-    float* yn = y + (size_t)n * H * W * COUT;
-    float* a2 = a2buf + buf * hp * P2;
-
-    // 2. a2 = relu(relu(x*s1 + t1) @ w1 + b1) on the halo tile, zero outside
-    // the image.  A unit is 16 halo pixels x half of the Cmid columns.  x comes
-    // straight from global memory, 16 bytes at a time: a lane reads the CL
-    // neighbouring channels of its two pixels that its k slots stand for.
-    for (int unit = warp; unit < 2 * nmt_h; unit += kWarps) {
-      const int mt = unit >> 1, c0 = (unit & 1) * NH2;      // first column tile
-      const int p0 = mt * 16 + g, p1 = p0 + 8;
-      const int q0 = min(p0, hp - 1), q1 = min(p1, hp - 1);
-      const int py0 = q0 / hw, py1 = q1 / hw;
-      const int gy0 = y0 - 1 + py0, gx0 = x0 - 1 + q0 - py0 * hw;
-      const int gy1 = y0 - 1 + py1, gx1 = x0 - 1 + q1 - py1 * hw;
-      const bool in0 = p0 < hp && gy0 >= 0 && gy0 < H && gx0 >= 0 && gx0 < W;
-      const bool in1 = p1 < hp && gy1 >= 0 && gy1 < H && gx1 >= 0 && gx1 < W;
-      float xa[CL], xb[CL];               // a pixel outside reads pixel (0, 0): unused
-      load_x(xa, xn + (in0 ? (size_t)gy0 * W + gx0 : 0) * CIN + t * CL);
-      load_x(xb, xn + (in1 ? (size_t)gy1 * W + gx1 : 0) * CIN + t * CL);
-      const float* w1 = smem + P::w1 + c0 * 64;
-      float acc[NH2][4], small[NH2][4];
-      init_bias<NH2>(acc, smem + P::b1 + c0 * 8, t);
-      zero<NH2>(small);
-      BFrag<NH2> fb, fb_next;
-      load_b<NH2>(fb, w1, lane);
-#pragma unroll
-      for (int ks = 0; ks < KS1; ++ks) {
-        if (ks + 1 < KS1) load_b<NH2>(fb_next, w1 + (ks + 1) * NT2 * 64, lane);
-        AFrag fa;
-        a1_frag(fa, xa, xb, ks);
-        mma_step<NH2>(acc, small, fa, fb);
-        fb = fb_next;
-      }
-      add_small<NH2>(acc, small);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int p = half ? p1 : p0;
-        const bool inside = half ? in1 : in0;
-        if (p < hp) {
-#pragma unroll
-          for (int i = 0; i < NH2; ++i) {
-            float2 v;
-            v.x = inside ? fmaxf(acc[i][2 * half], 0.f) : 0.f;
-            v.y = inside ? fmaxf(acc[i][2 * half + 1], 0.f) : 0.f;
-            *reinterpret_cast<float2*>(a2 + p * P2 + (c0 + i) * 8 + 2 * t) = v;
-          }
-        }
+  const uint32_t ring = saddr(smem + L.ring);
+  // warp-uniform as far as the compiler can see (a broadcast lane), so that
+  // the wgmma issue under branches on it is not serialised
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
+  if (warp < 4) {                                   // the producer warpgroup
+    set_max_regs_dec<24>();
+    if (threadIdx.x != 0) return;
+    const uint32_t res = saddr(smem + kBarBytes);
+    mbar_expect_tx(wbar, P.w3);                     // vectors and w1: stage 1 needs no more
+    bulk_load(res, packed, P.w3, wbar);
+    mbar_expect_tx(wbar + 8, P.w2 - P.w3);          // w3 and wp: stage 3's
+    bulk_load(res + P.w3, packed + P.w3, P.w2 - P.w3, wbar + 8);
+    Ring rp{0, 0};
+    for (int tile = blockIdx.x; tile < L.tiles; tile += gridDim.x) {
+      if (tile == (int)blockIdx.x) prefetch_halo<CIN>(L, x, H, W, tile);
+      if (tile + (int)gridDim.x < L.tiles) prefetch_halo<CIN>(L, x, H, W, tile + gridDim.x);
+      for (int tap = 0; tap < kTaps; ++tap) {
+        mbar_wait(empty + 8 * rp.slot, rp.phase ^ 1);
+        mbar_expect_tx(full + 8 * rp.slot, kChunk);
+        bulk_load(ring + rp.slot * kChunk, packed + P.w2 + tap * kChunk, kChunk,
+                  full + 8 * rp.slot);
+        rp.next(L.stages);
       }
     }
-    // The only barrier of a tile: a2 is complete.  The other a2 buffer was
-    // last read in the previous tile's 3x3, which every warp left before it
-    // came here, so the next tile's stage 2 may fill it while slower warps are
-    // still in this tile's 3x3.
-    __syncthreads();
-
-    // warp m owns the tile's pixels 16m .. 16m+15 from here on
-    const int q0 = min(warp * 16 + g, tp - 1), q1 = min(warp * 16 + g + 8, tp - 1);
-    const int q0y = q0 / tw, q0x = q0 - q0y * tw;
-    const int q1y = q1 / tw, q1x = q1 - q1y * tw;
-    float acc3[NT2][4];
-
-    if (warp < nmt_t) {
-      // 3. z2 = conv3x3(a2): taps are whole-pixel offsets in the halo tile
-      init_bias<NT2>(acc3, smem + P::b2, t);
-      float small[NT2][4];
-      zero<NT2>(small);
-      const float* r0 = a2 + (q0y * hw + q0x) * P2 + t;
-      const float* r1 = a2 + (q1y * hw + q1x) * P2 + t;
-      AFrag fa, fa_next;
-      BFrag<NT2> fb, fb_next;
-      load_a(fa, r0, r1);
-      load_b<NT2>(fb, smem + P::w2, lane);
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = ((tap / 3) * hw + tap % 3) * P2;
-        const int tap_next = min(tap + 1, 8);      // the last prefetch is unused
-        const int off_next = ((tap_next / 3) * hw + tap_next % 3) * P2;
-        const float* wt = smem + P::w2 + tap * NT2 * NT2 * 64;
-#pragma unroll
-        for (int ks = 0; ks < NT2; ++ks) {
-          if (ks + 1 < NT2) {
-            load_a(fa_next, r0 + off + (ks + 1) * 8, r1 + off + (ks + 1) * 8);
-            load_b<NT2>(fb_next, wt + (ks + 1) * NT2 * 64, lane);
-          } else {
-            load_a(fa_next, r0 + off_next, r1 + off_next);
-            load_b<NT2>(fb_next, smem + P::w2 + tap_next * NT2 * NT2 * 64, lane);
-          }
-          mma_step<NT2>(acc3, small, fa, fb);
-          fa = fa_next;
-          fb = fb_next;
-        }
-      }
-      add_small<NT2>(acc3, small);
-
-      // the projection's A fragments at the warp's own pixels: a1 from x, or
-      // with RAW x itself
-      AFrag pa[PROJ ? KS1 : 1];
-      if (PROJ) {
-        const int cy0 = min(y0 + q0y, H - 1), cx0 = min(x0 + q0x, W - 1);
-        const int cy1 = min(y0 + q1y, H - 1), cx1 = min(x0 + q1x, W - 1);
-        float xa[CL], xb[CL];
-        load_x(xa, xn + ((size_t)cy0 * W + cx0) * CIN + t * CL);
-        load_x(xb, xn + ((size_t)cy1 * W + cx1) * CIN + t * CL);
-#pragma unroll
-        for (int ks = 0; ks < KS1; ++ks) {
-          if constexpr (RAW) x_frag(pa[ks], xa, xb, ks);
-          else a1_frag(pa[ks], xa, xb, ks);
-        }
-      }
-
-      // a3 = relu(z2) as A fragments: k slot t <-> column 2t, slot t+4 <-> 2t+1
-      uint32_t ah[NT2][4], al[NT2][4];
-#pragma unroll
-      for (int j = 0; j < NT2; ++j) {
-        split(fmaxf(acc3[j][0], 0.f), ah[j][0], al[j][0]);
-        split(fmaxf(acc3[j][2], 0.f), ah[j][1], al[j][1]);
-        split(fmaxf(acc3[j][1], 0.f), ah[j][2], al[j][2]);
-        split(fmaxf(acc3[j][3], 0.f), ah[j][3], al[j][3]);
-      }
-
-      // after the lane-pair exchange an even lane holds row g, an odd lane
-      // row g+8, four neighbouring channels each
-      const int odd = t & 1;
-      const int q = warp * 16 + g + 8 * odd;
-      const int gy = y0 + (odd ? q1y : q0y), gx = x0 + (odd ? q1x : q0x);
-      const bool valid = q < tp && gy < H && gx < W;
-      const size_t pix = (size_t)gy * W + gx;
-      const int col0 = 2 * (t & 2);
-
-#pragma unroll 1
-      for (int grp = 0; grp < NT4 / NG; ++grp) {
-        // 4. y = a3 @ w3 + b3 (+ a1 @ wp + bp), NG column tiles at a time
-        constexpr int STEPS = NT2 + (PROJ ? KS1 : 0);
-        float acc[NG][4], small[NG][4];
-        init_bias<NG>(acc, smem + P::b3 + grp * NG * 8, t);
-        zero<NG>(small);
-        float4 skip[PROJ ? 1 : NG];        // x at this lane's outputs, ahead of the MMAs
-        if (!PROJ && valid) {
-#pragma unroll
-          for (int i = 0; i < NG; ++i)
-            skip[i] = __ldg(reinterpret_cast<const float4*>(
-                xn + pix * CIN + (grp * NG + i) * 8 + col0));
-        }
-        BFrag<NG> fb, fb_next;
-        load_b<NG>(fb, smem + P::w3 + grp * NG * 64, lane);
-#pragma unroll
-        for (int st = 0; st < STEPS; ++st) {
-          if (st + 1 < NT2)
-            load_b<NG>(fb_next, smem + P::w3 + ((st + 1) * NT4 + grp * NG) * 64, lane);
-          else if (st + 1 < STEPS)
-            load_b<NG>(fb_next, smem + P::wp + ((st + 1 - NT2) * NT4 + grp * NG) * 64, lane);
-          if (st < NT2)
-            mma_step<NG>(acc, small, ah[st], al[st], fb);
-          else
-            mma_step<NG>(acc, small, pa[PROJ ? st - NT2 : 0], fb);
-          fb = fb_next;
-        }
-        add_small<NG>(acc, small);
-#pragma unroll
-        for (int i = 0; i < NG; ++i) {
-          const float s0 = odd ? acc[i][0] : acc[i][2];
-          const float s1v = odd ? acc[i][1] : acc[i][3];
-          const float e0 = __shfl_xor_sync(kFull, s0, 1);
-          const float e1 = __shfl_xor_sync(kFull, s1v, 1);
-          float4 o = odd ? make_float4(e0, e1, acc[i][2], acc[i][3])
-                         : make_float4(acc[i][0], acc[i][1], e0, e1);
-          if (valid) {
-            const int col = (grp * NG + i) * 8 + col0;
-            if (!PROJ) {
-              const float4 r = skip[PROJ ? 0 : i];
-              o.x += r.x; o.y += r.y; o.z += r.z; o.w += r.w;
-            }
-            *reinterpret_cast<float4*>(yn + pix * COUT + col) = o;
-          }
-        }
-      }
+    return;
+  }
+  set_max_regs_inc<240>();
+  Ctx c;
+  c.vec = reinterpret_cast<const float*>(smem + kBarBytes);
+  c.a2 = reinterpret_cast<float*>(smem + L.a2);
+  c.w1 = saddr(smem + kBarBytes + P.w1);
+  c.w3 = saddr(smem + kBarBytes + P.w3);
+  c.wp = saddr(smem + kBarBytes + P.wp);
+  c.ring = ring;
+  c.full = full;
+  c.empty = empty;
+  c.H = H;
+  c.W = W;
+  c.wg = (warp >> 2) - 1;
+  c.wq = warp & 3;
+  c.lane = threadIdx.x & 31;
+  c.g = c.lane >> 2;
+  c.t = c.lane & 3;
+  const int per_image = L.tiles_x * L.tiles_y;
+  Ring r{0, 0};
+  for (int tile = blockIdx.x; tile < L.tiles; tile += gridDim.x) {
+    const int n = tile / per_image, rest = tile - n * per_image;
+    c.xn = x + (size_t)n * H * W * CIN;
+    c.yn = y + (size_t)n * H * W * COUT;
+    c.y0 = (rest / L.tiles_x) * L.th;
+    c.x0 = (rest % L.tiles_x) * L.tw;
+    mbar_wait(wbar, 0);
+    stage1<CIN, CMID>(c, L);
+    consumers_sync();                       // a2 is complete
+    float a3[CMID / 2];
+    if (c.wg < L.nb2) stage2<CIN, CMID>(c, L, r, a3);
+    consumers_sync();                       // the 3x3s are done with a2: the next tile may write it
+    if (c.wg < L.nb2) {
+      mbar_wait(wbar + 8, 0);
+      stage3<CIN, CMID, COUT, PROJ, RAW>(c, L, a3);
     }
   }
 }
 
+// ---------------------------------------------------------------- the launch
+
 template <int CIN, int CMID, int COUT, bool PROJ, bool RAW>
-int launch(const float* x, const float* packed, float* y, int n, int h, int w,
-           int th, int tw, int dev, int sms, cudaStream_t stream) {
-  static_assert(smem_size(CIN, CMID, COUT, PROJ, 1, 16) <= kMaxSmem,
-                "the block's weights do not fit one thread block");
+int launch(const float* x, const uint8_t* packed, float* y, int n, int h, int w, const Layout& L,
+           void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   auto kernel = bottleneck_kernel<CIN, CMID, COUT, PROJ, RAW>;
-  const size_t smem = smem_size(CIN, CMID, COUT, PROJ, th, tw);
   // the opt-in to more than 48 KB is kept per device and only ever raised
-  static size_t allowed[kMaxDevices] = {};
-  if (smem > allowed[dev]) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static int allowed[kMaxDevices] = {};
+  static int sms[kMaxDevices] = {};
+  if (L.smem > allowed[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
     if (err != cudaSuccess) return (int)err;
-    allowed[dev] = smem;
+    allowed[dev] = L.smem;
   }
-  const int tiles_x = (w + tw - 1) / tw, tiles_y = (h + th - 1) / th;
-  const int num_tiles = tiles_x * tiles_y * n;
-  const int grid = num_tiles < sms ? num_tiles : sms;
-  kernel<<<grid, kThreads, smem, stream>>>(x, packed, y, h, w, th, tw,
-                                           tiles_x, tiles_y, num_tiles);
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = L.tiles < sms[dev] ? L.tiles : sms[dev];
+  kernel<<<(unsigned)blocks, kThreads, L.smem, (cudaStream_t)stream>>>(x, packed, y, h, w, L);
   return (int)cudaGetLastError();
+}
+
+// (Cin, Cmid, Cout, projects) of the instances: the 96- and the 64-wide fly
+// networks' blocks
+bool is_instance(int cin, int cmid, int cout, int proj) {
+  return (cin == 96 && cmid == 48 && cout == 96 && !proj) ||
+         (cin == 48 && cmid == 48 && cout == 96 && proj) ||
+         (cin == 64 && cmid == 32 && cout == 64 && !proj) ||
+         (cin == 32 && cmid == 32 && cout == 64 && proj);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one thread block, in bytes.
+// Dynamic shared memory of one thread block, in bytes (counting at least two
+// ring slots: more than 227 KB where they do not fit); 0 for other widths.
 size_t df3d_bottleneck_smem(int cin, int cmid, int cout, int th, int tw, int has_proj) {
-  return smem_size(cin, cmid, cout, has_proj != 0, th, tw);
+  if (!is_instance(cin, cmid, cout, has_proj) || th < 1 || tw < 1) return 0;
+  return (size_t)make_layout(cin, cmid, cout, has_proj != 0, th, tw).smem;
+}
+
+// Bytes of the packed weight buffer (ops/bottleneck.py::packed_size, times 4).
+int df3d_bottleneck_packed_bytes(int cin, int cmid, int cout, int has_proj) {
+  return packed_layout(cin, cmid, cout, has_proj != 0).total;
 }
 
 // Launch on `stream`; returns the CUDA error code (0 = launched), or
-// cudaErrorInvalidValue for channel counts without an instantiation.
-// `packed` is pack_bottleneck's buffer; th * tw <= 192; proj_raw: the
-// projection reads x, not relu(bn1(x)) (projecting instances only).
-int df3d_bottleneck(const float* x, const float* packed, float* y,
-                    int n, int h, int w, int cin, int cmid, int cout, int has_proj,
-                    int proj_raw, int th, int tw, void* stream) {
-  if (th < 1 || tw < 1 || th * tw > 16 * kWarps) return (int)cudaErrorInvalidValue;
-  static int sm_count[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (sm_count[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int sms = sm_count[dev];
-  cudaStream_t s = (cudaStream_t)stream;
-#define DF3D_CASE(CI, CM, CO, PR, RW) \
-  if (cin == CI && cmid == CM && cout == CO && (has_proj != 0) == PR && (proj_raw != 0) == RW) \
-    return launch<CI, CM, CO, PR, RW>(x, packed, y, n, h, w, th, tw, dev, sms, s);
+// cudaErrorInvalidValue for other widths or a tile that does not fit (th * tw
+// <= 128, (th + 2) * (tw + 2) <= 192, two ring slots in 227 KB).  x, y NHWC
+// float32; `packed` is pack_bottleneck's buffer for these widths; proj_raw:
+// the projection reads x, not relu(bn1(x)) (projecting instances only).
+int df3d_bottleneck(const void* x, const void* packed, void* y, int n, int h, int w, int cin,
+                    int cmid, int cout, int has_proj, int proj_raw, int th, int tw,
+                    void* stream) {
+  if (!is_instance(cin, cmid, cout, has_proj) || (proj_raw && !has_proj) || n < 1 || h < 1 ||
+      w < 1 || th < 1 || tw < 1 || th * tw > kMaxTilePixels ||
+      (th + 2) * (tw + 2) > kMaxHaloPixels)
+    return (int)cudaErrorInvalidValue;
+  Layout L = make_layout(cin, cmid, cout, has_proj != 0, th, tw);
+  if (L.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  L.tiles_x = (w + tw - 1) / tw;
+  L.tiles_y = (h + th - 1) / th;
+  const long long tiles = (long long)n * L.tiles_x * L.tiles_y;
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  L.tiles = (int)tiles;
+  const float* xf = static_cast<const float*>(x);
+  const uint8_t* pk = static_cast<const uint8_t*>(packed);
+  float* yf = static_cast<float*>(y);
+#define DF3D_CASE(CI, CM, CO, PR, RW)                                                    \
+  if (cin == CI && cmid == CM && (proj_raw != 0) == RW)                                  \
+    return launch<CI, CM, CO, PR, RW>(xf, pk, yf, n, h, w, L, stream);
   DF3D_CASE(96, 48, 96, false, false)
   DF3D_CASE(48, 48, 96, true, false)
   DF3D_CASE(48, 48, 96, true, true)       // raw-input projection (converted checkpoints)

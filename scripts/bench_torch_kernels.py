@@ -12,12 +12,15 @@
     python3 scripts/bench_torch_kernels.py --match 56x64x128,56x32x64 --tiles   # the bf16 tile table
     python3 scripts/bench_torch_kernels.py --trees OLD . . OLD --match 8x192x192,8x96x96,8x48x48,8x24x24,8x12x12,8x6x6
     python3 scripts/bench_torch_kernels.py --match 8x192x192,8x96x96,8x48x48 --tiles   # the 128-wide table
+    python3 scripts/bench_torch_kernels.py --trees OLD . . OLD --match 56x128x256,56x64x128,56x32x64,56x16x32,56x8x16,56x4x8,7x64x128
+    python3 scripts/bench_torch_kernels.py --match 56x128x256,56x64x128,56x32x64,56x16x32,56x8x16 --tiles   # the fly table
 
 Needs one CUDA card.  Each tree runs in its own process (each builds its own
 kernels with nvcc): every shape below goes through the tree's
 ``fused_bottleneck`` / ``decode_heatmaps`` / ``preprocess_resize`` wrapper, is
 compared with the tree's plain version (and, where the tree has one, with the
-bottleneck's TF32 arithmetic model), and is timed twice: ``ms`` by CUDA events
+bottleneck's TF32 arithmetic model, 5e-5 of the output's magnitude), and is
+timed twice: ``ms`` by CUDA events
 around eager calls (the wrapper's host work included, which decides at small
 shapes) and ``device_ms`` from a replayed CUDA graph of 20 calls (device time
 alone).  The preprocess is timed at the signature every tree has (no shift,
@@ -34,14 +37,17 @@ the row names the instance the tree runs (``instance``, trees with
 ``--stage-rows`` times the preprocess at other budgets of staged input rows
 of the band design, and so other band heights (trees with
 ``kernels.preprocess_plan``); ``--ring-rows`` at other ring depths of the
-run design (trees with ``kernels.PREPROCESS_RING_ROWS``).  The h36m network's blocks (128 wide, the
-3x3's weights streamed) run at the shapes of its ingest path, with weights
+run design (trees with ``kernels.PREPROCESS_RING_ROWS``).  Every float32
+instance row carries its tile, its bound (three TF32 MMAs per product at 495
+TFLOP/s, or its bytes) and cuDNN (``library_ms``: ``F.conv2d``, TF32 off);
+the fly network's blocks run at the shapes of its paths (``BLOCK_SHAPES``,
+the parity checkpoint's weights), the 64-feature fly network's at
+``FLY64_SHAPES`` (seeded weights), and the ``FLY_FORWARD`` line sums each
+over the 31 launches of one conv forward at N=56, tree by tree.  The h36m
+network's blocks (128 wide) run at the shapes of its ingest path, with weights
 from ``utils/synthetic.random_checkpoint`` (seed 0), in the trees that have
-those instances, and the stem block also as the raw-input projection: held
-to the tree's plain version and to its TF32 arithmetic model (5e-5 of the
-output's magnitude; their bits follow the design's order of sums), with the
-bound (three TF32 MMAs per product at 495 TFLOP/s), cuDNN (``F.conv2d``,
-TF32 off) and, as a yardstick, the general instance
+those instances, and the stem block also as the raw-input projection, with,
+as a yardstick, the general instance
 (``csrc/bottleneck_general.cu``) on the same block packed in its own layout
 and launched through its C entry point at the tile its table picks
 (``general_ms``); the ``H36M_BATCH`` line sums them over the 59 launches of
@@ -52,12 +58,14 @@ bf16 ulps) and timed as device time, with the weight bytes a launch streams
 from L2 (``general_l2_bytes``, by the tree's own layout).  The bf16 resident instance
 runs at ``BF16_SHAPES`` (``bf16_rows``: 2 bf16 ulps of its plain version,
 device time, bound, cuDNN bf16), and its sum over one ``conv_bf16`` forward
-is printed per tree (``FORWARD`` line).  Every output of the fly widths' float32
-instances, and every preprocess output (float32 and bf16, each bare and with
-the registration), is hashed (``out_sha``), and after the last tree the
-outputs of each shape are compared across the trees: the script fails where
-they differ (``COMPARE`` line).  ``--tiles`` times every
-tile height that fits, per bottleneck shape (``tile_ms``).  One JSON line per
+is printed per tree (``FORWARD`` line).  Every preprocess output (float32 and
+bf16, each bare and with the registration) is hashed (``out_sha``), and after
+the last tree the outputs of each shape are compared across the trees: the
+script fails where they differ (``COMPARE`` line; the float32 bottleneck rows'
+bits follow each design's order of sums, so they are held to the plain
+version and the TF32 model instead).  ``--tiles`` times every tile height that
+fits, per bottleneck shape (``tile_ms``), and prints the fly and the 128-wide
+instances' tables (``FLY_TILE_TABLE``, ``WIDE_TILE_TABLE``).  One JSON line per
 tree, prefixed ``RESULT``; the card's name and power limit first.  Comparing
 two versions is only meaningful inside one call, on one card.
 """
@@ -83,6 +91,14 @@ BLOCK_SHAPES = [
     (7, 16, 32, "stem_res2"), (7, 8, 16, "stem_res2"), (7, 4, 8, "stem_res2"),
     (3, 13, 21, "stem_res2"),
 ]
+# (N, H, W, block): the 64-feature fly network (seeded weights): its projecting
+# stem block 32->32->64 at 128x256 and its 64->32->64 blocks from 64x128 down
+FLY64_SHAPES = [(56, 128, 256, "stem_res1")] + [(56, h, 2 * h, "stem_res2")
+                                               for h in (64, 32, 16, 8, 4)]
+# launches of each shape per conv forward at N=56: 31 blocks, the stem block
+# and six at each of the five levels 64x128 ... 4x8
+CONV_LAUNCHES = {(56, 128, 256): 1, (56, 64, 128): 6, (56, 32, 64): 6, (56, 16, 32): 6,
+                 (56, 8, 16): 6, (56, 4, 8): 6}
 # the h36m network at the CLI's batch of 8 images: the projecting stem block at
 # 192x192, the 128-wide blocks from 96x96 down to 6x6
 H36M_SHAPES = [(8, 192, 192, "stem_res1"), (8, 96, 96, "stem_res2"), (8, 48, 48, "stem_res2"),
@@ -109,10 +125,6 @@ BF16_SHAPES = ([(n, 128, 256, 48, 48, 96, True) for n in (56, 7)]
                + [(7, h, 2 * h, 96, 48, 96, False) for h in (64, 32, 16, 8, 4)]
                + [(8, 192, 192, 64, 64, 128, True)]
                + [(8, h, h, 128, 64, 128, False) for h in (96, 48, 24, 12, 6)])
-# launches of each shape per conv_bf16 forward: 31 blocks, the stem block and
-# six at each of the five levels 64x128 ... 4x8
-CONV_BF16_LAUNCHES = {(56, 128, 256): 1, (56, 64, 128): 6, (56, 32, 64): 6, (56, 16, 32): 6,
-                      (56, 8, 16): 6, (56, 4, 8): 6}
 PEAK_BF16_FLOPS = 989e12        # bf16 dense, one H100 SXM
 DECODE_SHAPES = [(56, 64, 128, 19), (56, 48, 96, 19), (7, 64, 128, 19), (5, 7, 9, 19),
                  (3, 16, 32, 6)]
@@ -408,6 +420,7 @@ def sweep_tiles(bn, x, f, device_ms, dtype="float32"):
     resident16 = dtype == "bfloat16" and hasattr(bn, "bf16_tile_fits")
     wide = (dtype == "float32" and hasattr(bn, "tile_fits_128")
             and bn.streams_w2(cin, cmid, cout, proj))
+    fly = dtype == "float32" and hasattr(bn, "tile_fits_fly") and not wide
     out = {}
     try:
         for th in range(1, h + 1):
@@ -417,8 +430,11 @@ def sweep_tiles(bn, x, f, device_ms, dtype="float32"):
             elif wide:
                 if not bn.tile_fits_128(th, tw, cin, proj):
                     break
+            elif fly:
+                if not bn.tile_fits_fly(th, tw, cin, cmid, cout, proj):
+                    break
             elif (bn.smem_bytes(cin, cmid, cout, th, tw, proj, dtype) > bn.MAX_SMEM
-                  or th * tw > 16 * bn.TILE_WARPS):
+                  or th * tw > 16 * getattr(bn, "TILE_WARPS", 12)):
                 break
             bn.choose_tile = lambda *args, th=th: (th, tw)
             out[f"{th}x{tw}"] = device_ms(lambda: bn.fused_bottleneck(x, f))
@@ -509,6 +525,7 @@ def run_tree(root, quick, no_check=False, match=None, budgets=None, h36m=None, t
     from deepfly3d_torch.ops import image as image_ops
     from deepfly3d_torch.ops import bottleneck as bn
     from deepfly3d_torch.utils.devices import full_f32
+    import numpy as np
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -520,6 +537,12 @@ def run_tree(root, quick, no_check=False, match=None, budgets=None, h36m=None, t
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     blocks = fold_hourglass(*load_weights(os.path.join(WEIGHTS_DIR, "hourglass_fly.npz")))["blocks"]
     wide = fold_hourglass(*load_weights(h36m))["blocks"] if h36m else {}
+    fly64 = {}
+    for name, (cin, cmid, cout) in (("stem_res1", (32, 32, 64)), ("stem_res2", (64, 32, 64))):
+        params, stats = seeded_block(np, cin, cmid, cout)
+        if cin == cout:
+            params.pop("proj")
+        fly64[name] = bn.fold_bottleneck(params, stats)
     pack = getattr(bn, "add_packed", lambda f: f)
     model = getattr(bn, "bottleneck_tf32_model", None)
     gen = torch.Generator().manual_seed(0)
@@ -527,10 +550,10 @@ def run_tree(root, quick, no_check=False, match=None, budgets=None, h36m=None, t
     rows = []
     picked = lambda *shape: match is None or "x".join(map(str, shape)) in match
     instances = getattr(bn, "INSTANCES", ())
-    import numpy as np
     import torch.nn.functional as F
 
-    shapes = ([(s, blocks, False) for s in BLOCK_SHAPES] + [(s, wide, False) for s in H36M_SHAPES]
+    shapes = ([(s, blocks, False) for s in BLOCK_SHAPES] + [(s, fly64, False) for s in FLY64_SHAPES]
+              + [(s, wide, False) for s in H36M_SHAPES]
               + [(s, wide, True) for s in H36M_SHAPES if s[3] == "stem_res1"])
     for (n, h, w, name), net, raw in shapes:
         if not picked(n, h, w) or name not in net:
@@ -549,28 +572,25 @@ def run_tree(root, quick, no_check=False, match=None, budgets=None, h36m=None, t
         torch.cuda.synchronize()
         ref = bn.bottleneck_plain(x, f)
         row = {"kernel": "bottleneck", "shape": [n, h, w], "block": name + ("/raw" if raw else ""),
+               "net": "h36m" if net is wide else "fly64" if net is fly64 else "fly",
                "channels": [cin, cmid, cout], "proj": "wp" in folded,
                "scale": ref.abs().max().item(), "err_plain": (y - ref).abs().max().item()}
-        if net is blocks:           # the fly network's instances keep their bits across trees
-            row["out_sha"] = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
         if model is not None:
             row["err_model"] = (y - model(x, f)).abs().max().item()
         tol = 5e-5 * max(1.0, row["scale"])
-        if not no_check and not (row["err_plain"] <= tol
-                                 and (net is blocks or row.get("err_model", 0.0) <= tol)):
+        if not no_check and not (row["err_plain"] <= tol and row.get("err_model", 0.0) <= tol):
             raise AssertionError(f"bottleneck {row}")
-        if net is wide:
-            row["tile"] = list(bn.choose_tile(n, h, w, cin, cmid, cout, "wp" in folded))
-            flops = 2.0 * n * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
-                                       + (cin * cout if "wp" in folded else 0))
-            nbytes = 4.0 * (n * h * w * (cin + cout) + flops / (2.0 * n * h * w))
-            row["bound_ms"] = max(3.0 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        row["tile"] = list(bn.choose_tile(n, h, w, cin, cmid, cout, "wp" in folded))
+        flops = 2.0 * n * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
+                                   + (cin * cout if "wp" in folded else 0))
+        nbytes = 4.0 * (n * h * w * (cin + cout) + flops / (2.0 * n * h * w))
+        row["bound_ms"] = max(3.0 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES) * 1e3
         if not quick:
             row["ms"] = cuda_ms(torch, lambda: bn.fused_bottleneck(x, f), iters)
             row["device_ms"] = graph_ms(torch, lambda: bn.fused_bottleneck(x, f))
             row["plain_ms"] = cuda_ms(torch, lambda: bn.bottleneck_plain(x, f), iters)
+            row["library_ms"] = graph_ms(torch, block_library(torch, F, x, f, raw))
             if net is wide:
-                row["library_ms"] = graph_ms(torch, block_library(torch, F, x, f, raw))
                 if hasattr(bn, "_pack_general"):
                     call, row["general_tile"] = general_yardstick(torch, bn, _build, x, f, raw)
                     row["general_ms"] = graph_ms(torch, call)
@@ -682,9 +702,9 @@ def main():
                         results.append(json.loads(line[len("RESULT "):]))
             if proc.returncode:
                 raise SystemExit(f"tree {tree} failed ({proc.returncode})")
-    # every output of the six-width instances, shape by shape, across the trees
-    # that ran it (the general instance is held to its plain version instead:
-    # its bits follow its design's order of sums)
+    # every preprocess output, shape by shape, across the trees that ran it (the
+    # bottleneck instances are held to their plain version and TF32 model
+    # instead: their bits follow each design's order of sums)
     outputs = {}
     for result in results:
         for row in result["rows"]:
@@ -692,19 +712,30 @@ def main():
             if row["kernel"] == "preprocess":       # float32 and bf16, bare and registered
                 for label, sha in row.get("out_sha", {}).items():
                     outputs.setdefault(f"preprocess/{label}@{where}", {})[result["tree"]] = sha
-            elif "out_sha" in row:
-                outputs.setdefault(f"{row['block']}@{where}", {})[result["tree"]] = row["out_sha"]
     differ = {k: v for k, v in outputs.items() if len(set(v.values())) > 1}
     # the bf16 resident instance per conv_bf16 forward, tree by tree
     forward = []
     for result in results:
         got = {tuple(r["shape"]): r for r in result["rows"] if r["kernel"] == "bottleneck_bf16"}
-        if all(k in got and "device_ms" in got[k] for k in CONV_BF16_LAUNCHES):
+        if all(k in got and "device_ms" in got[k] for k in CONV_LAUNCHES):
             forward.append({"tree": result["tree"], **{
-                key: sum(got[k][key] * c for k, c in CONV_BF16_LAUNCHES.items())
+                key: sum(got[k][key] * c for k, c in CONV_LAUNCHES.items())
                 for key in ("device_ms", "bound_ms", "library_ms")}})
     if forward:
         print("FORWARD " + json.dumps(forward), flush=True)
+    # the float32 fly networks' blocks per conv forward at N=56 (31 launches),
+    # tree by tree: the parity checkpoint's 96-wide net and the 64-wide one
+    fly_forward = []
+    for result in results:
+        for net in ("fly", "fly64"):
+            got = {tuple(r["shape"]): r for r in result["rows"]
+                   if r["kernel"] == "bottleneck" and r.get("net") == net and "/" not in r["block"]}
+            if all(k in got and "device_ms" in got[k] for k in CONV_LAUNCHES):
+                fly_forward.append({"tree": result["tree"], "net": net, **{
+                    key: sum(got[k][key] * c for k, c in CONV_LAUNCHES.items())
+                    for key in ("device_ms", "bound_ms", "plain_ms", "library_ms")}})
+    if fly_forward:
+        print("FLY_FORWARD " + json.dumps(fly_forward), flush=True)
     # the 128-wide float32 blocks per h36m batch of 8 (59 launches), tree by tree
     batch = []
     for result in results:
@@ -717,24 +748,25 @@ def main():
                 if all(key in got[k] for k in H36M_LAUNCHES)}})
     if batch:
         print("H36M_BATCH " + json.dumps(batch), flush=True)
-    # with --tiles: the 128-wide instances' table, per m 16-pixel row tiles of
-    # the tile, the median of the launch's time over its rounds of one tile per
-    # SM over the shapes of more than one round, tree by tree
-    for result in results:
-        per = {}
-        for r in result["rows"]:
-            if r["kernel"] != "bottleneck" or r["channels"][1] != 64:
-                continue
-            n, h, w = r["shape"]
-            for tile, ms in r.get("tile_ms", {}).items():
-                t_h, t_w = map(int, tile.split("x"))
-                rounds = -(-n * -(-h // t_h) * -(-w // t_w) // NUM_SMS)
-                if rounds > 1:
-                    per.setdefault(-(-t_h * t_w // 16), []).append(1e3 * ms / rounds)
-        if per:
-            table = {k: sorted(v)[len(v) // 2] for k, v in sorted(per.items())}
-            print("WIDE_TILE_TABLE " + json.dumps({"tree": result["tree"], "us": table}),
-                  flush=True)
+    # with --tiles: the fly (Cmid 48) and the 128-wide (Cmid 64) instances'
+    # tables, per m 16-pixel row tiles of the tile, the median of the launch's
+    # time over its rounds of one tile per SM over the shapes of more than one
+    # round, tree by tree
+    for label, mid in (("FLY_TILE_TABLE", 48), ("WIDE_TILE_TABLE", 64)):
+        for result in results:
+            per = {}
+            for r in result["rows"]:
+                if r["kernel"] != "bottleneck" or r["channels"][1] != mid:
+                    continue
+                n, h, w = r["shape"]
+                for tile, ms in r.get("tile_ms", {}).items():
+                    t_h, t_w = map(int, tile.split("x"))
+                    rounds = -(-n * -(-h // t_h) * -(-w // t_w) // NUM_SMS)
+                    if rounds > 1:
+                        per.setdefault(-(-t_h * t_w // 16), []).append(1e3 * ms / rounds)
+            if per:
+                table = {k: sorted(v)[len(v) // 2] for k, v in sorted(per.items())}
+                print(f"{label} " + json.dumps({"tree": result["tree"], "us": table}), flush=True)
     # with --tiles: the bf16 resident instance's table, per (nb1, nb2) m64 row
     # blocks of stage 1 and of the 3x3 (ops/bottleneck._bf16_blocks), the median
     # of tile_us over the 96->48->96 and 48->48->96 shapes of more than one

@@ -177,47 +177,69 @@ def test_split_tf32_properties():
     assert torch.equal(hi, zero) and not lo.any()
 
 
-def _unpack_fragments(buf, k, n, order):
-    """The weight matrix as the kernel's lanes read it out of ``buf``: lane
-    4g+t holds, for k step ks, the rows that the A fragment's k slots t and
-    t+4 stand for in this product."""
-    w = np.full((k, n), np.nan, np.float32)
-    buf = buf.reshape(k // 8, n // 8, 32, 2)
-    for lane in range(32):
-        g, t = lane >> 2, lane & 3
-        for ks in range(k // 8):
-            k0, k1 = {"mma": (8 * ks + t, 8 * ks + t + 4),          # A from a row-major tile
-                      "paired": (8 * ks + 2 * t, 8 * ks + 2 * t + 1),  # A an accumulator
-                      "lanes": (t * (k // 4) + 2 * ks,              # A the lane's k/4
-                                t * (k // 4) + 2 * ks + 1)}[order]  # channels of a pixel
-            w[k0, g::8] = buf[ks, :, lane, 0]
-            w[k1, g::8] = buf[ks, :, lane, 1]
-    return w
+# the fly float32 instances (csrc/bottleneck.cu), each projecting one also with
+# the raw-input projection: (Cin, Cmid, Cout, projects, raw)
+FLY_INSTANCES = [(96, 48, 96, False, False), (48, 48, 96, True, False), (48, 48, 96, True, True),
+                 (64, 32, 64, False, False), (32, 32, 64, True, False), (32, 32, 64, True, True)]
 
 
-@pytest.mark.parametrize("cin,cout", [(96, 96), (48, 96)])
-def test_pack_bottleneck_holds_every_weight_once(cin, cout):
-    rng = np.random.default_rng(cin)
-    pf = port_bn.fold_bottleneck(*_block_params(rng, cin, cout))
-    cmid, proj = cout // 2, cin != cout
+def _unpack_tf32(flat, k, n, order, cols=64):
+    """``_pack_tf32``'s layout (passes of ``cols`` columns) back to (K, N) hi
+    and lo, and the count of slots that hold each (k, n)."""
+    steps = k // 8
+    arr = flat.reshape(n // cols, steps, 2, cols // 8, 2, 8, 4)   # pass, step, hi/lo, grp, kc, col, j
+    p, s, part, grp, kc, col, j = np.meshgrid(*(np.arange(d) for d in arr.shape), indexing="ij")
+    ch = 8 * s + 2 * j + kc if order == "pair" else 16 * (s // 2) + 4 * j + 2 * (s % 2) + kc
+    cols = cols * p + 8 * grp + col
+    hi, lo = np.zeros((k, n), np.float32), np.zeros((k, n), np.float32)
+    count = np.zeros((k, n), np.int64)
+    hi[ch[:, :, 0], cols[:, :, 0]] = arr[:, :, 0]
+    lo[ch[:, :, 1], cols[:, :, 1]] = arr[:, :, 1]
+    np.add.at(count, (ch[:, :, 0], cols[:, :, 0]), 1)
+    return hi, lo, count
+
+
+@pytest.mark.parametrize("cin,cmid,cout,proj,raw", FLY_INSTANCES)
+def test_pack_bottleneck_holds_every_weight_once(cin, cmid, cout, proj, raw):
+    """The fly float32 layout, unpacked section by section: w1, w2, w3 and wp
+    each once as hi and lo, hi + lo == w bit for bit, hi a TF32 number, every
+    section 16-byte aligned, the resident part (vectors, w1, w3, wp) ahead of
+    w2, b3 + bp folded; the kernel's copies of it are whole 16-byte pieces."""
+    rng = np.random.default_rng(cin + raw)
+    params, stats = _block_params(rng, cin, cout)
+    assert ("proj" in params) == proj and cout // 2 == cmid
+    pf = port_bn.fold_bottleneck(params, stats, proj_from_raw=raw)
     packed = port_bn.add_packed(pf)["packed"]
     assert packed.dtype == torch.float32 and packed.is_contiguous()
+    assert not port_bn.streams_w2(cin, cmid, cout, proj)
     assert packed.numel() == port_bn.packed_size(cin, cmid, cout, proj)
-    assert packed.numel() % 4 == 0            # copied in 16-byte pieces
-    buf, o = packed.numpy(), 0
-    mats = [("w1", cin, cmid, "lanes"), ("w2", 9 * cmid, cmid, "mma"),
-            ("w3", cmid, cout, "paired")]
+    buf = packed.numpy()
+    sections = port_bn.sections_fly(cin, cmid, cout, proj)
+    assert sum(b for _, b in sections.values()) == 4 * buf.size
+    assert all(at % 16 == 0 and b % 16 == 0 for at, b in sections.values())
+    assert list(sections)[-1] == "w2"                   # the resident part comes first
+    f = {k: v.numpy() for k, v in pf.items() if k != "proj_raw"}
+    want = {"s1": f["s1"][0], "t1": f["t1"][0], "b1": f["b1"][0], "b2": f["b2"][0],
+            "b3": f["b3"][0] + f["bp"][0] if proj else f["b3"][0]}
+    for name, v in want.items():
+        at, nbytes = sections[name]
+        np.testing.assert_array_equal(buf[at // 4:(at + nbytes) // 4], v)
+    mats = {"w1": (f["w1"], "quad"), "w3": (f["w3"], "pair"),
+            "w2": (f["w2"].reshape(9 * cmid, cmid), "pair")}
     if proj:
-        mats.append(("wp", cin, cout, "lanes"))
-    for name, k, n, order in mats:
-        got = _unpack_fragments(buf[o:o + k * n], k, n, order)
-        np.testing.assert_array_equal(got, pf[name].numpy().reshape(k, n))
-        o += k * n
-    b3 = pf["b3"][0] + pf["bp"][0] if proj else pf["b3"][0]
-    rows = [pf["s1"][0], pf["t1"][0], pf["b1"][0], pf["b2"][0], b3]
-    np.testing.assert_array_equal(buf[o:], torch.cat(rows).numpy())
+        mats["wp"] = (f["wp"], "quad")
+    assert sorted(mats) == sorted(k for k in sections if k.startswith("w"))
+    for name, (w, order) in mats.items():
+        at, nbytes = sections[name]
+        hi, lo, count = _unpack_tf32(buf[at // 4:(at + nbytes) // 4], *w.shape, order,
+                                     cols=w.shape[1])
+        assert (count == 1).all(), name
+        assert ((hi.view(np.int32) & 0x1FFF) == 0).all(), name
+        np.testing.assert_array_equal(hi + lo, w, err_msg=name)
+        np.testing.assert_array_equal(lo, w - hi, err_msg=name)
     assert sorted(port_bn.add_packed(pf)) == sorted([*pf, "packed"])
-    assert sorted(pf) == sorted(port_bn.fold_bottleneck(*_block_params(rng, cin, cout)))
+    assert sorted(pf) == sorted(port_bn.fold_bottleneck(*_block_params(rng, cin, cout),
+                                                        proj_from_raw=raw))
 
 
 # every (N, H, W) a path gives the kernel (PERF.md's tables): conv and p16
@@ -228,17 +250,21 @@ PATH_SHAPES = [(n, h, w) for n in (56, 7) for h, w in
 
 
 @pytest.mark.parametrize("n,h,w", PATH_SHAPES)
-@pytest.mark.parametrize("cin,proj", [(96, False), (48, True)])
-def test_tile_chooser_and_shared_memory_budget(n, h, w, cin, proj):
-    th, tw = port_bn.choose_tile(n, h, w, cin, 48, 96, proj)
+@pytest.mark.parametrize("cin,cmid,cout,proj", [b[:4] for b in FLY_INSTANCES if not b[4]])
+def test_tile_chooser_and_shared_memory_budget(n, h, w, cin, cmid, cout, proj):
+    th, tw = port_bn.choose_tile(n, h, w, cin, cmid, cout, proj)
     assert 1 <= th <= h and tw == min(w, 16)
-    assert th * tw <= 192                                         # 12 warps x 16 pixels
-    assert port_bn.smem_bytes(cin, 48, 96, th, tw, proj) <= port_bn.MAX_SMEM
+    assert th * tw <= port_bn.RING_TILE_PIXELS                   # two m64 row blocks
+    assert (th + 2) * (tw + 2) <= port_bn.RING_HALO_PIXELS       # three in stage 1
+    assert port_bn.tile_fits_fly(th, tw, cin, cmid, cout, proj)
+    smem, stages = port_bn._layout_fly(cin, cmid, cout, th, tw, proj)
+    assert smem == port_bn.smem_bytes(cin, cmid, cout, th, tw, proj) <= port_bn.MAX_SMEM
+    assert port_bn.FLY_STAGES[0] <= stages <= port_bn.FLY_STAGES[1]
     blocks = n * -(-h // th) * -(-w // tw)
     if n * h * w >= 16 * port_bn.NUM_SMS and w >= 8:
         assert blocks >= 0.8 * port_bn.NUM_SMS                    # the card is filled
     if n * -(-h // 8) * -(-w // 16) >= 8 * port_bn.NUM_SMS:
-        assert th * tw >= 128                                     # large images: 8x16 and up
+        assert th * tw >= 128                                     # large images: 8x16
     if blocks > port_bn.NUM_SMS:      # more than one wave only with tiles worth their latency
         assert th * tw >= 64
 
@@ -253,14 +279,29 @@ def test_tile_chooser_fills_one_wave_at_small_shapes():
     assert port_bn.choose_tile(1, 1, 1, 96, 48, 96, False) == (1, 1)
 
 
-def test_shared_memory_budget_numbers():
-    # the 96->48->96 block: 121,344 bytes of weights, and a2 twice on the halo
-    # pixels (180 for an 8x16 tile, 252 for the largest, 12x16)
-    assert port_bn.packed_size(96, 48, 96, False) * 4 == 121344
-    assert port_bn.smem_bytes(96, 48, 96, 8, 16, False) == 121344 + 2 * 180 * 52 * 4 == 196224
-    assert port_bn.smem_bytes(96, 48, 96, 12, 16, False) == 226176 <= port_bn.MAX_SMEM
-    assert port_bn.smem_bytes(48, 48, 96, 8, 16, True) == 205056
-    assert port_bn.smem_bytes(48, 48, 96, 12, 16, True) > port_bn.MAX_SMEM   # 11 rows fit
+@pytest.mark.parametrize("cin,cmid,cout,proj,resident", [
+    (96, 48, 96, False, 75264), (48, 48, 96, True, 93312),
+    (64, 32, 64, False, 33792), (32, 32, 64, True, 41728)])
+def test_shared_memory_budget_numbers(cin, cmid, cout, proj, resident):
+    # the fly blocks: 128 bytes of mbarriers, the vectors, w1, w3 (and wp)
+    # resident as hi and lo, a ring of three whole taps of w2 (Cmid x Cmid x 8
+    # bytes: 18 KB at 48, 8 KB at 32), and one a2 on the halo pixels (180 for
+    # an 8x16 tile, the largest; 192 halo pixels at most, 128 tile pixels)
+    tap = 8 * cmid * cmid
+    assert port_bn.sections_fly(cin, cmid, cout, proj)["w2"] == (resident, 9 * tap)
+    assert port_bn.packed_size(cin, cmid, cout, proj) * 4 == resident + 9 * tap
+    assert port_bn.smem_bytes(cin, cmid, cout, 8, 16, proj) == \
+        128 + resident + 3 * tap + 180 * cmid * 4 <= port_bn.MAX_SMEM
+    assert port_bn._layout_fly(cin, cmid, cout, 8, 16, proj)[1] == port_bn.FLY_STAGES[1] == 3
+    assert port_bn._layout_fly(cin, cmid, cout, 1, 1, proj)[1] == 3
+    assert port_bn.tile_fits_fly(8, 16, cin, cmid, cout, proj)
+    assert not port_bn.tile_fits_fly(9, 16, cin, cmid, cout, proj)    # 144 pixels: three row blocks
+    assert port_bn.tile_fits_fly(10, 12, cin, cmid, cout, proj)       # 12 x 14 halo: 168 <= 192
+    assert not port_bn.tile_fits_fly(1, 64, cin, cmid, cout, proj)    # 3 x 66 halo pixels > 192
+    assert (cin, cmid, cout, proj) in port_bn.INSTANCES and not port_bn.streams_w2(
+        cin, cmid, cout, proj)
+    assert port_bn.smem_bytes(96, 48, 96, 8, 16, False) == 165248
+    assert port_bn.smem_bytes(48, 48, 96, 8, 16, True) == 183296
     # a width without an instance runs the general kernel, which streams its
     # weights: the 256-wide block gets its tile; a block whose a2 and a3 of one
     # row of 16 pixels do not fit raises
@@ -268,18 +309,18 @@ def test_shared_memory_budget_numbers():
     assert port_bn.smem_bytes(256, 128, 256, th, tw, False) <= port_bn.MAX_SMEM
     with pytest.raises(ValueError):
         port_bn.choose_tile(1, 8, 16, 2048, 1024, 2048, False)
-    assert (96, 48, 96, False) in port_bn.INSTANCES and (48, 48, 96, True) in port_bn.INSTANCES
 
 
 def test_streamed_w2_budget_numbers():
-    # the 128-wide blocks: every weight resident does not fit even one row of
-    # 16 pixels, so they run csrc/bottleneck_128.cu: the vectors, w1 (and a
-    # projecting block's w3) resident as hi and lo, a ring of 3-6 chunks of 16
-    # KB for w2 and w3 or wp, and one a2 halo tile at 64 values a pixel
+    # the 128-wide blocks: the fly design (w1, w3 and wp resident as hi and
+    # lo, two whole taps of w2) does not fit an 8x16 tile, so they run
+    # csrc/bottleneck_128.cu: the vectors, w1 (and a projecting block's w3)
+    # resident as hi and lo, a ring of 3-6 chunks of 16 KB for w2 and w3 or
+    # wp, and one a2 halo tile at 64 values a pixel
     for block in ((128, 64, 128, False), (64, 64, 128, True)):
         assert block in port_bn.INSTANCES and port_bn.streams_w2(*block)
         assert not port_bn.streams_w2(*block, "bfloat16")
-        assert port_bn._resident_values(*block) * 4 + 2 * 3 * 18 * 68 * 4 > port_bn.MAX_SMEM
+        assert port_bn._layout_fly(*block[:3], 8, 16, block[3])[0] > port_bn.MAX_SMEM
     assert not any(port_bn.streams_w2(*b) for b in port_bn.INSTANCES[:4])
     assert port_bn.packed_size(128, 64, 128, False) * 4 == 2048 + 8 * (8192 + 8192 + 36864) \
         == 428032
@@ -306,29 +347,13 @@ H36M_SHAPES = [(8, 192, 192), (8, 96, 96), (8, 48, 48), (8, 24, 24), (8, 12, 12)
 @pytest.mark.parametrize("cin,proj", [(128, False), (64, True)])
 def test_tile_chooser_at_the_h36m_shapes(n, h, w, cin, proj):
     th, tw = port_bn.choose_tile(n, h, w, cin, 64, 128, proj)
-    assert 1 <= th <= h and tw == min(w, 16) and th * tw <= port_bn.WIDE_TILE_PIXELS
-    assert (th + 2) * (tw + 2) <= port_bn.WIDE_HALO_PIXELS
+    assert 1 <= th <= h and tw == min(w, 16) and th * tw <= port_bn.RING_TILE_PIXELS
+    assert (th + 2) * (tw + 2) <= port_bn.RING_HALO_PIXELS
     assert port_bn.tile_fits_128(th, tw, cin, proj)
     assert port_bn.smem_bytes(cin, 64, 128, th, tw, proj) <= port_bn.MAX_SMEM
     blocks = n * -(-h // th) * -(-w // tw)
     if n * h * w >= 16 * port_bn.NUM_SMS and w >= 8:
         assert blocks >= 0.8 * port_bn.NUM_SMS                    # the card is filled
-
-
-def _unpack_tf32(flat, k, n, order):
-    """``_pack_tf32``'s layout back to (K, N) hi and lo, and the count of
-    slots that hold each (k, n)."""
-    steps = k // 8
-    arr = flat.reshape(n // 64, steps, 2, 8, 2, 8, 4)      # pass, step, hi/lo, grp, kc, col, j
-    p, s, part, grp, kc, col, j = np.meshgrid(*(np.arange(d) for d in arr.shape), indexing="ij")
-    ch = 8 * s + 2 * j + kc if order == "pair" else 16 * (s // 2) + 4 * j + 2 * (s % 2) + kc
-    cols = 64 * p + 8 * grp + col
-    hi, lo = np.zeros((k, n), np.float32), np.zeros((k, n), np.float32)
-    count = np.zeros((k, n), np.int64)
-    hi[ch[:, :, 0], cols[:, :, 0]] = arr[:, :, 0]
-    lo[ch[:, :, 1], cols[:, :, 1]] = arr[:, :, 1]
-    np.add.at(count, (ch[:, :, 0], cols[:, :, 0]), 1)
-    return hi, lo, count
 
 
 @pytest.mark.parametrize("cin,proj,raw", [(128, False, False), (64, True, False), (64, True, True)])

@@ -60,21 +60,56 @@ def blocks():
     return fold_hourglass(variables, spec)["blocks"]
 
 
-@pytest.mark.parametrize("name,shape", [
-    ("stem_res1", (2, 128, 256, 48)),
-    ("stem_res2", (3, 64, 128, 96)),
-    ("hg0/down_d1_0", (5, 4, 8, 96)),
-    ("hg1/skip_d2_0", (2, 13, 21, 96)),   # tiles cut by the image edge
-    ("stem_res1", (7, 128, 256, 48)),     # the projection block at the teacher's batch
-    ("stem_res1", (1, 19, 37, 48)),       # projection, tiles cut by the image edge
-    ("hg0/innermost_0", (56, 3, 6, 96)),  # the patchify student's odd innermost level
-    ("hg0/innermost_0", (56, 2, 4, 96)),  # p16's innermost level
-    ("hg0/up_d3_0", (7, 16, 32, 96)),     # small batch: thin tiles
-    ("feat_res0", (1, 1, 1, 96)),
+@pytest.fixture(scope="module")
+def fly64_blocks(tmp_path_factory):
+    """A 64-feature fly network's folded blocks (32->32->64 with projection,
+    64->32->64), weights from a seed."""
+    from deepfly3d_torch.utils.synthetic import random_checkpoint
+
+    path = str(tmp_path_factory.mktemp("fly64") / "fly64.npz")
+    random_checkpoint(path, 1, num_stacks=1, features=64, depth=1, num_classes=19,
+                      input_shape=(64, 64))
+    return fold_hourglass(*load_weights(path))["blocks"]
+
+
+@pytest.mark.parametrize("name,shape,b1_positive,raw", [
+    ("stem_res1", (2, 128, 256, 48), False, False),
+    ("stem_res2", (3, 64, 128, 96), False, False),
+    ("hg0/down_d1_0", (5, 4, 8, 96), False, False),
+    ("hg1/skip_d2_0", (2, 13, 21, 96), False, False),   # tiles cut by the image edge
+    ("stem_res1", (7, 128, 256, 48), False, False),     # the projection block at the teacher's batch
+    ("stem_res1", (1, 19, 37, 48), False, False),       # projection, tiles cut by the image edge
+    ("hg0/innermost_0", (56, 3, 6, 96), False, False),  # the patchify student's odd innermost level
+    ("hg0/innermost_0", (56, 2, 4, 96), False, False),  # p16's innermost level
+    ("hg0/up_d3_0", (7, 16, 32, 96), False, False),     # small batch: thin tiles
+    ("feat_res0", (1, 1, 1, 96), False, False),
+    ("stem_res1", (224, 128, 256, 48), False, False),   # the benchmark's T=32 call: the stem block
+    ("stem_res2", (224, 64, 128, 96), False, False),    # ... and the trunk
+    ("stem_res2", (224, 19, 37, 96), True, False),      # ragged tiles at N=224, b1 > 0
+    ("stem_res2", (1, 13, 21, 96), True, False),        # ragged, N=1
+    ("hg0/skip_d1_0", (7, 33, 70, 96), True, False),    # ragged, N=7
+    ("stem_res1", (1, 17, 33, 48), True, False),        # ragged projection, b1 > 0
+    ("stem_res1", (7, 128, 256, 48), True, True),       # the raw projection at the stem shape
+    ("stem_res1", (224, 13, 21, 48), False, True),      # raw, ragged, N=224
+    ("fly64:stem_res1", (7, 128, 256, 32), False, False),   # the 64-feature net's instances
+    ("fly64:stem_res1", (1, 19, 37, 32), True, True),
+    ("fly64:stem_res2", (224, 64, 128, 64), False, False),
+    ("fly64:stem_res2", (7, 13, 21, 64), True, False),
 ])
-def test_bottleneck_kernel_matches_plain(blocks, name, shape):
+def test_bottleneck_kernel_matches_plain(blocks, fly64_blocks, name, shape, b1_positive, raw):
+    """The fly float32 instances (csrc/bottleneck.cu: w1, w3 and wp resident,
+    w2 streamed through an mbarrier ring, wgmma 3xTF32) against the plain
+    version and the TF32 model; a positive b1 shows whether the 3x3's zero
+    padding is a2's (relu(b1) would not be 0); counted under ``launches``;
+    their shared-memory figure is the wrapper's."""
     dev = _card()
-    folded = {k: v.to(dev) for k, v in bn.add_packed(blocks[name]).items()}
+    block = fly64_blocks[name[6:]] if name.startswith("fly64:") else blocks[name]
+    block = {k: v for k, v in block.items() if k != "packed"}
+    if b1_positive:
+        block["b1"] = block["b1"].abs() + 0.5
+    if raw:
+        block["proj_raw"] = torch.ones((), dtype=torch.bool)
+    folded = {k: v.to(dev) for k, v in bn.add_packed(block).items()}
     g = torch.Generator().manual_seed(0)
     x = torch.randn(shape, generator=g).to(dev)
     before = bn.fused_bottleneck.launches
@@ -85,14 +120,18 @@ def test_bottleneck_kernel_matches_plain(blocks, name, shape):
     tol = 5e-5 * max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= tol
     assert (got - bn.bottleneck_tf32_model(x, folded)).abs().max().item() <= tol
-    # the wrapper's shared-memory budget is the kernel's own figure
+    # the wrapper's shared-memory budget and packed size are the kernel's own figures
     n, h, w, cin = shape
-    args = (cin, folded["w1"].shape[1], folded["w3"].shape[1],
-            *bn.choose_tile(n, h, w, cin, folded["w1"].shape[1], folded["w3"].shape[1],
-                            "wp" in folded), int("wp" in folded))
-    smem = _build.library("bottleneck").df3d_bottleneck_smem
-    smem.argtypes, smem.restype = [ctypes.c_int] * 6, ctypes.c_size_t
-    assert smem(*args) == bn.smem_bytes(*args[:5], "wp" in folded)
+    cmid, cout, proj = folded["w1"].shape[1], folded["w3"].shape[1], "wp" in folded
+    args = (cin, cmid, cout, *bn.choose_tile(n, h, w, cin, cmid, cout, proj), int(proj))
+    lib = _build.library("bottleneck")
+    lib.df3d_bottleneck_smem.argtypes = [ctypes.c_int] * 6
+    lib.df3d_bottleneck_smem.restype = ctypes.c_size_t
+    assert lib.df3d_bottleneck_smem(*args) == bn.smem_bytes(*args[:5], proj)
+    lib.df3d_bottleneck_packed_bytes.argtypes = [ctypes.c_int] * 4
+    lib.df3d_bottleneck_packed_bytes.restype = ctypes.c_int
+    assert lib.df3d_bottleneck_packed_bytes(cin, cmid, cout, int(proj)) == \
+        4 * bn.packed_size(cin, cmid, cout, proj)
 
 
 @pytest.fixture(scope="module")

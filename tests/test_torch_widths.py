@@ -263,8 +263,10 @@ def test_general_shared_memory_budget():
         2 * (256 * 128 + 9 * 128 * 128 + 128 * 256) + 2 * 256 + 2 * 128 + 256
     assert port_bn.packed_size(256, 128, 256, False, "bfloat16") == \
         2 * (256 * 128 + 9 * 128 * 128 + 128 * 256) + 4 * (2 * 256 + 2 * 128 + 256)
-    # the instances keep their own layout, tiles and tables
-    assert port_bn.packed_size(96, 48, 96, False) * 4 == 121344
+    # the instances keep their own layout, tiles and tables (the fly layout:
+    # the vectors, then every weight as hi and lo)
+    assert port_bn.packed_size(96, 48, 96, False) * 4 == \
+        4 * (2 * 96 + 2 * 48 + 96) + 8 * (96 * 48 + 9 * 48 * 48 + 48 * 96) == 241152
     assert port_bn.kernel_for(96, 48, 96, False) == "instance"
     assert port_bn.kernel_for(96, 48, 96, True) == "general"
     for past in ((513, 256, 512), (512, 257, 512), (512, 256, 513), (0, 8, 8)):
