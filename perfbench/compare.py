@@ -1,4 +1,4 @@
-"""The comparison that decides ``correct``: the program's outputs against the reference.
+"""The ``pipeline`` entry's comparison: the 2D->3D call's outputs against the reference.
 
 Every call of the window is judged against the reference's call on the same
 chunk (``reference/pipeline.run``).  Four numbers, each the worst over all

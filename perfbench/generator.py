@@ -3,61 +3,46 @@
 A traffic mix is a JSON file under ``traffic/`` whose parameters this module
 reads:
 
+* ``source``: the frames, ``sources/<source>.py`` (``load(root)`` -> (n, C,
+  H, W, 3) uint8, ``digest(root)``); ``fly_recording`` where it names none;
 * ``T``: frames per chunk, every camera's (one call's input);
 * ``chunks``: chunks in the pool, which the calls take round robin;
-* ``pool``: ``"device"`` (the chunks in device memory) or ``"pinned"``
-  (in pinned host memory, as a decoder stages frames);
-* ``max_roll_px``: each chunk's cameras are rolled by integers in
-  [-max_roll_px, max_roll_px] on both axes (a rig that drifted);
-* ``gain``: [low, high], each chunk's cameras' brightness factor;
+* ``pool``: ``"device"`` (the chunks in device memory), ``"pinned"`` (in
+  pinned host memory, as a decoder stages frames) or ``"host"`` (pageable
+  numpy, laid out camera-major as a JPEG or video decoder yields a
+  recording's frames, seen as (T, C, H, W, 3));
+* ``max_roll_px``: cameras are rolled by integers in [-max_roll_px,
+  max_roll_px] on both axes (a rig that drifted);
+* ``gain``: [low, high], the cameras' brightness factor;
+* ``drift``: ``"chunk"`` (one roll and gain per camera and chunk, where the
+  mix names none) or ``"recording"`` (one per camera for the whole pool:
+  the chunks are segments of one recording);
 * ``noise_levels``: every pixel gets a uniform integer in [-n, n].
 
-Each chunk is one recording segment: consecutive frames of the bundled
-recording (15 frames of 7 cameras), read back and forth from a seeded
-start.  Every seed gives the same sizes; it draws the starts, rolls, gains
-and noise.  The noise is drawn on the device by a ``torch.Generator``.
+Each chunk is one recording segment: consecutive frames of the source, read
+back and forth from a seeded start.  Every seed gives the same sizes; it
+draws the starts, rolls, gains and noise.  The noise is drawn on the device
+by a ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-from concurrent import futures
 from typing import List
 
 import numpy as np
 import torch
 
-RECORDING = os.path.join("tests", "data", "reference")
-RECORDING_T, RECORDING_C = 15, 7
+import named
+
+SOURCES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sources")
+DEFAULT_SOURCE = "fly_recording"
 
 
-def load_recording(root: str) -> np.ndarray:
-    """The bundled recording as (15, 7, 480, 960, 3) uint8 RGB."""
-    import cv2
-
-    paths = [os.path.join(root, RECORDING, f"camera_{c}_img_{t}.jpg")
-             for t in range(RECORDING_T) for c in range(RECORDING_C)]
-
-    def read(p):
-        img = cv2.imread(p, cv2.IMREAD_COLOR)
-        if img is None:
-            raise FileNotFoundError(p)
-        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-
-    with futures.ThreadPoolExecutor(max_workers=4) as pool:
-        frames = list(pool.map(read, paths))
-    return np.stack(frames).reshape(RECORDING_T, RECORDING_C, *frames[0].shape)
-
-
-def recording_digest(root: str) -> str:
-    """sha256 over the recording's JPEG files, in the order they are read."""
-    h = hashlib.sha256()
-    for t in range(RECORDING_T):
-        for c in range(RECORDING_C):
-            with open(os.path.join(root, RECORDING, f"camera_{c}_img_{t}.jpg"), "rb") as f:
-                h.update(f.read())
-    return h.hexdigest()
+def source(mix: dict):
+    """The frame source module that a traffic mix names."""
+    return named.load(SOURCES, mix.get("source", DEFAULT_SOURCE))
 
 
 def sub_seed(seed: int, *tags) -> int:
@@ -72,20 +57,31 @@ def _pingpong(i: np.ndarray, n: int) -> np.ndarray:
     return np.where(i < n, i, period - i)
 
 
-def make_pool(recording: torch.Tensor, mix: dict, seed: int) -> List[torch.Tensor]:
-    """-> ``mix["chunks"]`` chunks (T, C, H, W, 3) uint8 on the recording's
-    device, or in pinned host memory for ``pool == "pinned"``."""
+def make_pool(recording: torch.Tensor, mix: dict, seed: int) -> List:
+    """-> ``mix["chunks"]`` chunks (T, C, H, W, 3) uint8: tensors on the
+    recording's device or in pinned host memory, or host numpy arrays."""
     dev = recording.device
     n_rec, C = recording.shape[:2]
     T = int(mix["T"])
     lo, hi = mix["gain"]
     r, n = int(mix["max_roll_px"]), int(mix["noise_levels"])
+    drift = mix.get("drift", "chunk")
+    if drift not in ("chunk", "recording"):
+        raise ValueError(f"drift {drift!r}: chunk or recording")
+    if mix["pool"] not in ("device", "pinned", "host"):
+        raise ValueError(f"pool {mix['pool']!r}: device, pinned or host")
+    if drift == "recording":
+        rng = np.random.default_rng(sub_seed(seed, "recording"))
+        rec_rolls = rng.integers(-r, r + 1, size=(C, 2))
+        rec_gains = rng.uniform(lo, hi, size=C).astype(np.float32)
     pool = []
     for k in range(int(mix["chunks"])):
         rng = np.random.default_rng(sub_seed(seed, "chunk", k))
         frames = _pingpong(rng.integers(0, 2 * n_rec - 2) + np.arange(T), n_rec)
         rolls = rng.integers(-r, r + 1, size=(C, 2))
         gains = rng.uniform(lo, hi, size=C).astype(np.float32)
+        if drift == "recording":
+            rolls, gains = rec_rolls, rec_gains
         gen = torch.Generator(device=dev).manual_seed(sub_seed(seed, "noise", k))
         chunk = torch.empty((T,) + tuple(recording.shape[1:]), dtype=torch.uint8, device=dev)
         gain_t = torch.as_tensor(gains, device=dev)[:, None, None, None]
@@ -99,7 +95,7 @@ def make_pool(recording: torch.Tensor, mix: dict, seed: int) -> List[torch.Tenso
             chunk[t] = x
         if mix["pool"] == "pinned":
             chunk = chunk.cpu().pin_memory() if dev.type == "cuda" else chunk.cpu()
-        elif mix["pool"] != "device":
-            raise ValueError(f"pool {mix['pool']!r}: device or pinned")
+        elif mix["pool"] == "host":
+            chunk = chunk.transpose(0, 1).contiguous().cpu().numpy().transpose(1, 0, 2, 3, 4)
         pool.append(chunk)
     return pool

@@ -3,23 +3,27 @@
 A cell of ``BENCHMARK.json`` names a configuration and a traffic mix; each
 is a file found by its name (``configs/<config>.json``, ``traffic/<traffic>.json``),
 with the configuration's limits in ``limits/<config>.json``, its weights
-made by ``builders/<builder>.py`` and every per-layer metric read by
-``metrics/<name>.py``.  Nothing here names a cell.
+made by ``builders/<builder>.py``, the path it drives with its reference
+and judge in ``entries/<entry>.py`` and its frames in ``sources/<source>.py``
+(both named by the traffic mix), and every per-layer metric read by
+``metrics/<name>.py``.  Nothing here names a cell, an entry or a source.
 """
 
 from __future__ import annotations
 
 import hashlib
 import importlib
-import importlib.util
 import json
 import os
 import sys
 import time
 from types import SimpleNamespace
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
+
+import entries
+import named
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -54,9 +58,9 @@ def load_cell(name: str, root: str = ROOT) -> SimpleNamespace:
         return name in m.get("workloads", [name])
 
     cfg = _json(os.path.join(HERE, "configs", cell["config"] + ".json"))
+    mix = _json(os.path.join(HERE, "traffic", cell["traffic"] + ".json"))
     return SimpleNamespace(
-        name=name, chips=int(cell["chips"]), cfg=cfg,
-        mix=_json(os.path.join(HERE, "traffic", cell["traffic"] + ".json")),
+        name=name, chips=int(cell["chips"]), cfg=cfg, mix=mix, entry=entries.of(mix),
         limits=_json(os.path.join(HERE, "limits", cell["config"] + ".json")),
         end_to_end=[m for m in bench["end_to_end"] if reports(m)],
         per_layer=[m for m in bench["per_layer"] if reports(m)])
@@ -64,15 +68,15 @@ def load_cell(name: str, root: str = ROOT) -> SimpleNamespace:
 
 def check_data(cell: SimpleNamespace, root: str) -> None:
     """Every data file the run reads holds the bytes its configuration states."""
-    from generator import recording_digest
+    import generator
 
     for rel, want in cell.cfg.get("data_sha256", {}).items():
         with open(os.path.join(root, rel), "rb") as f:
             got = hashlib.sha256(f.read()).hexdigest()
         if got != want:
             raise RuntimeError(f"{rel}: sha256 {got}, the configuration states {want}")
-    if recording_digest(root) != cell.mix["recording_sha256"]:
-        raise RuntimeError("the bundled recording is not the one the traffic mix states")
+    if generator.source(cell.mix).digest(root) != cell.mix["recording_sha256"]:
+        raise RuntimeError("the frame source is not the recording the traffic mix states")
 
 
 def builder(cfg: dict):
@@ -80,27 +84,22 @@ def builder(cfg: dict):
 
 
 def metric_reader(name: str):
-    path = os.path.join(HERE, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location("perfbench_metric_" + name.replace(".", "_"),
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return named.load(os.path.join(HERE, "metrics"), name).read
 
 
 class Setup(SimpleNamespace):
-    """What set-up made: ``pipe``, ``pool``, ``made`` (the builder's),
-    ``device``, ``recording`` (the bundled frames, numpy) and ``stages``."""
+    """What set-up made: ``prog`` (the program of ``entry``), ``pool``, ``made``
+    (the builder's), ``device``, ``recording`` (the source's frames, numpy)
+    and ``stages``."""
 
 
 def setup(cell: SimpleNamespace, seed: int, device, root: str = ROOT) -> Setup:
-    """Data checked, the recording decoded, the chunk pool and the weights
-    made from the seed, the program's pipeline built; ``stages`` holds the
-    seconds of each."""
+    """Data checked, the source's frames decoded, the chunk pool and the
+    weights made from the seed, the entry's program built; ``stages`` holds
+    the seconds of each."""
     import torch
 
     import generator
-    import program
 
     stages = {}
     t = time.perf_counter()
@@ -112,20 +111,20 @@ def setup(cell: SimpleNamespace, seed: int, device, root: str = ROOT) -> Setup:
         t = now
 
     check_data(cell, root)
-    recording = generator.load_recording(root)
+    recording = generator.source(cell.mix).load(root)
     lap("data")
     pool = generator.make_pool(torch.from_numpy(recording).to(device), cell.mix, seed)
     lap("pool")
     made = builder(cell.cfg).make(cell.cfg, root, seed, device)
     lap("weights")
-    pipe = program.build(cell.cfg, root, made, device)
-    lap("pipeline")
-    return Setup(pipe=pipe, pool=pool, made=made, device=device, recording=recording,
-                 stages=stages)
+    prog = cell.entry.build(cell, root, made, device)
+    lap("program")
+    return Setup(prog=prog, entry=cell.entry, pool=pool, made=made, device=device,
+                 recording=recording, stages=stages)
 
 
-def _to_host(outs):
-    return tuple(t.cpu() for t in outs)
+def to_host(outs):
+    return tuple(t.cpu() if hasattr(t, "cpu") else t for t in outs)
 
 
 def warm_up(s: Setup, calls: int = 2) -> None:
@@ -134,7 +133,7 @@ def warm_up(s: Setup, calls: int = 2) -> None:
     checkout lacks)."""
     t = time.perf_counter()
     for i in range(calls):
-        _to_host(s.pipe(s.pool[i % len(s.pool)]))
+        to_host(s.prog(s.pool[i % len(s.pool)]))
     _sync(s.device)
     s.stages["warm_up"] = time.perf_counter() - t
 
@@ -157,7 +156,7 @@ def window(s: Setup, seconds: float, traced: bool = False) -> SimpleNamespace:
     if traced:
         from devtrace import PREFIX, wrap_stages
 
-        wrap_stages(s.pipe)
+        wrap_stages(s.entry.stage_owner(s.prog))
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                   torch.profiler.ProfilerActivity.CUDA])
         prof.__enter__()
@@ -176,10 +175,10 @@ def window(s: Setup, seconds: float, traced: bool = False) -> SimpleNamespace:
             k = len(times) % n
             start = time.perf_counter()
             with span("call"):
-                outs = s.pipe(s.pool[k])
+                outs = s.prog(s.pool[k])
             returned = time.perf_counter()
             with span("to_host"):
-                host = _to_host(outs)
+                host = to_host(outs)
             end = time.perf_counter()
             times.append(end - start)
             inside.append(returned - start)
@@ -199,63 +198,27 @@ class _Null:
         return False
 
 
-def golden_contract(cell: SimpleNamespace, s: Setup, root: str) -> Optional[Dict]:
-    """The program's errors on the bundled recording against the golden 2D
-    result, at the result's own limits (configurations that state them)."""
-    import pickle
-
-    import torch
-
-    gc = cell.cfg.get("golden_contract")
-    if not gc:
-        return None
-    with open(os.path.join(root, gc["result"]), "rb") as f:
-        golden = pickle.load(f)
-    _, p38, conf = _to_host(s.pipe(torch.from_numpy(s.recording).to(s.device)))
-    pts_err = float(np.abs(p38.numpy() - golden["points2d"]).max())
-    conf_err = float(np.abs(conf.numpy() - golden["heatmap_confidence"]).max())
-    return {"pts_err": pts_err, "pts_tol": gc["pts_tol"], "conf_err": conf_err,
-            "conf_tol": gc["conf_tol"],
-            "pass": pts_err <= gc["pts_tol"] and conf_err <= gc["conf_tol"]}
-
-
-def reference_results(cell: SimpleNamespace, pool, made: dict, device, root: str,
-                      tf32: bool = False) -> Dict:
-    """The reference's call on every chunk of the pool: -> ({chunk: Result}, rig)."""
-    from reference import hourglass
-    from reference import pipeline as ref
-
-    rig = ref.load_rig(cell.cfg, root)
-    net = hourglass.Hourglass(made["layout"], cell.cfg["spec"], cell.cfg["spec"]["proj_from_raw"])
-    hw = tuple(cell.cfg["image_hw"])
-    return {k: ref.run(chunk.to(device), net, rig, hw, tf32=tf32)
-            for k, chunk in enumerate(pool)}, rig
-
-
-def judge(cell: SimpleNamespace, outputs, chunk_of, results, rig) -> Dict:
-    """``compare``'s numbers, the worst over every call of the window, with
-    ``failed`` (calls with a number over its limit), ``correct``, and the
-    3D points of the distinct outputs that two cameras or more see
-    (``seen``) and that ``p3d_err`` judges (``determined``).  Calls
-    whose outputs hold the same bytes for the same chunk are judged once."""
-    import compare
-
-    hw = tuple(cell.cfg["image_hw"])
+def judge(cell: SimpleNamespace, outputs, chunk_of, refs) -> Dict:
+    """The entry's numbers, the worst over every call of the window, with its
+    counts combined (``MAXED``, ``SUMMED``), ``failed`` (calls with a number
+    over its limit) and ``correct``.  Calls whose outputs hold the same bytes
+    for the same chunk are judged once."""
+    entry = cell.entry
     groups: Dict = {}
     for out, k in zip(outputs, chunk_of):
         arrays = tuple(np.asarray(t) for t in out)
         key = (k, hashlib.sha256(b"".join(a.tobytes() for a in arrays)).digest())
         groups.setdefault(key, [arrays, 0])[1] += 1
-    got: Dict = {n: 0.0 for n in compare.NAMES}
-    got.update(failed=0, mismatched=0, distinct_outputs=len(groups), seen=0, determined=0)
+    got: Dict = {n: 0.0 for n in entry.NAMES}
+    got.update({n: 0 for n in entry.MAXED + entry.SUMMED})
+    got.update(failed=0, distinct_outputs=len(groups))
     for (k, _), (arrays, count) in groups.items():
-        one = compare.judge_call(arrays, results[k], rig, hw)
-        for n in compare.NAMES:
+        one = entry.judge_call(cell, arrays, refs, k)
+        for n in entry.NAMES + entry.MAXED:
             got[n] = max(got[n], one[n])
-        got["mismatched"] = max(got["mismatched"], one["mismatched"])
-        got["seen"] += one["seen"]
-        got["determined"] += one["determined"]
-        got["failed"] += count * any(not one[n] <= cell.limits[n] for n in compare.NAMES)
+        for n in entry.SUMMED:
+            got[n] += one[n]
+        got["failed"] += count * any(not one[n] <= cell.limits[n] for n in entry.NAMES)
     got["correct"] = bool(groups) and got["failed"] == 0
     return got
 

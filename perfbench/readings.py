@@ -1,20 +1,19 @@
 """The readings that the limits of ``limits/<config>.json`` are set from.
 
     python3 perfbench/readings.py --workload <cell> --seeds 1 2 3 ... \
-        [--control-seeds 4 5 6] [--out FILE]
+        [--control-seeds 4 5 6] [--fault-seeds 7 8 9] [--out FILE]
 
 For each seed, in one process: the cell's set-up (pool, weights, the
-program's pipeline), one call of the program on every chunk of the pool,
-and then, with the program freed, the reference on every chunk and the
-numbers of ``compare.py`` (the program's lower readings).  The same calls
-are judged with faults planted in their outputs: the previous chunk's
-outputs returned (a call that hands back stale state), half of the frames
-computed and the rest copied from them, one 2D point moved one cell, one
-frame's 3D points moved by 1%, and one frame's 3D points zeroed.  For each
-control seed, the reference itself, computed with TF32 on, stands in the
-program's place (the control: the nearest precision below the
-configuration's float32).  One JSON line
-per seed and kind.  The benchmark's own runs do not run this.
+entry's program), one call of the program on every chunk of the pool (twice:
+whether the outputs repeat), and then, with the program freed, the entry's
+reference on every chunk and the numbers of the entry's judge (the
+program's lower readings).  For each fault seed, the same calls are judged
+with each fault of the entry planted (``faults``: stale outputs, half of the
+frames, a point moved one cell, and the entry's own).  For each control
+seed, the reference itself, computed with TF32 on, stands in the program's
+place (the control: the nearest precision below the configuration's
+float32).  One JSON line per seed and kind.  The benchmark's own runs do not
+run this.
 """
 
 from __future__ import annotations
@@ -24,44 +23,19 @@ import json
 import os
 import sys
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 if HERE not in sys.path:
     sys.path.insert(0, HERE)
 
 
-import compare  # noqa: E402
 import harness  # noqa: E402
 
 
-def _numbers(cell, outs, chunk_of, results, rig):
-    got = harness.judge(cell, outs, chunk_of, results, rig)
-    return {n: got[n] for n in compare.NAMES + ("mismatched", "correct")}
-
-
-def _faults(cell, s, outs):
-    """{fault: the outputs of one call per chunk with that fault planted}."""
-    import torch
-
-    n = len(outs)
-    stale = [outs[(k - 1) % n] for k in range(n)]
-    half = []
-    for chunk in s.pool:
-        T = chunk.shape[0]
-        p3d, p38, conf = (t.cpu() for t in s.pipe(chunk[: T // 2]))
-        half.append((torch.cat([p3d, p3d], 0)[:T], torch.cat([p38, p38], 1)[:, :T],
-                     torch.cat([conf, conf], 1)[:, :T]))
-    cam = int(cell.cfg["camera_ordering"][0])         # a left camera: joint 0 carries a cell
-    moved2d, moved3d, zeroed3d = [], [], []
-    for p3d, p38, conf in outs:
-        p38_moved, p3d_moved, p3d_zeroed = p38.clone(), p3d.clone(), p3d.clone()
-        p38_moved[cam, 0, 0, 0] += 1.0 / 64
-        p3d_moved[0] *= 1.01
-        p3d_zeroed[0] = 0.0
-        moved2d.append((p3d, p38_moved, conf))
-        moved3d.append((p3d_moved, p38, conf))
-        zeroed3d.append((p3d_zeroed, p38, conf))
-    return {"stale": stale, "half_batch": half, "moved_2d_point": moved2d,
-            "moved_3d_frame": moved3d, "zeroed_3d_frame": zeroed3d}
+def _numbers(cell, outs, chunk_of, refs):
+    got = harness.judge(cell, outs, chunk_of, refs)
+    return {n: got[n] for n in cell.entry.NAMES + cell.entry.MAXED + ("correct",)}
 
 
 def main(argv=None) -> int:
@@ -89,27 +63,27 @@ def main(argv=None) -> int:
     for seed in seeds:
         s = harness.setup(cell, seed, device)
         harness.warm_up(s)
-        outs = [tuple(t.cpu() for t in s.pipe(chunk)) for chunk in s.pool]
-        again = [tuple(t.cpu() for t in s.pipe(chunk)) for chunk in s.pool]
-        same = all(bool(torch.equal(a, b)) for x, y in zip(outs, again) for a, b in zip(x, y))
-        faults = _faults(cell, s, outs) if seed in args.fault_seeds else {}
-        s.pipe = None
+        outs = [harness.to_host(s.prog(chunk)) for chunk in s.pool]
+        again = [harness.to_host(s.prog(chunk)) for chunk in s.pool]
+        same = all(np.array_equal(np.asarray(a), np.asarray(b))
+                   for x, y in zip(outs, again) for a, b in zip(x, y))
+        faults = cell.entry.faults(cell, s, outs) if seed in args.fault_seeds else {}
+        s.prog = None
         torch.cuda.empty_cache()
-        results, rig = harness.reference_results(cell, s.pool, s.made, device, harness.ROOT)
+        refs = cell.entry.reference(cell, s.pool, s.made, device, harness.ROOT)
         chunk_of = list(range(len(outs)))
         base = {"cell": cell.name, "seed": seed}
         if seed in args.seeds:
             emit({**base, "kind": "program", "repeatable": same,
-                  **_numbers(cell, outs, chunk_of, results, rig)})
+                  **_numbers(cell, outs, chunk_of, refs)})
         for name, fouts in faults.items():
-            emit({**base, "kind": "fault:" + name, **_numbers(cell, fouts, chunk_of, results, rig)})
+            emit({**base, "kind": "fault:" + name, **_numbers(cell, fouts, chunk_of, refs)})
         if seed in args.control_seeds:
-            ctrl, _ = harness.reference_results(cell, s.pool, s.made, device, harness.ROOT,
-                                                tf32=True)
-            couts = [(r.points3d, r.points2d, r.conf) for r in ctrl.values()]
+            ctrl = cell.entry.reference(cell, s.pool, s.made, device, harness.ROOT, tf32=True)
             emit({**base, "kind": "control_tf32",
-                  **_numbers(cell, couts, chunk_of, results, rig)})
-        del s, results
+                  **_numbers(cell, cell.entry.control_outputs(ctrl), chunk_of, refs)})
+            del ctrl
+        del s, refs
         torch.cuda.empty_cache()
     if sink:
         sink.close()

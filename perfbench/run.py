@@ -3,14 +3,15 @@
     python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout.  Set-up builds the program's CUDA kernels
-where they are not built yet (into the checkout), decodes the bundled
-recording, makes the cell's chunk pool and weights from the seed, builds
-``deepfly3d_torch``'s pipeline and warms the cell's one shape.  The window
-calls the pipeline on the pool's chunks round robin, one client in a closed
-loop, each call's outputs copied to the host before the next call, for
-``--seconds``.  Then the program is freed, the plain reference
-(``reference/``) computes every chunk, and every call's outputs are judged
-against it (``compare.py``).  With ``--trace 1`` the window runs under
+where they are not built yet (into the checkout), decodes the traffic
+mix's frame source, makes the cell's chunk pool and weights from the seed,
+builds the program of the mix's entry (``entries/<entry>.py``: the 2D->3D
+``Pipeline``, or the CLI's ``PoseEstimator`` ingest) and warms the cell's
+one shape.  The window calls the program on the pool's chunks round robin,
+one client in a closed loop, each call's outputs copied to the host before
+the next call, for ``--seconds``.  Then the program is freed, the entry's
+plain reference (``reference/``) computes every chunk, and every call's
+outputs are judged against it by the entry's judge.  With ``--trace 1`` the window runs under
 ``torch.profiler`` and the line carries the per-layer metrics instead of
 the end-to-end ones.
 
@@ -42,7 +43,6 @@ for _var, _sub in (("TRITON_CACHE_DIR", "triton"), ("TORCH_EXTENSIONS_DIR", "tor
 
 import numpy as np  # noqa: E402
 
-import compare  # noqa: E402
 import harness  # noqa: E402
 
 
@@ -85,19 +85,20 @@ def per_layer(cell, w, notes: list):
 def run_cell(cell, seed: int, seconds: float, traced: bool, device, root: str = ROOT,
              break_program=None):
     """One run; -> (the result object, the lines of numbers compared).
-    ``break_program(pipe)``, for the harness's own tests, may replace the
-    pipeline by a faulty one before the window."""
+    ``break_program(program)``, for the harness's own tests, may replace the
+    program by a faulty one before the window."""
     import torch
 
+    entry = cell.entry
     s = harness.setup(cell, seed, device, root)
     if break_program is not None:
-        s.pipe = break_program(s.pipe)
+        s.prog = break_program(s.prog)
     harness.warm_up(s)
     setup_s = harness.process_age_s()
     stages = {"before_setup": setup_s - sum(s.stages.values()), **s.stages}
     w = harness.window(s, seconds, traced)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    golden = harness.golden_contract(cell, s, root)
+    golden = entry.golden(cell, s, root)
     if golden is not None:
         print("golden contract (informational): " + json.dumps(golden), flush=True)
     notes = ["set-up seconds: " + json.dumps(stages)]
@@ -106,12 +107,13 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, root: str = 
     if traced:
         metrics, dev_extra, breakdown = per_layer(cell, w, notes)
     w.prof = None
-    s.pipe = None
+    kept = entry.keep(s.prog)
+    s.prog = None
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    results, rig = harness.reference_results(cell, s.pool, s.made, device, root)
-    got = harness.judge(cell, w.outputs, w.chunk_of, results, rig)
-    checks = {n: {"value": _finite(got[n]), "limit": cell.limits[n]} for n in compare.NAMES}
+    refs = entry.reference(cell, s.pool, s.made, device, root)
+    got = harness.judge(cell, w.outputs, w.chunk_of, refs)
+    checks = {n: {"value": _finite(got[n]), "limit": cell.limits[n]} for n in entry.NAMES}
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     result = {
         "correct": got["correct"],
@@ -124,11 +126,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, root: str = 
     if breakdown is not None:
         result["breakdown"] = breakdown
     result["checks"] = checks
-    share = 100.0 * got["determined"] / max(got["seen"], 1)
-    lines = notes + [f"points differing from the reference's: {got['mismatched']} at most in a "
-                     f"call; distinct outputs judged: {got['distinct_outputs']}",
-                     f"3D points seen by two cameras or more: {got['seen']}; judged by p3d_err: "
-                     f"{got['determined']} ({share:.2f}%), the rest by p3d_resid alone"]
+    lines = notes + entry.notes(got, kept, refs)
     lines += [f"check {n}: {c['value']!r} limit {c['limit']!r}" for n, c in checks.items()]
     return result, lines
 

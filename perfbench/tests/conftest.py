@@ -26,6 +26,43 @@ def card():
     return torch.device("cuda", 0)
 
 
+class CallClock:
+    """A stand-in for the harness's clock that advances ``tick`` seconds at
+    every read: a window of ``seconds`` holds a number of calls fixed by the
+    reads a call makes (three), whatever the machine's speed."""
+
+    def __init__(self, tick: float = 0.1):
+        self.now, self.tick = 0.0, tick
+
+    def perf_counter(self) -> float:
+        self.now += self.tick
+        return self.now
+
+
+@pytest.fixture
+def call_clock(monkeypatch):
+    """The harness timed by ``CallClock``: a window of 1.0 s holds 4 calls."""
+    import harness
+
+    clock = CallClock()
+    monkeypatch.setattr(harness, "time", clock)
+    return clock
+
+
+def mix_cell(name: str, traffic: str) -> object:
+    """A cell of BENCHMARK.json with another traffic mix of ``traffic/`` and its entry."""
+    import json
+
+    import entries
+    import harness
+
+    cell = harness.load_cell(name)
+    with open(os.path.join(HERE, "traffic", traffic + ".json")) as f:
+        cell.mix = json.load(f)
+    cell.entry = entries.of(cell.mix)
+    return cell
+
+
 def tiny_cell(name: str, T: int = 1, chunks: int = 2, **spec):
     """A cell of BENCHMARK.json with its traffic and, where asked, its spec cut to a test's size."""
     import harness

@@ -12,7 +12,7 @@ import pytest
 import harness
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "deepfly3d_tpu"}
-PROGRAM = {"deepfly3d_torch", "tests", "program"}
+PROGRAM = {"deepfly3d_torch", "tests", "entries"}
 
 
 def _sources(sub=""):
@@ -54,10 +54,11 @@ def test_reference_imports_nothing_of_the_program(path):
     assert not top_level_imports(path) & (PROGRAM | FORBIDDEN)
 
 
-def test_only_the_program_adapter_imports_the_program():
+def test_only_entry_modules_import_the_program():
     users = {os.path.relpath(p, harness.HERE) for p in _sources()
              if "deepfly3d_torch" in top_level_imports(p)}
-    assert {u for u in users if not u.startswith("tests" + os.sep)} == {"program.py"}
+    assert {u for u in users if not u.startswith("tests" + os.sep)} == \
+        {os.path.join("entries", "pipeline.py"), os.path.join("entries", "estimator.py")}
 
 
 def test_forbidden_modules_compares_whole_names(monkeypatch):

@@ -60,16 +60,15 @@ def test_reference_call_matches_the_pipelines_plain_twin():
     """Registration, preprocess, decode, assembly and DLT of a drifted chunk."""
     import harness
     import generator
-    import program
     from conftest import tiny_cell
 
     cell = tiny_cell("df2d256.dev_T16", T=2, chunks=1, features=16, depth=3,
                      stem_channels=[4, 8, 8], input_shape=[64, 128])
     dev = torch.device("cpu")
-    rec = generator.load_recording(harness.ROOT)
+    rec = generator.source(cell.mix).load(harness.ROOT)
     chunk = generator.make_pool(torch.from_numpy(rec), cell.mix, 7)[0]
     made = harness.builder(cell.cfg).make(cell.cfg, harness.ROOT, 7, dev)
-    pipe = plain_twin(program.build(cell.cfg, harness.ROOT, made, dev))
+    pipe = plain_twin(cell.entry.build(cell, harness.ROOT, made, dev))
     p3d, p38, conf = (t.numpy() for t in pipe(chunk))
     rig = ref.load_rig(cell.cfg, harness.ROOT)
     net = hourglass.Hourglass(made["layout"], cell.cfg["spec"], True)

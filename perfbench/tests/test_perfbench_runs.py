@@ -33,13 +33,14 @@ def _run(break_program=None, traced=False, seconds=0.3):
                         break_program=break_program)
 
 
-def test_result_line_has_the_contracts_shape():
-    result, lines = _run(seconds=1.5)
-    assert result["correct"] is True and result["failed"] == 0 and result["attempted"] >= 2
+def test_result_line_has_the_contracts_shape(call_clock):
+    result, lines = _run(seconds=1.0)
+    assert result["correct"] is True and result["failed"] == 0 and result["attempted"] == 4
     assert list(result) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
     assert set(result["metrics"]) == {"frames_per_s", "call_ms_p95", "peak_mem_gib", "setup_s"}
     assert all(set(v) == {"value", "unit"} for v in result["metrics"].values())
     assert set(result["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
+    assert list(result["checks"]) == ["conf_err", "cell_gap", "p3d_err", "p3d_resid"]
     assert {n: set(c) for n, c in result["checks"].items()} == \
         {n: {"value", "limit"} for n in compare.NAMES}
     assert lines[-4:] == [f"check {n}: {c['value']!r} limit {c['limit']!r}"
@@ -47,7 +48,7 @@ def test_result_line_has_the_contracts_shape():
     json.loads(json.dumps(result))
 
 
-def test_traced_run_leaves_out_what_it_cannot_read():
+def test_traced_run_leaves_out_what_it_cannot_read(call_clock):
     result, _ = _run(traced=True)
     assert result["correct"] is True
     # no device in a CPU trace, and no CUDA API calls: only the FLOP count finds something
@@ -102,7 +103,7 @@ def _zeroed_3d(pipe):
 @pytest.mark.parametrize("fault", [_Stale, _half, _moved_2d, _moved_3d, _zeroed_3d],
                          ids=["state_unchanged", "half_batch", "answer_altered_2d",
                               "answer_altered_3d", "answer_zeroed_3d"])
-def test_a_broken_timed_path_is_not_correct(fault):
+def test_a_broken_timed_path_is_not_correct(fault, call_clock):
     result, _ = _run(break_program=fault)
     assert result["correct"] is False and result["failed"] > 0
 
@@ -113,8 +114,8 @@ def test_points_that_p3d_err_leaves_out_are_held_by_p3d_resid():
     they pass ``p3d_err`` and fail ``p3d_resid``."""
     cell, cpu = _cell(), torch.device("cpu")
     s = harness.setup(cell, SEED, cpu)
-    outs = [tuple(t.numpy() for t in s.pipe(chunk)) for chunk in s.pool]
-    results, rig = harness.reference_results(cell, s.pool, s.made, cpu, harness.ROOT)
+    outs = [tuple(t.numpy() for t in s.prog(chunk)) for chunk in s.pool]
+    results, rig = cell.entry.reference(cell, s.pool, s.made, cpu, harness.ROOT)
     hw = tuple(cell.cfg["image_hw"])
     p3d, p38, conf = outs[0]
     r = results[0]
@@ -171,7 +172,7 @@ def test_the_tf32_control_is_not_correct(card):
 
     cell = tiny_cell("df2d256.dev_T16", T=2, chunks=2)
     s = harness.setup(cell, SEED, card)
-    results, rig = harness.reference_results(cell, s.pool, s.made, card, harness.ROOT)
-    ctrl, _ = harness.reference_results(cell, s.pool, s.made, card, harness.ROOT, tf32=True)
-    couts = [(r.points3d, r.points2d, r.conf) for r in ctrl.values()]
-    assert readings._numbers(cell, couts, [0, 1], results, rig)["correct"] is False
+    refs = cell.entry.reference(cell, s.pool, s.made, card, harness.ROOT)
+    ctrl = cell.entry.reference(cell, s.pool, s.made, card, harness.ROOT, tf32=True)
+    couts = cell.entry.control_outputs(ctrl)
+    assert readings._numbers(cell, couts, [0, 1], refs)["correct"] is False
