@@ -1,7 +1,7 @@
 """Weights from a checkpoint file of the repository (flax names, HWIO kernels).
 
 The reference reads the ``.npz`` itself; the program loads it with its own
-reader (``program.py``).  The file's sha256 must be the configuration's.
+reader (``entries/``).  The file's sha256 must be the configuration's.
 """
 
 from __future__ import annotations
@@ -27,3 +27,11 @@ def make(cfg: dict, root: str, seed: int, device: torch.device) -> dict:
         tensors = {k: torch.from_numpy(np.asarray(z[k], np.float32)).to(device)
                    for k in z.files if not k.startswith("__spec__/")}
     return {"layout": FlaxLayout(tensors), "checkpoint": path}
+
+
+def shapes(cfg: dict, root: str) -> FlaxLayout:
+    """The checkpoint's weights as ``make`` lays them out, as meta tensors:
+    their shapes, no value kept."""
+    with np.load(os.path.join(root, cfg["checkpoint"])) as z:
+        return FlaxLayout({k: torch.empty(z[k].shape, device="meta")
+                           for k in z.files if not k.startswith("__spec__/")})

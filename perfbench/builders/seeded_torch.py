@@ -20,7 +20,7 @@ image and not by rounding.
   variance uniform in [0.5, 1.5].
 
 The reference runs the state dict as it is; the program gets it as a lab
-would, a file that ``program.py`` converts with the program's converter.
+would, a file that ``entries/pipeline.py`` converts with the program's converter.
 """
 
 from __future__ import annotations
@@ -102,3 +102,9 @@ def make(cfg: dict, root: str, seed: int, device: torch.device) -> dict:
     del root
     sd = state_dict(cfg["spec"], seed, device)
     return {"layout": TorchLayout(sd), "state_dict": sd}
+
+
+def shapes(cfg: dict, root: str) -> TorchLayout:
+    """The weights ``make`` lays out, as meta tensors: their shapes, nothing drawn."""
+    del root
+    return TorchLayout({n: torch.empty(s, device="meta") for n, s, _, _ in _entries(cfg["spec"])})

@@ -1,10 +1,11 @@
-"""The traced run: spans the benchmark records and the device trace, reduced.
+"""The traced run: the profiler's raw events, reduced once.
 
-``wrap_stages`` puts the pipeline's stage attributes, and the harness its
-calls into the program, in ``torch.profiler.record_function`` ranges.
-``reduce`` reads the profiler's raw events once: the device's kernels and
-copies inside the window, the host's CUDA API calls, and the benchmark's
-host spans, on the profiler's one clock (nanoseconds).
+``reduce`` reads them in one pass, on the profiler's one clock
+(nanoseconds): the device's kernels and copies inside the benchmark's
+window, with the correlation ids that tie each to its launch; the host's
+CUDA API calls; the spans that the harness opens itself
+(``perfbench.window``, ``.call``, ``.to_host``); and the program's own
+``df3d.*`` spans with their threads, which ``progspans`` reads.
 """
 
 from __future__ import annotations
@@ -16,32 +17,12 @@ from typing import Dict, List, Tuple
 import torch
 
 PREFIX = "perfbench."
+PROGRAM = "df3d."                              # deepfly3d_torch.utils.profiling.span
 # the host's CUDA API calls in the trace (cudaLaunchKernel, cuLaunchKernel, ...)
 RUNTIME = ("cuda", "cu")
-# the pipeline's stage attributes that the traced run wraps where they exist
-STAGES = ("_register", "_points", "preprocess", "net", "decode", "_assemble", "_finish", "_conf")
-
-
-class _Spanned:
-    """A callable in a named host span; other attributes pass through."""
-
-    def __init__(self, name: str, fn):
-        self._name, self._fn = name, fn
-
-    def __call__(self, *args, **kwargs):
-        with torch.profiler.record_function(self._name):
-            return self._fn(*args, **kwargs)
-
-    def __getattr__(self, attr):
-        return getattr(self._fn, attr)
-
-
-def wrap_stages(pipe) -> None:
-    """Put each stage attribute of ``pipe`` that exists in a span ``perfbench.<stage>``."""
-    for attr in STAGES:
-        fn = getattr(pipe, attr, None)
-        if callable(fn):
-            setattr(pipe, attr, _Spanned(PREFIX + attr.strip("_"), fn))
+WORK_API = ("Launch", "Memcpy", "Memset")      # API calls that put work on the device
+COPY = ("Memcpy", "Memset")
+OUTSIDE = "outside_the_calls"
 
 
 def _annotation(e) -> bool:
@@ -64,7 +45,7 @@ def _union(intervals: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
 def short_name(name: str) -> str:
     """A kernel's name without its return type, namespace and argument list
     (a copy's name as it is)."""
-    if name.startswith(("Memcpy", "Memset")):
+    if name.startswith(COPY):
         return name
     name = name.replace("(anonymous namespace)::", "")
     name = name[5:] if name.startswith("void ") else name
@@ -72,36 +53,47 @@ def short_name(name: str) -> str:
 
 
 def reduce(prof) -> SimpleNamespace:
-    """-> ``window`` (start, end ns), ``kernels`` and ``copies`` [(name, start, end)]
-    inside it, ``runtime``: the host's CUDA runtime and driver calls inside
-    it, ``spans`` [(name, start, end)] of the benchmark, ``calls``, and
-    ``dropped``: the device timeline's other ranges (the spans' own images on
-    the device, nameless ranges), seconds by name."""
-    device, spans, runtime = [], [], []
+    """-> ``window`` (start, end ns); ``work`` [(name, start, end, correlation
+    id)], the device's kernels and copies clipped to it, and the same split as
+    ``kernels`` and ``copies`` [(name, start, end)]; ``runtime``: the host's
+    CUDA runtime and driver calls inside it; ``launch_api`` {correlation id:
+    (name, start, end)}: those that put work on the device; ``spans`` [(name,
+    start, end)] of the benchmark and ``calls``, its ``perfbench.call``
+    spans; ``program_spans`` [(name, start, end, thread)]: the program's spans
+    that start inside the window; and ``dropped``: the device timeline's
+    other ranges (the spans' own images on the device, nameless ranges),
+    seconds by name."""
+    device, spans, program, runtime, api = [], [], [], [], {}
     dropped: Dict[str, float] = defaultdict(float)
     for e in prof.profiler.kineto_results.events():
         start, end = e.start_ns(), e.start_ns() + e.duration_ns()
         name = e.name()
         if e.device_type() == torch.autograd.DeviceType.CUDA:
-            if not name or name.startswith(PREFIX) or _annotation(e):
+            if not name or name.startswith((PREFIX, PROGRAM)) or _annotation(e):
                 dropped[name[:40] or "(no name)"] += (end - start) * 1e-9
             else:
-                device.append((name, start, end))
+                device.append((name, start, end, e.correlation_id()))
         elif name.startswith(PREFIX):
             spans.append((name, start, end))
+        elif name.startswith(PROGRAM):
+            program.append((name, start, end, e.start_thread_id()))
         elif name.startswith(RUNTIME):
             runtime.append((name, start, end))
+            if any(k in name for k in WORK_API):
+                api[e.correlation_id()] = (name, start, end)
     window = [(s, e) for n, s, e in spans if n == PREFIX + "window"]
     if len(window) != 1:
         raise RuntimeError(f"the trace holds {len(window)} window spans")
     w0, w1 = window[0]
-    inside = [(n, max(s, w0), min(e, w1)) for n, s, e in device if e > w0 and s < w1]
-    copies = [ev for ev in inside if ev[0].startswith(("Memcpy", "Memset"))]
-    kernels = [ev for ev in inside if not ev[0].startswith(("Memcpy", "Memset"))]
-    return SimpleNamespace(window=(w0, w1), kernels=kernels, copies=copies,
+    work = [(n, max(s, w0), min(e, w1), c) for n, s, e, c in device if e > w0 and s < w1]
+    return SimpleNamespace(window=(w0, w1), work=work,
+                           kernels=[(n, s, e) for n, s, e, _ in work if not n.startswith(COPY)],
+                           copies=[(n, s, e) for n, s, e, _ in work if n.startswith(COPY)],
                            runtime=[ev for ev in runtime if ev[2] > w0 and ev[1] < w1],
+                           launch_api=api,
                            spans=[sp for sp in spans if sp[0] != PREFIX + "window"],
                            calls=sum(1 for n, _, _ in spans if n == PREFIX + "call"),
+                           program_spans=[sp for sp in program if w0 <= sp[1] < w1],
                            dropped=dict(dropped))
 
 
@@ -109,32 +101,22 @@ def busy_ns(events) -> int:
     return sum(e - s for s, e in _union([(s, e) for _, s, e in events]))
 
 
-def breakdown(tr: SimpleNamespace) -> Dict[str, list]:
-    """The 10 device operations that took most time, and the idle gaps
-    between kernels summed by the innermost benchmark span they fall in."""
+def idle_gaps(tr: SimpleNamespace) -> List[Tuple[int, int]]:
+    """The window's stretches in which no kernel runs (a copy is not work,
+    as ``device_idle_pct`` counts it), sorted."""
+    w0, w1 = tr.window
+    edges = [w0] + [t for iv in _union([(s, e) for _, s, e in tr.kernels]) for t in iv] + [w1]
+    return [(edges[i], edges[i + 1]) for i in range(0, len(edges), 2) if edges[i + 1] > edges[i]]
+
+
+def breakdown(tr: SimpleNamespace, idle_ns: Dict[str, int]) -> Dict[str, list]:
+    """The 10 device operations that took most time, and the 10 largest
+    entries of ``idle_ns``: the window's idle, ns by the span that holds it
+    (``progspans.idle_by_span``)."""
     by_op: Dict[str, int] = defaultdict(int)
     for n, s, e in tr.kernels + tr.copies:
         by_op[short_name(n)] += e - s
-    busy = _union([(s, e) for _, s, e in tr.kernels])
-    w0, w1 = tr.window
-    edges = [w0] + [v for iv in busy for v in iv] + [w1]
-    gaps = [(edges[i], edges[i + 1]) for i in range(0, len(edges), 2) if edges[i + 1] > edges[i]]
-    # the benchmark's spans nest: a stack swept along the gaps' midpoints
-    spans = sorted(tr.spans, key=lambda sp: (sp[1], -sp[2]))
-    by_span: Dict[str, int] = defaultdict(int)
-    stack: list = []
-    i = 0
-    for s, e in gaps:
-        mid = (s + e) // 2
-        while i < len(spans) and spans[i][1] <= mid:
-            while stack and stack[-1][2] <= spans[i][1]:
-                stack.pop()
-            stack.append(spans[i])
-            i += 1
-        while stack and stack[-1][2] <= mid:
-            stack.pop()
-        by_span[stack[-1][0] if stack else "outside the calls"] += e - s
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
-    idle = sorted(by_span.items(), key=lambda kv: -kv[1])[:10]
+    idle = sorted(idle_ns.items(), key=lambda kv: -kv[1])[:10]
     return {"device_ops": [[n, v * 1e-9] for n, v in top],
             "idle_gaps": [[n, v * 1e-9] for n, v in idle]}

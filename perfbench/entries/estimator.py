@@ -95,10 +95,6 @@ def build(cell, root: str, made: dict, device: torch.device) -> Ingest:
                   int(cell.mix["batch_size"]))
 
 
-def stage_owner(program: Ingest):
-    return program.est
-
-
 def reference(cell, pool, made: dict, device, root: str, tf32: bool = False):
     """-> ({chunk: reference/ingest.Result}, the recording's registration)."""
     from reference import hourglass, ingest

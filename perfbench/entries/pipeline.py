@@ -60,10 +60,6 @@ def build(cell, root: str, made: dict, device: torch.device):
                           rig=os.path.join(root, cfg["rig_template"]), device=device)
 
 
-def stage_owner(program):
-    return program
-
-
 def reference(cell, pool, made: dict, device, root: str, tf32: bool = False):
     """-> ({chunk: reference/pipeline.Result}, rig)."""
     from reference import hourglass

@@ -2,11 +2,13 @@
 
 A cell of ``BENCHMARK.json`` names a configuration and a traffic mix; each
 is a file found by its name (``configs/<config>.json``, ``traffic/<traffic>.json``),
-with the configuration's limits in ``limits/<config>.json``, its weights
-made by ``builders/<builder>.py``, the path it drives with its reference
-and judge in ``entries/<entry>.py`` and its frames in ``sources/<source>.py``
-(both named by the traffic mix), and every per-layer metric read by
-``metrics/<name>.py``.  Nothing here names a cell, an entry or a source.
+with the configuration's limits in ``limits/<config>.json`` (each number
+that the cell's entry judges, with its limit), its weights made, and their
+shapes given for the counts, by ``builders/<builder>.py``, the path it
+drives with its reference and judge in ``entries/<entry>.py`` and its frames
+in ``sources/<source>.py`` (both named by the traffic mix), and every
+per-layer metric read by ``metrics/<name>.py``.  Nothing here names a cell,
+an entry or a source.
 """
 
 from __future__ import annotations
@@ -154,9 +156,8 @@ def window(s: Setup, seconds: float, traced: bool = False) -> SimpleNamespace:
 
     prof = None
     if traced:
-        from devtrace import PREFIX, wrap_stages
+        from devtrace import PREFIX
 
-        wrap_stages(s.entry.stage_owner(s.prog))
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                   torch.profiler.ProfilerActivity.CUDA])
         prof.__enter__()

@@ -2,40 +2,26 @@
 
 ``deepfly3d_torch`` names its stages in any recording ``torch.profiler``
 session (``df3d.call``, ``df3d.register.copy``, ``df3d.net``, ...:
-``deepfly3d_torch.utils.profiling.span``).  ``collect`` reads the
-profiler's raw events for them: each span with its parent and its call,
+``deepfly3d_torch.utils.profiling.span``).  ``collect`` reads them from the
+reduced trace (``devtrace.reduce``): each span with its parent and its call,
 and every kernel and copy of the window put down to the innermost program
 span whose host interval holds its launch, the CUDA API call (runtime or
 driver: ``cudaLaunchKernel``, ``cuLaunchKernel``, ``cudaMemcpyAsync``, ...)
 that carries the same correlation id.  A program without the spans (an
 older tree) gives empty lists, and every reader of them nothing.
-
-``devtrace.reduce``'s result, which the readers' context carries, keeps
-neither the program's spans nor correlation ids, so ``of(ctx)`` finds the
-run's profiler among the live objects by the window it holds and keeps
-what it reads on the trace as ``ctx.trace.program``, once for every reader.
+``idle_by_span`` puts the window's device idle down to the same spans.
 """
 
 from __future__ import annotations
 
 import bisect
-import gc
 from collections import Counter, defaultdict
 from types import SimpleNamespace
 from typing import Dict, List, Tuple
 
-import torch
-
 import devtrace
 
-PREFIX = "df3d."
-CALL = PREFIX + "call"
-WORK_API = ("Launch", "Memcpy", "Memset")      # API calls that put work on the device
-COPY = ("Memcpy", "Memset")
-
-
-def _empty() -> SimpleNamespace:
-    return SimpleNamespace(spans=[], calls=0, kernels=[], copies=[], launches=[], unmatched=0)
+CALL = devtrace.PROGRAM + "call"
 
 
 def _parents(spans: List[tuple]) -> List[Tuple[int, int]]:
@@ -91,52 +77,29 @@ def _innermost(segs, t: int) -> int:
     return segs[k][2] if k >= 0 and segs[k][0] <= t < segs[k][1] else -1
 
 
-def _not_work(e) -> bool:
-    """A device range that is a span's image, not a kernel or a copy."""
-    name = e.name()
-    return not name or name.startswith((PREFIX, devtrace.PREFIX)) or devtrace._annotation(e)
-
-
-def collect(events, window: Tuple[int, int]):
-    """The program's spans and the device work of the benchmark's ``window``
-    (start, end ns) from the profiler's raw ``events``, or None when the
-    events hold no ``perfbench.window`` span of those bounds.  -> ``spans``
-    [(name, start, end, parent, call)] (indices into ``spans``, -1 for none),
-    ``calls`` (``df3d.call`` spans), ``kernels`` and ``copies`` [(name,
-    start, end, span)] clipped to the window, ``span`` the index of the
-    innermost program span that held the launch (-1: launched outside every
-    program span, or its API call is not in the trace), ``launches`` [(api
-    name, start, end, span)] the API calls that put work on the device, and
-    ``unmatched``, the device operations whose API call the trace lacks."""
-    w0, w1 = window
-    found, raw, device, api = False, [], [], {}
-    for e in events:
-        name = e.name()
-        start = e.start_ns()
-        end = start + e.duration_ns()
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            if end > w0 and start < w1 and not _not_work(e):
-                device.append((name, max(start, w0), min(end, w1), e.correlation_id()))
-        elif name.startswith(PREFIX):
-            if w0 <= start < w1:
-                raw.append((name, start, end, e.start_thread_id()))
-        elif name == devtrace.PREFIX + "window":
-            found = found or (start, end) == (w0, w1)
-        elif name.startswith(devtrace.RUNTIME) and any(k in name for k in WORK_API):
-            api[e.correlation_id()] = (name, start, end)
-    if not found:
-        return None
-    raw.sort(key=lambda sp: (sp[1], -sp[2]))
+def collect(trace) -> SimpleNamespace:
+    """The program's spans and the window's device work, from ``trace``
+    (``devtrace.reduce``'s result).  -> ``spans`` [(name, start, end,
+    parent, call)] (indices into ``spans``, -1 for none), ``calls``
+    (``df3d.call`` spans), ``kernels`` and ``copies`` [(name, start, end,
+    span)], ``span`` the index of the innermost program span that held the
+    launch (-1: launched outside every program span, or its API call is not
+    in the trace), ``launches`` [(api name, start, end, span)] the API calls
+    inside the window that put work on the device, and ``unmatched``, the
+    device operations whose API call the trace lacks."""
+    w0, w1 = trace.window
+    raw = sorted(trace.program_spans, key=lambda sp: (sp[1], -sp[2]))
     spans = [(n, s, e, *pc) for (n, s, e, _), pc in zip(raw, _parents(raw))]
     segs = _segments(spans)
+    api = trace.launch_api
     launches = sorted((n, s, e, _innermost(segs, s)) for n, s, e in api.values()
                       if w0 <= s < w1)
     kernels, copies, unmatched = [], [], 0
-    for n, s, e, corr in device:
+    for n, s, e, corr in trace.work:
         call = api.get(corr)
         unmatched += call is None
         op = (n, s, e, _innermost(segs, call[1]) if call is not None else -1)
-        (copies if n.startswith(COPY) else kernels).append(op)
+        (copies if n.startswith(devtrace.COPY) else kernels).append(op)
     return SimpleNamespace(spans=spans, calls=sum(1 for sp in spans if sp[0] == CALL),
                            kernels=kernels, copies=copies, launches=launches,
                            unmatched=unmatched)
@@ -144,16 +107,10 @@ def collect(events, window: Tuple[int, int]):
 
 def of(ctx) -> SimpleNamespace:
     """The program's spans of the traced run that ``ctx.trace`` reduces
-    (``collect``'s result, empty where the program has none)."""
+    (``collect``'s result, read once and kept on the trace for every reader)."""
     got = getattr(ctx.trace, "program", None)
     if got is None:
-        for prof in (o for o in gc.get_objects() if issubclass(type(o), torch.profiler.profile)):
-            results = getattr(getattr(prof, "profiler", None), "kineto_results", None)
-            if results is not None:
-                got = collect(results.events(), ctx.trace.window)
-                if got is not None:
-                    break
-        ctx.trace.program = got = got or _empty()
+        ctx.trace.program = got = collect(ctx.trace)
     return got
 
 
@@ -203,14 +160,11 @@ def coverage_note(p) -> str:
 
 
 def idle_by_span(p, trace) -> Dict[str, int]:
-    """The window's device idle (no kernel running; a copy is not work, as
-    ``device_idle_pct`` counts it), ns by the innermost program span the host
-    was in; where no program span holds it, by the innermost benchmark span,
-    else ``outside the calls``."""
-    w0, w1 = trace.window
-    edges = [w0] + [t for iv in devtrace._union([(s, e) for _, s, e in trace.kernels])
-                    for t in iv] + [w1]
-    gaps = [(edges[i], edges[i + 1]) for i in range(0, len(edges), 2) if edges[i + 1] > edges[i]]
+    """The window's device idle (``devtrace.idle_gaps``), ns by the innermost
+    program span the host was in; where no program span holds it, by the
+    innermost span of the benchmark's (``perfbench.call``,
+    ``perfbench.to_host``), else ``outside_the_calls``."""
+    gaps = devtrace.idle_gaps(trace)
     out: Dict[str, int] = defaultdict(int)
     for spans in (p.spans, trace.spans):
         rest = []
@@ -221,7 +175,7 @@ def idle_by_span(p, trace) -> Dict[str, int]:
                 out[spans[seg][0]] += ge - gs
         gaps = rest
     for gs, ge in gaps:
-        out["outside the calls"] += ge - gs
+        out[devtrace.OUTSIDE] += ge - gs
     return dict(out)
 
 

@@ -63,6 +63,7 @@ def end_to_end(cell, w, setup_s: float, peak_bytes: int) -> dict:
 
 def per_layer(cell, w, notes: list):
     import devtrace
+    import progspans
 
     tr = devtrace.reduce(w.prof)
     w0, w1 = tr.window
@@ -79,7 +80,7 @@ def per_layer(cell, w, notes: list):
     notes.append("device ranges that are not work: " + json.dumps(tr.dropped))
     device = {"busy_s": devtrace.busy_ns(tr.kernels + tr.copies) * 1e-9,
               "window_s": (w1 - w0) * 1e-9}
-    return out, device, devtrace.breakdown(tr)
+    return out, device, devtrace.breakdown(tr, progspans.idle_by_span(progspans.of(ctx), tr))
 
 
 def run_cell(cell, seed: int, seconds: float, traced: bool, device, root: str = ROOT,

@@ -7,7 +7,6 @@ import re
 
 import pytest
 
-import compare
 import harness
 
 ROOT = harness.ROOT
@@ -59,11 +58,12 @@ def test_cell_is_assembled_from_its_files(name):
     assert cell.cfg["name"] == cell.name.split(".")[0]
     assert {m["name"] for m in cell.end_to_end} == {"frames_per_s", "call_ms_p95",
                                                     "peak_mem_gib", "setup_s"}
-    assert set(cell.entry.NAMES) <= set(cell.limits) == set(compare.NAMES)
+    assert set(cell.limits) == set(cell.entry.NAMES)
     assert all(math.isfinite(v) and v > 0 for v in cell.limits.values())
     harness.check_data(cell, ROOT)
-    assert callable(harness.builder(cell.cfg).make)
-    for fn in ("build", "stage_owner", "reference", "judge_call", "keep", "notes", "faults",
+    builder = harness.builder(cell.cfg)
+    assert callable(builder.make) and callable(builder.shapes)
+    for fn in ("build", "reference", "judge_call", "keep", "notes", "faults",
                "control_outputs", "golden"):
         assert callable(getattr(cell.entry, fn))
     for m in cell.per_layer:

@@ -82,7 +82,7 @@ class _Stale:
     """Hands back the previous call's outputs: a call that returns its state unchanged."""
 
     def __init__(self, prog):
-        self.prog, self.last, self.est = prog, None, prog.est
+        self.prog, self.last = prog, None
 
     def __call__(self, frames):
         out, self.last = self.last, self.prog(frames)
@@ -95,7 +95,6 @@ def _moved_point(prog):
         pts = pts.copy()
         pts[0, 0, 0, 0] += 1.0 / 16                          # one heatmap row down
         return pts, conf
-    call.est = prog.est
     return call
 
 
@@ -184,10 +183,6 @@ SUMMED = ()
 
 def build(cell, root, made, device):
     return lambda chunk: (torch.as_tensor(chunk).float().mean(dim=(2, 3, 4)),)
-
-
-def stage_owner(program):
-    return program
 
 
 def reference(cell, pool, made, device, root, tf32=False):

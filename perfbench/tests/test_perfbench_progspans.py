@@ -89,10 +89,11 @@ def _events(program=True, images=True):
 def _ctx(events):
     prof = SimpleNamespace(profiler=SimpleNamespace(kineto_results=SimpleNamespace(
         events=lambda: events)))
-    tr = devtrace.reduce(prof)
-    tr.program = progspans.collect(events, tr.window)
     cell = harness.load_cell("fly_conv.pinned_T32")
-    return SimpleNamespace(cfg=cell.cfg, mix=cell.mix, T=32, trace=tr, window_s=0.2)
+    ctx = SimpleNamespace(cfg=cell.cfg, mix=cell.mix, T=32, trace=devtrace.reduce(prof),
+                          window_s=0.2)
+    progspans.of(ctx)
+    return ctx
 
 
 def test_spans_have_their_parents_and_calls():
@@ -140,7 +141,7 @@ def test_idle_goes_to_the_innermost_program_span_else_the_benchmark_span():
     want = {"df3d.register.copy": 8, "df3d.register.estimate": 14, "df3d.preprocess": 2,
             "df3d.net": 5, "df3d.decode": 4, "df3d.assemble": 3.5, "df3d.triangulate": 6,
             "df3d.call": 2.8, "perfbench.call": 2, "perfbench.to_host": 8,
-            "outside the calls": 2}
+            "outside_the_calls": 2}
     assert set(idle) == set(want)
     for name, ms in want.items():
         assert idle[name] == pytest.approx(2 * ms * MS, abs=2), name

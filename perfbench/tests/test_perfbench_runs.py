@@ -16,6 +16,7 @@ import torch
 import compare
 import devtrace
 import harness
+import progspans
 import run
 from reference import pipeline as ref
 from conftest import tiny_cell
@@ -133,16 +134,23 @@ def test_points_that_p3d_err_leaves_out_are_held_by_p3d_resid():
 
 
 def test_readers_on_a_hand_made_trace():
+    """Two calls in a 100 ms window; the first holds the program's
+    ``df3d.call`` with a registration estimate in it, the second a bare
+    ``df3d.call``; the device idles 20-60 and 70-100 ms."""
     ms = 1_000_000
+    kernels = [("void bottleneck_kernel(float*)", 0, 10 * ms),
+               ("void bottleneck_kernel(float*)", 5 * ms, 20 * ms),
+               ("preprocess_run_kernel<3>", 60 * ms, 70 * ms)]
+    copies = [("Memcpy HtoD (Pinned -> Device)", 30 * ms, 40 * ms),
+              ("Memcpy DtoH (Device -> Pageable)", 80 * ms, 81 * ms)]
     tr = SimpleNamespace(
-        window=(0, 100 * ms), calls=2,
-        kernels=[("void bottleneck_kernel(float*)", 0, 10 * ms),
-                 ("void bottleneck_kernel(float*)", 5 * ms, 20 * ms),
-                 ("preprocess_run_kernel<3>", 60 * ms, 70 * ms)],
-        copies=[("Memcpy HtoD (Pinned -> Device)", 30 * ms, 40 * ms),
-                ("Memcpy DtoH (Device -> Pageable)", 80 * ms, 81 * ms)],
-        spans=[("perfbench.call", 0, 45 * ms), ("perfbench.register", 25 * ms, 42 * ms),
-               ("perfbench.call", 50 * ms, 75 * ms), ("perfbench.to_host", 75 * ms, 90 * ms)],
+        window=(0, 100 * ms), calls=2, kernels=kernels, copies=copies,
+        work=[(n, s, e, 0) for n, s, e in kernels + copies], launch_api={},
+        spans=[("perfbench.call", 0, 45 * ms), ("perfbench.call", 50 * ms, 75 * ms),
+               ("perfbench.to_host", 75 * ms, 90 * ms)],
+        program_spans=[("df3d.call", 1 * ms, 44 * ms, 1),
+                       ("df3d.register.estimate", 25 * ms, 42 * ms, 1),
+                       ("df3d.call", 51 * ms, 74 * ms, 1)],
         runtime=[("cudaLaunchKernel", 1 * ms, 2 * ms), ("cuLaunchKernelEx", 3 * ms, 6 * ms),
                  ("cudaStreamSynchronize", 30 * ms, 44 * ms), ("cudaLaunchKernel", 51 * ms,
                                                                53 * ms),
@@ -156,12 +164,29 @@ def test_readers_on_a_hand_made_trace():
     bound, note = harness.metric_reader("roofline_pct.bottleneck")(ctx)
     assert 0 < bound and "of 31 blocks bound by" in note and "62 blocks in 2 calls" in note
     assert devtrace.busy_ns(tr.kernels + tr.copies) == 41 * ms
-    b = devtrace.breakdown(tr)
+    b = devtrace.breakdown(tr, progspans.idle_by_span(progspans.of(ctx), tr))
     assert b["device_ops"][0] == ["bottleneck_kernel", pytest.approx(0.025)]
     gaps = dict((n, v) for n, v in b["idle_gaps"])
-    assert gaps == {"perfbench.register": pytest.approx(0.040),
-                    "perfbench.to_host": pytest.approx(0.030)}
+    # 20-25, 42-44, 51-60, 70-74 in a df3d.call; 25-42 in the estimate; 44-45, 50-51, 74-75
+    # in a call outside the program; 75-90 copying back; 45-50 and 90-100 between calls
+    assert gaps == {"df3d.register.estimate": pytest.approx(0.017),
+                    "df3d.call": pytest.approx(0.020), "perfbench.call": pytest.approx(0.003),
+                    "perfbench.to_host": pytest.approx(0.015),
+                    "outside_the_calls": pytest.approx(0.015)}
     assert sum(gaps.values()) == pytest.approx(0.07)
+
+
+def test_a_traced_windows_idle_is_named_by_the_programs_spans(call_clock):
+    """On the CPU no kernel runs: the whole window is idle, and the breakdown
+    puts it down to the program's ``df3d.*`` spans, the benchmark's own
+    where none holds it, and the time between the calls."""
+    result, _ = _run(traced=True, seconds=1.0)
+    names = [n for n, _ in result["breakdown"]["idle_gaps"]]
+    assert {"df3d.net", "df3d.preprocess", "df3d.register.estimate"} <= set(names)
+    assert all(n.startswith("df3d.") or n in ("perfbench.call", "perfbench.to_host",
+                                              "outside_the_calls") for n in names)
+    total = sum(v for _, v in result["breakdown"]["idle_gaps"])
+    assert 0 < total <= result["device"]["window_s"]
 
 
 @pytest.mark.gpu
