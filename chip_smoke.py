@@ -11,7 +11,7 @@ result line):
 1. the card's name and power limit, torch and CUDA versions, and the host
    probe: whether OpenCV imports, whether the native ingest library loads,
    and whether the libjpeg and libav headers are there;
-2. build the six CUDA sources of ``deepfly3d_torch/ops/csrc``;
+2. build the CUDA sources of ``deepfly3d_torch/ops/csrc``;
 3. the three main paths at full width, T=8 frames (56 images of 480x960,
    rig registration on): ``conv`` (``build_pipeline`` with the shipped
    2-stack f96 ``hourglass_fly.npz``), ``p16`` (``hourglass_fly_p16_tpu.npz``,
@@ -25,7 +25,9 @@ result line):
    the path gives each kernel, and how many times;
 4. kernel phase: every kernel against its plain PyTorch version on the card
    at every recorded shape, with the tolerance stated (and the preprocess
-   kernel in identity mode at 480x960, which is the TPU kernel exactly).  The
+   kernel in identity mode at 480x960, which is the TPU kernel exactly, and
+   the conv stem kernel, which replaces no TPU kernel, also at the benchmark
+   cells' calls, ``STEM_CELL_SHAPES``, on seeded weights).  The
    preprocess runs as the paths run it, with the rig registration's
    per-image shift and gain: it must equal, bit for bit, the kernel on
    ``apply_shift_tc``'s frames times the gain (``unfused_ms`` times that
@@ -241,11 +243,11 @@ SHIPPED = [CONV, "hourglass_fly_tpu.npz", "hourglass_fly_p16.npz", P16, STUDENT]
 # ceil(0.125 * 56) = 7 images)
 EXPECTED = {
     "conv": {"fused_bottleneck": 31, "upsample2x_add": 8, "decode_heatmaps": 1,
-             "preprocess_resize": 1},
+             "preprocess_resize": 1, "stem_conv": 1},
     "p16": {"fused_bottleneck": 16, "upsample2x_add": 4, "decode_heatmaps": 1,
-            "preprocess_resize": 1},
+            "preprocess_resize": 1, "stem_conv": 0},
     "cascade": {"fused_bottleneck": 16 + 31, "upsample2x_add": 4 + 8, "decode_heatmaps": 2,
-                "preprocess_resize": 2},
+                "preprocess_resize": 2, "stem_conv": 1},
 }
 # of the output's largest magnitude: the bottleneck kernel's 3xTF32 products
 # against f32 sums in another order, and against its own arithmetic model
@@ -272,7 +274,7 @@ HEATMAP_HW = (64, 128)
 H36M_REF = os.path.join("deepfly3d_torch", "data", "h36m_t4.npz")
 H36M_BATCH = 8
 H36M_PER_BATCH = {"fused_bottleneck": 0, "fused_bottleneck_128": 59, "upsample2x_add": 16,
-                  "decode_heatmaps": 1, "preprocess_resize": 1}
+                  "decode_heatmaps": 1, "preprocess_resize": 1, "stem_conv": 1}
 H36M_CONF_TOL = 2e-5
 H36M_TIES = 0.05        # at most this share of image-joints within 10x the conf tolerance of a tie
 VIDEO_FRAMES = 4        # frames of the video phase (scripts/make_video_goldens.py)
@@ -282,7 +284,7 @@ VIDEO_FRAMES = 4        # frames of the video phase (scripts/make_video_goldens.
 # the JAX package's (python tests/test_torch_parallel.py --write)
 FLEET_COPIES, FLEET_T = 2, 15
 PER_FORWARD = {"fused_bottleneck": 31, "upsample2x_add": 8, "decode_heatmaps": 1,
-               "preprocess_resize": 1}
+               "preprocess_resize": 1, "stem_conv": 1}
 LM_BATCH_REF = os.path.join("deepfly3d_torch", "data", "parallel_lm_b8.npz")
 SAME_SOLVE_RTOL = 1e-10  # batched vs unbatched lm: of the largest camera parameter
 FLEET_QUICK_N = 100      # kernel-phase shapes of >= this many images are timed with fewer repeats
@@ -364,7 +366,15 @@ SOURCES = {
                                       "deepfly3d_tpu/ops/pallas/bottleneck.py:433",
                                       ["deepfly3d_tpu/ops/pallas/bottleneck.py:359",
                                        "deepfly3d_tpu/ops/pallas/bottleneck.py:486"]),
+    # the conv stem (relu(conv7x7/2 + b)) of every conv-stem net, float32 in
+    # both dtypes; the JAX package leaves it to XLA
+    "stem_conv": ("deepfly3d_torch/ops/csrc/stem_conv.cu", None, []),
 }
+# the kernels whose bound is three TF32 MMAs per product
+TF32X3 = ("fused_bottleneck", "fused_bottleneck_128", "fused_bottleneck_general", "stem_conv")
+# the stem kernel at the benchmark cells' calls, on no path of this script:
+# fly_conv's 224 images to 48 channels and df2d256's 112 to 64, 256x512 in
+STEM_CELL_SHAPES = ((224, 256, 512, 3, 48), (112, 256, 512, 3, 64))
 
 
 def decode_np(np, hm):
@@ -540,6 +550,10 @@ def record_shapes(twin, path, rows, run):
         note("upsample2x_add", tuple(inner.shape), dtype=skip.dtype)
         return kernels.upsample2x_add_plain(inner, skip)
 
+    def stem(x, w_packed, b):
+        note("stem_conv", tuple(x.shape) + (b.shape[0],))
+        return kernels.stem_conv_plain(x, w_packed, b)
+
     def decode(hm):
         note("decode_heatmaps", tuple(hm.shape))
         return kernels.decode_heatmaps_plain(hm)
@@ -550,7 +564,7 @@ def record_shapes(twin, path, rows, run):
                                                  gain=gain)
 
     for net in twin.nets().values():
-        net.block_fn, net.merge_fn = block, merge
+        net.block_fn, net.merge_fn, net.stem_fn = block, merge, stem
     twin.decode, twin.preprocess = decode, preprocess
     run(twin)
 
@@ -581,8 +595,8 @@ def ingest_phase(torch, np, est, frames0, order, counters, rows, card):
     """The estimator's chunk loop (``infer_chunks``, which ``infer_folder`` and
     ``infer_videos`` run) on golden frame 0 tiled to INGEST_T frames per
     camera and drifted, at INGEST_BATCH with the conv checkpoint.  Checks the
-    registration against the planted drift, the launches (1 preprocess, 31
-    bottleneck, 8 upsample-add and 1 decode per batch, the counts recorded
+    registration against the planted drift, the launches (1 preprocess, 1
+    stem, 31 bottleneck, 8 upsample-add and 1 decode per batch, the counts recorded
     from the plain twin), the output against the plain twin (points equal,
     conf within 1e-5) and against the JAX package's (INGEST_REF: cells,
     conf within 2e-5).  -> {kernel: launches}."""
@@ -604,12 +618,12 @@ def ingest_phase(torch, np, est, frames0, order, counters, rows, card):
     got = {c.__name__: c.launches for c in counters}
     batches = -(-len(frames) // INGEST_BATCH)
     want = {"fused_bottleneck": 31 * batches, "upsample2x_add": 8 * batches,
-            "decode_heatmaps": batches, "preprocess_resize": batches}
+            "decode_heatmaps": batches, "preprocess_resize": batches, "stem_conv": batches}
     recorded = recorded_launches(rows, "ingest")
     if got != want or nonzero(got) != recorded:
         raise AssertionError(f"ingest launches {got}, want {want} (recorded {recorded})")
     print(f"ingest launches for {batches} batches of {INGEST_BATCH}: {got} "
-          f"(per batch 1 / 31 / 8 / 1)")
+          f"(per batch 1 / 1 / 31 / 8 / 1)")
     found = [(reg[c][0] - clean[c][0], reg[c][1] - clean[c][1]) for c in range(C)]
     if found != list(zip(INGEST_DY, INGEST_DX)) or \
             [reg[c][2] != clean[c][2] for c in range(C)] != [g != 1.0 for g in INGEST_GAIN]:
@@ -685,9 +699,9 @@ def count_launches(torch, counters, run):
 
 
 def check_launches(name, got, batches):
-    """1 preprocess, 31 bottleneck, 8 upsample-add and 1 decode launch per batch."""
+    """1 preprocess, 1 stem, 31 bottleneck, 8 upsample-add and 1 decode launch per batch."""
     want = {"fused_bottleneck": 31 * batches, "upsample2x_add": 8 * batches,
-            "decode_heatmaps": batches, "preprocess_resize": batches}
+            "decode_heatmaps": batches, "preprocess_resize": batches, "stem_conv": batches}
     if got != want:
         raise AssertionError(f"{name} launches {got}, want {want} ({batches} batches)")
     print(f"{name} launches for {batches} batches: {got}")
@@ -1674,9 +1688,9 @@ def train_phase(torch, np, dev, card, counters, converted):
         print("\n".join("  train_fly_weights: " + line for line in text.splitlines()
                         if not line.startswith("{'step'")))
         # 3 preprocess launches (the inputs and two evals: step 200 and the
-        # final one), 31 bottleneck, 8 upsample-add and 1 decode per eval
+        # final one), 1 stem, 31 bottleneck, 8 upsample-add and 1 decode per eval
         want = {"fused_bottleneck": 62, "upsample2x_add": 16, "decode_heatmaps": 2,
-                "preprocess_resize": 3}
+                "preprocess_resize": 3, "stem_conv": 2}
         if got != want or rc not in (0, 1) or not os.path.exists(out):
             raise AssertionError(f"(m) train_fly_weights: rc {rc}, launches {got} (want {want})")
         launches["train_script"] = got
@@ -1804,11 +1818,11 @@ BF16_PATHS = {"conv_bf16": "hourglass_fly_tpu", "p16_bf16": "hourglass_fly_p16_t
               "p16_bf16_preprocess": "hourglass_fly_p16_tpu+bf16_preprocess"}
 BF16_EXPECTED = {
     "conv_bf16": {"fused_bottleneck_bf16": 31, "upsample2x_add_bf16": 8, "decode_heatmaps": 1,
-                  "preprocess_resize": 1},
+                  "preprocess_resize": 1, "stem_conv": 1},
     "p16_bf16": {"fused_bottleneck_bf16": 16, "upsample2x_add_bf16": 4, "decode_heatmaps": 1,
                  "preprocess_resize": 1},
     "cascade_bf16": {"fused_bottleneck_bf16": 16 + 31, "upsample2x_add_bf16": 4 + 8,
-                     "decode_heatmaps": 2, "preprocess_resize": 2},
+                     "decode_heatmaps": 2, "preprocess_resize": 2, "stem_conv": 1},
     "p16_bf16_preprocess": {"fused_bottleneck_bf16": 16, "upsample2x_add_bf16": 4,
                             "decode_heatmaps": 1, "preprocess_resize_bf16": 1},
 }
@@ -1967,7 +1981,7 @@ def bf16_phase(torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, 
     from deepfly3d_torch.pipeline import build_pipeline, plain_twin
 
     wrappers = (bn.fused_bottleneck, kernels.upsample2x_add, kernels.decode_heatmaps,
-                kernels.preprocess_resize)
+                kernels.preprocess_resize, kernels.stem_conv)
     counted = tuple(counts_with_bf16(wrappers))
 
     def bf16_spec(key, bf16=True):
@@ -2080,7 +2094,8 @@ def bf16_phase(torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, 
     bf16_checks = {"fused_bottleneck_bf16": check_bottleneck, "upsample2x_add_bf16": check_merge,
                    "preprocess_resize_bf16": check_preprocess,
                    "decode_heatmaps": checks["decode_heatmaps"],
-                   "preprocess_resize": checks["preprocess_resize"]}
+                   "preprocess_resize": checks["preprocess_resize"],
+                   "stem_conv": checks["stem_conv"]}
     for (kernel, key), row in sorted(rows16.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
         if kernel == "fused_bottleneck_bf16":
             check_bottleneck(key, row["counts"], row["extra"])
@@ -2221,9 +2236,9 @@ def bf16_phase(torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, 
 # every block runs the bottleneck kernel's general instance
 WIDE_SEED = 0
 WIDE_EXPECTED = {"fused_bottleneck_general": 31, "upsample2x_add": 8, "decode_heatmaps": 1,
-                 "preprocess_resize": 1}
+                 "preprocess_resize": 1, "stem_conv": 1}
 WIDE_BF16_EXPECTED = {"fused_bottleneck_general_bf16": 31, "upsample2x_add_bf16": 8,
-                      "decode_heatmaps": 1, "preprocess_resize": 1}
+                      "decode_heatmaps": 1, "preprocess_resize": 1, "stem_conv": 1}
 WIDE_CONF_TOL = 2e-5    # kernels vs plain twin on the same input, float32
 WIDE_MARGIN = 2e-4      # ... and the same cells above this top-2 margin
 WIDE_TIES = 0.05        # at most this share of the image-joints below it (PERF.md §2's h36m rule)
@@ -2381,7 +2396,7 @@ def wide_phase(torch, np, F, dev, card, calib, order, frames, ref0, record, shap
     from deepfly3d_torch.utils import synthetic
 
     wrappers = (bn.fused_bottleneck, kernels.upsample2x_add, kernels.decode_heatmaps,
-                kernels.preprocess_resize)
+                kernels.preprocess_resize, kernels.stem_conv)
     counted = tuple(counts_with_bf16(wrappers))
 
     def counted_run(run):
@@ -2531,7 +2546,7 @@ def wide_phase(torch, np, F, dev, card, calib, order, frames, ref0, record, shap
                 TOY_ARGS + ["--out", os.path.join(tmp, "tiny.npz"), "--device", str(dev)]))
         evals = got.get("decode_heatmaps", 0)
         want = {"fused_bottleneck_general": TOY_BLOCKS * evals, "upsample2x_add": 2 * evals,
-                "decode_heatmaps": evals, "preprocess_resize": evals + 1}
+                "decode_heatmaps": evals, "preprocess_resize": evals + 1, "stem_conv": evals}
         if rc not in (0, 1) or evals < 1 or got != want \
                 or not os.path.exists(os.path.join(tmp, "tiny.npz")):
             raise AssertionError(f"(w) train_fly_weights {' '.join(TOY_ARGS)}: rc {rc}, "
@@ -2673,7 +2688,7 @@ def bf16_train_phase(torch, np, dev, card, counters, f32_lines):
         # the inputs and two evals (step 100 and the final one) through the
         # preprocess kernel, each eval's heatmaps through the decode kernel
         want_l = {"fused_bottleneck": 0, "upsample2x_add": 0, "decode_heatmaps": 2,
-                  "preprocess_resize": 3}
+                  "preprocess_resize": 3, "stem_conv": 0}
         if got != want_l or rc not in (0, 1) or not os.path.exists(path):
             raise AssertionError(f"(w) train_fly_weights --dtype bfloat16: rc {rc}, launches "
                                  f"{got} (want {want_l})")
@@ -2849,7 +2864,7 @@ def calibration_phase(torch, np, dev, card, counters):
     (feat, heat, golden, sets), got = count_launches(torch, counters, lambda: timed(
         "extract_features_s", lambda: cal.extract_features(variables, spec, shape, device=dev)))
     want_l = {"fused_bottleneck": 0, "upsample2x_add": 0, "decode_heatmaps": 0,
-              "preprocess_resize": 1}
+              "preprocess_resize": 1, "stem_conv": 0}
     if got != want_l or tuple(feat.shape) != (105, 64, 128, spec.features) \
             or not torch.isfinite(feat).all() or not np.isfinite(heat).all():
         raise AssertionError(f"(y) extract_features: launches {got} (want {want_l}), feat "
@@ -3251,8 +3266,34 @@ def main(argv):
                "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
         record("preprocess_resize", row, counts)
 
+    def check_stem(key, counts):
+        """The stem kernel on seeded weights of the recorded width: within
+        BLOCK_TOL of its plain version; the library call is cuDNN's convolution
+        (TF32 off) with the bias add and the ReLU."""
+        n, h, w, _, cout = key
+        w_oihw = (torch.randn((cout, 3, 7, 7), generator=gen) * 0.15).to(dev)
+        packed = kernels.pack_stem(w_oihw).to(dev)
+        b = (torch.randn((cout,), generator=gen) * 0.1).to(dev)
+        x = torch.rand(key[:4], generator=gen).to(dev)
+        out, ref = kernels.stem_conv(x, packed, b), kernels.stem_conv_plain(x, packed, b)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not err <= BLOCK_TOL * max(1.0, ref.abs().max().item()):
+            raise AssertionError(f"stem_conv {key}: max abs err {err}")
+        flops = 2.0 * out.numel() * 147
+        nbytes = 4.0 * (x.numel() + out.numel())
+        b_ms, b_by = bound_ms(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
+        record("stem_conv", {
+            "shape": list(key), "max_abs_err": err,
+            **times(torch, lambda: kernels.stem_conv(x, packed, b),
+                    lambda: kernels.stem_conv_plain(x, packed, b),
+                    lambda: torch.relu(kernels.conv_nhwc(x, w_oihw, b, 2, 3)),
+                    quick=n >= FLEET_QUICK_N),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": bound_ms(flops, nbytes)[0],
+            "flops": flops, "bytes": nbytes}, counts)
+
     checks = {"fused_bottleneck": check_bottleneck, "fused_bottleneck_128": check_bottleneck,
-              "upsample2x_add": check_merge,
+              "upsample2x_add": check_merge, "stem_conv": check_stem,
               "decode_heatmaps": check_decode, "preprocess_resize": check_preprocess}
     for (kernel, key), row in sorted(rows.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
         if kernel in ("fused_bottleneck", "fused_bottleneck_128"):
@@ -3272,6 +3313,11 @@ def main(argv):
         np, torch, dev, *seeded_block(np, 32, 32, 64)))
     # K x cells no multiple of 4: the decode kernel's scalar loads; on no path
     check_decode((N, 63, 127, 19), {})
+    for key in STEM_CELL_SHAPES:
+        check_stem(key, {})
+    print("informational: the stem kernel at the benchmark cells' calls, on " + card + ": "
+          + json.dumps([{k: r[k] for k in ("shape", "ms", "bound_ms", "plain_ms", "library_ms")}
+                        for r in shape_rows[-len(STEM_CELL_SHAPES):]]))
     print(json.dumps({"kernel_shapes": shape_rows}))
     print(json.dumps({"per_path": per_path}))
     h36m_batches = -(-h36m_frames.shape[0] * h36m_frames.shape[1] // H36M_BATCH)
@@ -3287,7 +3333,7 @@ def main(argv):
 
     # ---- 5. slice phase, full width
     counters = (bn.fused_bottleneck, kernels.upsample2x_add, kernels.decode_heatmaps,
-                kernels.preprocess_resize)
+                kernels.preprocess_resize, kernels.stem_conv)
     launches = {}
     fps_lines = []
 
@@ -3538,7 +3584,7 @@ def main(argv):
     entries = []
     for name, (src, replaces, also) in SOURCES.items():
         agg = per_kernel[name]
-        if name in ("fused_bottleneck", "fused_bottleneck_128", "fused_bottleneck_general"):
+        if name in TF32X3:
             _, b_by = bound_ms(3.0 * agg["flops"], agg["bytes"], PEAK_TF32_FLOPS)
         elif name in ("fused_bottleneck_bf16", "fused_bottleneck_general_bf16"):
             _, b_by = bound_ms(agg["flops"], agg["bytes"], PEAK_BF16_FLOPS)
@@ -3556,8 +3602,7 @@ def main(argv):
                       "library_eager_ms, plain_ms: CUDA events around eager calls",
             **({"bound_f32_ms": agg["bound_f32_ms"], "model_err": agg["model_err"],
                 "arithmetic": "3 TF32 MMAs per product, f32 accumulate"}
-               if name in ("fused_bottleneck", "fused_bottleneck_128", "fused_bottleneck_general")
-               else {}),
+               if name in TF32X3 else {}),
             **({"arithmetic": "1 bf16 MMA per product, f32 accumulate"}
                if name in ("fused_bottleneck_bf16", "fused_bottleneck_general_bf16") else {}),
             "per": f"times: one call of each recorded path ({', '.join(EXPECTED)}, ingest, "

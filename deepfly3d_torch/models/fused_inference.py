@@ -11,11 +11,13 @@ from a JAX checkpoint), and the forward (``FoldedHourglass``) runs
   (``ops/bottleneck.fused_bottleneck``),
 * each hourglass level merge in the upsample-add kernel
   (``ops/kernels.upsample2x_add``),
+* the ``conv`` stem's 7x7/2 convolution with its folded batch norm and ReLU
+  in the stem kernel (``ops/kernels.stem_conv``),
 
 and leaves the rest to plain PyTorch in full float32, as the JAX package
 leaves it to XLA:
 
-* the stem: ``conv`` (7x7/2 convolution, residual, 2x2 max-pool),
+* the rest of the stem: ``conv``'s residual and 2x2 max-pool, or
   ``patch16`` (16x16/8 convolution, padding 4), ``patch8`` (8x8/4,
   padding 2) or ``patchify`` (4x4 space-to-depth and a 1x1 embedding),
   each followed by the folded batch norm and a ReLU;
@@ -75,7 +77,6 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from deepfly3d_torch.models.hourglass import HourglassSpec
@@ -83,7 +84,7 @@ from deepfly3d_torch.ops import bottleneck as bn_ops
 from deepfly3d_torch.ops import image as image_ops
 from deepfly3d_torch.ops.bottleneck import (add_packed, bn_affine, fold_bottleneck,
                                             fused_bottleneck)
-from deepfly3d_torch.ops.kernels import upsample2x_add
+from deepfly3d_torch.ops.kernels import conv_nhwc, pack_stem, stem_conv, upsample2x_add
 
 # (kernel, stride, padding) of the strided patch embeddings
 _PATCH_CONV = {"patch16": (16, 8, 4), "patch8": (8, 4, 2)}
@@ -245,24 +246,21 @@ def _dot1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x @ w + b
 
 
-def _conv_nhwc(x: torch.Tensor, w_oihw: torch.Tensor, b: torch.Tensor,
-               stride: int, padding: int) -> torch.Tensor:
-    y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, stride=stride, padding=padding)
-    return y.permute(0, 2, 3, 1) + b
-
-
 class FoldedHourglass(nn.Module):
     """Stacked-hourglass forward over folded weights; NHWC, float32 or
     bfloat16 between layers (the spec's ``compute_dtype``).
 
     ``forward`` maps (N, H, W, 3) to float32 (num_stacks, N, H/4, W/4, K) —
     the output contract of ``HourglassNet.apply(..., train=False)``.  Blocks
-    run through ``block_fn`` (``fused_bottleneck``) and level merges through
-    ``merge_fn`` (``upsample2x_add``), which launch the CUDA kernels (their
-    bfloat16 instances in a bfloat16 net) on a card; ``pipeline.plain_twin``
-    swaps in their plain versions.  The glue's weights are kept as float32
-    tensors (bf16 values in a bfloat16 net), the operands of its float32
-    products.
+    run through ``block_fn`` (``fused_bottleneck``), level merges through
+    ``merge_fn`` (``upsample2x_add``) and the conv stem's convolution, bias and
+    ReLU through ``stem_fn`` (``stem_conv``, float32 products in both dtypes,
+    on the weights packed once as ``stem_packed``),
+    which launch the CUDA kernels (the bfloat16 instances in a bfloat16 net)
+    on a card;
+    ``pipeline.plain_twin`` swaps in their plain versions.  The glue's weights
+    are kept as float32 tensors (bf16 values in a bfloat16 net), the operands
+    of its float32 products.
     """
 
     def __init__(self, folded: Dict[str, Any], spec: HourglassSpec):
@@ -277,6 +275,8 @@ class FoldedHourglass(nn.Module):
             stem_w = stem_w.permute(3, 2, 0, 1)         # HWIO -> OIHW for F.conv2d
         self.register_buffer("stem_w", stem_w.contiguous())
         self.register_buffer("stem_b", folded["stem_b"].contiguous())
+        if spec.stem == "conv":
+            self.register_buffer("stem_packed", pack_stem(stem_w))
         # ModuleDict keys may not hold '.', block names hold '/' only; each
         # block carries its weights once more in the kernel's packed layout
         # (every float32 weight as its TF32 hi and lo halves)
@@ -292,6 +292,7 @@ class FoldedHourglass(nn.Module):
         self.stacks = nn.ModuleList(stacks)
         self.block_fn = fused_bottleneck
         self.merge_fn = upsample2x_add
+        self.stem_fn = stem_conv
 
     def block(self, name: str, x: torch.Tensor) -> torch.Tensor:
         return self.block_fn(x, self.blocks[name].as_dict())
@@ -325,14 +326,15 @@ class FoldedHourglass(nn.Module):
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         stem = self.spec.stem
         x = x.float()                                   # the products in float32
-        if stem == "patchify":
-            y = _dot1x1(space_to_depth4(x), self.stem_w, self.stem_b)
-        elif stem == "conv":
-            y = _conv_nhwc(x, self.stem_w, self.stem_b, stride=2, padding=3)
+        if stem == "conv":                              # relu(conv + b) in one
+            y = self.stem_fn(x.contiguous(), self.stem_packed, self.stem_b)
+        elif stem == "patchify":
+            y = torch.relu(_dot1x1(space_to_depth4(x), self.stem_w, self.stem_b))
         else:
             _, stride, padding = _PATCH_CONV[stem]
-            y = _conv_nhwc(x, self.stem_w, self.stem_b, stride=stride, padding=padding)
-        y = self._act(torch.relu(y)).contiguous()
+            y = torch.relu(conv_nhwc(x, self.stem_w, self.stem_b, stride=stride,
+                                     padding=padding))
+        y = self._act(y).contiguous()
         if stem == "conv":
             y = maxpool2(self.block("stem_res1", y))
         y = self.block("stem_res2", y)
@@ -352,7 +354,7 @@ class FoldedHourglass(nn.Module):
             if k == 1:
                 raw = _dot1x1(f, stack.score_w, stack.score_b)
             else:
-                raw = _conv_nhwc(f, stack.score_w, stack.score_b, stride=1, padding=k // 2)
+                raw = conv_nhwc(f, stack.score_w, stack.score_b, stride=1, padding=k // 2)
             outputs.append(depth_to_space(raw, u) if u > 1 else raw)
             if s < spec.num_stacks - 1:
                 # y + remap(f) + remap(raw), each term and sum rounded in a bf16 net

@@ -1,4 +1,5 @@
-"""Level merge, heatmap decode and frame preprocess: plain versions and CUDA wrappers.
+"""Level merge, heatmap decode, frame preprocess and conv stem: plain versions
+and CUDA wrappers.
 
 Counterpart of ``deepfly3d_tpu/ops/pallas/kernels.py``:
 
@@ -9,7 +10,10 @@ Counterpart of ``deepfly3d_tpu/ops/pallas/kernels.py``:
 * ``preprocess_resize`` — uint8 -> float32 / 255 with a horizontal flip per
   image (``preprocess_u8_pallas``), fused with the antialiased bilinear
   resize that follows it on every path and with the rig registration's
-  per-image integer roll and gain correction around it (``csrc/preprocess.cu``).
+  per-image integer roll and gain correction around it (``csrc/preprocess.cu``);
+* ``stem_conv`` — the hourglass's conv stem, relu(conv7x7/2(x) + b), in one
+  pass (``csrc/stem_conv.cu``; no TPU kernel: the JAX package leaves the stem
+  to XLA).
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs the
 plain PyTorch version on a CPU tensor.  It launches under
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from deepfly3d_torch.ops import _build
+from deepfly3d_torch.ops import bottleneck as bn_ops
 from deepfly3d_torch.ops import image as image_ops
 
 
@@ -94,6 +99,108 @@ def upsample2x_add(inner: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
 
 upsample2x_add.launches = 0
 upsample2x_add.launches_bf16 = 0
+
+
+# ------------------------------------------------------------------ conv stem
+
+# csrc/stem_conv.cu: K is 7 kernel rows of 24 values (a zero weight, the row's
+# 7 columns x 3 channels, two zero weights), 21 k steps of 8, each as the TF32
+# hi and then the lo half of the weights in wgmma's K-major core matrices; its
+# instances, every conv stem's Cout the port ships
+STEM_WIDTHS = (8, 32, 48, 64, 128)
+STEM_ROW_K = 24
+STEM_K = 7 * STEM_ROW_K
+
+
+def conv_nhwc(x: torch.Tensor, w_oihw: torch.Tensor, b: torch.Tensor,
+              stride: int, padding: int) -> torch.Tensor:
+    """A zero-padded convolution of an NHWC tensor with OIHW weights, plus ``b``."""
+    y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w_oihw, stride=stride,
+                                   padding=padding)
+    return y.permute(0, 2, 3, 1) + b
+
+
+def pack_stem(w_oihw: torch.Tensor) -> torch.Tensor:
+    """(Cout, 3, 7, 7) float32 weights -> the stem kernel's flat float32 buffer:
+    K = ``STEM_K`` rows (kernel row ky's value 1 + 3 kx + c is channel c of
+    column kx; the rest zero), Cout padded to a multiple of 8 with zeros, as
+    ``bottleneck._pack_tf32``'s "pair" order in one pass over the columns (hi,
+    then lo = w - hi, so that hi + lo == w bit for bit)."""
+    cout = w_oihw.shape[0]
+    if tuple(w_oihw.shape) != (cout, 3, 7, 7):
+        raise ValueError(f"the conv stem's weights must be (Cout, 3, 7, 7), got "
+                         f"{tuple(w_oihw.shape)}")
+    coutp = -(-cout // 8) * 8
+    wk = np.zeros((7, STEM_ROW_K, coutp), np.float32)
+    hwio = w_oihw.detach().cpu().float().permute(2, 3, 1, 0).numpy()     # (ky, kx, c, o)
+    wk[:, 1:22, :cout] = hwio.reshape(7, 21, cout)
+    return torch.from_numpy(bn_ops._pack_tf32(wk.reshape(STEM_K, coutp), "pair", coutp))
+
+
+def unpack_stem(w_packed: torch.Tensor, cout: int) -> torch.Tensor:
+    """``pack_stem``'s buffer -> the (Cout, 3, 7, 7) weights, bit for bit, on
+    the buffer's device."""
+    coutp = -(-cout // 8) * 8
+    if w_packed.numel() != 2 * STEM_K * coutp:
+        raise ValueError(f"w_packed has {w_packed.numel()} values: not a stem of Cout {cout}")
+    # (step, hi|lo, column group, k half, column, element) -> k = 8 step + 2 element + half
+    parts = w_packed.reshape(STEM_K // 8, 2, coutp // 8, 2, 8, 4)
+    wk = (parts[:, 0] + parts[:, 1]).permute(0, 4, 2, 1, 3).reshape(STEM_K, coutp)
+    hwio = wk.reshape(7, STEM_ROW_K, coutp)[:, 1:22, :cout].reshape(7, 7, 3, cout)
+    return hwio.permute(3, 2, 0, 1).contiguous()
+
+
+def stem_conv_plain(x: torch.Tensor, w_packed: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """relu(conv7x7 of stride 2, zero padding 3, + b): (N, H, W, 3) float32 ->
+    (N, (H - 1) // 2 + 1, (W - 1) // 2 + 1, Cout), the weights unpacked from
+    ``pack_stem``'s buffer."""
+    return torch.relu(conv_nhwc(x, unpack_stem(w_packed, b.shape[0]), b, 2, 3))
+
+
+def stem_conv(x: torch.Tensor, w_packed: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The conv stem, ``stem_conv_plain``'s function, in one pass.
+
+    Launches ``csrc/stem_conv.cu``'s instance of Cout on CUDA tensors
+    (counted in ``stem_conv.launches``) or raises: a Cout outside
+    ``STEM_WIDTHS``, a tensor that is not contiguous float32 on x's device;
+    ``stem_conv_plain`` on CPU tensors.  Rows of any width run.
+    """
+    if x.dim() != 4 or x.shape[3] != 3 or b.dim() != 1:
+        raise ValueError(f"x must be (N, H, W, 3) and b (Cout,), got {tuple(x.shape)} and "
+                         f"{tuple(b.shape)}")
+    if w_packed.device != x.device or b.device != x.device:
+        raise ValueError(f"x, w_packed and b must be on one device, got {x.device}, "
+                         f"{w_packed.device} and {b.device}")
+    if x.device.type == "cpu":
+        return stem_conv_plain(x, w_packed, b)
+    n, h, w, _ = x.shape
+    cout = b.shape[0]
+    if cout not in STEM_WIDTHS:
+        raise ValueError(f"the stem kernel takes Cout in {STEM_WIDTHS}, not {cout}")
+    if x.device.type != "cuda":
+        raise ValueError(f"stem_conv runs on cuda or cpu, not {x.device}")
+    lib = _build.library("stem_conv")
+    for name, t, align in (("x", x, 4), ("w_packed", w_packed, 16), ("b", b, 8)):
+        _check_cuda(name, t, x.device)
+        if t.data_ptr() % align:            # a bulk copy of the weights, 8-byte bias loads
+            raise ValueError(f"{name} must be {align}-byte aligned")
+    if w_packed.numel() != 2 * STEM_K * cout:
+        raise ValueError(f"w_packed has {w_packed.numel()} values: not a stem of Cout {cout}")
+    y = torch.empty((n, (h - 1) // 2 + 1, (w - 1) // 2 + 1, cout), device=x.device)
+    if y.numel() == 0:
+        return y
+    fn = lib.df3d_stem_conv
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):      # the library asks cudaGetDevice for the SM count
+        rc = fn(x.data_ptr(), w_packed.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, w, cout,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "stem kernel")
+    stem_conv.launches += 1
+    return y
+
+
+stem_conv.launches = 0
 
 
 # ------------------------------------------------------------ heatmap decode

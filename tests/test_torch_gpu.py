@@ -9,8 +9,9 @@ its error against the plain version and against its own arithmetic model
 (``bottleneck_tf32_model``) is held to 5e-5 of the output's largest
 magnitude; the general instance (any width of the envelope, every weight
 streamed) to the same, and at bf16 to 2 bf16 ulps; a width past the
-envelope raises.  The upsample-add and the decode are exact (NaN and signed zeros
-included).  The preprocess sums
+envelope raises.  The conv stem kernel sums 147 products as the same
+3xTF32 and is held to the same 5e-5.  The upsample-add and the decode are
+exact (NaN and signed zeros included).  The preprocess sums
 <= 25 products in another order than cuBLAS: 2e-6 on [0, 1] values when it
 resizes (times the largest gain when the rig registration's gain is folded
 in), exact in identity mode (out shape == in shape, the TPU kernel's
@@ -32,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from deepfly3d_torch.models.fused_inference import fold_hourglass
+from deepfly3d_torch.models.fused_inference import FoldedHourglass, fold_hourglass
 from deepfly3d_torch.models.hourglass import load_weights
 from deepfly3d_torch.ops import _build
 from deepfly3d_torch.ops import bottleneck as bn
@@ -390,6 +391,78 @@ def test_wrappers_reject_cpu_mixed_inputs(blocks):
         bn.fused_bottleneck(x, {k: v.to(dev) for k, v in blocks["stem_res2"].items()})
 
 
+# (input shape, Cout): the fly stem, the 256-wide and 128-wide nets' stems
+# (at 256x512 and at the h36m profile's 384x384), the 64-feature fly net's,
+# odd H and W (the zero padding and the ragged edge masked), the README toy
+# net's, and rows cut into bands (3 of 4 m64 blocks at Cout 128, 2 at 48 and
+# at 8, the last ragged)
+STEM_CARD_SHAPES = [((8, 256, 512, 3), 48), ((8, 256, 512, 3), 64), ((4, 384, 384, 3), 64),
+                    ((1, 256, 512, 3), 32), ((3, 250, 502, 3), 48), ((4, 64, 128, 3), 8),
+                    ((2, 40, 1500, 3), 128), ((1, 20, 2000, 3), 48), ((1, 24, 4001, 3), 8)]
+
+
+@pytest.mark.parametrize("shape,cout", STEM_CARD_SHAPES)
+def test_stem_kernel_matches_plain(shape, cout):
+    """The conv stem kernel (csrc/stem_conv.cu, 3xTF32 wgmma) against its plain
+    version (cuDNN, TF32 off) at the bottleneck's tolerance: 5e-5 of the
+    output's largest magnitude; one launch, and no scratch beyond its output."""
+    dev = _card()
+    g = torch.Generator().manual_seed(cout)
+    w = torch.randn((cout, 3, 7, 7), generator=g) * 0.15
+    packed = kernels.pack_stem(w).to(dev)
+    b = (torch.randn((cout,), generator=g) * 0.1).to(dev)
+    x = (2.0 * torch.rand(shape, generator=g) - 0.5).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    before = kernels.stem_conv.launches
+    got = kernels.stem_conv(x, packed, b)
+    torch.cuda.synchronize()
+    assert kernels.stem_conv.launches == before + 1
+    assert torch.cuda.max_memory_allocated(dev) - held <= got.numel() * 4 + (1 << 20)
+    want = kernels.stem_conv_plain(x, packed, b)
+    assert got.shape == want.shape
+    tol = 5e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+    assert (got >= 0).all()
+
+
+def test_stem_kernel_refusals_on_the_card():
+    dev = _card()
+    x = torch.rand((1, 16, 16, 3), device=dev)
+    w40 = kernels.pack_stem(torch.zeros((40, 3, 7, 7))).to(dev)
+    with pytest.raises(ValueError, match=r"\(8, 32, 48, 64, 128\), not 40"):
+        kernels.stem_conv(x, w40, torch.zeros((40,), device=dev))
+    w48 = kernels.pack_stem(torch.zeros((48, 3, 7, 7))).to(dev)
+    b48 = torch.zeros((48,), device=dev)
+    for bad in (x.double(), x.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            kernels.stem_conv(bad, w48, b48)
+    with pytest.raises(ValueError):                 # the weights on the CPU
+        kernels.stem_conv(x, w48.cpu(), b48)
+
+
+def test_stem_kernel_launches_once_per_conv_forward(monkeypatch):
+    """A conv-stem forward launches the stem kernel once and calls no
+    F.conv2d; two forwards give the same bits."""
+    dev = _card()
+    variables, spec = load_weights(CHECKPOINT)
+    net = FoldedHourglass(fold_hourglass(variables, spec), spec).to(dev).eval()
+    x = torch.rand((2, 256, 512, 3), generator=torch.Generator().manual_seed(6)).to(dev)
+    with torch.inference_mode():
+        want = net(x)
+    calls = []
+    conv2d = torch.nn.functional.conv2d
+    monkeypatch.setattr(torch.nn.functional, "conv2d",
+                        lambda *a, **k: (calls.append(a[0].shape), conv2d(*a, **k))[1])
+    before = kernels.stem_conv.launches
+    with torch.inference_mode():
+        got = net(x)
+    torch.cuda.synchronize()
+    assert kernels.stem_conv.launches == before + 1 and calls == []
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("shape", [(3, 5, 7, 1), (2, 9, 9, 256), (1, 4, 4, 1000), (300, 2, 2, 3)])
 def test_decode_kernel_takes_any_joint_count(shape):
     dev = _card()
@@ -721,6 +794,10 @@ def test_kernel_wrappers_launch_under_their_input_device(blocks, monkeypatch):
         kernels.preprocess_resize: lambda: kernels.preprocess_resize(
             torch.randint(0, 256, (2, 48, 96, 3), generator=g, dtype=torch.uint8).to(dev),
             torch.tensor([False, True], device=dev), (16, 32)),
+        kernels.stem_conv: lambda: kernels.stem_conv(
+            torch.rand((2, 32, 64, 3), generator=g).to(dev),
+            kernels.pack_stem(torch.randn((48, 3, 7, 7), generator=g)).to(dev),
+            torch.randn((48,), generator=g).to(dev)),
     }
     for wrapper, call in calls.items():
         entered.clear()
