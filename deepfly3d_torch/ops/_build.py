@@ -2,23 +2,27 @@
 
 Each source under ``ops/csrc`` is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, and loaded with ``ctypes``.  The
-sources include no PyTorch header, so a build takes seconds; all sources
-are compiled at once, one ``nvcc`` process each.  Outputs go to
+sources include no PyTorch header (the ones that issue mbarrier or wgmma
+instructions include ``csrc/hopper.cuh``), so a build takes seconds; all
+sources are compiled at once, one ``nvcc`` process each.  Outputs go to
 ``deepfly3d_torch/_build/`` (listed in ``.gitignore``) under a name that
-carries a hash of the source and flags, so an edited source is rebuilt and
-an unchanged one is reused.  This module imports nothing from the CUDA
-toolkit at import time: the CPU tests import every module of the port.
+carries a hash of the source, every header under ``csrc/`` and the flags, so
+an edited source or header is rebuilt and an unchanged one is reused.  This
+module imports nothing from the CUDA toolkit at import time: the CPU tests
+import every module of the port.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict
+from functools import lru_cache
+from typing import Dict, Tuple
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -45,8 +49,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, name + ".cu"),
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -95,6 +102,17 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(target)
         _loaded[name] = lib
     return lib
+
+
+@lru_cache(maxsize=None)
+def entry(name: str, symbol: str, argtypes: Tuple[type, ...], restype: type = ctypes.c_int):
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library with its
+    ``argtypes`` and ``restype`` set (the library built and loaded first if
+    needed).  Cached: after replacing a library in ``_loaded``, clear it."""
+    fn = getattr(library(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
 
 
 def check(rc: int, what: str) -> None:

@@ -823,13 +823,9 @@ def _shapes(x: torch.Tensor, folded: Dict[str, torch.Tensor]):
     return cin, cmid, cout, dtype
 
 
-@lru_cache(maxsize=None)
-def _kernel(source: str, name: str):
-    """The C entry point ``name`` of ``csrc/<source>.cu``."""
-    fn = getattr(_build.library(source), name)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# the C entries' arguments: x, packed, y, n, h, w, cin, cmid, cout, has_proj, proj_raw, th, tw,
+# stream
+_ENTRY_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 10 + (ctypes.c_void_p,)
 
 
 def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -881,8 +877,9 @@ def fused_bottleneck(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.
         source, entry, counter = "bottleneck_128", "df3d_bottleneck_128", "_128"
     else:
         source, entry, counter = "bottleneck" + suffix, "df3d_bottleneck" + suffix, suffix
+    fn = _build.entry(source, entry, _ENTRY_ARGS)
     with torch.cuda.device(x.device):     # the library asks cudaGetDevice for the SM count
-        rc = _kernel(source, entry)(
+        rc = fn(
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
             int(has_proj), int("proj_raw" in folded), th, tw,
             torch.cuda.current_stream(x.device).cuda_stream,

@@ -95,16 +95,14 @@
 // A wait on an mbarrier that lasts seconds (a fault, never a schedule) traps
 // rather than hangs.
 
-#include <cuda_runtime.h>
 #include <climits>
-#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kConsumers = 2;                      // consumer warpgroups: consumers_sync joins two
 constexpr int kThreads = 128 * (1 + kConsumers);   // and the producer warpgroup
-constexpr int kMaxDevices = 64;
-constexpr int kMaxSmem = 227 * 1024;               // dynamic shared memory of one thread block
 constexpr int kTaps = 9;                           // w2's chunks, one tap each
 // ring slots: at least 2; at most 3, which measured 2-3% faster than 4-6 at the
 // 96-wide trunk's shapes (fewer bulk copies in flight beside the loads of x)
@@ -113,10 +111,6 @@ constexpr int kBarBytes = 128;                     // the mbarriers, ahead of th
 constexpr int kGroup3 = 2;                         // k steps of an issue group of stage 3
 constexpr int kMaxTilePixels = 128;                // two m64 row blocks in stages 2 and 3
 constexpr int kMaxHaloPixels = 192;                // three m64 row blocks in stage 1
-constexpr uint32_t kHiMask = 0xffffe000u;          // keeps sign, exponent, 10 mantissa bits
-constexpr long long kWatchdogCycles = 4000000000LL;
-
-__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // Bytes of one k step of 8 over n columns: its hi values, then its lo values.
 __host__ __device__ constexpr int step_bytes(int n) { return 64 * n; }
@@ -174,182 +168,7 @@ __host__ __device__ constexpr Layout make_layout(int cin, int cmid, int cout, bo
   return L;
 }
 
-// ---------------------------------------------------------------- PTX pieces
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity)) {
-    if (clock64() - t0 > kWatchdogCycles) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// a hint to bring `bytes` (16-byte granules) of device memory into L2
-__device__ __forceinline__ void prefetch_l2(const void* src, int bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" :: "l"(src), "r"(bytes) : "memory");
-}
-
-// the two consumer warpgroups' named barrier
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" :: "n"(128 * kConsumers) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void set_max_regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-template <int N>
-__device__ __forceinline__ void set_max_regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
-// wgmma's shared-memory descriptor of a K-major operand without swizzle: core
-// matrices of 8 rows x 16 bytes, 128 bytes apart along k (LBO) and 256 bytes
-// apart along n (SBO)
-__device__ __forceinline__ uint64_t desc_of(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(256 >> 4) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// until at most N committed groups of this warpgroup's products are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-#define DF3D_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define DF3D_F8(d, i) DF3D_F4(d, i), DF3D_F4(d, i + 4)
-
-// d (64 x N, f32) += a (64 x 8 TF32, registers) @ b (8 x N, shared memory)
-template <int N>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-      : DF3D_F8(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<24>(float (&d)[12], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
-      "{%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
-      : DF3D_F8(d, 0), DF3D_F4(d, 8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : DF3D_F8(d, 0), DF3D_F8(d, 8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<48>(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
-      : DF3D_F8(d, 0), DF3D_F8(d, 8), DF3D_F8(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : DF3D_F8(d, 0), DF3D_F8(d, 8), DF3D_F8(d, 16), DF3D_F8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
-      : DF3D_F8(d, 0), DF3D_F8(d, 8), DF3D_F8(d, 16), DF3D_F8(d, 24), DF3D_F8(d, 32), DF3D_F8(d, 40)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-#undef DF3D_F8
-#undef DF3D_F4
-
 // ---------------------------------------------------------------- the stages
-
-// hi and lo of four values (the A fragment of one k step: rows g, g+8 at k
-// slot t, then rows g, g+8 at slot t + 4)
-__device__ __forceinline__ void split4(float v0, float v1, float v2, float v3, uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-  const float v[4] = {v0, v1, v2, v3};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    hi[i] = __float_as_uint(v[i]) & kHiMask;
-    lo[i] = __float_as_uint(v[i] - __uint_as_float(hi[i]));
-  }
-}
 
 // relu(v * s + sh) of a lane's four channels, or v itself without bn
 __device__ __forceinline__ float4 bn_relu4(float4 v, float4 s, float4 sh, bool bn) {
@@ -753,24 +572,12 @@ bottleneck_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packe
 template <int CIN, int CMID, int COUT, bool PROJ, bool RAW>
 int launch(const float* x, const uint8_t* packed, float* y, int n, int h, int w, const Layout& L,
            void* stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  auto kernel = bottleneck_kernel<CIN, CMID, COUT, PROJ, RAW>;
-  // the opt-in to more than 48 KB is kept per device and only ever raised
-  static int allowed[kMaxDevices] = {};
-  static int sms[kMaxDevices] = {};
-  if (L.smem > allowed[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
-    if (err != cudaSuccess) return (int)err;
-    allowed[dev] = L.smem;
-  }
-  if (sms[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int blocks = L.tiles < sms[dev] ? L.tiles : sms[dev];
+  constexpr auto kernel = bottleneck_kernel<CIN, CMID, COUT, PROJ, RAW>;
+  int dev = 0, sms = 0;
+  int err = current_device(dev, sms);
+  if (err == 0) err = allow_smem<kernel>(dev, L.smem);
+  if (err != 0) return err;
+  const int blocks = L.tiles < sms ? L.tiles : sms;
   kernel<<<(unsigned)blocks, kThreads, L.smem, (cudaStream_t)stream>>>(x, packed, y, h, w, L);
   return (int)cudaGetLastError();
 }

@@ -98,23 +98,18 @@
 // hangs.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <climits>
-#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kConsumers = 2;                      // consumer warpgroups
 constexpr int kThreads = 128 * (1 + kConsumers);   // and the producer warpgroup
-constexpr int kMaxDevices = 64;
-constexpr int kMaxSmem = 227 * 1024;               // dynamic shared memory of one thread block
 constexpr int kMaxStages = 4;                      // slots of the x ring
 constexpr int kMaxRows = 192;                      // three m64 row blocks in the 3x3
 constexpr int kMaxHaloPixels = 256;                // four m64 row blocks of stage 1
 constexpr int kBarBytes = 128;                     // the mbarriers, ahead of the weights
-constexpr long long kWatchdogCycles = 4000000000LL;
-
-__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // Byte offsets into the packed buffer (and its copy in shared memory);
 // ops/bottleneck.py::pack_bottleneck mirrors them.
@@ -179,51 +174,6 @@ constexpr Layout smem_layout(int cin, int cmid, int cout, bool proj, int th, int
 
 // ---------------------------------------------------------------- PTX pieces
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity)) {
-    if (clock64() - t0 > kWatchdogCycles) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
 // generic-proxy writes to shared memory before async-proxy (wgmma) reads of them
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -234,43 +184,13 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
 }
 
+// d (64 x N, f32) += a (64 x 16 bf16, registers) @ b (16 x N, shared memory): the
+// bf16 form of hopper.cuh's wgmma
 template <int N>
-__device__ __forceinline__ void set_max_regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-template <int N>
-__device__ __forceinline__ void set_max_regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
-// wgmma's shared-memory descriptor of a K-major operand without swizzle: core
-// matrices of 8 rows x 16 bytes, `lbo` bytes apart along k and `sbo` bytes
-// apart along m or n (the packed weights: 128 and 256)
-__device__ __forceinline__ uint64_t desc_of(uint32_t addr, uint32_t lbo = 128, uint32_t sbo = 256) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// until at most N committed groups of this warpgroup's products are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-#define DF3D_F8(d, i)                                                                   \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x N, f32) += a (64 x 16 bf16, registers) @ b (16 x N, shared memory)
-template <int N>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
 
 template <>
-__device__ __forceinline__ void wgmma<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -282,7 +202,7 @@ __device__ __forceinline__ void wgmma<32>(float (&d)[16], const uint32_t (&a)[4]
 }
 
 template <>
-__device__ __forceinline__ void wgmma<48>(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_bf16<48>(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
@@ -294,7 +214,7 @@ __device__ __forceinline__ void wgmma<48>(float (&d)[24], const uint32_t (&a)[4]
 }
 
 template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -307,7 +227,7 @@ __device__ __forceinline__ void wgmma<64>(float (&d)[32], const uint32_t (&a)[4]
 }
 
 template <>
-__device__ __forceinline__ void wgmma<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_bf16<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
@@ -548,7 +468,7 @@ bottleneck_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __res
         wg_fence();
 #pragma unroll
         for (int ks = 0; ks < KS1; ++ks)
-          wgmma<CMID>(acc, af[b & 1][ks], desc_of(w1d + ks * CMID * 32));
+          wgmma_bf16<CMID>(acc, af[b & 1][ks], desc_of(w1d + ks * CMID * 32));
         wg_commit();
         if (b + 1 < nb1) a_frags(b + 1, af[(b + 1) & 1]);   // block b - 1's set: done
         float2 bias[CMID / 8];
@@ -659,11 +579,11 @@ bottleneck_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __res
         wg_fence();
 #pragma unroll
         for (int ks = 0; ks < KS2; ++ks)
-          wgmma<N3>(acc, a3[b][ks], desc_of(w3d + ks * COUT * 32 + col0));
+          wgmma_bf16<N3>(acc, a3[b][ks], desc_of(w3d + ks * COUT * 32 + col0));
         if constexpr (PROJ) {
 #pragma unroll
           for (int ks = 0; ks < KS1; ++ks)
-            wgmma<N3>(accp, pa[ks], desc_of(wpd + ks * COUT * 32 + col0));
+            wgmma_bf16<N3>(accp, pa[ks], desc_of(wpd + ks * COUT * 32 + col0));
         }
         wg_commit();
         // the epilogue's loads (the identity skip's x) run while the products do;
@@ -728,18 +648,12 @@ int launch(const __nv_bfloat16* x, const uint8_t* packed, __nv_bfloat16* y, int 
   using C = Cfg<CIN, CMID, COUT, PROJ, RAW>;
   static_assert(smem_layout(CIN, CMID, COUT, PROJ, 1, 16).smem <= kMaxSmem,
                 "the block's bf16 weights do not fit one thread block");
-  auto kernel = bottleneck_bf16_kernel<CIN, CMID, COUT, PROJ, RAW>;
+  constexpr auto kernel = bottleneck_bf16_kernel<CIN, CMID, COUT, PROJ, RAW>;
   const Layout L = smem_layout(CIN, CMID, COUT, PROJ, th, tw);
   if (L.smem > kMaxSmem || L.m2 > 64 * C::MB || L.hp > kMaxHaloPixels)
     return (int)cudaErrorInvalidValue;
-  // the opt-in to more than 48 KB is kept per device and only ever raised
-  static int allowed[kMaxDevices] = {};
-  if (L.smem > allowed[dev]) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
-    if (err != cudaSuccess) return (int)err;
-    allowed[dev] = L.smem;
-  }
+  const int err = allow_smem<kernel>(dev, L.smem);
+  if (err != 0) return err;
   const int tiles_x = (w + tw - 1) / tw, tiles_y = (h + th - 1) / th;
   const long long tiles = (long long)tiles_x * tiles_y * n;
   if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
@@ -771,16 +685,9 @@ int df3d_bottleneck_bf16(const void* x, const void* packed, void* y,
                          int proj_raw, int th, int tw, void* stream) {
   if (th < 1 || tw < 1 || th * (tw + 2) > kMaxRows || n < 1 || h < 1 || w < 1)
     return (int)cudaErrorInvalidValue;
-  static int sm_count[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (sm_count[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int sms = sm_count[dev];
+  int dev = 0, sms = 0;
+  const int err = current_device(dev, sms);
+  if (err != 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* pb = static_cast<const uint8_t*>(packed);

@@ -89,23 +89,19 @@
 // seconds (a fault, never a schedule) traps rather than hangs.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <climits>
-#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kConsumers = 2;                      // consumer warpgroups: consumers_sync joins two
 constexpr int kThreads = 128 * (1 + kConsumers);   // and the producer warpgroup
 constexpr int kNB = 128;                           // columns of one pass
 constexpr int kSub = kNB / 64;                     // n64 products per k step: 2
-constexpr int kMaxDevices = 64;
-constexpr int kMaxSmem = 227 * 1024;               // dynamic shared memory of one thread block
 constexpr int kMaxCin = 512, kMaxCmid = 256, kMaxCout = 512;
 constexpr int kBarBytes = 128;                     // the ring's mbarriers, ahead of the ring
 constexpr int kEmptyArrivals = 4 * kConsumers;     // one per consumer warp
-constexpr uint32_t kHiMask = 0xffffe000u;          // keeps sign, exponent, 10 mantissa bits
-constexpr long long kWatchdogCycles = 4000000000LL;
 
 template <typename T>
 struct Kind;
@@ -125,8 +121,6 @@ struct Kind<__nv_bfloat16> {
   static constexpr int kStages = 8;     // 8 x 16 KB, 8 x 8 KB over 256-row passes
   static constexpr int kMB = 2;         // on tiles of more than 128 pixels
 };
-
-constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // The packed buffer (byte offsets) and the shared memory of one thread block;
 // ops/bottleneck.py mirrors both (packed_size, smem_bytes).
@@ -185,103 +179,23 @@ Layout make_layout(int cin, int cmid, int cout, int proj, int raw, int th, int t
 
 // ---------------------------------------------------------------- PTX pieces
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// wgmma m64n64 of the element type T (the last argument): TF32 is hopper.cuh's
+// wgmma<64>, bf16 is d (64 x 64, f32) += a (64 x 16 bf16, registers) @ b (16 x 64,
+// shared memory)
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                          float) {
+  wgmma<64>(d, a, b);
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity)) {
-    if (clock64() - t0 > kWatchdogCycles) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// a hint to bring `bytes` (16-byte granules) of device memory into L2
-__device__ __forceinline__ void prefetch_l2(const void* src, int bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" :: "l"(src), "r"(bytes) : "memory");
-}
-
-// the consumer warpgroups' named barrier
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" :: "n"(128 * kConsumers) : "memory");
-}
-
-// wgmma's shared-memory descriptor of a K-major operand without swizzle: core
-// matrices of 8 rows x 16 bytes, 128 bytes apart along k (LBO) and 256 bytes
-// apart along n (SBO)
-__device__ __forceinline__ uint64_t desc_of(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(256 >> 4) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// until at most N committed groups of this warpgroup's products are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-#define DF3D_D32(d)                                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-#define DF3D_DREGS                                                                      \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (64 x 64, f32) += a (64 x 8 TF32, registers) @ b (8 x 64, shared memory)
-__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t b, float) {
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                          __nv_bfloat16) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " DF3D_DREGS
-      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : DF3D_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 64, f32) += a (64 x 16 bf16, registers) @ b (16 x 64, shared memory)
-__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
-                                      __nv_bfloat16) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DF3D_DREGS
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : DF3D_D32(d)
+      : DF3D_F8(d, 0), DF3D_F8(d, 8), DF3D_F8(d, 16), DF3D_F8(d, 24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -606,12 +520,12 @@ __device__ __forceinline__ void consume(const Layout& L, const Ctx<T>& c, Ring& 
                   const uint64_t bd = d0 + ((kk * stepb + (u0 + j) * 2048) >> 4);
                   if constexpr (kF32) {
                     const uint64_t blo = bd + ((32 * ncols) >> 4);
-                    wgmma(acc2[b][j], al[kk][b], bd, T());
-                    wgmma(acc[b][j], ah[kk][b], bd, T());
-                    wgmma(acc2[b][j], ah[kk][b], blo, T());
+                    wgmma_n64(acc2[b][j], al[kk][b], bd, T());
+                    wgmma_n64(acc[b][j], ah[kk][b], bd, T());
+                    wgmma_n64(acc2[b][j], ah[kk][b], blo, T());
                   } else {
-                    if (seg == 0) wgmma(acc[b][j], ah[kk][b], bd, T());
-                    else wgmma(acc2[b][j], ah[kk][b], bd, T());
+                    if (seg == 0) wgmma_n64(acc[b][j], ah[kk][b], bd, T());
+                    else wgmma_n64(acc2[b][j], ah[kk][b], bd, T());
                   }
                 }
               }
@@ -767,7 +681,7 @@ bottleneck_general_kernel(const T* __restrict__ x, const uint8_t* __restrict__ p
       mbar_init(full + 8 * i, 1);
       mbar_init(empty + 8 * i, kEmptyArrivals);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   const int hw = L.tw + 2, hp = (L.th + 2) * hw, tp = L.th * L.tw;
@@ -777,7 +691,7 @@ bottleneck_general_kernel(const T* __restrict__ x, const uint8_t* __restrict__ p
   // the wgmma issue under branches on them is not serialised
   const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
   if (warp < 4) {                           // the producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    set_max_regs_dec<24>();
     if (threadIdx.x != 0) return;
     for (int tile = blockIdx.x; tile < L.tiles; tile += gridDim.x) {
       if (tile == (int)blockIdx.x) prefetch_halo(L, x, H, W, tile);
@@ -789,7 +703,7 @@ bottleneck_general_kernel(const T* __restrict__ x, const uint8_t* __restrict__ p
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  set_max_regs_inc<240>();
   Ctx<T> c;
   c.packed = packed;
   c.smem = smem;
@@ -824,29 +738,16 @@ bool in_envelope(int cin, int cmid, int cout, int proj, int raw) {
          cout <= kMaxCout && (proj || cin == cout) && (proj || !raw);
 }
 
-// Launch the kernel of MB row blocks on `stream`; the opt-in to more than 48 KB
-// of shared memory is kept per kernel and device and only ever raised, the SM
-// count per device.
+// Launch the kernel of MB row blocks on `stream`.
 template <typename T, int MB>
 int launch_mb(const T* x, const uint8_t* packed, T* y, int h, int w, const Layout& L,
               void* stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  auto kernel = bottleneck_general_kernel<T, MB>;
-  static int allowed[kMaxDevices] = {};
-  static int sms[kMaxDevices] = {};
-  if (L.smem > allowed[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
-    if (err != cudaSuccess) return (int)err;
-    allowed[dev] = L.smem;
-  }
-  if (sms[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int blocks = L.tiles < sms[dev] ? L.tiles : sms[dev];
+  constexpr auto kernel = bottleneck_general_kernel<T, MB>;
+  int dev = 0, sms = 0;
+  int err = current_device(dev, sms);
+  if (err == 0) err = allow_smem<kernel>(dev, L.smem);
+  if (err != 0) return err;
+  const int blocks = L.tiles < sms ? L.tiles : sms;
   kernel<<<(unsigned)blocks, kThreads, L.smem, (cudaStream_t)stream>>>(x, packed, y, h, w, L);
   return (int)cudaGetLastError();
 }

@@ -105,22 +105,23 @@
 // rather than hangs.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <climits>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxDevices = 16;
 constexpr int kRunH = 256;                         // 8 H-pass warps
 constexpr int kRunW = 128;                         // 4 W-pass warps
 constexpr int kRunThreads = kRunH + kRunW + 32;    // and the producer warp
 constexpr int kRunWords = 3;                       // column words per H thread: rows <= 3072 bytes
 constexpr int kOpen = 3;                           // output rows an input row may feed
-constexpr long long kWatchdogCycles = 4000000000LL;
 
-__host__ __device__ constexpr size_t round_up(size_t x, size_t m) { return (x + m - 1) / m * m; }
+// hopper.cuh's round_up over size_t
+__host__ __device__ constexpr size_t round_up_size(size_t x, size_t m) {
+  return (x + m - 1) / m * m;
+}
 
 // ------------------------------------------------------------ the band design
 
@@ -138,14 +139,14 @@ __host__ __device__ inline Layout layout(int w_in, int c, int h_out, int w_out, 
                                          int rows, int stage_rows) {
   Layout L;
   const int row_len = w_in * c;
-  L.band_pitch = row_len + (int)round_up((size_t)c * (kw - 1), 4);
-  L.stage_pitch = (int)round_up(row_len, 16);
+  L.band_pitch = row_len + (int)round_up_size((size_t)c * (kw - 1), 4);
+  L.stage_pitch = (int)round_up_size(row_len, 16);
   L.stage_bytes = (size_t)stage_rows * L.stage_pitch;
   L.wh = 0;
-  L.ww = L.wh + 4 * round_up((size_t)h_out * kh, 4);
-  L.sh = L.ww + 4 * round_up((size_t)w_out * kw, 4);
-  L.sw = L.sh + 4 * round_up(h_out, 4);
-  L.band = L.sw + 4 * round_up(w_out, 4);
+  L.ww = L.wh + 4 * round_up_size((size_t)h_out * kh, 4);
+  L.sh = L.ww + 4 * round_up_size((size_t)w_out * kw, 4);
+  L.sw = L.sh + 4 * round_up_size(h_out, 4);
+  L.band = L.sw + 4 * round_up_size(w_out, 4);
   L.stage = L.band + 4 * (size_t)rows * L.band_pitch;
   L.total = L.stage + 2 * L.stage_bytes;
   return L;
@@ -407,60 +408,15 @@ __host__ __device__ inline RunLayout run_layout(int w_in, int c, int w_out, int 
   RunLayout L;
   const int row_len = w_in * c;
   const int read = 4 * kRunWords * kRunH;
-  L.hpitch = row_len + (int)round_up((size_t)c * (kw - 1), 4);
-  L.slot_pitch = (int)round_up((size_t)(row_len > read ? row_len : read) + 12, 16);
+  L.hpitch = row_len + (int)round_up_size((size_t)c * (kw - 1), 4);
+  L.slot_pitch = (int)round_up_size((size_t)(row_len > read ? row_len : read) + 12, 16);
   L.bars = 0;
-  L.ww = round_up(16 * (size_t)(ring_rows + hslots), 16);
-  L.sw = L.ww + 4 * round_up((size_t)w_out * kw, 4);
-  L.hrows = L.sw + 4 * round_up(w_out, 4);
+  L.ww = round_up_size(16 * (size_t)(ring_rows + hslots), 16);
+  L.sw = L.ww + 4 * round_up_size((size_t)w_out * kw, 4);
+  L.hrows = L.sw + 4 * round_up_size(w_out, 4);
   L.ring = L.hrows + 4 * (size_t)hslots * L.hpitch;
   L.total = L.ring + (size_t)ring_rows * L.slot_pitch;
   return L;
-}
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity)) {
-    if (clock64() - t0 > kWatchdogCycles) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // the W warps (named barrier 1; the other warps never join it)
@@ -534,7 +490,7 @@ preprocess_run_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict
         if (p >= h_in) p -= h_in;
         const uint8_t* row = img + (size_t)p * row_len;
         const int off = (int)(reinterpret_cast<uintptr_t>(row) & 15);
-        const int bytes = (int)round_up((size_t)off + row_len, 16);
+        const int bytes = (int)round_up_size((size_t)off + row_len, 16);
         mbar_wait(empty0 + 8 * slot, phase ^ 1);
         mbar_expect_tx(full0 + 8 * slot, bytes);
         bulk_load(saddr(ring + (size_t)slot * L.slot_pitch), row - off, bytes, full0 + 8 * slot);
@@ -737,20 +693,18 @@ int instance(int c, int w_in, int w_out, int kh, int kw, int steps, const void* 
              : 0;
 }
 
-// the opt-in to more than 48 KB is kept per device and only ever raised; the
-// blocks that fit on an SM are kept for the last size asked
-template <typename Kernel>
-int fit_blocks(Kernel kernel, int threads, size_t smem, int dev, size_t* allowed,
-               size_t* fit_smem, int* fit) {
-  cudaError_t err;
-  if (smem > allowed[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return -(int)err;
-    allowed[dev] = smem;
-  }
+// The thread blocks of Kernel that fit on an SM at `smem` bytes, after its
+// opt-in, kept per device for the last size asked; minus the CUDA error code
+template <auto Kernel>
+int fit_blocks(int threads, size_t smem, int dev) {
+  static size_t fit_smem[kMaxDevices] = {};
+  static int fit[kMaxDevices] = {};
+  const int err = allow_smem<Kernel>(dev, smem);
+  if (err != 0) return -err;
   if (fit_smem[dev] != smem || fit[dev] == 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit[dev], kernel, threads, smem);
-    if (err != cudaSuccess) return -(int)err;
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit[dev], Kernel, threads, smem);
+    if (e != cudaSuccess) return -(int)e;
     fit_smem[dev] = smem;
   }
   if (fit[dev] < 1) return -(int)cudaErrorInvalidConfiguration;
@@ -775,11 +729,9 @@ struct Args {
 
 template <typename OutT>
 int launch_band(const Args& a, OutT* out) {
-  auto kernel = preprocess_kernel<OutT>;
+  constexpr auto kernel = preprocess_kernel<OutT>;
   const size_t smem = layout(a.w_in, a.c, a.h_out, a.w_out, a.kh, a.kw, a.rows, a.stage_rows).total;
-  static size_t allowed[kMaxDevices] = {}, fit_smem[kMaxDevices] = {};
-  static int fit[kMaxDevices] = {};
-  const int per_sm = fit_blocks(kernel, kThreads, smem, a.dev, allowed, fit_smem, fit);
+  const int per_sm = fit_blocks<kernel>(kThreads, smem, a.dev);
   if (per_sm < 0) return -per_sm;
   const int bands = (a.h_out + a.rows - 1) / a.rows;
   const long long items = (long long)a.n * bands;
@@ -794,11 +746,9 @@ int launch_band(const Args& a, OutT* out) {
 template <int KW, typename OutT>
 int launch_run(const Args& a, OutT* out) {
   if (a.ring_rows < 1 || a.hslots < 1 || a.per_sm < 1) return (int)cudaErrorInvalidValue;
-  auto kernel = preprocess_run_kernel<KW, OutT>;
+  constexpr auto kernel = preprocess_run_kernel<KW, OutT>;
   const size_t smem = run_layout(a.w_in, 3, a.w_out, KW, a.ring_rows, a.hslots).total;
-  static size_t allowed[kMaxDevices] = {}, fit_smem[kMaxDevices] = {};
-  static int fit[kMaxDevices] = {};
-  const int per_sm = fit_blocks(kernel, kRunThreads, smem, a.dev, allowed, fit_smem, fit);
+  const int per_sm = fit_blocks<kernel>(kRunThreads, smem, a.dev);
   if (per_sm < 0) return -per_sm;
   const long long rows = (long long)a.n * a.h_out;
   const long long cap = (long long)(per_sm < a.per_sm ? per_sm : a.per_sm) * a.sms;
@@ -816,15 +766,8 @@ int preprocess_resize(Args a, OutT* out) {
   if (a.n == 0 || a.h_out == 0 || a.w_out == 0) return 0;
   if (a.rows < 1 || a.stage_rows < 1 || a.kh < 1 || a.kw < 1 || a.c < 1)
     return (int)cudaErrorInvalidValue;
-  static int sm_count[kMaxDevices] = {};
-  cudaError_t err = cudaGetDevice(&a.dev);
-  if (err != cudaSuccess) return (int)err;
-  if (a.dev < 0 || a.dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (sm_count[a.dev] == 0) {
-    err = cudaDeviceGetAttribute(&sm_count[a.dev], cudaDevAttrMultiProcessorCount, a.dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  a.sms = sm_count[a.dev];
+  const int err = current_device(a.dev, a.sms);
+  if (err != 0) return err;
   switch (instance(a.c, a.w_in, a.w_out, a.kh, a.kw, a.ends != nullptr && a.steps != nullptr,
                    a.src, out)) {
     case 256 + 1 * 17: return launch_run<1, OutT>(a, out);

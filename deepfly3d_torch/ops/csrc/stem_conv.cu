@@ -76,9 +76,9 @@
 // (a fault, never a schedule) traps rather than hangs.  ops/kernels.py packs
 // the weights (pack_stem).
 
-#include <cuda_runtime.h>
 #include <climits>
-#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -93,16 +93,10 @@ __host__ __device__ constexpr int consumers(int cout) { return cout <= 64 ? 3 : 
 __host__ __device__ constexpr int threads(int cout) { return 128 * (consumers(cout) + 1); }
 __host__ __device__ constexpr int consumer_regs(int cout) { return cout <= 64 ? 160 : 232; }
 __host__ __device__ constexpr int producer_regs(int cout) { return cout <= 64 ? 32 : 40; }
-constexpr int kMaxDevices = 64;
-constexpr int kMaxSmem = 227 * 1024;               // dynamic shared memory of one thread block
 constexpr int kBarBytes = 512;                     // the mbarriers, ahead of the weights
 constexpr int kMinRows = 8, kMaxRows = 16;         // ring slots: input rows
 constexpr int kLead = 12;                          // floats of a slot ahead of its band's window
 constexpr int kBlockFloats = 6 * 64;               // floats of input row an m64 block adds
-constexpr uint32_t kHiMask = 0xffffe000u;          // keeps sign, exponent, 10 mantissa bits
-constexpr long long kWatchdogCycles = 4000000000LL;
-
-__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // Bytes of one k step of the packed weights (hi, then lo) and of all of them.
 __host__ __device__ constexpr int step_bytes(int cout) { return 64 * cout; }
@@ -133,52 +127,7 @@ __host__ __device__ constexpr Layout make_layout(int w, int cout) {
 }
 static_assert(make_layout(INT_MAX / 2, 128).band >= 4, "a band of 4 blocks at the widest instance");
 
-// ---------------------------------------------------------------- PTX pieces
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity)) {
-    if (clock64() - t0 > kWatchdogCycles) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
+// ------------------------------------------------------------ cp.async pieces
 
 // 4 bytes from `src`, or zeros where `bytes` is 0
 __device__ __forceinline__ void copy4(uint32_t dst, const float* src, int bytes) {
@@ -195,114 +144,7 @@ __device__ __forceinline__ void copies_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void set_max_regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-template <int N>
-__device__ __forceinline__ void set_max_regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
-// wgmma's shared-memory descriptor of a K-major operand without swizzle: core
-// matrices of 8 rows x 16 bytes, 128 bytes apart along k (LBO) and 256 bytes
-// apart along n (SBO)
-__device__ __forceinline__ uint64_t desc_of(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(256 >> 4) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// until at most N committed groups of this warpgroup's products are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-#define DF3D_F8(d, i)                                                                   \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x N, f32) += a (64 x 8 TF32, registers) @ b (8 x N, shared memory)
-template <int N>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : DF3D_F8(d, 0), DF3D_F8(d, 8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<48>(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
-      : DF3D_F8(d, 0), DF3D_F8(d, 8), DF3D_F8(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : DF3D_F8(d, 0), DF3D_F8(d, 8), DF3D_F8(d, 16), DF3D_F8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : DF3D_F8(d, 0), DF3D_F8(d, 8), DF3D_F8(d, 16), DF3D_F8(d, 24), DF3D_F8(d, 32),
-        DF3D_F8(d, 40), DF3D_F8(d, 48), DF3D_F8(d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 // ---------------------------------------------------------------- the consumers
-
-// hi and lo of four values (the A fragment of one k step: rows g, g+8 at k
-// slot t, then rows g, g+8 at slot t + 4)
-__device__ __forceinline__ void split4(float v0, float v1, float v2, float v3, uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-  const float v[4] = {v0, v1, v2, v3};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    hi[i] = __float_as_uint(v[i]) & kHiMask;
-    lo[i] = __float_as_uint(v[i] - __uint_as_float(hi[i]));
-  }
-}
 
 // What one consumer thread's blocks share.
 struct Ctx {
@@ -509,25 +351,13 @@ int launch(const float* x, const uint8_t* w, const float* b, float* y, int n, in
            void* stream) {
   const Layout L = make_layout(wd, COUT);
   if ((long long)n * L.bands * ((h - 1) / 2 + 1) > INT_MAX) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  auto kernel = stem_conv_kernel<COUT>;
-  // the opt-in to more than 48 KB is kept per device and only ever raised
-  static int allowed[kMaxDevices] = {};
-  static int sms[kMaxDevices] = {};
-  if (L.smem > allowed[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
-    if (err != cudaSuccess) return (int)err;
-    allowed[dev] = L.smem;
-  }
-  if (sms[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
+  constexpr auto kernel = stem_conv_kernel<COUT>;
+  int dev = 0, sms = 0;
+  int err = current_device(dev, sms);
+  if (err == 0) err = allow_smem<kernel>(dev, L.smem);
+  if (err != 0) return err;
   const int rows = n * L.bands * ((h - 1) / 2 + 1);
-  const int blocks = rows < sms[dev] ? rows : sms[dev];
+  const int blocks = rows < sms ? rows : sms;
   kernel<<<(unsigned)blocks, threads(COUT), L.smem, (cudaStream_t)stream>>>(x, w, b, y, n, h, wd,
                                                                             L);
   return (int)cudaGetLastError();

@@ -57,6 +57,7 @@ def upsample2x_add_plain(inner: torch.Tensor, skip: torch.Tensor) -> torch.Tenso
 
 
 _MERGE_DTYPES = {torch.float32: "df3d_upsample2x_add", torch.bfloat16: "df3d_upsample2x_add_bf16"}
+_MERGE_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 
 
 def upsample2x_add(inner: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
@@ -83,9 +84,7 @@ def upsample2x_add(inner: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(skip)
     if out.numel() == 0:
         return out
-    fn = getattr(_build.library("upsample_add"), _MERGE_DTYPES[skip.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("upsample_add", _MERGE_DTYPES[skip.dtype], _MERGE_ARGS)
     with torch.cuda.device(inner.device):      # a launch goes to the current device
         rc = fn(inner.data_ptr(), skip.data_ptr(), out.data_ptr(), n, h, w, c,
                 torch.cuda.current_stream(inner.device).cuda_stream)
@@ -108,6 +107,7 @@ upsample2x_add.launches_bf16 = 0
 # hi and then the lo half of the weights in wgmma's K-major core matrices; its
 # instances, every conv stem's Cout the port ships
 STEM_WIDTHS = (8, 32, 48, 64, 128)
+_STEM_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 STEM_ROW_K = 24
 STEM_K = 7 * STEM_ROW_K
 
@@ -179,7 +179,6 @@ def stem_conv(x: torch.Tensor, w_packed: torch.Tensor, b: torch.Tensor) -> torch
         raise ValueError(f"the stem kernel takes Cout in {STEM_WIDTHS}, not {cout}")
     if x.device.type != "cuda":
         raise ValueError(f"stem_conv runs on cuda or cpu, not {x.device}")
-    lib = _build.library("stem_conv")
     for name, t, align in (("x", x, 4), ("w_packed", w_packed, 16), ("b", b, 8)):
         _check_cuda(name, t, x.device)
         if t.data_ptr() % align:            # a bulk copy of the weights, 8-byte bias loads
@@ -189,9 +188,7 @@ def stem_conv(x: torch.Tensor, w_packed: torch.Tensor, b: torch.Tensor) -> torch
     y = torch.empty((n, (h - 1) // 2 + 1, (w - 1) // 2 + 1, cout), device=x.device)
     if y.numel() == 0:
         return y
-    fn = lib.df3d_stem_conv
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("stem_conv", "df3d_stem_conv", _STEM_ARGS)
     with torch.cuda.device(x.device):      # the library asks cudaGetDevice for the SM count
         rc = fn(x.data_ptr(), w_packed.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, w, cout,
                 torch.cuda.current_stream(x.device).cuda_stream)
@@ -226,17 +223,10 @@ def decode_heatmaps_plain(heatmaps: torch.Tensor) -> Tuple[torch.Tensor, torch.T
 
 
 # the decode kernel splits every image's cells over thread blocks: two per SM
-# of an H100 (132 SMs) over the whole launch, at least 64 cells each
-_DECODE_BLOCKS = 2 * 132
+# over the whole launch, at least 64 cells each
+_DECODE_BLOCKS = 2 * bn_ops.NUM_SMS
 _DECODE_MIN_CELLS = 64
-
-
-@lru_cache(maxsize=None)
-def _decode_kernel():
-    fn = _build.library("decode").df3d_decode_heatmaps
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_DECODE_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 
 
 def decode_splits(n: int, cells: int) -> int:
@@ -270,10 +260,11 @@ def decode_heatmaps(heatmaps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     splits = decode_splits(n, h * w)
     # the first pass's partial (value, index) pairs: values in the first half
     part = torch.empty((2, n, splits, k), device=dev, dtype=torch.int32)
+    fn = _build.entry("decode", "df3d_decode_heatmaps", _DECODE_ARGS)
     with torch.cuda.device(dev):
-        rc = _decode_kernel()(heatmaps.data_ptr(), pts.data_ptr(), conf.data_ptr(),
-                              part.data_ptr(), part.data_ptr() + part.numel() * 2, n, h, w, k,
-                              splits, torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(heatmaps.data_ptr(), pts.data_ptr(), conf.data_ptr(), part.data_ptr(),
+                part.data_ptr() + part.numel() * 2, n, h, w, k, splits,
+                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "decode kernel")
     decode_heatmaps.launches += 1
     return pts, conf
@@ -290,7 +281,6 @@ decode_heatmaps.launches = 0
 # stage, double-buffered in shared memory beside the band's float32 H-pass
 # rows; a block takes as many output rows per band as keep within it
 PREPROCESS_STAGE_ROWS = 8
-_MAX_SMEM = 227 * 1024
 # The run design: thread blocks of 8 H-pass warps (each thread up to 3
 # column words of a row: rows of at most 3072 bytes), 4 W-pass warps and a
 # producer warp; a ring of about this many bytes of input rows per block (7
@@ -305,7 +295,9 @@ PREPROCESS_H_SLOTS = 4
 PREPROCESS_OPEN = 3            # output rows an input row may feed, and rows a step adds
 _SM_SMEM = 228 * 1024          # shared memory of one H100 SM
 _BLOCK_RESERVED = 1024         # the runtime's reserve per thread block
-_SMS = 132                     # SMs of an H100 SXM
+# the C entries' arguments: df3d_preprocess_resize(_bf16), df3d_preprocess_instance
+_PREPROCESS_ARGS = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 13 + (ctypes.c_void_p,)
+_INSTANCE_ARGS = (ctypes.c_int,) * 6 + (ctypes.c_void_p,) * 2
 
 
 def preprocess_u8_plain(frames_u8: torch.Tensor, flip: torch.Tensor, shift=None,
@@ -413,7 +405,7 @@ def preprocess_plan(h_in: int, w_in: int, c: int, h_out: int, w_out: int,
         o_last = np.minimum(o0 + r, h_out) - 1
         stage_rows = int((starts[o_last] + kh - starts[o0]).max())
         smem = preprocess_smem(w_in, c, h_out, w_out, kh, kw, r, stage_rows)
-        if (stage_rows <= max_stage_rows or r == 1) and smem <= _MAX_SMEM:
+        if (stage_rows <= max_stage_rows or r == 1) and smem <= bn_ops.MAX_SMEM:
             return r, stage_rows, smem
     raise ValueError(f"the {kh} input rows of {w_in}x{c} that one output row reads exceed one "
                      f"thread block's shared memory")
@@ -449,7 +441,7 @@ class RunPlan(NamedTuple):
 
 @lru_cache(maxsize=64)
 def preprocess_run_plan(n: int, h_in: int, w_in: int, c: int, h_out: int, w_out: int,
-                        ring_rows: Optional[int] = None, sms: int = _SMS) -> RunPlan:
+                        ring_rows: Optional[int] = None, sms: int = bn_ops.NUM_SMS) -> RunPlan:
     """The run design's launch for a shape: ring depth, H-row slots, thread
     blocks per SM and the grid (the kernel caps the blocks per SM at what
     fits).  The ring holds ``ring_rows`` rows, or about
@@ -465,7 +457,7 @@ def preprocess_run_plan(n: int, h_in: int, w_in: int, c: int, h_out: int, w_out:
     hslots = PREPROCESS_H_SLOTS
     smem = preprocess_run_smem(w_in, c, w_out, kw, ring, hslots)
     per_sm = 2 if 2 * (smem + _BLOCK_RESERVED) <= _SM_SMEM else 1
-    if smem > _MAX_SMEM:
+    if smem > bn_ops.MAX_SMEM:
         raise ValueError(f"the run design's thread block needs {smem} bytes of shared memory")
     return RunPlan(ring, hslots, per_sm, smem, max(1, min(per_sm * sms, n * h_out)))
 
@@ -519,9 +511,7 @@ def preprocess_instance_for(frames_u8: torch.Tensor, out: torch.Tensor) -> str:
             preprocess_steps(h_in, h_out) is not None, frames_u8.data_ptr(), out.data_ptr())
     if frames_u8.device.type != "cuda":
         return preprocess_instance_name(preprocess_instance(*args))
-    fn = _build.library("preprocess").df3d_preprocess_instance
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
+    fn = _build.entry("preprocess", "df3d_preprocess_instance", _INSTANCE_ARGS)
     return preprocess_instance_name(fn(*args))
 
 
@@ -591,10 +581,8 @@ def preprocess_resize(frames_u8: torch.Tensor, flip: torch.Tensor, out_shape: Tu
                                               PREPROCESS_STAGE_ROWS)
     ends, table = (0, 0) if steps is None else (steps[0].data_ptr(), steps[1].data_ptr())
     dy, dx = (0, 0) if shift is None else (shift[0].data_ptr(), shift[1].data_ptr())
-    lib = _build.library("preprocess")
-    fn = lib.df3d_preprocess_resize_bf16 if bf16 else lib.df3d_preprocess_resize
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("preprocess", "df3d_preprocess_resize" + ("_bf16" if bf16 else ""),
+                      _PREPROCESS_ARGS)
     with torch.cuda.device(dev):          # the library asks cudaGetDevice for the SM count
         rc = fn(frames_u8.data_ptr(), flip.data_ptr(), dy, dx,
                 0 if gain is None else gain.data_ptr(), sh.data_ptr(), wh.data_ptr(),

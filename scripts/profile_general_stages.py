@@ -120,14 +120,15 @@ def main():
             cu, so = os.path.join(tmp, name + ".cu"), os.path.join(tmp, f"lib{name}.so")
             with open(cu, "w") as fh:
                 fh.write(instrument(src, skip))
-            built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
+            built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+                                    "-o", so, cu],
                                    capture_output=True, text=True)
             if built.returncode:
                 raise SystemExit(f"nvcc failed for {name}:\n{built.stdout}{built.stderr}")
             libs[name] = ctypes.CDLL(so)
         for name, lib in libs.items():
             _build._loaded["bottleneck_general"] = lib
-            bn._kernel.cache_clear()
+            _build.entry.cache_clear()
             for key in SHAPES:
                 n, h, w, cin, cmid, cout, proj, raw = key
                 params, stats = chip_smoke.seeded_block(np, cin, cmid, cout)
@@ -161,7 +162,7 @@ def main():
                     print(f"STAGES {name} {dtype} {list(key[:6])} {start.elapsed_time(end):.4f} ms, "
                           f"{total:.0f} cycles per thread block: " + " ".join(
                               f"{k}={v / total:.3f}" for k, v in zip(NAMES, per)), flush=True)
-        bn._kernel.cache_clear()
+        _build.entry.cache_clear()
         _build._loaded.pop("bottleneck_general", None)
 
 
