@@ -26,8 +26,9 @@ result line):
 4. kernel phase: every kernel against its plain PyTorch version on the card
    at every recorded shape, with the tolerance stated (and the preprocess
    kernel in identity mode at 480x960, which is the TPU kernel exactly, and
-   the conv stem kernel, which replaces no TPU kernel, also at the benchmark
-   cells' calls, ``STEM_CELL_SHAPES``, on seeded weights).  The
+   the conv stem kernel and the head kernel, which replace no TPU kernel, also
+   at the benchmark cells' calls, ``STEM_CELL_SHAPES`` and
+   ``HEADS_CELL_SHAPES``, on seeded weights).  The
    preprocess runs as the paths run it, with the rig registration's
    per-image shift and gain: it must equal, bit for bit, the kernel on
    ``apply_shift_tc``'s frames times the gain (``unfused_ms`` times that
@@ -243,11 +244,11 @@ SHIPPED = [CONV, "hourglass_fly_tpu.npz", "hourglass_fly_p16.npz", P16, STUDENT]
 # ceil(0.125 * 56) = 7 images)
 EXPECTED = {
     "conv": {"fused_bottleneck": 31, "upsample2x_add": 8, "decode_heatmaps": 1,
-             "preprocess_resize": 1, "stem_conv": 1},
+             "preprocess_resize": 1, "stem_conv": 1, "stack_heads": 2},
     "p16": {"fused_bottleneck": 16, "upsample2x_add": 4, "decode_heatmaps": 1,
-            "preprocess_resize": 1, "stem_conv": 0},
+            "preprocess_resize": 1, "stem_conv": 0, "stack_heads": 0},
     "cascade": {"fused_bottleneck": 16 + 31, "upsample2x_add": 4 + 8, "decode_heatmaps": 2,
-                "preprocess_resize": 2, "stem_conv": 1},
+                "preprocess_resize": 2, "stem_conv": 1, "stack_heads": 1 + 2},
 }
 # of the output's largest magnitude: the bottleneck kernel's 3xTF32 products
 # against f32 sums in another order, and against its own arithmetic model
@@ -274,7 +275,8 @@ HEATMAP_HW = (64, 128)
 H36M_REF = os.path.join("deepfly3d_torch", "data", "h36m_t4.npz")
 H36M_BATCH = 8
 H36M_PER_BATCH = {"fused_bottleneck": 0, "fused_bottleneck_128": 59, "upsample2x_add": 16,
-                  "decode_heatmaps": 1, "preprocess_resize": 1, "stem_conv": 1}
+                  "decode_heatmaps": 1, "preprocess_resize": 1, "stem_conv": 1,
+                  "stack_heads": 0}
 H36M_CONF_TOL = 2e-5
 H36M_TIES = 0.05        # at most this share of image-joints within 10x the conf tolerance of a tie
 VIDEO_FRAMES = 4        # frames of the video phase (scripts/make_video_goldens.py)
@@ -284,7 +286,7 @@ VIDEO_FRAMES = 4        # frames of the video phase (scripts/make_video_goldens.
 # the JAX package's (python tests/test_torch_parallel.py --write)
 FLEET_COPIES, FLEET_T = 2, 15
 PER_FORWARD = {"fused_bottleneck": 31, "upsample2x_add": 8, "decode_heatmaps": 1,
-               "preprocess_resize": 1, "stem_conv": 1}
+               "preprocess_resize": 1, "stem_conv": 1, "stack_heads": 2}
 LM_BATCH_REF = os.path.join("deepfly3d_torch", "data", "parallel_lm_b8.npz")
 SAME_SOLVE_RTOL = 1e-10  # batched vs unbatched lm: of the largest camera parameter
 FLEET_QUICK_N = 100      # kernel-phase shapes of >= this many images are timed with fewer repeats
@@ -369,12 +371,19 @@ SOURCES = {
     # the conv stem (relu(conv7x7/2 + b)) of every conv-stem net, float32 in
     # both dtypes; the JAX package leaves it to XLA
     "stem_conv": ("deepfly3d_torch/ops/csrc/stem_conv.cu", None, []),
+    # each stack's 1x1 head chain of the float32 96-wide nets with a 1x1 score
+    # head; the JAX package leaves it to XLA
+    "stack_heads": ("deepfly3d_torch/ops/csrc/stack_heads.cu", None, []),
 }
 # the kernels whose bound is three TF32 MMAs per product
-TF32X3 = ("fused_bottleneck", "fused_bottleneck_128", "fused_bottleneck_general", "stem_conv")
+TF32X3 = ("fused_bottleneck", "fused_bottleneck_128", "fused_bottleneck_general", "stem_conv",
+          "stack_heads")
 # the stem kernel at the benchmark cells' calls, on no path of this script:
 # fly_conv's 224 images to 48 channels and df2d256's 112 to 64, 256x512 in
 STEM_CELL_SHAPES = ((224, 256, 512, 3, 48), (112, 256, 512, 3, 64))
+# the head kernel at fly_conv's call, on no path of this script: 224 images of
+# 64x128, both stacks (N, H, W, F, K, remaps)
+HEADS_CELL_SHAPES = ((224, 64, 128, 96, 19, True), (224, 64, 128, 96, 19, False))
 
 
 def decode_np(np, hm):
@@ -554,6 +563,10 @@ def record_shapes(twin, path, rows, run):
         note("stem_conv", tuple(x.shape) + (b.shape[0],))
         return kernels.stem_conv_plain(x, w_packed, b)
 
+    def heads(f_in, y, packed, biases, out):
+        note("stack_heads", tuple(f_in.shape) + (out.shape[3], y is not None))
+        return kernels.stack_heads_plain(f_in, y, packed, biases, out)
+
     def decode(hm):
         note("decode_heatmaps", tuple(hm.shape))
         return kernels.decode_heatmaps_plain(hm)
@@ -564,7 +577,7 @@ def record_shapes(twin, path, rows, run):
                                                  gain=gain)
 
     for net in twin.nets().values():
-        net.block_fn, net.merge_fn, net.stem_fn = block, merge, stem
+        net.block_fn, net.merge_fn, net.stem_fn, net.head_fn = block, merge, stem, heads
     twin.decode, twin.preprocess = decode, preprocess
     run(twin)
 
@@ -596,7 +609,7 @@ def ingest_phase(torch, np, est, frames0, order, counters, rows, card):
     ``infer_videos`` run) on golden frame 0 tiled to INGEST_T frames per
     camera and drifted, at INGEST_BATCH with the conv checkpoint.  Checks the
     registration against the planted drift, the launches (1 preprocess, 1
-    stem, 31 bottleneck, 8 upsample-add and 1 decode per batch, the counts recorded
+    stem, 31 bottleneck, 8 upsample-add, 2 head and 1 decode per batch, the counts recorded
     from the plain twin), the output against the plain twin (points equal,
     conf within 1e-5) and against the JAX package's (INGEST_REF: cells,
     conf within 2e-5).  -> {kernel: launches}."""
@@ -618,12 +631,13 @@ def ingest_phase(torch, np, est, frames0, order, counters, rows, card):
     got = {c.__name__: c.launches for c in counters}
     batches = -(-len(frames) // INGEST_BATCH)
     want = {"fused_bottleneck": 31 * batches, "upsample2x_add": 8 * batches,
-            "decode_heatmaps": batches, "preprocess_resize": batches, "stem_conv": batches}
+            "decode_heatmaps": batches, "preprocess_resize": batches, "stem_conv": batches,
+            "stack_heads": 2 * batches}
     recorded = recorded_launches(rows, "ingest")
     if got != want or nonzero(got) != recorded:
         raise AssertionError(f"ingest launches {got}, want {want} (recorded {recorded})")
     print(f"ingest launches for {batches} batches of {INGEST_BATCH}: {got} "
-          f"(per batch 1 / 1 / 31 / 8 / 1)")
+          f"(per batch 1 / 1 / 31 / 8 / 2 / 1)")
     found = [(reg[c][0] - clean[c][0], reg[c][1] - clean[c][1]) for c in range(C)]
     if found != list(zip(INGEST_DY, INGEST_DX)) or \
             [reg[c][2] != clean[c][2] for c in range(C)] != [g != 1.0 for g in INGEST_GAIN]:
@@ -699,9 +713,11 @@ def count_launches(torch, counters, run):
 
 
 def check_launches(name, got, batches):
-    """1 preprocess, 1 stem, 31 bottleneck, 8 upsample-add and 1 decode launch per batch."""
+    """1 preprocess, 1 stem, 31 bottleneck, 8 upsample-add, 2 head and 1 decode
+    launches per batch."""
     want = {"fused_bottleneck": 31 * batches, "upsample2x_add": 8 * batches,
-            "decode_heatmaps": batches, "preprocess_resize": batches, "stem_conv": batches}
+            "decode_heatmaps": batches, "preprocess_resize": batches, "stem_conv": batches,
+            "stack_heads": 2 * batches}
     if got != want:
         raise AssertionError(f"{name} launches {got}, want {want} ({batches} batches)")
     print(f"{name} launches for {batches} batches: {got}")
@@ -1688,9 +1704,10 @@ def train_phase(torch, np, dev, card, counters, converted):
         print("\n".join("  train_fly_weights: " + line for line in text.splitlines()
                         if not line.startswith("{'step'")))
         # 3 preprocess launches (the inputs and two evals: step 200 and the
-        # final one), 1 stem, 31 bottleneck, 8 upsample-add and 1 decode per eval
+        # final one), 1 stem, 31 bottleneck, 8 upsample-add, 2 head and 1 decode
+        # per eval
         want = {"fused_bottleneck": 62, "upsample2x_add": 16, "decode_heatmaps": 2,
-                "preprocess_resize": 3, "stem_conv": 2}
+                "preprocess_resize": 3, "stem_conv": 2, "stack_heads": 4}
         if got != want or rc not in (0, 1) or not os.path.exists(out):
             raise AssertionError(f"(m) train_fly_weights: rc {rc}, launches {got} (want {want})")
         launches["train_script"] = got
@@ -1981,7 +1998,7 @@ def bf16_phase(torch, np, F, dev, card, ckpt, calib, order, frames, ref0, rows, 
     from deepfly3d_torch.pipeline import build_pipeline, plain_twin
 
     wrappers = (bn.fused_bottleneck, kernels.upsample2x_add, kernels.decode_heatmaps,
-                kernels.preprocess_resize, kernels.stem_conv)
+                kernels.preprocess_resize, kernels.stem_conv, kernels.stack_heads)
     counted = tuple(counts_with_bf16(wrappers))
 
     def bf16_spec(key, bf16=True):
@@ -2396,7 +2413,7 @@ def wide_phase(torch, np, F, dev, card, calib, order, frames, ref0, record, shap
     from deepfly3d_torch.utils import synthetic
 
     wrappers = (bn.fused_bottleneck, kernels.upsample2x_add, kernels.decode_heatmaps,
-                kernels.preprocess_resize, kernels.stem_conv)
+                kernels.preprocess_resize, kernels.stem_conv, kernels.stack_heads)
     counted = tuple(counts_with_bf16(wrappers))
 
     def counted_run(run):
@@ -2688,7 +2705,7 @@ def bf16_train_phase(torch, np, dev, card, counters, f32_lines):
         # the inputs and two evals (step 100 and the final one) through the
         # preprocess kernel, each eval's heatmaps through the decode kernel
         want_l = {"fused_bottleneck": 0, "upsample2x_add": 0, "decode_heatmaps": 2,
-                  "preprocess_resize": 3, "stem_conv": 0}
+                  "preprocess_resize": 3, "stem_conv": 0, "stack_heads": 0}
         if got != want_l or rc not in (0, 1) or not os.path.exists(path):
             raise AssertionError(f"(w) train_fly_weights --dtype bfloat16: rc {rc}, launches "
                                  f"{got} (want {want_l})")
@@ -2864,7 +2881,7 @@ def calibration_phase(torch, np, dev, card, counters):
     (feat, heat, golden, sets), got = count_launches(torch, counters, lambda: timed(
         "extract_features_s", lambda: cal.extract_features(variables, spec, shape, device=dev)))
     want_l = {"fused_bottleneck": 0, "upsample2x_add": 0, "decode_heatmaps": 0,
-              "preprocess_resize": 1, "stem_conv": 0}
+              "preprocess_resize": 1, "stem_conv": 0, "stack_heads": 0}
     if got != want_l or tuple(feat.shape) != (105, 64, 128, spec.features) \
             or not torch.isfinite(feat).all() or not np.isfinite(heat).all():
         raise AssertionError(f"(y) extract_features: launches {got} (want {want_l}), feat "
@@ -3292,8 +3309,60 @@ def main(argv):
             "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": bound_ms(flops, nbytes)[0],
             "flops": flops, "bytes": nbytes}, counts)
 
+    def check_heads(key, counts):
+        """The head kernel on seeded weights at the recorded shape: raw and y'
+        within BLOCK_TOL of its plain version; the library call is the chain it
+        replaced: cuBLAS's 1x1 products (TF32 off), their bias adds, the ReLU
+        and the adds."""
+        n, h, w, f, k, remap = key
+        t = {"feat_w": torch.randn((f, f), generator=gen) / f ** 0.5,
+             "feat_b": torch.randn((f,), generator=gen) * 0.1,
+             "score_w": torch.randn((f, k), generator=gen) / f ** 0.5,
+             "score_b": torch.randn((k,), generator=gen) * 0.1}
+        if remap:
+            t.update({"remap_feat_w": torch.randn((f, f), generator=gen) / f ** 0.5,
+                      "remap_feat_b": torch.randn((f,), generator=gen) * 0.1,
+                      "remap_score_w": torch.randn((k, f), generator=gen) / k ** 0.5,
+                      "remap_score_b": torch.randn((f,), generator=gen) * 0.1})
+        packed, biases = (v.to(dev) for v in kernels.pack_heads(t))
+        wd = {name: v.to(dev) for name, v in t.items()}
+        f_in = torch.randn((n, h, w, f), generator=gen).to(dev)
+        y = torch.randn((n, h, w, f), generator=gen).to(dev) if remap else None
+        out = torch.empty((n, h, w, k), device=dev)
+        ref = torch.empty_like(out)
+        got_y = kernels.stack_heads(f_in, y, packed, biases, out)
+        want_y = kernels.stack_heads_plain(f_in, y, packed, biases, ref)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if remap:
+            err = max(err, (got_y - want_y).abs().max().item())
+            scale = max(scale, want_y.abs().max().item())
+        if not err <= BLOCK_TOL * max(1.0, scale):
+            raise AssertionError(f"stack_heads {key}: max abs err {err}")
+        p = n * h * w
+        flops = 2.0 * p * (f * f + f * k + ((f * f + k * f) if remap else 0))
+        nbytes = 4.0 * p * (f + k + (2 * f if remap else 0))
+        b_ms, b_by = bound_ms(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
+
+        def library():
+            fm = torch.relu(f_in @ wd["feat_w"] + wd["feat_b"])
+            raw = fm @ wd["score_w"] + wd["score_b"]
+            if remap:
+                return (y + (fm @ wd["remap_feat_w"] + wd["remap_feat_b"])) + (
+                    raw @ wd["remap_score_w"] + wd["remap_score_b"])
+            return raw
+
+        record("stack_heads", {
+            "shape": list(key), "max_abs_err": err,
+            **times(torch, lambda: kernels.stack_heads(f_in, y, packed, biases, out),
+                    lambda: kernels.stack_heads_plain(f_in, y, packed, biases, ref), library,
+                    quick=n >= FLEET_QUICK_N),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": bound_ms(flops, nbytes)[0],
+            "flops": flops, "bytes": nbytes}, counts)
+
     checks = {"fused_bottleneck": check_bottleneck, "fused_bottleneck_128": check_bottleneck,
-              "upsample2x_add": check_merge, "stem_conv": check_stem,
+              "upsample2x_add": check_merge, "stem_conv": check_stem, "stack_heads": check_heads,
               "decode_heatmaps": check_decode, "preprocess_resize": check_preprocess}
     for (kernel, key), row in sorted(rows.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
         if kernel in ("fused_bottleneck", "fused_bottleneck_128"):
@@ -3318,6 +3387,11 @@ def main(argv):
     print("informational: the stem kernel at the benchmark cells' calls, on " + card + ": "
           + json.dumps([{k: r[k] for k in ("shape", "ms", "bound_ms", "plain_ms", "library_ms")}
                         for r in shape_rows[-len(STEM_CELL_SHAPES):]]))
+    for key in HEADS_CELL_SHAPES:
+        check_heads(key, {})
+    print("informational: the head kernel at fly_conv's call, on " + card + ": "
+          + json.dumps([{k: r[k] for k in ("shape", "ms", "bound_ms", "plain_ms", "library_ms")}
+                        for r in shape_rows[-len(HEADS_CELL_SHAPES):]]))
     print(json.dumps({"kernel_shapes": shape_rows}))
     print(json.dumps({"per_path": per_path}))
     h36m_batches = -(-h36m_frames.shape[0] * h36m_frames.shape[1] // H36M_BATCH)
@@ -3333,7 +3407,7 @@ def main(argv):
 
     # ---- 5. slice phase, full width
     counters = (bn.fused_bottleneck, kernels.upsample2x_add, kernels.decode_heatmaps,
-                kernels.preprocess_resize, kernels.stem_conv)
+                kernels.preprocess_resize, kernels.stem_conv, kernels.stack_heads)
     launches = {}
     fps_lines = []
 

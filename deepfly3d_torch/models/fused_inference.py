@@ -13,6 +13,12 @@ from a JAX checkpoint), and the forward (``FoldedHourglass``) runs
   (``ops/kernels.upsample2x_add``),
 * the ``conv`` stem's 7x7/2 convolution with its folded batch norm and ReLU
   in the stem kernel (``ops/kernels.stem_conv``),
+* each stack's head chain in the head kernel (``ops/kernels.stack_heads``):
+  the 1x1 feature head and its ReLU, the 1x1 score head and, between stacks,
+  both remaps and the two adds of the re-injection, in a float32 net of a
+  width in ``HEAD_WIDTHS`` with a 1x1 score head, no upsampling and at most
+  ``HEAD_CLASSES`` classes (the 96-wide fly nets); each stack writes its
+  heatmaps into its slice of the one output tensor,
 
 and leaves the rest to plain PyTorch in full float32, as the JAX package
 leaves it to XLA:
@@ -21,7 +27,7 @@ leaves it to XLA:
   ``patch16`` (16x16/8 convolution, padding 4), ``patch8`` (8x8/4,
   padding 2) or ``patchify`` (4x4 space-to-depth and a 1x1 embedding),
   each followed by the folded batch norm and a ReLU;
-* the max-pools and the 1x1 feature heads;
+* the max-pools, and the head chains of every other net;
 * the score head: a k x k convolution (``score_ksize``, odd k, SAME zero
   padding) to ``num_classes * u * u`` channels and, for ``head_upsample``
   u > 1, the depth-to-space to (H*u, W*u, num_classes) in the JAX order
@@ -84,7 +90,9 @@ from deepfly3d_torch.ops import bottleneck as bn_ops
 from deepfly3d_torch.ops import image as image_ops
 from deepfly3d_torch.ops.bottleneck import (add_packed, bn_affine, fold_bottleneck,
                                             fused_bottleneck)
-from deepfly3d_torch.ops.kernels import conv_nhwc, pack_stem, stem_conv, upsample2x_add
+from deepfly3d_torch.ops.kernels import (HEAD_CLASSES, HEAD_WIDTHS, conv_nhwc, dot1x1,
+                                         pack_heads, pack_stem, stack_heads, stem_conv,
+                                         upsample2x_add)
 
 # (kernel, stride, padding) of the strided patch embeddings
 _PATCH_CONV = {"patch16": (16, 8, 4), "patch8": (8, 4, 2)}
@@ -242,10 +250,6 @@ def depth_to_space(raw: torch.Tensor, u: int) -> torch.Tensor:
             .reshape(n, h * u, w * u, k))
 
 
-def _dot1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return x @ w + b
-
-
 class FoldedHourglass(nn.Module):
     """Stacked-hourglass forward over folded weights; NHWC, float32 or
     bfloat16 between layers (the spec's ``compute_dtype``).
@@ -255,7 +259,9 @@ class FoldedHourglass(nn.Module):
     run through ``block_fn`` (``fused_bottleneck``), level merges through
     ``merge_fn`` (``upsample2x_add``) and the conv stem's convolution, bias and
     ReLU through ``stem_fn`` (``stem_conv``, float32 products in both dtypes,
-    on the weights packed once as ``stem_packed``),
+    on the weights packed once as ``stem_packed``) and, where ``heads_fused``,
+    each stack's head chain through ``head_fn`` (``stack_heads``, on each
+    stack's ``head_packed`` and ``head_biases``),
     which launch the CUDA kernels (the bfloat16 instances in a bfloat16 net)
     on a card;
     ``pipeline.plain_twin`` swaps in their plain versions.  The glue's weights
@@ -283,16 +289,26 @@ class FoldedHourglass(nn.Module):
         self.blocks = nn.ModuleDict(
             {name: _Tensors(add_packed(t)) for name, t in folded["blocks"].items()}
         )
+        # the head kernel's nets, told by dtype and head shapes: float32, a 1x1
+        # score head without upsampling, its width and class count
+        first = folded["stacks"][0]
+        self.heads_fused = (not self.bf16 and spec.head_upsample == 1
+                            and first["score_w"].dim() == 2
+                            and first["feat_w"].shape[0] in HEAD_WIDTHS
+                            and first["score_w"].shape[1] <= HEAD_CLASSES)
         stacks = []
         for t in folded["stacks"]:
             t = {k: v.float() for k, v in t.items()}
             if spec.score_ksize > 1:
                 t["score_w"] = t["score_w"].permute(3, 2, 0, 1)
+            if self.heads_fused:
+                t["head_packed"], t["head_biases"] = pack_heads(t)
             stacks.append(_Tensors(t))
         self.stacks = nn.ModuleList(stacks)
         self.block_fn = fused_bottleneck
         self.merge_fn = upsample2x_add
         self.stem_fn = stem_conv
+        self.head_fn = stack_heads
 
     def block(self, name: str, x: torch.Tensor) -> torch.Tensor:
         return self.block_fn(x, self.blocks[name].as_dict())
@@ -329,7 +345,7 @@ class FoldedHourglass(nn.Module):
         if stem == "conv":                              # relu(conv + b) in one
             y = self.stem_fn(x.contiguous(), self.stem_packed, self.stem_b)
         elif stem == "patchify":
-            y = torch.relu(_dot1x1(space_to_depth4(x), self.stem_w, self.stem_b))
+            y = torch.relu(dot1x1(space_to_depth4(x), self.stem_w, self.stem_b))
         else:
             _, stride, padding = _PATCH_CONV[stem]
             y = torch.relu(conv_nhwc(x, self.stem_w, self.stem_b, stride=stride,
@@ -350,16 +366,23 @@ class FoldedHourglass(nn.Module):
             stack = self.stacks[s]
             hg = self._level(y, f"hg{s}", spec.depth)
             f = self.block(f"feat_res{s}", hg).float()
-            f = self._act(torch.relu(_dot1x1(f, stack.feat_w, stack.feat_b))).float()
+            if self.heads_fused:        # the whole chain in one launch, into stack s's slice
+                if s == 0:
+                    out = f.new_empty((spec.num_stacks, *f.shape[:3], spec.num_classes))
+                last = s == spec.num_stacks - 1
+                y = self.head_fn(f, None if last else y, stack.head_packed, stack.head_biases,
+                                 out[s])
+                continue
+            f = self._act(torch.relu(dot1x1(f, stack.feat_w, stack.feat_b))).float()
             if k == 1:
-                raw = _dot1x1(f, stack.score_w, stack.score_b)
+                raw = dot1x1(f, stack.score_w, stack.score_b)
             else:
                 raw = conv_nhwc(f, stack.score_w, stack.score_b, stride=1, padding=k // 2)
             outputs.append(depth_to_space(raw, u) if u > 1 else raw)
             if s < spec.num_stacks - 1:
                 # y + remap(f) + remap(raw), each term and sum rounded in a bf16 net
-                rf = self._act(_dot1x1(f, stack.remap_feat_w, stack.remap_feat_b)).float()
-                rs = self._act(_dot1x1(self._act(raw).float(), stack.remap_score_w,
-                                       stack.remap_score_b)).float()
+                rf = self._act(dot1x1(f, stack.remap_feat_w, stack.remap_feat_b)).float()
+                rs = self._act(dot1x1(self._act(raw).float(), stack.remap_score_w,
+                                      stack.remap_score_b)).float()
                 y = self._act(self._act(y.float() + rf).float() + rs).contiguous()
-        return torch.stack(outputs)
+        return out if self.heads_fused else torch.stack(outputs)

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
 )
 SOURCES = ("bottleneck", "bottleneck_128", "bottleneck_bf16", "bottleneck_general",
-           "upsample_add", "decode", "preprocess", "stem_conv")
+           "upsample_add", "decode", "preprocess", "stem_conv", "stack_heads")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,5 +1,5 @@
-"""Level merge, heatmap decode, frame preprocess and conv stem: plain versions
-and CUDA wrappers.
+"""Level merge, heatmap decode, frame preprocess, conv stem and stack heads:
+plain versions and CUDA wrappers.
 
 Counterpart of ``deepfly3d_tpu/ops/pallas/kernels.py``:
 
@@ -13,7 +13,10 @@ Counterpart of ``deepfly3d_tpu/ops/pallas/kernels.py``:
   per-image integer roll and gain correction around it (``csrc/preprocess.cu``);
 * ``stem_conv`` — the hourglass's conv stem, relu(conv7x7/2(x) + b), in one
   pass (``csrc/stem_conv.cu``; no TPU kernel: the JAX package leaves the stem
-  to XLA).
+  to XLA);
+* ``stack_heads`` — one stack's 1x1 head chain (feature head and its ReLU,
+  score head, and between stacks both remaps and the two adds of the
+  re-injection) in one pass (``csrc/stack_heads.cu``; no TPU kernel either).
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs the
 plain PyTorch version on a CPU tensor.  It launches under
@@ -137,15 +140,28 @@ def pack_stem(w_oihw: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(bn_ops._pack_tf32(wk.reshape(STEM_K, coutp), "pair", coutp))
 
 
+def _unpack_tf32(flat: torch.Tensor, rows: int, cols: int, order: str) -> torch.Tensor:
+    """One weight of ``bottleneck._pack_tf32``'s layout in one pass of ``cols``
+    columns -> (rows, cols), hi + lo, bit for bit: row 8 s + 2 j + kc of k half
+    kc, element j of step s ("pair"), or 16 (s // 2) + 4 j + 2 (s % 2) + kc
+    ("quad")."""
+    # (step, hi|lo, column group, k half, column, element)
+    parts = flat.reshape(rows // 8, 2, cols // 8, 2, 8, 4)
+    w = parts[:, 0] + parts[:, 1]
+    if order == "pair":                     # -> (step, element, k half, group, column)
+        return w.permute(0, 4, 2, 1, 3).reshape(rows, cols)
+    # (step pair, step parity, ...) -> (step pair, element, parity, k half, group, column)
+    w = w.reshape(rows // 16, 2, cols // 8, 2, 8, 4).permute(0, 5, 1, 3, 2, 4)
+    return w.reshape(rows, cols)
+
+
 def unpack_stem(w_packed: torch.Tensor, cout: int) -> torch.Tensor:
     """``pack_stem``'s buffer -> the (Cout, 3, 7, 7) weights, bit for bit, on
     the buffer's device."""
     coutp = -(-cout // 8) * 8
     if w_packed.numel() != 2 * STEM_K * coutp:
         raise ValueError(f"w_packed has {w_packed.numel()} values: not a stem of Cout {cout}")
-    # (step, hi|lo, column group, k half, column, element) -> k = 8 step + 2 element + half
-    parts = w_packed.reshape(STEM_K // 8, 2, coutp // 8, 2, 8, 4)
-    wk = (parts[:, 0] + parts[:, 1]).permute(0, 4, 2, 1, 3).reshape(STEM_K, coutp)
+    wk = _unpack_tf32(w_packed, STEM_K, coutp, "pair")
     hwio = wk.reshape(7, STEM_ROW_K, coutp)[:, 1:22, :cout].reshape(7, 7, 3, cout)
     return hwio.permute(3, 2, 0, 1).contiguous()
 
@@ -198,6 +214,178 @@ def stem_conv(x: torch.Tensor, w_packed: torch.Tensor, b: torch.Tensor) -> torch
 
 
 stem_conv.launches = 0
+
+
+# --------------------------------------------------------------- stack heads
+
+# csrc/stack_heads.cu: the feature widths of its instance, and the score head's
+# columns as it runs them (the classes padded with zero weights)
+HEAD_WIDTHS = (96,)
+HEAD_CLASSES = 24
+_HEADS_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+_HEAD_BIASES = ("feat_b", "score_b", "remap_feat_b", "remap_score_b")
+
+
+def dot1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A 1x1 convolution of an NHWC tensor: x @ w + b."""
+    return x @ w + b
+
+
+def _head_layout(f: int, remap: bool):
+    """[((weight, rows, columns) side by side, k order)] of ``pack_heads``'
+    buffer for F = ``f``, the classes padded to ``HEAD_CLASSES``: feat_w; the
+    score head, with remap_feat_w beside it where ``remap``; remap_score_w."""
+    k = HEAD_CLASSES
+    score = (("score_w", f, k), ("remap_feat_w", f, f)) if remap else (("score_w", f, k),)
+    parts = [((("feat_w", f, f),), "quad"), (score, "pair")]
+    return parts + [((("remap_score_w", k, f),), "pair")] if remap else parts
+
+
+def _head_sizes(f: int, remap: bool) -> Tuple[int, int]:
+    """(packed, biases) values of ``pack_heads``' buffers."""
+    packed = sum(2 * ws[0][1] * sum(c for *_, c in ws) for ws, _ in _head_layout(f, remap))
+    return packed, f + HEAD_CLASSES + (2 * f if remap else 0)
+
+
+def _check_head_buffers(packed: torch.Tensor, biases: torch.Tensor, f: int, remap: bool) -> None:
+    if (packed.numel(), biases.numel()) != _head_sizes(f, remap):
+        raise ValueError(f"packed ({packed.numel()}) and biases ({biases.numel()}) are not the "
+                         f"heads of F={f}" + (" with the remaps" if remap else ""))
+
+
+def pack_heads(stack) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A stack's folded float32 1x1 heads (``feat_w`` (F, F), ``score_w`` (F, K)
+    and, between stacks, ``remap_feat_w`` (F, F) and ``remap_score_w`` (K, F),
+    with their biases) -> the head kernel's (packed weights, biases), float32
+    on the CPU.
+
+    The weights as ``bottleneck._pack_tf32`` lays them out, each part in one
+    pass of all its columns: ``feat_w`` in the "quad" k order (a lane reads 16
+    bytes of a pixel for two k steps); in the "pair" order (A an accumulator
+    fragment) the score head with K padded to ``HEAD_CLASSES`` with zero
+    weights and, between stacks, ``remap_feat_w`` beside it as one (F, 24 + F)
+    weight, then ``remap_score_w`` with its rows padded.  The biases are one
+    vector: feat_b, score_b padded with zeros, remap_feat_b, remap_score_b.
+    ``unpack_heads`` inverts both bit for bit.
+    """
+    k = stack["score_w"].shape[1]
+    if k > HEAD_CLASSES:
+        raise ValueError(f"the head kernel takes at most {HEAD_CLASSES} classes, not {k}")
+    remap = "remap_feat_w" in stack
+    weights = []
+    for side, order in _head_layout(stack["feat_w"].shape[0], remap):
+        blocks = []
+        for name, rows, cols in side:
+            block = np.zeros((rows, cols), np.float32)
+            src = stack[name].detach().cpu().float().numpy()
+            block[:src.shape[0], :src.shape[1]] = src
+            blocks.append(block)
+        w = np.concatenate(blocks, axis=1)
+        weights.append(bn_ops._pack_tf32(w, order, w.shape[1]))
+    biases = []
+    for name in _HEAD_BIASES[:4 if remap else 2]:
+        b = stack[name].detach().cpu().float().numpy()
+        biases.append(np.pad(b, (0, HEAD_CLASSES - b.shape[0])) if name == "score_b" else b)
+    return (torch.from_numpy(np.concatenate(weights)),
+            torch.from_numpy(np.concatenate(biases).astype(np.float32)))
+
+
+def unpack_heads(packed: torch.Tensor, biases: torch.Tensor, features: int, classes: int,
+                 remap: bool):
+    """``pack_heads``' buffers -> {name: weight or bias} at the unpadded
+    widths, contiguous, bit for bit, on the buffers' device."""
+    _check_head_buffers(packed, biases, features, remap)
+    out, at = {}, 0
+    for side, order in _head_layout(features, remap):
+        rows, cols = side[0][1], sum(c for *_, c in side)
+        w = _unpack_tf32(packed[at:at + 2 * rows * cols], rows, cols, order)
+        col = 0
+        for name, r, c in side:
+            part = w[:, col:col + c]
+            out[name] = {"score_w": part[:, :classes], "remap_score_w": part[:classes]}.get(
+                name, part).contiguous()
+            col += c
+        at += 2 * rows * cols
+    widths = (features, HEAD_CLASSES, features, features)
+    bat = 0
+    for name, c in zip(_HEAD_BIASES[:4 if remap else 2], widths):
+        out[name] = biases[bat:bat + (classes if name == "score_b" else c)]
+        bat += c
+    return out
+
+
+def stack_heads_plain(f_in: torch.Tensor, y: Optional[torch.Tensor], packed: torch.Tensor,
+                      biases: torch.Tensor, out: torch.Tensor) -> Optional[torch.Tensor]:
+    """One stack's float32 1x1 head chain on NHWC tensors, the weights
+    unpacked from ``pack_heads``' buffers: ``raw = relu(f_in @ feat_w + b) @
+    score_w + b`` into ``out`` (N, H, W, K); with ``y`` (every stack but the
+    last), returns ``(y + remap(f)) + remap(raw)``, else None."""
+    w = unpack_heads(packed, biases, f_in.shape[-1], out.shape[-1], y is not None)
+    f = torch.relu(dot1x1(f_in, w["feat_w"], w["feat_b"]))
+    raw = dot1x1(f, w["score_w"], w["score_b"])
+    out.copy_(raw)
+    if y is None:
+        return None
+    rf = dot1x1(f, w["remap_feat_w"], w["remap_feat_b"])
+    rs = dot1x1(raw, w["remap_score_w"], w["remap_score_b"])
+    return (y + rf) + rs
+
+
+def stack_heads(f_in: torch.Tensor, y: Optional[torch.Tensor], packed: torch.Tensor,
+                biases: torch.Tensor, out: torch.Tensor) -> Optional[torch.Tensor]:
+    """One stack's head chain, ``stack_heads_plain``'s function, in one pass:
+    writes the score head's output into ``out`` and returns the next stack's
+    input (None for the last stack, ``y`` None).
+
+    Launches ``csrc/stack_heads.cu`` on CUDA tensors (counted in
+    ``stack_heads.launches``) or raises: F outside ``HEAD_WIDTHS``, more than
+    ``HEAD_CLASSES`` classes, a tensor that is not contiguous float32 on
+    f_in's device; ``stack_heads_plain`` on CPU tensors.
+    """
+    if f_in.dim() != 4 or out.dim() != 4 or tuple(out.shape[:3]) != tuple(f_in.shape[:3]):
+        raise ValueError(f"f_in must be (N, H, W, F) and out (N, H, W, K), got "
+                         f"{tuple(f_in.shape)} and {tuple(out.shape)}")
+    if y is not None and y.shape != f_in.shape:
+        raise ValueError(f"y {tuple(y.shape)} must have f_in's shape {tuple(f_in.shape)}")
+    dev = f_in.device
+    for t in (y, packed, biases, out):
+        if t is not None and t.device != dev:
+            raise ValueError(f"f_in, y, packed, biases and out must be on one device, got "
+                             f"{t.device} beside {dev}")
+    if dev.type == "cpu":
+        return stack_heads_plain(f_in, y, packed, biases, out)
+    n, h, w, f = f_in.shape
+    k = out.shape[3]
+    if f not in HEAD_WIDTHS:
+        raise ValueError(f"the head kernel takes F in {HEAD_WIDTHS}, not {f}")
+    if not 1 <= k <= HEAD_CLASSES:
+        raise ValueError(f"the head kernel takes 1 to {HEAD_CLASSES} classes, not {k}")
+    if dev.type != "cuda":
+        raise ValueError(f"stack_heads runs on cuda or cpu, not {dev}")
+    y_out = None if y is None else torch.empty_like(f_in)
+    for name, t, align in (("f_in", f_in, 16), ("y", y, 16), ("packed", packed, 16),
+                           ("biases", biases, 8), ("out", out, 4), ("y_out", y_out, 8)):
+        if t is None:
+            continue
+        _check_cuda(name, t, dev)
+        if t.data_ptr() % align:            # 16-byte loads of f_in and y; the weights' bulk copy
+            raise ValueError(f"{name} must be {align}-byte aligned")
+    _check_head_buffers(packed, biases, f, y is not None)
+    if n * h * w == 0:
+        return y_out
+    if n * h * w > 2 ** 31 - 65:             # the kernel counts pixels in an int
+        raise ValueError(f"the head kernel takes at most 2**31 - 65 pixels, not {n * h * w}")
+    fn = _build.entry("stack_heads", "df3d_stack_heads", _HEADS_ARGS)
+    with torch.cuda.device(dev):           # the library asks cudaGetDevice for the SM count
+        rc = fn(f_in.data_ptr(), 0 if y is None else y.data_ptr(), packed.data_ptr(),
+                biases.data_ptr(), out.data_ptr(), 0 if y_out is None else y_out.data_ptr(),
+                n * h * w, f, k, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "stack heads kernel")
+    stack_heads.launches += 1
+    return y_out
+
+
+stack_heads.launches = 0
 
 
 # ------------------------------------------------------------ heatmap decode

@@ -38,8 +38,8 @@ from deepfly3d_torch.models.hourglass import HourglassSpec
 from deepfly3d_torch.ops import canonicalize, geometry
 from deepfly3d_torch.ops import image as image_ops
 from deepfly3d_torch.ops.bottleneck import bottleneck_plain
-from deepfly3d_torch.ops.kernels import (decode_heatmaps_plain, stem_conv_plain,
-                                         upsample2x_add_plain)
+from deepfly3d_torch.ops.kernels import (decode_heatmaps_plain, stack_heads_plain,
+                                         stem_conv_plain, upsample2x_add_plain)
 from deepfly3d_torch.utils.devices import full_f32, resolve_device
 from deepfly3d_torch.utils.profiling import span
 
@@ -162,10 +162,10 @@ class Pipeline:
 
 def plain_twin(pipe: Pipeline) -> Pipeline:
     """A copy of ``pipe`` (or of a cascade) whose stages run each kernel's
-    plain PyTorch version: bottleneck, upsample-add, conv stem, preprocess
-    (with the registration's roll and gain as separate steps) and decode (a
-    soft-argmax stage keeps its refinement and takes its cells from the plain
-    decode).
+    plain PyTorch version: bottleneck, upsample-add, conv stem, stack heads,
+    preprocess (with the registration's roll and gain as separate steps) and
+    decode (a soft-argmax stage keeps its refinement and takes its cells from
+    the plain decode).
 
     It shares the weights and the device, and launches no kernel: on a card
     it is the yardstick and the check for the kernels.
@@ -173,8 +173,8 @@ def plain_twin(pipe: Pipeline) -> Pipeline:
     twin = copy.copy(pipe)
     for attr, net in pipe.nets().items():
         net = copy.copy(net)
-        net.block_fn, net.merge_fn, net.stem_fn = (bottleneck_plain, upsample2x_add_plain,
-                                                    stem_conv_plain)
+        net.block_fn, net.merge_fn, net.stem_fn, net.head_fn = (
+            bottleneck_plain, upsample2x_add_plain, stem_conv_plain, stack_heads_plain)
         setattr(twin, attr, net)
     twin.preprocess = image_ops.preprocess_frames_plain
     if hasattr(pipe.decode, "argmax"):      # soft-argmax: its cells from the plain decode

@@ -10,7 +10,8 @@ its error against the plain version and against its own arithmetic model
 magnitude; the general instance (any width of the envelope, every weight
 streamed) to the same, and at bf16 to 2 bf16 ulps; a width past the
 envelope raises.  The conv stem kernel sums 147 products as the same
-3xTF32 and is held to the same 5e-5.  The upsample-add and the decode are
+3xTF32 and is held to the same 5e-5, and so is the head kernel (96 and 24
+products a chained 1x1 head).  The upsample-add and the decode are
 exact (NaN and signed zeros included).  The preprocess sums
 <= 25 products in another order than cuBLAS: 2e-6 on [0, 1] values when it
 resizes (times the largest gain when the rig registration's gain is folded
@@ -25,6 +26,7 @@ on the card (its cells from the decode kernel) must give the CPU's cells and
 conf and points within 1e-5.
 """
 
+import copy
 import ctypes
 import os
 import pickle
@@ -463,6 +465,110 @@ def test_stem_kernel_launches_once_per_conv_forward(monkeypatch):
     assert torch.equal(got, want)
 
 
+# (pixels as (N, H, W), classes, remaps): the fly cell's call (224 images of
+# 64x128, 28,672 whole m64 blocks), a last block of 39 pixels, one partial
+# block, 24 classes (no padded column)
+HEADS_CARD_SHAPES = [((224, 64, 128), 19, True), ((224, 64, 128), 19, False),
+                     ((3, 7, 11), 19, True), ((3, 7, 11), 19, False), ((1, 1, 5), 24, True),
+                     ((56, 64, 128), 24, False)]
+
+
+def _heads(classes, remap, seed):
+    g = torch.Generator().manual_seed(seed)
+    t = {"feat_w": torch.randn((96, 96), generator=g) / 96 ** 0.5,
+         "feat_b": torch.randn((96,), generator=g) * 0.1,
+         "score_w": torch.randn((96, classes), generator=g) / 96 ** 0.5,
+         "score_b": torch.randn((classes,), generator=g) * 0.1}
+    if remap:
+        t.update({"remap_feat_w": torch.randn((96, 96), generator=g) / 96 ** 0.5,
+                  "remap_feat_b": torch.randn((96,), generator=g) * 0.1,
+                  "remap_score_w": torch.randn((classes, 96), generator=g) / classes ** 0.5,
+                  "remap_score_b": torch.randn((96,), generator=g) * 0.1})
+    return kernels.pack_heads(t)
+
+
+@pytest.mark.parametrize("shape,classes,remap", HEADS_CARD_SHAPES)
+def test_stack_heads_kernel_matches_plain(shape, classes, remap):
+    """The head kernel (csrc/stack_heads.cu, 3xTF32 wgmma) against its plain
+    version (cuBLAS, TF32 off) at the bottleneck's tolerance: 5e-5 of each
+    output's largest magnitude; one launch, and no scratch beyond y'."""
+    dev = _card()
+    packed, biases = (t.to(dev) for t in _heads(classes, remap, classes + remap))
+    g = torch.Generator().manual_seed(len(shape))
+    f_in = torch.randn(shape + (96,), generator=g).to(dev)
+    y = torch.randn(shape + (96,), generator=g).to(dev) if remap else None
+    out = torch.full(shape + (classes,), float("nan"), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    before = kernels.stack_heads.launches
+    got_y = kernels.stack_heads(f_in, y, packed, biases, out)
+    torch.cuda.synchronize()
+    assert kernels.stack_heads.launches == before + 1
+    assert torch.cuda.max_memory_allocated(dev) - held <= (f_in.numel() * 4 if remap else 0) \
+        + (1 << 20)
+    want = torch.empty_like(out)
+    want_y = kernels.stack_heads_plain(f_in, y, packed, biases, want)
+    assert (out - want).abs().max().item() <= 5e-5 * max(1.0, want.abs().max().item())
+    assert (got_y is None) == (not remap)
+    if remap:
+        assert (got_y - want_y).abs().max().item() <= 5e-5 * max(1.0, want_y.abs().max().item())
+
+
+def test_stack_heads_kernel_refusals_on_the_card():
+    dev = _card()
+    packed, biases = (t.to(dev) for t in _heads(19, True, 0))
+    x = torch.rand((1, 4, 4, 96), device=dev)
+    out = torch.empty((1, 4, 4, 19), device=dev)
+    with pytest.raises(ValueError, match=r"F in \(96,\), not 64"):
+        kernels.stack_heads(torch.rand((1, 4, 4, 64), device=dev),
+                            torch.rand((1, 4, 4, 64), device=dev), packed, biases, out)
+    with pytest.raises(ValueError, match="1 to 24 classes, not 25"):
+        kernels.stack_heads(x, x, packed, biases, torch.empty((1, 4, 4, 25), device=dev))
+    for bad in (x.double(), x.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            kernels.stack_heads(bad, x, packed, biases, out)
+    with pytest.raises(ValueError):                 # the weights on the CPU
+        kernels.stack_heads(x, x, packed.cpu(), biases, out)
+    with pytest.raises(ValueError, match="not the heads"):      # no y: the last stack's buffers
+        kernels.stack_heads(x, None, packed, biases, out)
+
+
+def test_stack_heads_launch_once_per_stack_and_match_the_plain_twin():
+    """A fly forward launches the head kernel once a stack, and neither a
+    library GEMM nor an elementwise pass; its heatmaps match the same net with
+    the plain heads within 5e-5 of their size, and the whole plain twin within
+    1e-4."""
+    dev = _card()
+    variables, spec = load_weights(CHECKPOINT)
+    net = FoldedHourglass(fold_hourglass(variables, spec), spec).to(dev).eval()
+    assert net.heads_fused
+    x = torch.rand((7, 256, 512, 3), generator=torch.Generator().manual_seed(9)).to(dev)
+    with torch.inference_mode():
+        net(x)
+        torch.cuda.synchronize()
+        before = kernels.stack_heads.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = net(x)
+            torch.cuda.synchronize()
+        assert kernels.stack_heads.launches == before + 2
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        heads = copy.copy(net)
+        heads.head_fn = kernels.stack_heads_plain
+        want = heads(x)
+        plain = copy.copy(net)
+        plain.block_fn, plain.merge_fn, plain.stem_fn, plain.head_fn = (
+            bn.bottleneck_plain, kernels.upsample2x_add_plain, kernels.stem_conv_plain,
+            kernels.stack_heads_plain)
+        plain = plain(x)
+    assert sum("stack_heads_kernel" in n for n in names) == 2
+    # no library GEMM and no elementwise pass is left in the forward
+    assert not any("gemm" in n.lower() or "elementwise" in n for n in names), sorted(set(names))
+    tol = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 5e-5 * tol
+    assert (got - plain).abs().max().item() <= 1e-4 * tol
+
+
 @pytest.mark.parametrize("shape", [(3, 5, 7, 1), (2, 9, 9, 256), (1, 4, 4, 1000), (300, 2, 2, 3)])
 def test_decode_kernel_takes_any_joint_count(shape):
     dev = _card()
@@ -798,6 +904,11 @@ def test_kernel_wrappers_launch_under_their_input_device(blocks, monkeypatch):
             torch.rand((2, 32, 64, 3), generator=g).to(dev),
             kernels.pack_stem(torch.randn((48, 3, 7, 7), generator=g)).to(dev),
             torch.randn((48,), generator=g).to(dev)),
+        kernels.stack_heads: lambda: kernels.stack_heads(
+            torch.randn((2, 8, 16, 96), generator=g).to(dev),
+            torch.randn((2, 8, 16, 96), generator=g).to(dev),
+            *(t.to(dev) for t in _heads(19, True, 5)),
+            torch.empty((2, 8, 16, 19), device=dev)),
     }
     for wrapper, call in calls.items():
         entered.clear()
