@@ -20,7 +20,12 @@ result line):
    at 192x384 on every image, teacher ``hourglass_fly.npz`` on the 7 most
    suspicious), and the CLI's path ``ingest`` (``PoseEstimator.infer_chunks``,
    the loop of ``infer_folder`` / ``infer_videos``, at batch 8 with the conv
-   checkpoint over 16 drifted frames per camera).  Each path's plain twin
+   checkpoint over 16 drifted frames per camera), and ``h36m_pipeline``: the
+   h36m profile on ``Pipeline`` (``build_pipeline(..., profile="h36m")``, rig
+   registration off, the observations undistorted before the float64 SVD
+   DLT) with phase 8's seeded 4-stack 128-wide network at the benchmark cell
+   h36m.dev_B32's call, 32 frames of 4 distorted 1000x1000 cameras (one
+   forward of 128 images).  Each path's plain twin
    (``pipeline.plain_twin``) runs once with recording wrappers: every shape
    the path gives each kernel, and how many times;
 4. kernel phase: every kernel against its plain PyTorch version on the card
@@ -50,7 +55,13 @@ result line):
    (informational).  Then one conv call on drifted frames (per-camera rolls
    and a gain planted on the same frames): the registration must find the
    planted rolls and a gain other than 1, and the output must match the
-   plain twin.  With ``--profile FILE``, a torch.profiler table per path and
+   plain twin.  The ``h36m_pipeline`` path likewise, at its call: 59
+   ``bottleneck_128`` launches, 1 stem, 16 upsample-add, 1 preprocess and 1
+   decode, no other; against its plain twin heatmaps (so conf) within 5e-5
+   of their magnitude, the same cells wherever the twin's top-2 margin
+   exceeds twice the heatmaps' largest difference, points3d within 1e-5
+   relative where every camera's cell agrees; frames/s in turns
+   (informational).  With ``--profile FILE``, a torch.profiler table per path and
    its device time, with the time in ``index`` gathers;
    Then the ingest phase: the estimator's chunk loop with every launch
    count set to 0 just before (1 preprocess, 31 bottleneck, 8 upsample-add
@@ -279,6 +290,11 @@ H36M_PER_BATCH = {"fused_bottleneck": 0, "fused_bottleneck_128": 59, "upsample2x
                   "stack_heads": 0}
 H36M_CONF_TOL = 2e-5
 H36M_TIES = 0.05        # at most this share of image-joints within 10x the conf tolerance of a tie
+# the h36m profile on Pipeline (build_pipeline(..., profile="h36m"), the path of
+# the benchmark cell h36m.dev_B32) at that cell's call: H36M_PIPE_T frames of 4
+# cameras from utils/synthetic.human_frames at H36M_PIPE_SEED on the h36m
+# phase's rig, the h36m phase's network; one forward of 128 images a call
+H36M_PIPE_T, H36M_PIPE_SEED = 32, 5
 VIDEO_FRAMES = 4        # frames of the video phase (scripts/make_video_goldens.py)
 # the fleet phase: two copies of the bundled recording (15 frames x 7 cameras)
 # and an empty folder through parallel.fleet.process_recordings; one forward
@@ -378,9 +394,10 @@ SOURCES = {
 # the kernels whose bound is three TF32 MMAs per product
 TF32X3 = ("fused_bottleneck", "fused_bottleneck_128", "fused_bottleneck_general", "stem_conv",
           "stack_heads")
-# the stem kernel at the benchmark cells' calls, on no path of this script:
-# fly_conv's 224 images to 48 channels and df2d256's 112 to 64, 256x512 in
-STEM_CELL_SHAPES = ((224, 256, 512, 3, 48), (112, 256, 512, 3, 64))
+# the stem kernel at the benchmark cells' calls: fly_conv's 224 images to 48
+# channels and df2d256's 112 to 64, 256x512 in (on no path of this script), and
+# h36m.dev_B32's 128 to 64, 384x384 in (the h36m_pipeline path's)
+STEM_CELL_SHAPES = ((224, 256, 512, 3, 48), (112, 256, 512, 3, 64), (128, 384, 384, 3, 64))
 # the head kernel at fly_conv's call, on no path of this script: 224 images of
 # 64x128, both stacks (N, H, W, F, K, remaps)
 HEADS_CELL_SHAPES = ((224, 64, 128, 96, 19, True), (224, 64, 128, 96, 19, False))
@@ -1092,6 +1109,105 @@ def h36m_phase(torch, np, dev, est, ref, frames, counters, rows, card):
           f"batch {H36M_BATCH}: {[round(T / t, 1) for t in warm]} frames/s (pinned staging, "
           f"copy, device); device {batch_ms:.3f} ms per batch of {H36M_BATCH} (replayed CUDA "
           f"graph: preprocess, network, decode); on {card}")
+    return got
+
+
+def h36m_pipeline_inputs(np, torch, dev, ckpt, rig, T=H36M_PIPE_T, seed=H36M_PIPE_SEED,
+                         size=1000):
+    """The h36m profile on ``Pipeline`` (rig registration off, the rig's
+    distortion applied) with the h36m phase's checkpoint, and ``T`` frames of
+    its 4 cameras on the card: -> (pipeline, frames (T, 4, size, size, 3))."""
+    from deepfly3d_torch.models.hourglass import load_weights
+    from deepfly3d_torch.ops import geometry
+    from deepfly3d_torch.pipeline import build_pipeline
+    from deepfly3d_torch.utils import synthetic
+
+    variables, spec = load_weights(ckpt)
+    calib = geometry.calib_to_arrays(rig, len(rig), dtype=np.float32)
+    pipe = build_pipeline(spec, variables, calib, list(range(len(rig))), rig=None, device=dev,
+                          profile="h36m")
+    frames, _, _ = synthetic.human_frames(seed, T, rig, size=size)
+    return pipe, torch.from_numpy(np.ascontiguousarray(frames.transpose(1, 0, 2, 3, 4))).to(dev)
+
+
+def h36m_pipeline_phase(torch, np, pipe, frames, counters, rows, card):
+    """The h36m profile on ``Pipeline`` (the path of the benchmark cell
+    h36m.dev_B32) at its call: the launches with every count set to 0 just
+    before (H36M_PER_BATCH: one forward of every image, no fly, general or
+    head kernel; as recorded from the plain twin), the output against the
+    plain twin's on the card: heatmaps within BLOCK_TOL of their magnitude, so
+    conf too; the same cells wherever the twin's top-2 margin exceeds twice
+    the heatmaps' largest difference (where no cell can move); points3d
+    within 1e-5 of the largest wherever every camera's cell agrees; frames/s
+    in turns (informational).  -> {kernel: launches}."""
+    from deepfly3d_torch.pipeline import plain_twin
+
+    T, C = frames.shape[:2]
+    twin = plain_twin(pipe)
+    decoders, heatmaps = (pipe.decode, twin.decode), []
+
+    def keeping(decode):
+        def keep(hm):
+            heatmaps.append(hm)
+            return decode(hm)
+        return keep
+
+    pipe.decode, twin.decode = (keeping(d) for d in decoders)
+    try:
+        (p3d, p2d, conf), got = count_launches(torch, counters, lambda: pipe(frames))
+        before = counts_with_bf16(counters)
+        q3d, q2d, qconf = twin(frames)
+        torch.cuda.synchronize()
+        plain_launched = counts_with_bf16(counters) != before
+    finally:
+        pipe.decode, twin.decode = decoders
+    recorded = recorded_launches(rows, "h36m_pipeline")
+    if got != H36M_PER_BATCH or nonzero(got) != recorded:
+        raise AssertionError(f"h36m_pipeline launches {got}, want {H36M_PER_BATCH} (recorded "
+                             f"{recorded})")
+    print(f"slice h36m_pipeline launches ({T} frames of {C} cameras, one forward): {got}")
+    if plain_launched:
+        raise AssertionError("the plain h36m pipeline launched a kernel")
+    K = pipe.net.spec.num_classes
+    if not (p3d.shape == (T, K, 3) and p2d.shape == (C, T, K, 2)
+            and conf.shape == (C, T, K, 1) and bool(torch.isfinite(p3d).all())):
+        raise AssertionError(f"h36m_pipeline outputs {tuple(p3d.shape)}, {tuple(p2d.shape)}, "
+                             f"{tuple(conf.shape)}, or not finite")
+    hm, qhm = heatmaps
+    hm_diff = (hm - qhm).abs().max().item()
+    hm_tol = BLOCK_TOL * max(1.0, qhm.abs().max().item())
+    top2 = qhm.reshape(qhm.shape[0], -1, K).topk(2, dim=1).values
+    margin = (top2[:, 0] - top2[:, 1]).reshape(T, C, K).permute(1, 0, 2)
+    del hm, qhm, top2, heatmaps[:]
+    conf_diff = (conf - qconf).abs().max().item()
+    sure = margin > 2 * hm_diff
+    moved = (p2d != q2d).any(-1)
+    agree = ~moved.any(0)
+    p3d_diff = ((p3d - q3d).abs().max(-1).values[agree].max().item()
+                / q3d.abs().max().clamp_min(1e-30).item())
+    if hm_diff > hm_tol or conf_diff > hm_diff or bool((moved & sure).any()) or p3d_diff > 1e-5:
+        raise AssertionError(f"h36m_pipeline vs plain: heatmaps {hm_diff} (tolerance {hm_tol}), "
+                             f"conf {conf_diff}, {int((moved & sure).sum())} cells moved outside "
+                             f"near-ties, points3d rel {p3d_diff}")
+    print(f"slice h36m_pipeline vs plain on the card: heatmaps max diff {hm_diff} (<= {hm_tol}), "
+          f"conf {conf_diff}; the same cells on {int(sure.sum())} of {sure.numel()} "
+          f"image-joints, {int((~sure).sum())} near-ties (top-2 margin <= {2 * hm_diff:.3g}), "
+          f"{int(moved.sum())} of them in another cell; points3d max rel diff {p3d_diff} on "
+          f"{int(agree.sum())} of {agree.numel()} joints")
+
+    def fps(p, iters=3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            p(frames)
+        torch.cuda.synchronize()
+        return T * iters / (time.perf_counter() - t)
+
+    pipe(frames), twin(frames)                              # warm both
+    turns = [(fps(pipe), fps(twin)) for _ in range(2)]      # kernel, plain, kernel, plain
+    print(f"informational: h36m_pipeline frames/s in turns (4-camera frames of 1000x1000, "
+          f"T={T}, frames already on the card): kernels {[k for k, _ in turns]}, plain "
+          f"versions {[q for _, q in turns]}, on {card}")
     return got
 
 
@@ -3124,6 +3240,11 @@ def main(argv):
     h36m_est = PoseEstimator(h36m_ckpt, device=dev)
     record_shapes(plain_twin(h36m_est), "h36m", rows, lambda twin: twin.infer_chunks(
         h36m_chunk(np, h36m_frames), H36M_BATCH))
+    # the same network on Pipeline, the h36m profile's device path, at the call
+    # of the benchmark cell h36m.dev_B32 (slice phase)
+    h36m_pipe, h36m_pipe_frames = h36m_pipeline_inputs(np, torch, dev, h36m_ckpt, h36m_rig)
+    record_shapes(plain_twin(h36m_pipe), "h36m_pipeline", rows,
+                  lambda twin: twin(h36m_pipe_frames))
     # the fleet path (fleet phase): one forward per mesh entry over every image of
     # the recordings, on every visible card ("fleet") and on two entries of this
     # card ("fleet2"), padded with the first images as process_recordings pads
@@ -3404,6 +3525,11 @@ def main(argv):
           + json.dumps({kernel: {key: row[key] / h36m_batches for key in
                                  ("launches", "ms", "bound_ms", "plain_ms", "library_ms")}
                         for kernel, row in per_path["h36m"].items()}))
+    print(f"informational: the h36m_pipeline path per call ({H36M_PIPE_T} frames of 4 cameras, "
+          f"kernel-phase times of its shapes times their launches), on {card}: "
+          + json.dumps({kernel: {key: row[key] for key in
+                                 ("launches", "ms", "bound_ms", "plain_ms", "library_ms")}
+                        for kernel, row in per_path["h36m_pipeline"].items()}))
 
     # ---- 5. slice phase, full width
     counters = (bn.fused_bottleneck, kernels.upsample2x_add, kernels.decode_heatmaps,
@@ -3495,6 +3621,10 @@ def main(argv):
           f"dx {clean_reg[1].tolist()}); launches {got}; vs plain: p38 equal, conf max diff "
           f"{conf_diff}, points3d max rel diff {pts3d_diff}")
 
+    # the h36m profile on Pipeline at h36m.dev_B32's call
+    launches["h36m_pipeline"] = h36m_pipeline_phase(torch, np, h36m_pipe, h36m_pipe_frames,
+                                                    counters, rows, card)
+
     # ---- 5b. ingest phase: the CLI's chunk loop at batch 8
     launches["ingest"] = ingest_phase(torch, np, estimator, ref0["frames"], order, counters,
                                       rows, card)
@@ -3513,6 +3643,7 @@ def main(argv):
                                                              registration=ingest_reg)
             calls["h36m"] = lambda: h36m_est.infer_chunks(h36m_chunk(np, h36m_frames),
                                                           H36M_BATCH)
+            calls["h36m_pipeline"] = lambda: h36m_pipe(h36m_pipe_frames)
             calls["train"] = train_step_call(torch, np, dev)
             for path, call in calls.items():
                 torch.cuda.synchronize()
@@ -3534,7 +3665,9 @@ def main(argv):
                                   f"the registration known",
                         "train": f"one training step of the conv checkpoint at batch {TRAIN_BATCH}",
                         "h36m": f"{h36m_frames.shape[1]} frames of 4 cameras in batches of "
-                                f"{H36M_BATCH}"}.get(path, f"T={BATCH_T}")
+                                f"{H36M_BATCH}",
+                        "h36m_pipeline": f"T={H36M_PIPE_T} frames of 4 cameras",
+                        }.get(path, f"T={BATCH_T}")
                 fh.write(f"\n==== {path} path, one call at {what}; {line}\n")
                 fh.write(events.table(sort_by="cuda_time_total", row_limit=40))
 
@@ -3680,9 +3813,10 @@ def main(argv):
             **({"arithmetic": "1 bf16 MMA per product, f32 accumulate"}
                if name in ("fused_bottleneck_bf16", "fused_bottleneck_general_bf16") else {}),
             "per": f"times: one call of each recorded path ({', '.join(EXPECTED)}, ingest, "
-                   f"h36m, fleet, fleet2, converted, {', '.join(BF16_PATHS)}, converted256, "
-                   f"converted256_bf16; the general instance's rows at TOY_SHAPES on no path) "
-                   f"at T={BATCH_T}, the kernel-phase time of every shape times its launches; "
+                   f"h36m, h36m_pipeline, fleet, fleet2, converted, {', '.join(BF16_PATHS)}, "
+                   f"converted256, converted256_bf16; the general instance's rows at TOY_SHAPES "
+                   f"on no path) at T={BATCH_T} (h36m_pipeline at T={H36M_PIPE_T}), the "
+                   f"kernel-phase time of every shape times its launches; "
                    f"launches: every counted run ({', '.join(launches)})",
         }
         entries.append(entry)

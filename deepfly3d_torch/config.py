@@ -50,6 +50,10 @@ class Config:
     num_cameras: int = 7
     skeleton: Skeleton = dataclasses.field(default_factory=lambda: fly.skeleton)
     flip_cameras: Tuple[int, ...] = (4, 5, 6)    # fed horizontally flipped
+    # the device pipeline's DLT (``geometry.triangulate``'s method) and the dtype
+    # of its geometry (calibration, undistortion, DLT)
+    dlt_method: str = "normal"
+    dlt_dtype: str = "float32"
     image_hw: Tuple[int, int] = (480, 960)       # (height, width) of a frame
     image_shape: Optional[Tuple[int, int]] = None   # (width, height), probed by Core
     network: NetworkConfig = dataclasses.field(default_factory=NetworkConfig)
@@ -86,6 +90,14 @@ def h36m_config() -> Config:
         num_cameras=4,
         skeleton=h36m.skeleton,
         flip_cameras=(),
+        # the closed-form float32 DLT converges in its four inverse-power steps
+        # only where a point's singular values lie well apart.  On this ring of
+        # opposite cameras a seeded net's 2D points (random cross-camera
+        # correspondences, not a trained net's) give clustered ones and nearly
+        # parallel rays, whose depth float32 cannot hold: the SVD in float64,
+        # as ``Core`` triangulates
+        dlt_method="svd",
+        dlt_dtype="float64",
         image_hw=(1000, 1000),                   # a Human3.6M frame
         # the fly's per-side Procrustes registration does not apply to the
         # human skeleton: the raw triangulated points are the 3D output

@@ -83,9 +83,8 @@ class CascadePipeline(Pipeline):
 
     def __init__(self, student: FoldedHourglass, teacher: FoldedHourglass,
                  student_shape, teacher_shape, cfg: CascadeConfig, rig, calib,
-                 camera_ordering, device, num_cameras, image_hw):
-        super().__init__(student, rig, calib, camera_ordering, student_shape, device,
-                         num_cameras, image_hw)
+                 camera_ordering, device, profile):
+        super().__init__(student, rig, calib, camera_ordering, student_shape, device, profile)
         self.teacher = teacher
         self.teacher_shape = tuple(teacher_shape)
         self.cfg = cfg
@@ -131,4 +130,4 @@ def build_cascade_pipeline(student_vars, student_spec: HourglassSpec, teacher_va
             for v, s in ((student_vars, student_spec), (teacher_vars, teacher_spec))]
     shapes = [tuple(s.input_shape or (256, 512)) for s in (student_spec, teacher_spec)]
     return CascadePipeline(nets[0], nets[1], shapes[0], shapes[1], cfg, rig_arrays,
-                           calib_t, camera_ordering, dev, fly.num_cameras, fly.image_hw)
+                           calib_t, camera_ordering, dev, fly)

@@ -117,9 +117,10 @@ def _dlt_homogeneous(obs_xy: torch.Tensor, P: torch.Tensor, mask: torch.Tensor,
 
     obs_xy (B, C, 2) pixels, P (C, 3, 4), mask (B, C) -> (B, 3): the null
     vector of each (2C, 4) matrix A (x rows, then y rows; unseen cameras'
-    rows zeroed) over its w, zeros where fewer than two cameras see the
-    point.  ``"svd"``: the right singular vector of A's smallest singular
-    value; ``"eigh"``: the eigenvector of A^T A's smallest eigenvalue.
+    rows zeroed) over its w (1e-12 where it is 0), zeros where fewer than
+    two cameras see the point.  ``"svd"``: the right singular vector of A's
+    smallest singular value; ``"eigh"``: the eigenvector of A^T A's smallest
+    eigenvalue.
     """
     m = mask[..., None].to(obs_xy.dtype)
     rows_x = (obs_xy[..., 0:1] * P[None, :, 2, :] - P[None, :, 0, :]) * m
@@ -129,14 +130,18 @@ def _dlt_homogeneous(obs_xy: torch.Tensor, P: torch.Tensor, mask: torch.Tensor,
         X = torch.linalg.eigh(A.transpose(1, 2) @ A).eigenvectors[..., 0]   # (B, 4)
     else:
         X = torch.linalg.svd(A, full_matrices=True).Vh[:, -1]
-    point = X[:, :3] / X[:, 3:]
+    w = X[:, 3:]
+    # a null vector at infinity (parallel rays, as opposite cameras that see one cell
+    # give) is a point far along it, not an infinity
+    point = X[:, :3] / torch.where(w == 0, torch.full_like(w, 1e-12), w)
     valid = (mask.sum(dim=1) >= 2)[:, None]
     return torch.where(valid, point, torch.zeros_like(point))
 
 
 def triangulate(points2d_rowcol: torch.Tensor, R: torch.Tensor, tvec: torch.Tensor,
                 intr: torch.Tensor, image_shape: Tuple[int, int],
-                method: str = "svd", distort: Optional[torch.Tensor] = None) -> torch.Tensor:
+                method: str = "svd", distort: Optional[torch.Tensor] = None,
+                pixels: Optional[torch.Tensor] = None) -> torch.Tensor:
     """DLT-triangulate every (frame, joint): (C, T, J, 2) -> (T, J, 3).
 
     Zeros where fewer than two cameras see the joint.  ``method``: "svd"
@@ -144,13 +149,20 @@ def triangulate(points2d_rowcol: torch.Tensor, R: torch.Tensor, tvec: torch.Tens
     reference's 1e-5), "eigh" (the smallest eigenvector of A^T A) or
     "normal" (closed form, the float32 pipelines).  ``distort``: optional
     (C, 5) OpenCV coefficients; the pixel observations are undistorted first
-    (identity for zeros).
+    (identity for zeros).  ``pixels``: the observations as (C, T, J, 2)
+    pixel (x, y), where the caller has made them (undistorted by
+    ``_undistort_pixels``, say), in place of the points' own; the points
+    still say which are observed.  ``pixels`` with ``distort`` is refused:
+    it would undistort twice.
     """
     if method not in ("normal", "svd", "eigh"):
         raise ValueError(f"unknown triangulate method {method!r} (normal, svd or eigh)")
+    if pixels is not None and distort is not None:
+        raise ValueError("triangulate takes pixels or distort, not both: pass pixels "
+                         "already undistorted")
     C, T, J, _ = points2d_rowcol.shape
     P = projection_matrices(R, tvec, intr)
-    obs = rowcol_to_pixel_xy(points2d_rowcol, image_shape)
+    obs = rowcol_to_pixel_xy(points2d_rowcol, image_shape) if pixels is None else pixels
     mask = observation_mask(points2d_rowcol)
     if distort is not None:
         obs = _undistort_pixels(obs, intr, distort)

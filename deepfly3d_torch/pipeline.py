@@ -1,6 +1,6 @@
 """The golden 2D->3D inference path as one callable on the device.
 
-Counterpart of ``bench.py::build_pipeline``:
+Counterpart of ``bench.py::build_pipeline``, for the fly profile:
 
     (T, C, 480, 960, 3) uint8
       -> rig registration: estimate an integer shift and a gain per camera
@@ -13,14 +13,25 @@ Counterpart of ``bench.py::build_pipeline``:
       -> masked DLT triangulation (closed-form "normal" method, float32)
     -> (points3d (T, 38, 3), points2d38 (C, T, 38, 2), conf (C, T, 19, 1))
 
+The capture profile (``config.py``, by name: ``"fly"`` or ``"h36m"``)
+gives the camera count, the frame size, the cameras fed flipped, whether
+the 19->38 assembly runs (a net that predicts one body side's joints) and
+the DLT with the dtype of the geometry (``dlt_method``, ``dlt_dtype``).
+The h36m profile: (T, 4, 1000, 1000, 3) uint8, no flip, no assembly, the
+observations undistorted by the calibration's coefficients before the
+DLT, which is the SVD's in float64 -> (points3d (T, 17, 3), points2d (C,
+T, 17, 2), conf (C, T, 17, 1)).
+
 Every shipped checkpoint runs here, at its own input shape.  Everything
-runs in float32 with TF32 off.  ``models/cascade.py`` builds the student +
-parity-repair configuration on the same stages.
+runs in float32 with TF32 off, but for the h36m profile's geometry.
+``models/cascade.py`` builds the student + parity-repair configuration on
+the same stages.
 
 Under a ``torch.profiler`` session each call is a ``df3d.call`` span and
 each stage a span inside it (``utils.profiling.span``): ``register.copy``,
 ``register.estimate``, ``preprocess``, ``net``, ``decode``, ``assemble``
-(twice: the points and the confidences) and ``triangulate``.
+(twice: the points and the confidences), ``undistort`` (only where the
+calibration has distortion) and ``triangulate``.
 """
 
 from __future__ import annotations
@@ -31,7 +42,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from deepfly3d_torch.config import fly_config
+from deepfly3d_torch.config import Config, fly_config, h36m_config
 from deepfly3d_torch.models.decode import decode_argmax
 from deepfly3d_torch.models.fused_inference import FoldedHourglass, fold_hourglass
 from deepfly3d_torch.models.hourglass import HourglassSpec
@@ -43,6 +54,7 @@ from deepfly3d_torch.ops.kernels import (decode_heatmaps_plain, stack_heads_plai
 from deepfly3d_torch.utils.devices import full_f32, resolve_device
 from deepfly3d_torch.utils.profiling import span
 
+PROFILES = {"fly": fly_config, "h36m": h36m_config}
 
 def assemble38(pts19: torch.Tensor, order: Sequence[int], left_cams: torch.Tensor,
                right_cams: torch.Tensor, K: int) -> torch.Tensor:
@@ -65,28 +77,36 @@ class Pipeline:
     """Callable golden pipeline; see ``build_pipeline``.
 
     ``net`` (the folded hourglass), ``preprocess`` and ``decode`` are plain
-    attributes: the stages of the path, each on ``device``.
+    attributes: the stages of the path, each on ``device``.  ``calib`` is
+    (R, tvec, intr, distort), ``distort`` None where the rig has no
+    distortion; they are kept in the dtype of the profile's DLT.
     """
 
     def __init__(self, net: FoldedHourglass, rig: Optional[canonicalize.TemplateArrays],
-                 calib: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                 calib: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]],
                  camera_ordering: Sequence[int], input_shape: Tuple[int, int],
-                 device: torch.device, num_cameras: int, image_hw: Tuple[int, int]):
+                 device: torch.device, profile: Config):
         self.net = net
         self.preprocess = image_ops.preprocess_frames
         self.decode = decode_argmax
         self.rig = rig
-        self.R, self.tvec, self.intr = calib
+        self.dlt, dtype = profile.dlt_method, getattr(torch, profile.dlt_dtype)
+        self.R, self.tvec, self.intr, self.distort = (None if a is None else a.to(dtype)
+                                                      for a in calib)
         self.order = np.asarray(camera_ordering)
         self.input_shape = tuple(input_shape)
         self.device = device
-        self.num_cameras = num_cameras
-        self.image_hw = tuple(image_hw)
-        flip = np.zeros(num_cameras, bool)
-        flip[self.order[4:]] = True          # right-side cameras are fed flipped
+        self.num_cameras = profile.num_cameras
+        self.image_hw = tuple(profile.image_hw)
+        flip = np.zeros(self.num_cameras, bool)
+        # the cameras at these ordering positions (the fly's right side) are fed flipped
+        flip[self.order[list(profile.flip_cameras)]] = True
         self.flip = torch.from_numpy(flip).to(device)
-        self.left = torch.from_numpy(self.order[:3].copy()).to(device)
-        self.right = torch.from_numpy(self.order[4:].copy()).to(device)
+        # a net that predicts one body side's joints is assembled into both sides (19 -> 38)
+        self.assemble = profile.network.num_predict != profile.num_joints
+        if self.assemble:
+            self.left = torch.from_numpy(self.order[:3].copy()).to(device)
+            self.right = torch.from_numpy(self.order[4:].copy()).to(device)
 
     def _register(self, frames_u8):
         """-> (frames (N, H, W, 3) as given, flip (N,), registration or None,
@@ -130,14 +150,22 @@ class Pipeline:
         K = pts.shape[1]
         pts19 = pts.reshape(T, self.num_cameras, K, 2).permute(1, 0, 2, 3)
         with span("assemble"):
+            if not self.assemble:
+                return pts19.contiguous()
             return assemble38(pts19, self.order, self.left, self.right, K)
 
     def _finish(self, p38, shift):
-        """Triangulate the canonical points; 2D points go out in the provided frame."""
+        """Triangulate the canonical points (their pixels undistorted first
+        where the rig has distortion); 2D points go out in the provided frame."""
         H, W = self.image_hw
+        pixels = None
+        if self.distort is not None:
+            with span("undistort"):
+                xy = geometry.rowcol_to_pixel_xy(p38.to(self.intr.dtype), (W, H))
+                pixels = geometry._undistort_pixels(xy, self.intr, self.distort)
         with span("triangulate"):
             pts3d = geometry.triangulate(p38, self.R, self.tvec, self.intr, (W, H),
-                                         method="normal")
+                                         method=self.dlt, pixels=pixels).float()
             if shift is not None:
                 p38 = canonicalize.adjust_points38(p38, shift[0], shift[1], (H, W))
         return pts3d, p38
@@ -185,36 +213,48 @@ def plain_twin(pipe: Pipeline) -> Pipeline:
     return twin
 
 
-def device_setup(calib, rig, device):
-    """-> (device, rig arrays or None, (R, tvec, intr) tensors, config)."""
+def device_setup(calib, rig, device, profile: str = "fly"):
+    """-> (device, rig arrays or None, (R, tvec, intr, distort or None)
+    tensors, the profile's config); ``distort`` is None where every
+    coefficient is zero (or ``calib`` has none)."""
+    if profile not in PROFILES:
+        raise ValueError(f"unknown profile {profile!r} ({' or '.join(PROFILES)})")
     dev = resolve_device(device)
     full_f32()
-    cfg = fly_config()
+    cfg = PROFILES[profile]()
     if rig == "auto":
         rig = cfg.rig_template_path
     rig_arrays = (canonicalize.prepare(canonicalize.load_template(rig), dev)
                   if rig else None)
+    if rig_arrays is not None and rig_arrays.mean.shape[0] != cfg.num_cameras:
+        raise ValueError(f"the rig template holds {rig_arrays.mean.shape[0]} cameras, the "
+                         f"{cfg.name} profile {cfg.num_cameras}: pass rig=None")
     R, tvec, intr = (torch.as_tensor(np.asarray(a, np.float32)).to(dev)
                      for a in calib[:3])
-    return dev, rig_arrays, (R, tvec, intr), cfg
+    distort = None
+    if len(calib) > 3 and np.any(np.asarray(calib[3]) != 0):
+        distort = torch.as_tensor(np.asarray(calib[3], np.float32)).to(dev)
+    return dev, rig_arrays, (R, tvec, intr, distort), cfg
 
 
 def build_pipeline(spec: HourglassSpec, weights, calib, camera_ordering,
                    input_shape: Optional[Tuple[int, int]] = None, rig="auto",
-                   device="cuda") -> Pipeline:
+                   device="cuda", profile: str = "fly") -> Pipeline:
     """Build the golden pipeline on ``device`` (default ``"cuda"``).
 
     ``spec``/``weights``: any shipped checkpoint (``load_weights``);
-    ``calib``: (R, tvec, intr, distort) arrays (``geometry.calib_to_arrays``),
-    distortion unused (the fly rig has none); ``input_shape``: the network
-    input, used only when the spec has none (the checkpoint's training
-    resolution is the source of truth); ``rig``: ``"auto"`` for the shipped
-    template, a template path, or None to skip registration.  Raises when
-    ``device`` is ``"cuda"`` and there is no card, and for a spec the
-    folded forward does not cover.
+    ``calib``: (R, tvec, intr, distort) arrays (``geometry.calib_to_arrays``;
+    the fly rig's distortion is zero, and a zero one is not applied);
+    ``input_shape``: the network input, used only when the spec has none
+    (the checkpoint's training resolution is the source of truth); ``rig``:
+    ``"auto"`` for the shipped template, a template path, or None to skip
+    registration (the shipped template is the fly rig's: the h36m profile
+    takes None); ``profile``: the capture profile's name, ``"fly"`` or
+    ``"h36m"``.  Raises when ``device`` is ``"cuda"`` and there is no card,
+    for an unknown profile, and for a spec the folded forward does not
+    cover.
     """
-    dev, rig_arrays, calib_t, cfg = device_setup(calib, rig, device)
+    dev, rig_arrays, calib_t, cfg = device_setup(calib, rig, device, profile)
     net = FoldedHourglass(fold_hourglass(weights, spec), spec).to(dev).eval()
     shape = tuple(spec.input_shape or input_shape or cfg.network.input_shape)
-    return Pipeline(net, rig_arrays, calib_t, camera_ordering, shape,
-                    dev, cfg.num_cameras, cfg.image_hw)
+    return Pipeline(net, rig_arrays, calib_t, camera_ordering, shape, dev, cfg)

@@ -867,6 +867,57 @@ def test_pipeline_matches_plain_twin(path):
         assert torch.equal(pipe.last_repaired, twin.last_repaired)
 
 
+def _h36m_pipeline(dev, tmp_path, T=2):
+    """The h36m profile at its published widths (4 stacks, 128 features,
+    384x384, 17 joints) on seeded weights, 4 distorted 1000x1000 cameras."""
+    from deepfly3d_torch.pipeline import build_pipeline
+    from deepfly3d_torch.utils import synthetic
+
+    path = str(tmp_path / "h36m.npz")
+    synthetic.random_checkpoint(path, 3, 4, 128, 4, 17, (384, 384))
+    rig = synthetic.human_rig()
+    frames, _, _ = synthetic.human_frames(5, T, rig)
+    calib = geometry.calib_to_arrays(rig, 4, dtype=np.float32)
+    variables, spec = load_weights(path)
+    pipe = build_pipeline(spec, variables, calib, [0, 1, 2, 3], rig=None, device=dev,
+                          profile="h36m")
+    return pipe, np.ascontiguousarray(frames.transpose(1, 0, 2, 3, 4))
+
+
+def test_h36m_pipeline_matches_plain_twin(tmp_path):
+    """Every block of the 128-wide net in ``bottleneck_128.cu``, the stem in
+    ``stem_conv_kernel<64>``: points2d equal to the plain twin's, conf within
+    the bottleneck's 5e-5 of the largest, points3d within 1e-5 relative."""
+    dev = _card()
+    from deepfly3d_torch.pipeline import plain_twin
+
+    pipe, frames = _h36m_pipeline(dev, tmp_path)
+    p3d, p2d, conf = pipe(frames)
+    q3d, q2d, qconf = plain_twin(pipe)(frames)
+    assert p3d.shape == (2, 17, 3) and p2d.shape == (4, 2, 17, 2) and conf.shape == (4, 2, 17, 1)
+    assert torch.equal(p2d, q2d)
+    assert (conf - qconf).abs().max().item() <= 5e-5 * qconf.abs().max().item()
+    assert ((p3d - q3d).abs().max() / q3d.abs().max()).item() <= 1e-5
+
+
+def test_h36m_call_launches_by_kernel(tmp_path):
+    """One h36m call: 59 blocks in the 128-wide instances, the stem kernel,
+    16 upsample-adds (4 stacks x depth 4), one preprocess and one decode; no
+    fly, general or head kernel."""
+    dev = _card()
+    pipe, frames = _h36m_pipeline(dev, tmp_path)
+    f = bn.fused_bottleneck
+    counters = [(f, "launches_128"), (f, "launches"), (f, "launches_general"),
+                (kernels.stem_conv, "launches"), (kernels.upsample2x_add, "launches"),
+                (kernels.preprocess_resize, "launches"), (kernels.decode_heatmaps, "launches"),
+                (kernels.stack_heads, "launches")]
+    before = [getattr(obj, name) for obj, name in counters]
+    pipe(frames)
+    torch.cuda.synchronize()
+    assert [getattr(obj, name) - b for (obj, name), b in zip(counters, before)] == \
+        [59, 0, 0, 1, 16, 1, 1, 0]
+
+
 def test_kernel_wrappers_launch_under_their_input_device(blocks, monkeypatch):
     """Each wrapper enters ``torch.cuda.device(<its input's device>)`` around
     its launch: the libraries take the device from ``cudaGetDevice``."""
